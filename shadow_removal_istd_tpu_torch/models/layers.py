@@ -1,0 +1,182 @@
+"""MNet building blocks in PyTorch (eval mode).
+
+Port of ``shadow_removal_istd_tpu/models/layers.py``. Modules take NCHW
+tensors in ``channels_last`` memory and keep their weights OIHW; the
+ConvTranspose weight keeps the JAX package's (unflipped) kernel, see
+:func:`convtranspose_phase_kernel`. Weights come from
+:func:`init_weights_` (seeded ``torch.Generator``) or from a JAX tree via
+``tools/convert.py``. Casting a module (``.to(torch.bfloat16)``) casts
+every parameter and buffer, as the JAX serving engine casts every leaf.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+
+
+class ConvReflect(nn.Module):
+    """Conv2d with reflection padding and no bias (torch
+    ``padding_mode='reflect'``); MNet uses it as the 4x4 stride-2 conv."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin, kernel_size, kernel_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.padding
+        if p > 0:
+            x = F.pad(x, (p, p, p, p), mode="reflect")
+        return F.conv2d(x, self.weight, stride=self.stride)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm with the JAX package's arithmetic (eps 1e-5).
+
+    The per-channel factor ``weight * rsqrt(running_var + eps)`` is formed
+    in the parameter dtype (bf16 in the bf16 engine, as in JAX, where the
+    cast batch stats keep that op in bf16); the affine then runs in f32
+    and the result returns in the input dtype."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def _factor(self) -> torch.Tensor:
+        return (self.weight * torch.rsqrt(self.running_var + self.eps)
+                ).float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self._factor().view(1, -1, 1, 1)
+        y = ((x.float() - self.running_mean.float().view(1, -1, 1, 1)) * s
+             + self.bias.float().view(1, -1, 1, 1))
+        return y.to(x.dtype)
+
+    def affine(self, tile: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+        """f32 ``(scale, shift)`` with ``y = x*scale + shift``, each
+        repeated ``tile`` times: ``tile=4`` gives the phase-tiled affine
+        whose channel ``c + k*C`` maps to output channel ``c``."""
+        s = self._factor()
+        shift = self.bias.float() - self.running_mean.float() * s
+        return s.repeat(tile).contiguous(), shift.repeat(tile).contiguous()
+
+
+def subpixel_phase_kernel(w: torch.Tensor) -> torch.Tensor:
+    """3x3 OIHW kernel -> the (2, 2, Ci, 4Co) phase kernel of the
+    subpixel form of nearest-2x + 3x3 reflect conv; same sums, in the
+    same order and dtype, as the JAX ``subpixel_phase_kernel``."""
+    w = w.permute(2, 3, 1, 0)                                  # HWIO
+    # row parity: even rows tap (x[i-1], x[i]) with (w0, w1+w2);
+    # odd rows tap (x[i], x[i+1]) with (w0+w1, w2)
+    we_r = torch.stack([w[0], w[1] + w[2]], dim=0)            # (2,3,ci,co)
+    wo_r = torch.stack([w[0] + w[1], w[2]], dim=0)
+
+    def _col(wr):
+        return (torch.stack([wr[:, 0], wr[:, 1] + wr[:, 2]], dim=1),
+                torch.stack([wr[:, 0] + wr[:, 1], wr[:, 2]], dim=1))
+
+    wee, weo = _col(we_r)
+    woe, woo = _col(wo_r)
+    return torch.cat([wee, weo, woe, woo], dim=-1).contiguous()
+
+
+def convtranspose_phase_kernel(w: torch.Tensor) -> torch.Tensor:
+    """4x4 OIHW kernel of ConvTranspose(4, stride 2, 'SAME'), unflipped as
+    flax applies it (== torch ConvTranspose2d(4, 2, 1) with the kernel
+    flipped) -> (2, 2, Ci, 4Co) phase kernel over the zero-padded input:
+    output (2i+pr, 2j+pc) takes input (i+pr+di-1, j+pc+dj-1) with tap
+    ``w[2di+pr, 2dj+pc]``."""
+    w = w.permute(2, 3, 1, 0)                                  # HWIO
+    return torch.cat([w[pr::2, pc::2] for pr in (0, 1) for pc in (0, 1)],
+                     dim=-1).contiguous()
+
+
+class Upsample(nn.Module):
+    """2x upsampling: nearest + 3x3 reflect conv (``no_conv_t=True``, run
+    as the subpixel phase conv) or ConvTranspose(4, 2, 1); no bias.
+
+    ``x`` may be a tensor or a tuple of channel parts standing for their
+    concat (split-skip); ``leaky`` and ``bn`` fold the preceding
+    LeakyReLU and the following eval BatchNorm into the same decoder
+    op (``ops/decoder.py``), which every call goes through."""
+
+    def __init__(self, cin: int, cout: int, no_conv_t: bool = True):
+        super().__init__()
+        self.no_conv_t = no_conv_t
+        k = 3 if no_conv_t else 4
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.frozen: tuple | None = None
+
+    def phase_kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        """(2, 2, Ci, 4Co) phase kernel built from the weight cast to the
+        compute dtype (the JAX order: cast, then combine taps)."""
+        w = self.weight.to(dtype)
+        return (subpixel_phase_kernel(w) if self.no_conv_t
+                else convtranspose_phase_kernel(w))
+
+    @torch.no_grad()
+    def freeze(self, bn: BatchNorm | None = None) -> None:
+        """Build the phase kernel (in the weight's dtype) and ``bn``'s
+        phase-tiled affine once, for every later forward. For weights
+        that no longer change: a later change of the weights, their dtype
+        or device needs another ``freeze``."""
+        scale4, bias4 = bn.affine(tile=4) if bn is not None else (None, None)
+        self.frozen = (self.phase_kernel(self.weight.dtype), scale4, bias4)
+
+    def forward(self, x, *, leaky: bool = False,
+                bn: BatchNorm | None = None) -> torch.Tensor:
+        parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        parts = tuple(p.contiguous(memory_format=torch.channels_last)
+                      for p in parts)
+        if self.frozen is not None:
+            w4, scale4, bias4 = self.frozen
+        else:
+            w4 = self.phase_kernel(parts[0].dtype)
+            scale4, bias4 = (bn.affine(tile=4) if bn is not None
+                             else (None, None))
+        return decoder_upsample(parts, w4, scale4, bias4, leaky=leaky,
+                                zero_pad=not self.no_conv_t)
+
+
+def get_activation(key: str | None) -> Callable | None:
+    """Output activation by key: sigmoid / tanh / htanh / none."""
+    if key is None or key == "none":
+        return None
+    if key == "sigmoid":
+        return torch.sigmoid
+    if key == "tanh":
+        return torch.tanh
+    if key == "htanh":
+        return lambda x: torch.clamp(x, -1.0, 1.0)
+    raise ValueError(f"unknown activation: {key}")
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """Random init matching flax's defaults in distribution: conv kernels
+    LeCun-normal (truncated at 2 sigma, fan-in = kh*kw*cin), BatchNorm
+    identity (weight 1, bias 0, mean 0, var 1)."""
+    for m in module.modules():
+        if isinstance(m, (ConvReflect, Upsample)):
+            fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

@@ -1,0 +1,187 @@
+"""The MNet decoder step as one op, with its CUDA kernel and plain version.
+
+Port of ``shadow_removal_istd_tpu/ops/pallas_decoder.py``
+(``fused_decoder_upsample``): LeakyReLU(0.2) -> 2x2 subpixel phase conv
+-> eval-BatchNorm affine in f32 -> cast -> depth-to-space. In the port it
+carries every decoder layer of MNet, in both upsample forms:
+
+- nearest-2x + 3x3 reflect conv: the phase conv over the EDGE-padded
+  input (``models/layers.subpixel_phase_kernel``);
+- ConvTranspose(4, 2, 1): the same phase conv over the ZERO-padded input
+  (``models/layers.convtranspose_phase_kernel``).
+
+The input may be one tensor or the split-skip parts ``(y, link)``, which
+stand for their channel concatenation and share one ``w4``; the concat is
+never formed. The final MNet layer runs without LeakyReLU and without the
+affine (``leaky=False``, no ``scale4``/``bias4``).
+
+Tensors are NCHW in ``channels_last`` memory. ``w4`` keeps the JAX
+package's ``(2, 2, Ci, 4*Co)`` layout. A CUDA tensor goes to the kernel
+(``csrc/decoder_upsample.cu``); a CPU tensor to
+:func:`decoder_upsample_plain`, which is the kernel's spec.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from shadow_removal_istd_tpu_torch.ops import _build
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def subpixel_depth_to_space(y: torch.Tensor, h: int, w: int,
+                            co: int) -> torch.Tensor:
+    """(N, 4Co, H+1, W+1) phase-conv output -> (N, Co, 2H, 2W).
+
+    Phase ``(pr, pc)`` (channels ``(2pr+pc)*Co ...``) fills output pixel
+    ``(2i+pr, 2j+pc)`` from phase-grid position ``(i+pr, j+pc)``."""
+    n = y.shape[0]
+    yee = y[:, 0 * co:1 * co, :h, :w]
+    yeo = y[:, 1 * co:2 * co, :h, 1:]
+    yoe = y[:, 2 * co:3 * co, 1:, :w]
+    yoo = y[:, 3 * co:4 * co, 1:, 1:]
+    rows0 = torch.stack([yee, yeo], dim=-1)            # (n, co, h, w, 2)
+    rows1 = torch.stack([yoe, yoo], dim=-1)
+    out = torch.stack([rows0, rows1], dim=3)           # (n, co, h, 2, w, 2)
+    return out.reshape(n, co, 2 * h, 2 * w).contiguous(
+        memory_format=torch.channels_last)
+
+
+def decoder_upsample_plain(parts: Sequence[torch.Tensor], w4: torch.Tensor,
+                           scale4: torch.Tensor | None = None,
+                           bias4: torch.Tensor | None = None, *,
+                           leaky: bool,
+                           zero_pad: bool = False) -> torch.Tensor:
+    """The kernel's spec in plain PyTorch: leaky (in the input dtype) ->
+    edge or zero pad -> ``F.conv2d`` with the phase kernel, summed over
+    parts in f32 -> affine -> cast -> depth-to-space.
+
+    The conv runs in f32 on the input-dtype values, so the only rounding
+    to the input dtype is the final cast, as in the kernel. On a GPU a
+    caller that compares this with the kernel in f32 turns TF32 off
+    (``torch.backends.cudnn.allow_tf32 = False``)."""
+    dtype = parts[0].dtype
+    n, _, h, w = parts[0].shape
+    co = w4.shape[-1] // 4
+    acc, off = None, 0
+    for x in parts:
+        c = x.shape[1]
+        a = F.leaky_relu(x, 0.2) if leaky else x
+        a = F.pad(a.float(), (1, 1, 1, 1),
+                  mode="constant" if zero_pad else "replicate")
+        k = w4[:, :, off:off + c].float().permute(3, 2, 0, 1)
+        y = F.conv2d(a, k)                              # (n, 4co, h+1, w+1)
+        acc = y if acc is None else acc + y
+        off += c
+    if scale4 is not None:
+        acc = acc * scale4.float().view(1, -1, 1, 1) \
+            + bias4.float().view(1, -1, 1, 1)
+    return subpixel_depth_to_space(acc.to(dtype), h, w, co)
+
+
+def _check(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
+           scale4: torch.Tensor | None,
+           bias4: torch.Tensor | None) -> int:
+    """Validate shapes shared by both paths; returns Co."""
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"expected 1 or 2 input parts, got {len(parts)}")
+    n, _, h, w = parts[0].shape
+    for x in parts:
+        if x.dim() != 4 or (x.shape[0], x.shape[2], x.shape[3]) != (n, h, w):
+            raise ValueError("input parts must share N, H and W: "
+                             f"{[tuple(x.shape) for x in parts]}")
+        if x.dtype != parts[0].dtype:
+            raise ValueError("input parts must share one dtype")
+    ci = sum(x.shape[1] for x in parts)
+    if w4.dim() != 4 or w4.shape[:3] != (2, 2, ci) or w4.shape[3] % 4:
+        raise ValueError(f"w4 must be (2, 2, {ci}, 4*Co), got "
+                         f"{tuple(w4.shape)}")
+    co = w4.shape[3] // 4
+    if (scale4 is None) != (bias4 is None):
+        raise ValueError("scale4 and bias4 come together")
+    if scale4 is not None and (scale4.shape != (4 * co,)
+                               or bias4.shape != (4 * co,)):
+        raise ValueError(f"scale4/bias4 must be ({4 * co},)")
+    return co
+
+
+@functools.cache
+def _kernel_fn():
+    """The kernel's C entry point (built on first use), typed once."""
+    fn = _build.load("decoder_upsample").srit_decoder_upsample
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return fn
+
+
+def _launch(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
+            scale4: torch.Tensor | None, bias4: torch.Tensor | None,
+            co: int, leaky: bool, zero_pad: bool) -> torch.Tensor:
+    x0 = parts[0]
+    dev, dtype = x0.device, x0.dtype
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    for x in parts:
+        if x.device != dev or not x.is_contiguous(
+                memory_format=torch.channels_last):
+            raise ValueError("kernel inputs must be channels_last tensors "
+                             f"on {dev}")
+    if w4.device != dev or w4.dtype != dtype or not w4.is_contiguous():
+        raise ValueError(f"w4 must be a contiguous {dtype} tensor on {dev}")
+    if scale4 is not None:
+        for t in (scale4, bias4):
+            if (t.device != dev or t.dtype != torch.float32
+                    or not t.is_contiguous()):
+                raise ValueError("scale4/bias4 must be contiguous float32 "
+                                 f"on {dev}")
+    n, ci0, h, w = x0.shape
+    ci1 = parts[1].shape[1] if len(parts) == 2 else 0
+    out = torch.empty((n, co, 2 * h, 2 * w), dtype=dtype, device=dev,
+                      memory_format=torch.channels_last)
+    with torch.cuda.device(dev):
+        rc = _kernel_fn()(_KERNEL_DTYPES[dtype], x0.data_ptr(),
+                parts[1].data_ptr() if ci1 else None, ci0, ci1,
+                w4.data_ptr(),
+                scale4.data_ptr() if scale4 is not None else None,
+                bias4.data_ptr() if bias4 is not None else None,
+                out.data_ptr(), n, h, w, co, int(leaky), int(zero_pad),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decoder_upsample kernel launch failed "
+                           f"(cudaError {rc})")
+    return out
+
+
+def decoder_upsample(parts: Sequence[torch.Tensor], w4: torch.Tensor,
+                     scale4: torch.Tensor | None = None,
+                     bias4: torch.Tensor | None = None, *, leaky: bool,
+                     zero_pad: bool = False) -> torch.Tensor:
+    """One MNet decoder step; ``parts`` are 1 or 2 (N, Ci_p, H, W) tensors
+    standing for their channel concat. Returns (N, Co, 2H, 2W) in the
+    input dtype, ``channels_last``.
+
+    CUDA tensors launch the kernel (counted in
+    ``decoder_upsample.launches``); CPU tensors take
+    :func:`decoder_upsample_plain`; any other device raises."""
+    parts = tuple(parts)
+    co = _check(parts, w4, scale4, bias4)
+    kind = parts[0].device.type
+    if kind == "cpu":
+        return decoder_upsample_plain(parts, w4, scale4, bias4,
+                                      leaky=leaky, zero_pad=zero_pad)
+    if kind != "cuda":
+        raise ValueError(f"decoder_upsample runs on cuda or cpu, not {kind}")
+    out = _launch(parts, w4, scale4, bias4, co, leaky, zero_pad)
+    decoder_upsample.launches += 1
+    return out
+
+
+decoder_upsample.launches = 0

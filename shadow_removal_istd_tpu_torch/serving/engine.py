@@ -1,0 +1,181 @@
+"""Serving inference engine: bucketed stacked G1+G2 on one device.
+
+Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
+
+- **Shape buckets.** Every request size is padded up to a bucket
+  (multiples of ``pad_multiple`` per spatial dim) and the batch to a
+  power of two, with pad value 128, i.e. ~0 after the reference's
+  ``(x/255 - .5)*2`` normalization.
+- **uint8 in, uint8 out.** Normalize -> G1 -> concat -> G2 ->
+  denormalize -> uint8 all run on the device; the host moves uint8 only.
+- **bf16 by default.** Every float parameter and buffer is cast to
+  bfloat16 (BatchNorm statistics included), as the JAX engine casts
+  every leaf; ``dtype="float32"`` keeps exact-eval numerics.
+
+Not ported yet (they raise): ``dtype="int8"``, ``devices > 1``, the
+StableHLO ``ArtifactEngine`` and reading flax msgpack weight files.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from shadow_removal_istd_tpu_torch import resolve_device
+from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+from shadow_removal_istd_tpu_torch.models import get_generator
+from shadow_removal_istd_tpu_torch.models.layers import init_weights_
+from shadow_removal_istd_tpu_torch.tools.convert import (
+    flax_tree_to_torch,
+    unflatten_tree,
+)
+
+# Spatial divisibility MNet needs at its default depth (stem + 4 halvings)
+_MNET_PAD = 32
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _to_u8(t: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] NCHW -> uint8 NHWC (truncating, as ``astype(uint8)``)."""
+    u = ((t.float() * 0.5 + 0.5).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return u.permute(0, 2, 3, 1)
+
+
+class InferenceEngine:
+    """Stacked shadow-removal inference over shape buckets.
+
+    Thread-safety: ``infer_group`` may be called from one thread at a
+    time (the serving batcher funnels all device work through one
+    thread); construction and weight loading are not thread-safe.
+    """
+
+    def __init__(self, net_g: str = "mnet", *, ngf: int = 64,
+                 nn_upconv: bool = True, activation: str = "tanh",
+                 dtype: str = "bfloat16", split_skip: bool = True,
+                 pad_multiple: int | None = None, max_batch: int = 8,
+                 devices: int | None = None, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        if dtype == "int8":
+            raise NotImplementedError("dtype=int8 serving is not ported yet")
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be float32|bfloat16, got {dtype}")
+        if devices is not None and devices > 1:
+            raise NotImplementedError(
+                "multi-device serving (devices > 1) is not ported yet")
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.net_g = net_g.lower()
+        self._g_kw = dict(ngf=ngf, no_conv_t=nn_upconv,
+                          activation=activation, split_skip=split_skip)
+        # G1: shadow image -> matte; G2: image ++ matte -> shadow-free
+        g1, g2 = self._new_pair()
+        gen = torch.Generator().manual_seed(seed)
+        init_weights_(g1, gen)
+        init_weights_(g2, gen)
+        self._adopt(g1, g2)
+        self.pad_multiple = int(pad_multiple or _MNET_PAD)
+        self.max_batch = int(max_batch)
+
+    # -- weights ------------------------------------------------------
+
+    def _new_pair(self):
+        return (get_generator(self.net_g, in_channels=3, out_channels=1,
+                              **self._g_kw),
+                get_generator(self.net_g, in_channels=4, out_channels=3,
+                              **self._g_kw))
+
+    def _adopt(self, g1, g2) -> None:
+        for g in (g1, g2):
+            g.to(device=self.device, dtype=_DTYPES[self.dtype])
+            g.eval().requires_grad_(False)
+            g.freeze()     # the weights are fixed from here on
+        self.g1, self.g2 = g1, g2
+
+    def set_variables(self, v1: dict, v2: dict) -> None:
+        """Adopt JAX variable trees ``{"params", "batch_stats"}`` per net
+        (nested dicts of numpy arrays) through ``tools/convert.py``.
+        Atomic: both trees load into fresh modules before either is
+        swapped in, so a bad tree leaves the engine unchanged."""
+        g1, g2 = self._new_pair()
+        flax_tree_to_torch(v1, g1)
+        flax_tree_to_torch(v2, g2)
+        self._adopt(g1, g2)
+
+    @staticmethod
+    def _read_npz(path: str) -> dict:
+        if path.endswith(".msgpack"):
+            raise NotImplementedError(
+                "reading flax msgpack weights is not ported yet; save the "
+                "variable tree as .npz (keys '/'-joined flax paths)")
+        with np.load(path, allow_pickle=False) as z:
+            return unflatten_tree({tuple(k.split("/")): z[k]
+                                   for k in z.files})
+
+    def load_weights(self, g1_path: str, g2_path: str) -> None:
+        """Load per-network ``.npz`` files whose keys are the flax
+        variable paths joined by ``/`` (e.g.
+        ``params/_Down_0/BatchNorm_0/scale``). Atomic, as
+        :meth:`set_variables`."""
+        self.set_variables(self._read_npz(g1_path),
+                           self._read_npz(g2_path))
+
+    # -- inference ----------------------------------------------------
+
+    @torch.inference_mode()
+    def _stacked(self, x_u8: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        # reference normalization: uint8/255 in [0,1], then (x-.5)*2
+        x = x_u8.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
+        m, y = infer_step(self.g1, self.g2, x)
+        return _to_u8(m), _to_u8(y)
+
+    def bucket_of(self, h: int, w: int) -> tuple[int, int]:
+        m = self.pad_multiple
+        return (math.ceil(h / m) * m, math.ceil(w / m) * m)
+
+    def infer_group(self, imgs: list[np.ndarray]
+                    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Run one batched dispatch over same-bucket images.
+
+        ``imgs``: HxWx3 uint8 BGR arrays whose sizes map to ONE bucket.
+        Returns per image ``(matte HxW uint8, shadow_free HxWx3 uint8
+        BGR)`` cropped back to the original size."""
+        if not imgs:
+            return []
+        buckets = {self.bucket_of(im.shape[0], im.shape[1]) for im in imgs}
+        if len(buckets) != 1:
+            raise ValueError(f"mixed buckets in one group: {buckets}")
+        bh, bw = buckets.pop()
+        n = len(imgs)
+        bp = min(_next_pow2(n), max(self.max_batch, n))
+        batch = np.full((bp, bh, bw, 3), 128, np.uint8)
+        for i, im in enumerate(imgs):
+            batch[i, :im.shape[0], :im.shape[1]] = im
+        m_u8, y_u8 = self._stacked(torch.from_numpy(batch).to(self.device))
+        m_np, y_np = m_u8.cpu().numpy(), y_u8.cpu().numpy()
+        return [(m_np[i, :im.shape[0], :im.shape[1], 0],
+                 y_np[i, :im.shape[0], :im.shape[1]])
+                for i, im in enumerate(imgs)]
+
+    def warmup(self, sizes: list[tuple[int, int]],
+               batch_sizes: list[int] | None = None) -> None:
+        """Run the (bucket, batch) grid once so first requests don't pay
+        the kernel build and cuDNN's algorithm search."""
+        for h, w in sizes:
+            for b in (batch_sizes or [1, self.max_batch]):
+                dummy = np.full((h, w, 3), 128, np.uint8)
+                self.infer_group([dummy] * b)
+
+
+class ArtifactEngine:
+    """Serving a StableHLO export artifact is not ported yet."""
+
+    def __init__(self, path: str, *, max_batch: int = 8):
+        raise NotImplementedError(
+            "ArtifactEngine (StableHLO artifacts) is not ported yet")

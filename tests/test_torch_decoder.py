@@ -1,0 +1,191 @@
+"""The port's decoder op (plain path on the CPU) vs the JAX decoder step.
+
+Same numpy inputs through ``fused_decoder_upsample`` (Pallas, interpret
+mode), ``reference_decoder_upsample`` and the port's
+``ops/decoder.decoder_upsample``; tolerances are those of
+tests/test_pallas_decoder.py (2e-5 in f32, 3e-2 in bf16, where only the
+accumulation order and the bf16 rounding of the conv output differ).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shadow_removal_istd_tpu.models import layers as jl
+from shadow_removal_istd_tpu.ops.pallas_decoder import (
+    fused_decoder_upsample,
+    reference_decoder_upsample,
+)
+from shadow_removal_istd_tpu_torch.models import layers as tl
+from shadow_removal_istd_tpu_torch.ops.decoder import (
+    decoder_upsample,
+    subpixel_depth_to_space,
+)
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(n, h, w, ci, co, dtype, seed=0):
+    """numpy inputs, rounded to ``dtype`` so both sides see equal values."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h, w, ci)) * 0.5
+    w4 = rng.standard_normal((2, 2, ci, 4 * co)) * 0.05
+    s4 = np.tile(rng.uniform(0.5, 1.5, co), 4).astype(np.float32)
+    b4 = np.tile(rng.standard_normal(co) * 0.1, 4).astype(np.float32)
+    rnd = lambda a: np.array(  # noqa: E731
+        jnp.asarray(a, JDT[dtype]).astype(jnp.float32))
+    return rnd(x), rnd(w4), s4, b4
+
+
+def _t(x_nhwc, dtype):
+    """NHWC numpy -> NCHW channels_last torch tensor of ``dtype``."""
+    return (torch.from_numpy(x_nhwc).permute(0, 3, 1, 2).to(TDT[dtype])
+            .contiguous(memory_format=torch.channels_last))
+
+
+def _np(t):
+    return t.detach().float().permute(0, 2, 3, 1).numpy()
+
+
+def _jax_step(x, w4, s4, b4, dtype, fused):
+    args = (jnp.asarray(x, JDT[dtype]), jnp.asarray(w4, JDT[dtype]),
+            jnp.asarray(s4), jnp.asarray(b4))
+    with jax.default_matmul_precision("highest"):
+        out = (fused_decoder_upsample(*args, interpret=True) if fused
+               else reference_decoder_upsample(*args))
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 8, 16, 8),
+    (1, 12, 16, 8, 8),
+    (2, 6, 10, 8, 16),
+    (1, 16, 16, 32, 8),
+])
+def test_one_part_matches_jax(shape, dtype):
+    n, h, w, ci, co = shape
+    x, w4, s4, b4 = _inputs(n, h, w, ci, co, dtype)
+    got = decoder_upsample([_t(x, dtype)], torch.from_numpy(w4).to(TDT[dtype]),
+                           torch.from_numpy(s4), torch.from_numpy(b4),
+                           leaky=True)
+    assert got.shape == (n, co, 2 * h, 2 * w) and got.dtype == TDT[dtype]
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    tol = TOL[dtype]
+    for fused in (False, True):
+        np.testing.assert_allclose(_np(got),
+                                   _jax_step(x, w4, s4, b4, dtype, fused),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_parts_match_jax_on_concat(dtype):
+    """(y, link) parts with one shared w4 == the op on their concat."""
+    n, h, w, ca, cb, co = 2, 8, 12, 16, 8, 8
+    x, w4, s4, b4 = _inputs(n, h, w, ca + cb, co, dtype, seed=1)
+    got = decoder_upsample([_t(x[..., :ca], dtype), _t(x[..., ca:], dtype)],
+                           torch.from_numpy(w4).to(TDT[dtype]),
+                           torch.from_numpy(s4), torch.from_numpy(b4),
+                           leaky=True)
+    tol = TOL[dtype]
+    for fused in (False, True):
+        np.testing.assert_allclose(_np(got),
+                                   _jax_step(x, w4, s4, b4, dtype, fused),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("no_conv_t", [True, False])
+@pytest.mark.parametrize("split", [False, True])
+def test_upsample_module_matches_jax(split, no_conv_t, dtype):
+    """The final-layer form (no LeakyReLU, no affine) through
+    ``layers.Upsample`` vs the JAX ``Upsample``, in both upsample forms:
+    this holds ``subpixel_phase_kernel`` and the ConvTranspose phase
+    kernel (zero padding) to flax's own convs."""
+    n, h, w, ca, cb, co = 2, 6, 8, 8, 8, 3
+    rng = np.random.default_rng(2)
+    k = 3 if no_conv_t else 4
+    wk = (rng.standard_normal((k, k, ca + cb, co)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((n, h, w, ca + cb)).astype(np.float32)
+    mod = jl.Upsample(co, no_conv_t=no_conv_t, dtype=JDT[dtype])
+    params = ({"ConvReflect_0": {"Conv_0": {"kernel": wk}}} if no_conv_t
+              else {"ConvTranspose_0": {"kernel": wk}})
+    params = jax.tree.map(lambda a: jnp.asarray(a, JDT[dtype]), params)
+    xj = jnp.asarray(x, JDT[dtype])
+    arg = (xj[..., :ca], xj[..., ca:]) if split and no_conv_t else xj
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(mod.apply({"params": params}, arg)
+                          .astype(jnp.float32))
+    up = tl.Upsample(ca + cb, co, no_conv_t=no_conv_t)
+    with torch.no_grad():
+        up.weight.copy_(torch.from_numpy(wk.transpose(3, 2, 0, 1)))
+    up.to(TDT[dtype])
+    xr = np.array(xj.astype(jnp.float32))
+    parts = ((_t(xr[..., :ca], dtype), _t(xr[..., ca:], dtype)) if split
+             else _t(xr, dtype))
+    got = up(parts)
+    assert got.shape == (n, co, 2 * h, 2 * w)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_phase_kernel_equals_jax(dtype):
+    """Same sums in the same order and dtype: bit-equal."""
+    rng = np.random.default_rng(3)
+    wk = rng.standard_normal((3, 3, 8, 5)).astype(np.float32)
+    want = np.asarray(jl.subpixel_phase_kernel(jnp.asarray(wk, JDT[dtype]))
+                      .astype(jnp.float32))
+    wt = torch.from_numpy(np.array(jnp.asarray(wk, JDT[dtype])
+                                     .astype(jnp.float32)))
+    got = tl.subpixel_phase_kernel(wt.permute(3, 2, 0, 1).to(TDT[dtype]))
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_depth_to_space_equals_jax():
+    rng = np.random.default_rng(4)
+    h, w, co = 5, 7, 3
+    y = rng.standard_normal((2, h + 1, w + 1, 4 * co)).astype(np.float32)
+    want = np.asarray(jl.subpixel_depth_to_space(jnp.asarray(y), h, w, co))
+    got = subpixel_depth_to_space(torch.from_numpy(y).permute(0, 3, 1, 2),
+                                  h, w, co)
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_cpu_path_launches_no_kernel():
+    x, w4, s4, b4 = _inputs(1, 4, 4, 8, 4, "float32")
+    before = decoder_upsample.launches
+    decoder_upsample([_t(x, "float32")], torch.from_numpy(w4),
+                     torch.from_numpy(s4), torch.from_numpy(b4), leaky=True)
+    assert decoder_upsample.launches == before
+
+
+def test_rejects_bad_arguments():
+    x, w4, s4, b4 = _inputs(1, 4, 4, 8, 4, "float32")
+    xt, wt = _t(x, "float32"), torch.from_numpy(w4)
+    with pytest.raises(ValueError, match="w4"):
+        decoder_upsample([xt], wt[:, :, :4], leaky=True)
+    with pytest.raises(ValueError, match="1 or 2"):
+        decoder_upsample([xt, xt, xt], wt, leaky=True)
+    with pytest.raises(ValueError, match="together"):
+        decoder_upsample([xt], wt, torch.from_numpy(s4), leaky=True)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decoder_upsample([xt.to("meta")], wt.to("meta"), leaky=True)
+
+
+def test_zero_pad_form_is_torch_conv_transpose():
+    """The ConvTranspose phase kernel over zero padding equals torch's
+    ConvTranspose2d(4, 2, 1) with the (unflipped, flax) kernel flipped."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((3, 5, 4, 4)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 5, 6, 7)).astype(np.float32))
+    up = tl.Upsample(5, 3, no_conv_t=False)
+    with torch.no_grad():
+        up.weight.copy_(w)
+        got = up(x)
+    want = torch.nn.functional.conv_transpose2d(
+        x, w.flip(2, 3).permute(1, 0, 2, 3), stride=2, padding=1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)

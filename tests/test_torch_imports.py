@@ -1,0 +1,60 @@
+"""Import hygiene of the port: no JAX, no JAX package, no silent CPU.
+
+Walks the AST of every module of ``shadow_removal_istd_tpu_torch`` and
+of ``chip_smoke.py``: none may import ``jax``, ``flax``, ``optax`` or
+anything of ``shadow_removal_istd_tpu`` (modules without JAX included).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "flax", "optax", "shadow_removal_istd_tpu"}
+FILES = sorted(p.relative_to(REPO).as_posix() for p in
+               [*(REPO / "shadow_removal_istd_tpu_torch").rglob("*.py"),
+                REPO / "chip_smoke.py"])
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_files_found():
+    assert "chip_smoke.py" in FILES
+    assert "shadow_removal_istd_tpu_torch/ops/decoder.py" in FILES
+
+
+@pytest.mark.parametrize("rel", FILES)
+def test_no_jax_imports(rel):
+    bad = _imported_roots(REPO / rel) & FORBIDDEN
+    assert not bad, f"{rel} imports {sorted(bad)}"
+
+
+def test_engine_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceEngine(ngf=4)
+
+
+def test_chip_smoke_fails_without_card():
+    """``chip_smoke.py`` exits non-zero and prints no result line when
+    CUDA is unavailable."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

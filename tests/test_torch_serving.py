@@ -1,0 +1,444 @@
+"""The port's serving path on the CPU: engine, HTTP daemon, PNG codec.
+
+The port's f32 ``InferenceEngine(device="cpu")`` is held to the JAX
+``InferenceEngine(dtype="float32")`` given the same weights (<= 1 gray
+level: conv reassociation only), and mirrors the JAX serving tests'
+bucket/crop/padding cases (tests/test_serving.py).
+"""
+import http.client
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
+
+import cv2
+import jax
+import numpy as np
+import pytest
+import torch
+
+from shadow_removal_istd_tpu.models.mnet import MNet as JaxMNet
+from shadow_removal_istd_tpu.serving import (
+    InferenceEngine as JaxInferenceEngine,
+)
+from shadow_removal_istd_tpu_torch.serving import (
+    ArtifactEngine,
+    InferenceEngine,
+    MicroBatcher,
+    ServerStats,
+    ShadowRemovalServer,
+)
+from shadow_removal_istd_tpu_torch.serving.server import main as serve_main
+from shadow_removal_istd_tpu_torch.utils import image_io
+from shadow_removal_istd_tpu_torch.utils.image_io import (
+    imdecode_color,
+    imencode_png,
+    png_decode,
+    png_encode,
+)
+
+ENGINE_KW = dict(ngf=4, dtype="float32", max_batch=4, device="cpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _img(h, w, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def _np_tree(v):
+    return jax.tree.map(np.asarray, v)
+
+
+def _save_npz(path, variables):
+    """A JAX variable tree as the port's .npz weight file."""
+    flat = jax.tree_util.tree_flatten_with_path(variables)[0]
+    np.savez(path, **{"/".join(k.key for k in p): np.asarray(a)
+                      for p, a in flat})
+
+
+_JIT_INIT = jax.jit(JaxMNet.init, static_argnums=0)
+
+
+def _jax_engine(seed=0):
+    """The JAX f32 engine at ngf 4. It runs flax init op by op (~24 s on
+    the CPU); the same init under jit, compiled once per net, gives
+    equally valid weights, and the tests compare engines given the same
+    weights."""
+    with mock.patch.object(JaxMNet, "init", _JIT_INIT):
+        return JaxInferenceEngine("mnet", ngf=4, dtype="float32",
+                                  max_batch=4, seed=seed)
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    return _jax_engine()
+
+
+@pytest.fixture(scope="module")
+def engine(jax_engine):
+    eng = InferenceEngine(**ENGINE_KW)
+    eng.set_variables(_np_tree(jax_engine.v1), _np_tree(jax_engine.v2))
+    return eng
+
+
+class TestEngine:
+    @pytest.mark.parametrize("sizes", [[(40, 56)], [(64, 64)],
+                                       [(32, 32)] * 3])
+    def test_matches_jax_engine(self, engine, jax_engine, sizes):
+        imgs = [_img(h, w, seed=s) for s, (h, w) in enumerate(sizes)]
+        for (gm, gy), (wm, wy) in zip(engine.infer_group(imgs),
+                                      jax_engine.infer_group(imgs)):
+            assert gm.shape == wm.shape and gy.shape == wy.shape
+            assert np.abs(gm.astype(np.int16) - wm).max() <= 1
+            assert np.abs(gy.astype(np.int16) - wy).max() <= 1
+
+    def test_bucket_rounding(self, engine):
+        assert engine.bucket_of(40, 56) == (64, 64)
+        assert engine.bucket_of(64, 64) == (64, 64)
+        assert engine.bucket_of(65, 64) == (96, 64)
+
+    def test_output_shapes_and_crop(self, engine):
+        (matte, clean), = engine.infer_group([_img(40, 56)])
+        assert matte.shape == (40, 56) and matte.dtype == np.uint8
+        assert clean.shape == (40, 56, 3) and clean.dtype == np.uint8
+
+    def test_batch_padding_does_not_leak(self, engine):
+        imgs = [_img(32, 32, seed=s) for s in range(3)]
+        grouped = engine.infer_group(imgs)
+        for img, (gm, gy) in zip(imgs, grouped):
+            (sm, sy), = engine.infer_group([img])
+            np.testing.assert_array_equal(gm, sm)
+            np.testing.assert_array_equal(gy, sy)
+
+    def test_mixed_buckets_rejected(self, engine):
+        with pytest.raises(ValueError, match="mixed buckets"):
+            engine.infer_group([_img(32, 32), _img(96, 96)])
+
+    def test_bf16_engine_casts_every_leaf(self, jax_engine):
+        eng = InferenceEngine(ngf=4, dtype="bfloat16", max_batch=2,
+                              device="cpu")
+        eng.set_variables(_np_tree(jax_engine.v1), _np_tree(jax_engine.v2))
+        tensors = [*eng.g1.parameters(), *eng.g1.buffers(),
+                   *eng.g2.parameters(), *eng.g2.buffers()]
+        assert {t.dtype for t in tensors} == {torch.bfloat16}
+        (matte, clean), = eng.infer_group([_img(32, 32)])
+        assert clean.shape == (32, 32, 3)
+
+    def test_load_weights_npz(self, tmp_path, engine, jax_engine):
+        _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+        _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+        fresh = InferenceEngine(seed=7, **ENGINE_KW)
+        img = _img(32, 32, seed=21)
+        before = fresh.infer_group([img])[0][1]
+        fresh.load_weights(str(tmp_path / "g1.npz"), str(tmp_path / "g2.npz"))
+        want = engine.infer_group([img])[0][1]
+        assert not np.array_equal(before, want)
+        np.testing.assert_array_equal(fresh.infer_group([img])[0][1], want)
+
+    def test_load_weights_is_atomic(self, tmp_path, jax_engine):
+        _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+        _save_npz(tmp_path / "g2.npz", jax_engine.v1)  # G1 tree for G2
+        eng = InferenceEngine(seed=7, **ENGINE_KW)
+        g1, g2 = eng.g1, eng.g2
+        with pytest.raises(ValueError):
+            eng.load_weights(str(tmp_path / "g1.npz"),
+                             str(tmp_path / "g2.npz"))
+        assert eng.g1 is g1 and eng.g2 is g2
+
+    @pytest.mark.parametrize("what", ["int8", "devices", "msgpack",
+                                      "artifact"])
+    def test_not_ported_yet(self, what):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            if what == "int8":
+                InferenceEngine(ngf=4, dtype="int8", device="cpu")
+            elif what == "devices":
+                InferenceEngine(ngf=4, devices=2, device="cpu")
+            elif what == "msgpack":
+                InferenceEngine(**ENGINE_KW).load_weights("G1.msgpack",
+                                                          "G2.msgpack")
+            else:
+                ArtifactEngine("model.shlo")
+
+
+class TestMicroBatcher:
+    def test_coalesces_concurrent_requests(self, engine):
+        stats = ServerStats()
+        b = MicroBatcher(engine, window_ms=300.0, stats=stats)
+        try:
+            futs = [b.submit(_img(32, 32, seed=s)) for s in range(4)]
+            outs = [f.result(timeout=120) for f in futs]
+            assert all(o[1].shape == (32, 32, 3) for o in outs)
+            snap = stats.snapshot()
+            assert snap["images"] == 4 and snap["max_batch"] >= 2
+        finally:
+            b.close()
+
+
+def _post(srv, body, path="/v1/unshadow"):
+    host, port = srv.address
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    try:
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _get(srv, path):
+    host, port = srv.address
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+@pytest.fixture(scope="module")
+def server(engine):
+    srv = ShadowRemovalServer(engine, port=0, window_ms=20.0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    yield srv
+    srv.shutdown()
+
+
+class TestHTTP:
+    def test_healthz_reports_torch_device(self, server):
+        status, body = _get(server, "/healthz")
+        info = json.loads(body)
+        assert status == 200 and info["status"] == "ok"
+        assert info["platform"] == "cpu" and info["dtype"] == "float32"
+
+    def test_roundtrip_equals_infer_group(self, server, engine):
+        img = _img(40, 56, seed=11)
+        status, headers, body = _post(server, imencode_png(img))
+        assert status == 200 and headers["Content-Type"] == "image/png"
+        np.testing.assert_array_equal(imdecode_color(body),
+                                      engine.infer_group([img])[0][1])
+        status, _, body = _post(server, imencode_png(img),
+                                path="/v1/unshadow?output=matte")
+        assert status == 200
+        np.testing.assert_array_equal(png_decode(body)[..., 0],
+                                      engine.infer_group([img])[0][0])
+
+    def test_concurrent_requests_and_stats(self, server):
+        imgs = [imencode_png(_img(32, 32, seed=s)) for s in range(4)]
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            results = list(pool.map(lambda b: _post(server, b), imgs))
+        assert all(r[0] == 200 for r in results)
+        status, body = _get(server, "/stats")
+        snap = json.loads(body)
+        assert status == 200 and snap["requests"] >= 4
+        assert snap["batches"] >= 1 and "latency_ms" in snap
+
+    def test_bad_requests(self, server):
+        assert _post(server, b"not an image")[0] == 400
+        assert _post(server, imencode_png(_img(8, 8)),
+                     path="/v1/unshadow?output=bogus")[0] == 400
+        assert _post(server, b"")[0] == 411
+        assert _get(server, "/nope")[0] == 404
+
+    def test_hot_reload_npz(self, tmp_path, engine, jax_engine):
+        donor = _jax_engine(seed=7)
+        _save_npz(tmp_path / "g1.npz", donor.v1)
+        _save_npz(tmp_path / "g2.npz", donor.v2)
+        own = InferenceEngine(**ENGINE_KW)
+        own.set_variables(_np_tree(jax_engine.v1), _np_tree(jax_engine.v2))
+        srv = ShadowRemovalServer(own, port=0, window_ms=0.0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            img = _img(32, 32, seed=41)
+            before = _post(srv, imencode_png(img))[2]
+            status, _, _ = _post(srv, json.dumps(
+                {"g1": str(tmp_path / "g1.npz"),
+                 "g2": str(tmp_path / "g2.npz")}).encode(),
+                path="/admin/reload")
+            assert status == 200
+            after = imdecode_color(_post(srv, imencode_png(img))[2])
+            assert not np.array_equal(after, imdecode_color(before))
+            want = donor.infer_group([img])[0][1]
+            assert np.abs(after.astype(np.int16) - want).max() <= 1
+            assert _post(srv, b"{}", path="/admin/reload")[0] == 400
+            assert _post(srv, json.dumps({"g1": "/nope.npz",
+                                          "g2": "/nope.npz"}).encode(),
+                         path="/admin/reload")[0] == 400
+            assert _post(srv, json.dumps({"g1": "a.msgpack",
+                                          "g2": "b.msgpack"}).encode(),
+                         path="/admin/reload")[0] == 501
+        finally:
+            srv.shutdown()
+
+
+class _GatedEngine:
+    """Fake engine that serves nothing until its gate opens: the
+    saturation test fills the queue whatever the host's speed."""
+
+    dtype = "float32"
+    device = torch.device("cpu")
+    max_batch = 2
+
+    def __init__(self):
+        self.gate = threading.Event()
+
+    def bucket_of(self, h, w):
+        return (64, 64)
+
+    def infer_group(self, imgs):
+        self.gate.wait(timeout=120)
+        return [(np.zeros(im.shape[:2], np.uint8),
+                 np.zeros(im.shape[:2] + (3,), np.uint8)) for im in imgs]
+
+
+def test_full_queue_answers_503_with_retry_after():
+    engine = _GatedEngine()
+    srv = ShadowRemovalServer(engine, port=0, window_ms=1.0, max_queue=3)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        png = imencode_png(_img(32, 32))
+        with ThreadPoolExecutor(max_workers=32) as ex:
+            futs = [ex.submit(lambda: _post(srv, png)[:2])
+                    for _ in range(32)]
+            deadline = time.monotonic() + 120
+            while (srv.stats.snapshot()["shed"] == 0
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            engine.gate.set()
+            outcomes = [f.result() for f in futs]
+        statuses = [st for st, _ in outcomes]
+        assert set(statuses) <= {200, 503}
+        assert statuses.count(200) >= 1 and statuses.count(503) >= 1
+        assert all(hdr.get("Retry-After") == "1"
+                   for st, hdr in outcomes if st == 503)
+        snap = json.loads(_get(srv, "/stats")[1])
+        assert snap["shed"] == statuses.count(503) and snap["max_queue"] == 3
+    finally:
+        srv.shutdown()
+
+
+def test_serving_module_entry_point(tmp_path, jax_engine):
+    """``python -m shadow_removal_istd_tpu_torch.serving --device cpu``
+    starts, answers on loaded .npz weights, exits 0 on SIGTERM."""
+    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
+         "--device", "cpu", "--ngf", "4", "--dtype", "float32",
+         "--port", str(port), "--warmup", "",
+         "--load-weights-g1", str(tmp_path / "g1.npz"),
+         "--load-weights-g2", str(tmp_path / "g2.npz")], cwd=REPO)
+    try:
+        deadline, up = time.time() + 60, False
+        while time.time() < deadline and not up:
+            assert proc.poll() is None, "server process died"
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=5)
+                conn.request("GET", "/healthz")
+                up = conn.getresponse().status == 200
+                conn.close()
+            except OSError:
+                time.sleep(0.2)
+        assert up, "daemon never became healthy"
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/v1/unshadow", body=imencode_png(_img(32, 32)))
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert imdecode_color(resp.read()).shape == (32, 32, 3)
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def _smooth(h, w, c):
+    """A gradient image: libpng picks Sub/Up/Average/Paeth filters."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    planes = [(xx * (k + 1) + yy * (3 - k) + (xx * yy) % (7 + k)) % 256
+              for k in range(c)]
+    return np.stack(planes, -1).astype(np.uint8)
+
+
+class TestPNG:
+    @pytest.mark.parametrize("c", [1, 3, 4])
+    def test_roundtrip_exact(self, c):
+        img = np.random.default_rng(c).integers(0, 256, (17, 23, c),
+                                                dtype=np.uint8)
+        arg = img[..., 0] if c == 1 else img
+        np.testing.assert_array_equal(png_decode(png_encode(arg)), img)
+        if c < 4:  # the BGR serving surface: gray is replicated
+            np.testing.assert_array_equal(imdecode_color(imencode_png(arg)),
+                                          np.repeat(img, 3 // c, -1))
+
+    @pytest.mark.parametrize("c", [1, 3, 4])
+    @pytest.mark.parametrize("filters", [0, 1, 2, 3, 4, "mixed"])
+    def test_roundtrip_every_filter(self, filters, c):
+        """Each PNG row filter type, and all five mixed row by row, read
+        back exactly by the stdlib codec and by cv2."""
+        img = np.random.default_rng(c).integers(0, 256, (13, 19, c),
+                                                dtype=np.uint8)
+        f = np.arange(13) % 5 if filters == "mixed" else filters
+        data = png_encode(img[..., 0] if c == 1 else img, f)
+        np.testing.assert_array_equal(png_decode(data), img)
+        want = cv2.imdecode(np.frombuffer(data, np.uint8),
+                            cv2.IMREAD_UNCHANGED).reshape(img.shape)
+        np.testing.assert_array_equal(
+            want, img[..., [2, 1, 0, 3][:c]] if c > 1 else img)
+
+    @pytest.mark.parametrize("c", [1, 3, 4])
+    @pytest.mark.parametrize("kind", ["noise", "smooth"])
+    def test_decode_equals_cv2(self, kind, c, monkeypatch):
+        """cv2's own PNGs (libpng's adaptive filters) decode to cv2's
+        pixels through the library and through the stdlib codec."""
+        img = (_smooth(24, 40, c) if kind == "smooth"
+               else np.random.default_rng(c).integers(
+                   0, 256, (24, 40, c), dtype=np.uint8))
+        ok, buf = cv2.imencode(".png", img.squeeze())
+        assert ok
+        data = buf.tobytes()
+        want = cv2.imdecode(buf, cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(imdecode_color(data), want)
+        monkeypatch.setattr(image_io, "_library_decoder", lambda: None)
+        np.testing.assert_array_equal(imdecode_color(data), want)
+
+    def test_other_formats_use_the_library(self, monkeypatch):
+        ok, buf = cv2.imencode(".jpg", _smooth(16, 16, 3))
+        assert ok
+        np.testing.assert_array_equal(
+            imdecode_color(buf.tobytes()),
+            cv2.imdecode(buf, cv2.IMREAD_COLOR))
+        monkeypatch.setattr(image_io, "_library_decoder", lambda: None)
+        with pytest.raises(ValueError, match="without cv2 or PIL"):
+            imdecode_color(buf.tobytes())
+
+    def test_malformed_png_raises_value_error(self, monkeypatch):
+        data = png_encode(_img(8, 8))
+        with pytest.raises(ValueError):
+            imdecode_color(data[:40])
+        monkeypatch.setattr(image_io, "_library_decoder", lambda: None)
+        with pytest.raises(ValueError):
+            imdecode_color(data[:40])
+
+
+@pytest.mark.parametrize("flag", [["--droprate", "0.5"], ["--use-selu"]])
+def test_server_cli_rejects_knobs_of_the_training_net(flag, capsys):
+    """Dropout (the identity in eval) and SELU (unused) are not options
+    of the eval-only port: the CLI refuses them instead of ignoring
+    them."""
+    with pytest.raises(SystemExit) as exc:
+        serve_main(["--device", "cpu", *flag])
+    assert exc.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
