@@ -8,24 +8,41 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 
 Phases; any failure exits non-zero before the result line is printed:
 
-1. build: compiles ``csrc/decoder_upsample.cu`` for ``sm_90a``, prints
-   the card, its power limit and the compiler's register report;
-2. kernel vs plain: the decoder kernel against its plain PyTorch version
-   on the card at every MNet decoder step of a 256x256 and a 480x640
-   input at ngf 64, batch 2, f32 and bf16, one-part and split-skip
-   two-part forms (max abs 2e-5 in f32, 3e-2 in bf16);
-3. serving: ``InferenceEngine`` (ngf 64, bf16, split-skip, seeded random
+1. build: compiles ``csrc/decoder_upsample.cu`` and ``csrc/hshear.cu``
+   for ``sm_90a`` (one ``nvcc`` each, started together), prints the card,
+   its power limit and the compiler's register report;
+2. decoder kernel vs plain: the decoder kernel against its plain PyTorch
+   version on the card at every MNet decoder step of a 256x256 and a
+   480x640 input at ngf 64, batch 2, f32 and bf16, one-part and
+   split-skip two-part forms (max abs 2e-5 in f32, 3e-2 in bf16);
+3. shear kernel vs plain: ``hshear`` against its plain version at the
+   three pass shapes of the training augmentation (batch 16, 7 channels,
+   480x640 -> 256) and at ragged ones (max abs 3e-5 on 0-255 data), then
+   ``fused_augment_shear`` through the kernel against the same through
+   the plain version (1e-5 on its [-1, 1] output);
+4. serving: ``InferenceEngine`` (ngf 64, bf16, split-skip, seeded random
    weights) behind ``ShadowRemovalServer`` on loopback answers 4
    concurrent 480x640 PNG requests and one 256x256 (rows in all five PNG
-   filter types, as clients' encoders choose them; the host's decode
-   time per request is printed); replies decode to the right shapes,
-   the kernel's launch count rises by 10 per stacked forward, and the
-   kernel path's uint8 output is within 2 gray levels of the same
-   engine forced onto the plain decoder;
-4. timings (CUDA events): each decoder step's kernel output on the timed
-   inputs held to its plain version (3e-2, bf16), then its time beside
-   the plain version's, a cuDNN convolution of the same step and its
-   bound, and stacked img/s at 256x256, batch 32, bf16.
+   filter types; the host's decode time per request is printed); replies
+   decode to the right shapes, the decoder kernel's launch count rises
+   by 10 per stacked forward, and the kernel path's uint8 output is
+   within 2 gray levels of the same engine forced onto the plain decoder;
+5. training: ``Trainer`` at the JAX CLI's defaults (G1/G2 MNet ngf 64,
+   ConvTranspose decoder, droprate 0.05; D1/D2 PatchGAN ndf 64; batch 16,
+   256x256 shear-augmented crops of 64 synthetic 480x640 triplets on the
+   card; f32; visual loss through a seeded random VGG-19-BN) trains 2
+   epochs of 4 steps, validating 16 full-resolution triplets after each:
+   metrics finite, every network's parameters and BatchNorm statistics
+   moved, ``hshear`` launched exactly 3 times per step and the decoder
+   kernel 10 times per validation forward; then one bf16 epoch;
+6. timings (CUDA events; torch.profiler): each decoder step's kernel
+   output on the timed inputs held to its plain version, then its time
+   beside the plain version's, a cuDNN convolution of the same step and
+   its bound, and stacked img/s at 256x256, batch 32, bf16; the training
+   step's img/s and its split by phase, each ``hshear`` pass beside its
+   plain version, ``F.grid_sample`` and its bound, the decoder kernel's
+   zero-pad (ConvTranspose) form at the validation shapes, and the
+   validation img/s.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
@@ -37,6 +54,7 @@ from __future__ import annotations
 import http.client
 import importlib.util
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -49,12 +67,25 @@ import numpy as np
 import torch
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 NGF = 64
 DEVICE = "cuda"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SOURCE = "shadow_removal_istd_tpu_torch/csrc/decoder_upsample.cu"
 REPLACES = "shadow_removal_istd_tpu/ops/pallas_decoder.py:61"
+SHEAR_SOURCE = "shadow_removal_istd_tpu_torch/csrc/hshear.cu"
+SHEAR_REPLACES = "shadow_removal_istd_tpu/ops/pallas_shear.py:47"
+SHEAR_TOL = 3e-5        # 0-255 data: one f32 ulp at 255
+AUG_TOL = 1e-5          # fused augmentation output in [-1, 1]
+KERNELS = ("decoder_upsample", "hshear")
+# the training slice's data: 64 train + 16 validation triplets at ISTD's
+# 480x640, batch 16, 256 crops (TrainConfig's defaults); a CPU rehearsal
+# shrinks these and TRAIN_KW (TrainConfig overrides)
+DATA_HW = (480, 640)
+N_TRAIN, N_VALID = 64, 16
+AUG_BATCH, CROP = 16, 256
+TRAIN_KW: dict = {}
 
 
 def nvidia_smi() -> str:
@@ -125,12 +156,16 @@ def phase_build():
     from shadow_removal_istd_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path, log = _build.build("decoder_upsample")
-    _build.load("decoder_upsample")
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem")):
-            print(f"[ptxas] {line.strip()}")
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        built = list(pool.map(_build.build, KERNELS))
+    for name, (path, log) in zip(KERNELS, built):
+        _build.load(name)
+        print(f"[build] {path.name}")
+        for line in log.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem")):
+                print(f"[ptxas] {name}: {line.strip()}")
+    print(f"[build] {len(KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s")
     libs = ", ".join(
         f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
         for m in ("cv2", "PIL"))
@@ -390,6 +425,434 @@ def profile_stacked(engine, x) -> None:
               f"x{e.count:<4} {e.key[:90]}")
 
 
+def _record_passes(fn):
+    """Run ``fn()`` with ``ops.shear.hshear`` wrapped to record each
+    call's ``(img, shifts, out_w, pad)``; returns (fn's result, calls)."""
+    from shadow_removal_istd_tpu_torch.ops import shear
+
+    calls, real = [], shear.hshear
+
+    def recorder(img, shifts, out_w, pad):
+        calls.append((img, shifts, out_w, pad))
+        return real(img, shifts, out_w, pad)
+
+    with mock.patch.object(shear, "hshear", recorder):
+        out = fn()
+    return out, calls
+
+
+def _aug_inputs(gen):
+    """A batch-16 group of 7 uint8 channels at 480x640 and one draw of
+    augmentation parameters, on the card."""
+    from shadow_removal_istd_tpu_torch.ops.augment import (
+        AugmentConfig,
+        sample_augment_params,
+    )
+
+    b, (h, w), crop = AUG_BATCH, DATA_HW, CROP
+    u8 = torch.randint(0, 256, (b, h, w, 7), dtype=torch.uint8,
+                       device=DEVICE, generator=gen)
+    params = sample_augment_params(gen, b, (h, w),
+                                   AugmentConfig(crop_size=crop,
+                                                 method="shear"), DEVICE)
+    return u8, params
+
+
+def shear_cost(img, shifts, out_w, pad) -> tuple[float, float]:
+    """(ops, bytes) an ``hshear`` call must do and move with these
+    inputs: the image columns each row's taps reach, read once, the
+    output written once, the per-row start and fraction read once; 3
+    FLOPs per output (1 - f, two products, a sum: the 1 - f once per
+    row)."""
+    from shadow_removal_istd_tpu_torch.ops.shear import _taps
+
+    bsz, c, h, w0 = img.shape
+    kint, _ = _taps(img, shifts, out_w, pad)
+    lo = (kint.long() - pad).clamp(min=0)
+    hi = (kint.long() + out_w - pad).clamp(max=w0 - 1)
+    cols = (hi - lo + 1).clamp(min=0).sum().item()
+    nbytes = 4 * c * cols + 4 * bsz * c * h * out_w + 8 * bsz * h
+    return 3.0 * bsz * c * h * out_w, float(nbytes)
+
+
+def grid_for(img, shifts, out_w):
+    """The ``F.grid_sample`` grid (align_corners) that samples row r at
+    columns ``shifts[r] + j``: the same row shifts as ``hshear`` except
+    where its start is clipped."""
+    bsz, _, h, w0 = img.shape
+    j = torch.arange(out_w, device=img.device, dtype=torch.float32)
+    xs = (shifts[:, :, None] + j) * (2.0 / (w0 - 1)) - 1.0
+    ys = (torch.arange(h, device=img.device, dtype=torch.float32)
+          * (2.0 / max(h - 1, 1)) - 1.0)[None, :, None].expand_as(xs)
+    return torch.stack([xs, ys], dim=-1)
+
+
+def phase_shear_vs_plain() -> float:
+    from shadow_removal_istd_tpu_torch.ops import shear
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    u8, params = _aug_inputs(gen)
+    got, calls = _record_passes(
+        lambda: shear.fused_augment_shear(u8, params, CROP))
+    worst = 0.0
+    cases = [(f"pass {i + 1}", img, shifts, out_w, pad)
+             for i, (img, shifts, out_w, pad) in enumerate(calls)]
+    for b, c, h, w0, out_w, pad, lo, hi in (
+            (1, 1, 5, 37, 29, 3, -9.0, 40.0),       # clips both ends
+            (2, 3, 13, 300, 257, 11, -20.0, 60.0),  # out_w one past a block
+            (3, 7, 9, 64, 700, 400, -400.0, 100.0),  # out_w > W0
+            (1, 7, 17, 255, 1, 0, -3.0, 300.0)):    # one output column
+        img = torch.rand(b, c, h, w0, device=DEVICE, generator=gen) * 255
+        shifts = lo + (hi - lo) * torch.rand(b, h, device=DEVICE,
+                                             generator=gen)
+        cases.append(("ragged", img, shifts, out_w, pad))
+    for label, img, shifts, out_w, pad in cases:
+        k = shear.hshear(img, shifts, out_w, pad)
+        p = shear.hshear_plain(img, shifts, out_w, pad)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        worst = max(worst, err)
+        ok = err <= SHEAR_TOL and k.shape == p.shape
+        print(f"[check] hshear {label:<7} in {tuple(img.shape)} out_w "
+              f"{out_w} pad {pad}: max_abs_err {err:.3e} (tol "
+              f"{SHEAR_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"hshear kernel disagrees ({label})")
+    if len(calls) != 3:
+        raise SystemExit(f"fused_augment_shear made {len(calls)} hshear "
+                         "calls, expected 3")
+    with mock.patch.object(shear, "hshear", shear.hshear_plain):
+        want = shear.fused_augment_shear(u8, params, CROP)
+    err = (got - want).abs().max().item()
+    print(f"[check] fused_augment_shear b{AUG_BATCH} {DATA_HW[0]}x"
+          f"{DATA_HW[1]}x7 -> {CROP}: kernel vs plain max_abs_err "
+          f"{err:.3e} (tol {AUG_TOL:.0e})")
+    if err > AUG_TOL or got.shape != (AUG_BATCH, 7, CROP, CROP):
+        raise SystemExit("fused_augment_shear disagrees with its plain path")
+    return worst
+
+
+def _snapshot(trainer) -> dict:
+    return {k: [t.detach().clone() for t in
+                (*net.parameters(), *net.buffers())]
+            for k, net in zip(("G1", "G2", "D1", "D2"),
+                              trainer.state.models.all())}
+
+
+def _check_history(trainer, label) -> None:
+    for i, h in enumerate(trainer.history):
+        bad = [k for k, v in h.items() if not math.isfinite(v)]
+        print(f"[train] {label} epoch {i}: " + ", ".join(
+            f"{k} {h[k]:.4f}" for k in ("G", "D", "data1", "data2", "vis1",
+                                        "vis2")))
+        if bad:
+            raise SystemExit(f"{label} epoch {i}: non-finite {bad}")
+    total = trainer.last_valid["total"]
+    print(f"[train] {label} validation total {total:.4f}")
+    if not math.isfinite(total):
+        raise SystemExit(f"{label}: non-finite validation total")
+
+
+def phase_training() -> dict:
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import Trainer
+    from shadow_removal_istd_tpu_torch.models.vgg import (
+        VGG19Features,
+        init_vgg_,
+    )
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+
+    t0 = time.perf_counter()
+    train = synthetic_triplets(N_TRAIN, *DATA_HW, seed=0)
+    valid = synthetic_triplets(N_VALID, *DATA_HW, seed=1)
+    vgg = init_vgg_(VGG19Features(), torch.Generator().manual_seed(0))
+    print(f"[train] {N_TRAIN} + {N_VALID} synthetic {DATA_HW[0]}x"
+          f"{DATA_HW[1]} triplets in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for dtype, epochs in (("float32", 2), ("bfloat16", 1)):
+        cfg = TrainConfig(aug_method="shear", compute_dtype=dtype,
+                          **TRAIN_KW)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, train, valid, seed=0, device=DEVICE,
+                          vgg_weights=vgg)
+        before = _snapshot(trainer)
+        hshear.launches = 0
+        decoder_upsample.launches = 0
+        trainer.train(epochs, valid_every=1)
+        torch.cuda.synchronize()
+        n_shear, n_dec = hshear.launches, decoder_upsample.launches
+        wall = time.perf_counter() - t0
+        steps = epochs * trainer.cfg.steps_per_epoch
+        n_valid = epochs * -(-N_VALID // cfg.batch_size)
+        print(f"[train] {dtype}: {epochs} epochs x "
+              f"{trainer.cfg.steps_per_epoch} steps + {epochs} validations "
+              f"in {wall:.1f} s (build and first calls included); hshear "
+              f"launches {n_shear} ({steps} steps), decoder launches "
+              f"{n_dec} ({n_valid} validation batches)")
+        _check_history(trainer, dtype)
+        if n_shear != 3 * steps:
+            raise SystemExit(f"expected {3 * steps} hshear launches, got "
+                             f"{n_shear}")
+        if n_dec != 10 * n_valid:
+            raise SystemExit(f"expected {10 * n_valid} decoder launches, "
+                             f"got {n_dec}")
+        after = _snapshot(trainer)
+        for net in before:
+            moved = [float((a.float() - b.float()).abs().max())
+                     for a, b in zip(before[net], after[net])]
+            n_params = len(list(getattr(
+                trainer.state.models, net.lower()).parameters()))
+            print(f"[train] {dtype} {net}: largest move "
+                  f"{max(moved[:n_params]):.3e} (parameters), "
+                  f"{max(moved[n_params:]):.3e} (BN running stats)")
+            if min(max(moved[:n_params]), max(moved[n_params:])) <= 0:
+                raise SystemExit(f"{net} did not train")
+        out[dtype] = dict(trainer=trainer, shear_launches=n_shear,
+                          decoder_launches=n_dec)
+    return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+
+
+def time_train_steps(trainer, steps: int = 7) -> dict:
+    """Per-step device time by phase (CUDA events), median over
+    ``steps`` steps after one warm-up step: gather + augmentation, then
+    ``train_step``'s phases (its ``mark`` hook)."""
+    from shadow_removal_istd_tpu_torch.engine.epoch import RngStreams
+    from shadow_removal_istd_tpu_torch.engine.steps import train_step
+    from shadow_removal_istd_tpu_torch.ops.augment import augment_batch
+
+    gen = RngStreams(1, 100, DEVICE)
+    idx = trainer.cache.epoch_indices(gen.generator("shuffle"),
+                                      trainer.cfg.batch_size)
+    rows = []
+    for s in range(steps + 1):
+        evs = [("start", torch.cuda.Event(enable_timing=True))]
+        evs[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append((name, ev))
+
+        raw = trainer.cache.gather(idx[s % idx.shape[0]])
+        batch = augment_batch(gen.generator("augment", s), raw,
+                              trainer.aug_cfg)
+        mark("augment")
+        train_step(trainer.state, batch, (gen.generator("dropout_g1", s),
+                                          gen.generator("dropout_g2", s)),
+                   mark=mark)
+        rows.append(evs)
+    torch.cuda.synchronize()
+    phases = {}
+    for evs in rows[1:]:
+        for (_, a), (name, b) in zip(evs, evs[1:]):
+            phases.setdefault(name, []).append(a.elapsed_time(b))
+        phases.setdefault("step", []).append(
+            evs[0][1].elapsed_time(evs[-1][1]))
+    return {k: _median(v) for k, v in phases.items()}
+
+
+def profile_train_step(trainer) -> None:
+    """Device time by kernel over one training step (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shadow_removal_istd_tpu_torch.engine.epoch import RngStreams
+    from shadow_removal_istd_tpu_torch.engine.steps import train_step
+    from shadow_removal_istd_tpu_torch.ops.augment import augment_batch
+
+    gen = RngStreams(2, 0, DEVICE)
+    idx = trainer.cache.epoch_indices(gen.generator("shuffle"),
+                                      trainer.cfg.batch_size)
+
+    def step():
+        raw = trainer.cache.gather(idx[0])
+        batch = augment_batch(gen.generator("augment"), raw,
+                              trainer.aug_cfg)
+        train_step(trainer.state, batch, (gen.generator("dropout_g1"),
+                                          gen.generator("dropout_g2")))
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    rows = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # kernel rows only (an aten op and the kernels it launches are
+    # separate rows); older profilers lack device_type: keep every row
+    kern = [e for e in rows if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA] or rows
+    total = sum(dev_us(e) for e in kern)
+    print(f"[profile] train step 256x256 b16 f32: kernel time "
+          f"{total / 1e3:.3f} ms over {sum(e.count for e in kern)} "
+          f"launches, {len(kern)} names")
+    for e in sorted(kern, key=lambda e: -dev_us(e))[:14]:
+        print(f"[profile] {dev_us(e) / 1e3:9.3f} ms "
+              f"{100 * dev_us(e) / max(total, 1):5.1f}% x{e.count:<4} "
+              f"{e.key[:90]}")
+    shear = [e for e in kern if "hshear" in e.key]
+    print(f"[profile] hshear kernel: {sum(e.count for e in shear)} "
+          f"launches, {sum(dev_us(e) for e in shear) / 1e3:.3f} ms in "
+          "the step")
+
+
+def time_shear_passes() -> dict:
+    """Each ``hshear`` pass of one augmentation at the slice's shapes,
+    on one real draw: the kernel alone (taps formed beforehand), the
+    wrapper, the plain version, ``F.grid_sample`` and the bound."""
+    from shadow_removal_istd_tpu_torch.ops import shear
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    u8, params = _aug_inputs(gen)
+    _, calls = _record_passes(
+        lambda: shear.fused_augment_shear(u8, params, CROP))
+    tot: dict[str, float] = {}
+    for i, (img, shifts, out_w, pad) in enumerate(calls):
+        grid = grid_for(img, shifts, out_w)
+        kint, frac = shear._taps(img, shifts, out_w, pad)
+        ms = time_ms(lambda: shear.launch(img, kint, frac, out_w, pad))
+        wrapped = time_ms(lambda: shear.hshear(img, shifts, out_w, pad))
+        plain = time_ms(lambda: shear.hshear_plain(img, shifts, out_w, pad))
+        lib = time_ms(lambda: torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True))
+        ops, nbytes = shear_cost(img, shifts, out_w, pad)
+        bound = max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+        print(f"[time] hshear pass {i + 1} in {tuple(img.shape)} out_w "
+              f"{out_w} pad {pad}: kernel {ms:.4f} ms (wrapper, taps "
+              f"formed: {wrapped:.4f}) | plain {plain:.4f} | grid_sample "
+              f"{lib:.4f} | bound {bound:.4f} (bytes, {nbytes / 1e6:.1f} "
+              f"MB) | {nbytes / ms / 1e6:.0f} GB/s")
+        for k, v in (("ms", ms), ("wrapped_ms", wrapped),
+                     ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", bound)):
+            tot[k] = tot.get(k, 0.0) + v
+    print(f"[time] hshear per augmentation (3 launches): kernel "
+          f"{tot['ms']:.4f} ms, wrapper {tot['wrapped_ms']:.4f}, plain "
+          f"{tot['plain_ms']:.4f}, grid_sample {tot['library_ms']:.4f}, "
+          f"bound {tot['bound_ms']:.4f}")
+    return tot
+
+
+def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
+    from shadow_removal_istd_tpu_torch.engine.steps import eval_step
+    from shadow_removal_istd_tpu_torch.ops.augment import normalize_batch
+    from shadow_removal_istd_tpu_torch.ops.decoder import (
+        decoder_upsample,
+        decoder_upsample_plain,
+    )
+
+    trainer = runs["float32"]["trainer"]
+    b = trainer.cfg.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    ph = time_train_steps(trainer)
+    print(f"[time] train step 256x256 b{b} f32 (TF32 off), median of 7: "
+          f"{ph['step']:.3f} ms = {b * 1e3 / ph['step']:.1f} img/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    bf = time_train_steps(runs["bfloat16"]["trainer"])
+    print(f"[time] train step 256x256 b{b} bf16 compute (VGG in f32), "
+          f"median of 7: {bf['step']:.3f} ms = {b * 1e3 / bf['step']:.1f} "
+          f"img/s (" + ", ".join(f"{k} {v:.3f}" for k, v in bf.items()
+                                 if k != "step") + " ms)")
+    for name in ("augment", "g_forward", "d_phase", "g_adv", "g_visual",
+                 "g_backward", "adam_g"):
+        print(f"[time]   {name:<10} {ph[name]:9.3f} ms "
+              f"{100 * ph[name] / ph['step']:5.1f}%")
+    # the visual loss alone (both terms: matte and shadow-free), its VGG
+    # forwards and the backward to the predictions, as in the step
+    from shadow_removal_istd_tpu_torch.losses import visual_loss
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    preds = [torch.rand(b, c, CROP, CROP, device=DEVICE, generator=gen)
+             * 2 - 1 for c in (1, 3)]
+    targets = [torch.rand_like(p) * 2 - 1 for p in preds]
+
+    def vis():
+        for p, t in zip(preds, targets):
+            visual_loss(trainer.state.vgg, p.requires_grad_(True),
+                        t).backward()
+
+    vis_ms = time_ms(vis, 5)
+    print(f"[time]   visual loss alone (2 terms, VGG forwards + backward "
+          f"to the predictions): {vis_ms:.3f} ms "
+          f"{100 * vis_ms / ph['step']:5.1f}% of the step")
+    profile_train_step(trainer)
+
+    tot = time_shear_passes()
+
+    # the decoder kernel's zero-pad (ConvTranspose) form at the
+    # validation shapes: 480x640, batch 16, f32, one part
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    dec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    for label, sh, sw, parts, co, final in decoder_steps(*DATA_HW):
+        parts = (sum(parts),)
+        xs, w4, s4, b4 = step_inputs(b, sh, sw, parts, co, final,
+                                     torch.float32, gen)
+        kw = dict(leaky=not final, zero_pad=True)
+        err = (decoder_upsample(xs, w4, s4, b4, **kw)
+               - decoder_upsample_plain(xs, w4, s4, b4, **kw)
+               ).abs().max().item()
+        dec["err"] = max(dec["err"], err)
+        if err > TOL[torch.float32]:
+            raise SystemExit(f"zero-pad kernel disagrees at {label}")
+        ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw), 10)
+        plain = time_ms(
+            lambda: decoder_upsample_plain(xs, w4, s4, b4, **kw), 10)
+        a = torch.nn.functional.pad(xs[0], (1, 1, 1, 1))
+        k = w4.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
+        flops, nbytes = step_cost(b, sh, sw, parts, co, final, 4)
+        bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+        print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} kernel "
+              f"{ms:.4f} ms | plain {plain:.4f} | cudnn conv {lib:.4f} | "
+              f"bound {bound:.4f} | max_abs_err {err:.2e} | "
+              f"{flops / ms / 1e9:.1f} TFLOP/s")
+        reps = 1 if final else 2
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bound)):
+            dec[key] += reps * v
+    print(f"[time] zero-pad per stacked forward 480x640 b{b} f32 (10 "
+          f"launches): kernel {dec['ms']:.4f} ms, plain "
+          f"{dec['plain_ms']:.4f}, cudnn conv {dec['library_ms']:.4f}, "
+          f"bound {dec['bound_ms']:.4f}; max_abs_err {dec['err']:.2e} "
+          f"(tol 2e-5)")
+
+    # validation throughput: eval_step on one full-resolution batch
+    sel = torch.arange(b, device=DEVICE)
+    batch = normalize_batch(trainer.valid.gather(sel))
+    ms = time_ms(lambda: eval_step(trainer.state, batch), 5)
+    print(f"[time] validation eval_step 480x640 b{b} f32: {ms:.3f} ms = "
+          f"{b * 1e3 / ms:.1f} img/s")
+
+    shear_entry = {
+        "name": "hshear", "route": "cuda", "source": SHEAR_SOURCE,
+        "replaces": SHEAR_REPLACES,
+        "launches": runs["float32"]["shear_launches"],
+        "max_abs_err": shear_err,
+        "ms": round(tot["ms"], 5), "plain_ms": round(tot["plain_ms"], 5),
+        "bound_ms": round(tot["bound_ms"], 5), "bound_by": "bytes",
+        "library_ms": round(tot["library_ms"], 5),
+        "shape": "one augmentation = 3 passes, batch 16, 7 channels, "
+                 "480x640 -> 256, f32"}
+    extra = {"launches_valid": runs["float32"]["decoder_launches"],
+             "zero_pad_ms": round(dec["ms"], 5)}
+    return shear_entry, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -400,11 +863,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     worst = phase_kernel_vs_plain()
+    shear_err = phase_shear_vs_plain()
     launches = phase_serving()
+    runs = phase_training()
     kernel = phase_timings(worst, launches)
+    shear_entry, extra = phase_train_timings(runs, shear_err)
+    kernel.update(extra)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, shear_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

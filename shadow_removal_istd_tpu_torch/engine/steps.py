@@ -1,9 +1,42 @@
-"""Stacked inference step (port of ``engine/steps.py::make_infer_step``)."""
+"""Train, eval and inference steps; port of
+``shadow_removal_istd_tpu/engine/steps.py``.
+
+:func:`train_step` reproduces ``_unjitted_train_step``:
+
+1. one G forward in train mode (G1, then G2 on ``cat(x, m_pred)``),
+   whose autograd graph serves the G phase: no second G forward; G1/G2
+   BatchNorm statistics move once;
+2. D phase on the DETACHED predictions: four train-mode D forwards in
+   the order D1(x,m), D1(x,m_pred), D2(x,m,y), D2(x,m_pred,y_pred), the
+   D running statistics moving in that order;
+3. ``d_total = l2*D1 + l3*D2`` and the D Adam update;
+4. G phase against the UPDATED D: four more train-mode D forwards (their
+   statistics continue from step 2; D takes no update and no gradient
+   here), ``g_total = data1 + l1*data2 + l2*G1 + l3*G2 + l4*vis1 +
+   l5*vis2``, backward through the graph of step 1;
+5. the G Adam update.
+
+The visual terms are gated per lambda: a zero lambda costs no VGG pass.
+Metrics are detached 0-d tensors on the step's device; nothing here
+waits for the device.
+"""
 
 from __future__ import annotations
 
+import contextlib
+from typing import Callable
+
 import torch
 from torch import nn
+
+from shadow_removal_istd_tpu_torch.engine.state import (
+    TrainState,
+    set_learning_rates,
+)
+from shadow_removal_istd_tpu_torch.losses import l1_loss, visual_loss
+
+METRIC_KEYS = ("G", "G1", "G2", "D", "D1", "D2", "data1", "data2",
+               "vis1", "vis2", "D1_real", "D1_fake", "D2_real", "D2_fake")
 
 
 def infer_step(g1: nn.Module, g2: nn.Module,
@@ -15,3 +48,145 @@ def infer_step(g1: nn.Module, g2: nn.Module,
     m = g1(x)
     y = g2(torch.cat([x.to(m.dtype), m], dim=1))
     return m, y
+
+
+def _cat(*tensors: torch.Tensor) -> torch.Tensor:
+    """Channel concat with the JAX type promotion (f32 with bf16 -> f32)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.cat([t.to(dt) for t in tensors], dim=1)
+
+
+def _vis_fns(state: TrainState):
+    """(vis1, vis2): the visual loss where its lambda is nonzero and a
+    VGG is present, else a zero."""
+    cfg = state.cfg
+
+    def make(lam):
+        if cfg.use_visual_loss and state.vgg is not None and lam != 0:
+            return lambda pred, target: visual_loss(state.vgg, pred, target)
+        return lambda pred, target: torch.zeros((), device=pred.device)
+
+    return make(cfg.lambda4), make(cfg.lambda5)
+
+
+@contextlib.contextmanager
+def _no_param_grads(*nets: nn.Module):
+    params = [p for n in nets for p in n.parameters()]
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, f in zip(params, flags):
+            p.requires_grad_(f)
+
+
+def _no_mark(name: str) -> None:
+    pass
+
+
+def train_step(state: TrainState, batch, gens=(None, None),
+               mark: Callable[[str], None] = _no_mark
+               ) -> dict[str, torch.Tensor]:
+    """One adversarial step on ``batch = (x, m, y)`` (NCHW, [-1, 1]);
+    ``gens`` are the G1 and G2 dropout generators. Updates ``state`` in
+    place and returns the 14 metrics. ``mark(phase)`` is called as each
+    phase's work has been enqueued ("g_forward", "d_phase", "g_adv",
+    "g_visual", "g_backward", "adam_g"): a profiler records a CUDA event
+    there to split the step's device time."""
+    cfg, nets, adv = state.cfg, state.models, state.adv
+    g1, g2, d1, d2 = nets.all()
+    x, m, y = batch
+    for net in nets.all():
+        net.train()
+    set_learning_rates(state)
+    vis1_fn, vis2_fn = _vis_fns(state)
+
+    # ---- G forward, once
+    m_pred = g1(x, generator=gens[0])
+    y_pred = g2(_cat(x, m_pred), generator=gens[1])
+    m_sg, y_sg = m_pred.detach(), y_pred.detach()
+    mark("g_forward")
+
+    # ---- D phase on the detached predictions
+    c1_real = d1(_cat(x, m))
+    c1_fake = d1(_cat(x, m_sg))
+    c2_real = d2(_cat(x, m, y))
+    c2_fake = d2(_cat(x, m_sg, y_sg))
+    d1_l = adv.d_loss(c1_real, c1_fake)
+    d2_l = adv.d_loss(c2_real, c2_fake)
+    d_total = cfg.lambda2 * d1_l + cfg.lambda3 * d2_l
+    state.opt_d.zero_grad(set_to_none=True)
+    d_total.backward()
+    state.opt_d.step()
+    mark("d_phase")
+
+    # ---- G phase against the updated D
+    with _no_param_grads(d1, d2):
+        g_c1_real = d1(_cat(x, m))
+        g_c1_fake = d1(_cat(x, m_pred))
+        g_c2_real = d2(_cat(x, m, y))
+        g_c2_fake = d2(_cat(x, m_pred, y_pred))
+        g1_l = adv.g_loss(g_c1_real, g_c1_fake)
+        g2_l = adv.g_loss(g_c2_real, g_c2_fake)
+        data1 = l1_loss(m_pred, m)
+        data2 = l1_loss(y_pred, y)
+        mark("g_adv")
+        vis1 = vis1_fn(m_pred, m)
+        vis2 = vis2_fn(y_pred, y)
+        mark("g_visual")
+        g_total = (data1 + cfg.lambda1 * data2
+                   + cfg.lambda2 * g1_l + cfg.lambda3 * g2_l
+                   + cfg.lambda4 * vis1 + cfg.lambda5 * vis2)
+        state.opt_g.zero_grad(set_to_none=True)
+        g_total.backward()
+        mark("g_backward")
+    state.opt_g.step()
+    mark("adam_g")
+    state.step += 1
+
+    out = {"G": g_total, "G1": g1_l, "G2": g2_l, "D": d_total, "D1": d1_l,
+           "D2": d2_l, "data1": data1, "data2": data2, "vis1": vis1,
+           "vis2": vis2, "D1_real": c1_real.mean(), "D1_fake": c1_fake.mean(),
+           "D2_real": c2_real.mean(), "D2_fake": c2_fake.mean()}
+    return {k: v.detach().float() for k, v in out.items()}
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch) -> dict[str, torch.Tensor]:
+    """Validation: eval-mode forwards (the generators' decoder steps go
+    through the decoder op), no updates, the train step's losses plus
+    the model-selection proxy ``total = 0.8*G + 0.2*D``."""
+    cfg, nets, adv = state.cfg, state.models, state.adv
+    g1, g2, d1, d2 = nets.all()
+    x, m, y = batch
+    for net in nets.all():
+        net.eval()
+    vis1_fn, vis2_fn = _vis_fns(state)
+    m_pred = g1(x)
+    y_pred = g2(_cat(x, m_pred))
+    c1_real = d1(_cat(x, m))
+    c1_fake = d1(_cat(x, m_pred))
+    c2_real = d2(_cat(x, m, y))
+    c2_fake = d2(_cat(x, m_pred, y_pred))
+    d1_l = adv.d_loss(c1_real, c1_fake)
+    d2_l = adv.d_loss(c2_real, c2_fake)
+    g1_l = adv.g_loss(c1_real, c1_fake)
+    g2_l = adv.g_loss(c2_real, c2_fake)
+    data1 = l1_loss(m_pred, m)
+    data2 = l1_loss(y_pred, y)
+    vis1 = vis1_fn(m_pred, m)
+    vis2 = vis2_fn(y_pred, y)
+    g_total = (data1 + cfg.lambda1 * data2 + cfg.lambda2 * g1_l
+               + cfg.lambda3 * g2_l + cfg.lambda4 * vis1
+               + cfg.lambda5 * vis2)
+    d_total = cfg.lambda2 * d1_l + cfg.lambda3 * d2_l
+    out = {"G": g_total, "G1": g1_l, "G2": g2_l, "D": d_total, "D1": d1_l,
+           "D2": d2_l, "data1": data1, "data2": data2, "vis1": vis1,
+           "vis2": vis2, "total": 0.8 * g_total + 0.2 * d_total,
+           "D1_real": c1_real.mean(), "D1_fake": c1_fake.mean(),
+           "D2_real": c2_real.mean(), "D2_fake": c2_fake.mean()}
+    return {k: v.float() for k, v in out.items()}

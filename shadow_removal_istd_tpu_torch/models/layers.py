@@ -1,12 +1,23 @@
-"""MNet building blocks in PyTorch (eval mode).
+"""MNet, PatchGAN and VGG building blocks in PyTorch.
 
 Port of ``shadow_removal_istd_tpu/models/layers.py``. Modules take NCHW
-tensors in ``channels_last`` memory and keep their weights OIHW; the
-ConvTranspose weight keeps the JAX package's (unflipped) kernel, see
-:func:`convtranspose_phase_kernel`. Weights come from
-:func:`init_weights_` (seeded ``torch.Generator``) or from a JAX tree via
-``tools/convert.py``. Casting a module (``.to(torch.bfloat16)``) casts
-every parameter and buffer, as the JAX serving engine casts every leaf.
+tensors and keep their weights OIHW; the ConvTranspose weight keeps the
+JAX package's (unflipped) kernel, see :func:`convtranspose_phase_kernel`.
+Weights come from :func:`init_weights_` (seeded ``torch.Generator``) or
+from a JAX tree via ``tools/convert.py``.
+
+Compute dtype. A convolution casts its weight to the dtype of its input,
+as flax's ``Conv(dtype=...)`` casts kernels at use: a model casts its
+input once to the compute dtype and every layer then computes in it,
+while parameters stay in their own dtype (f32 under bf16 compute).
+BatchNorm statistics run in f32 and its output returns in the input
+dtype. Casting a module (``.to(torch.bfloat16)``) casts every parameter
+and buffer, as the JAX serving engine casts every leaf.
+
+Train and eval follow ``module.training``: BatchNorm takes batch
+statistics and updates its running ones, Dropout2d draws a mask, and
+``Upsample`` runs the differentiable unfused form (plain cuDNN, as the
+JAX package's training runs plain XLA) in place of the decoder op.
 """
 
 from __future__ import annotations
@@ -18,12 +29,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+from shadow_removal_istd_tpu_torch.ops.decoder import (
+    decoder_upsample,
+    subpixel_depth_to_space,
+)
 
 
 class ConvReflect(nn.Module):
     """Conv2d with reflection padding and no bias (torch
-    ``padding_mode='reflect'``); MNet uses it as the 4x4 stride-2 conv."""
+    ``padding_mode='reflect'``)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1):
@@ -36,16 +50,40 @@ class ConvReflect(nn.Module):
         p = self.padding
         if p > 0:
             x = F.pad(x, (p, p, p, p), mode="reflect")
-        return F.conv2d(x, self.weight, stride=self.stride)
+        return F.conv2d(x, self.weight.to(x.dtype), stride=self.stride)
+
+
+class Conv(nn.Module):
+    """Conv2d with zero padding and a bias (torch's default padding);
+    PatchGAN's stem."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        stride=self.stride, padding=self.padding)
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with the JAX package's arithmetic (eps 1e-5).
+    """BatchNorm with the JAX package's arithmetic (eps 1e-5).
 
-    The per-channel factor ``weight * rsqrt(running_var + eps)`` is formed
-    in the parameter dtype (bf16 in the bf16 engine, as in JAX, where the
-    cast batch stats keep that op in bf16); the affine then runs in f32
-    and the result returns in the input dtype."""
+    Train: batch mean and biased variance ``max(E[x^2] - E[x]^2, 0)`` in
+    ``promote(x, f32)`` normalise the output; the running statistics
+    move by momentum 0.1 toward the mean and the UNBIASED variance
+    (``n/(n-1)``), as torch's BatchNorm2d (and the JAX package) do.
+
+    Eval: the per-channel factor ``weight * rsqrt(running_var + eps)`` is
+    formed in the parameter dtype (bf16 in the bf16 engine, as in JAX,
+    where the cast batch stats keep that op in bf16); the affine then
+    runs in f32. Either way the result returns in the input dtype."""
+
+    momentum = 0.1
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -60,9 +98,27 @@ class BatchNorm(nn.Module):
                 ).float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         s = self._factor().view(1, -1, 1, 1)
         y = ((x.float() - self.running_mean.float().view(1, -1, 1, 1)) * s
              + self.bias.float().view(1, -1, 1, 1))
+        return y.to(x.dtype)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
+                          min=0.0)
+        with torch.no_grad():
+            n = x.numel() / x.shape[1]
+            unbiased = var * (n / max(n - 1, 1))
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        s = self.weight * torch.rsqrt(var + self.eps)
+        y = ((x32 - mean.view(1, -1, 1, 1)) * s.view(1, -1, 1, 1)
+             + self.bias.view(1, -1, 1, 1))
         return y.to(x.dtype)
 
     def affine(self, tile: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,6 +128,41 @@ class BatchNorm(nn.Module):
         s = self._factor()
         shift = self.bias.float() - self.running_mean.float() * s
         return s.repeat(tile).contiguous(), shift.repeat(tile).contiguous()
+
+
+class ActNorm(nn.Module):
+    """LeakyReLU(0.2) then BatchNorm (the activation comes first, as in
+    the JAX package's ``ActNorm``); PatchGAN's block norm."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.bn = BatchNorm(c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(F.leaky_relu(x, 0.2))
+
+
+class Dropout2d(nn.Module):
+    """Channel dropout (torch nn.Dropout2d): in training, zeroes whole
+    feature maps, one keep/drop draw per sample and channel, and scales
+    the kept ones by ``1/(1-p)``; the identity in eval. The mask comes
+    from the ``generator`` passed to ``forward``, which training with
+    ``p > 0`` requires."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout2d in training needs a generator")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape[0], x.shape[1], 1, 1, device=x.device,
+                          generator=generator) < keep
+        return torch.where(mask, x / keep, 0.0)
 
 
 def subpixel_phase_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -105,13 +196,18 @@ def convtranspose_phase_kernel(w: torch.Tensor) -> torch.Tensor:
 
 
 class Upsample(nn.Module):
-    """2x upsampling: nearest + 3x3 reflect conv (``no_conv_t=True``, run
-    as the subpixel phase conv) or ConvTranspose(4, 2, 1); no bias.
+    """2x upsampling: nearest + 3x3 reflect conv (``no_conv_t=True``) or
+    ConvTranspose(4, 2, 1); no bias.
 
-    ``x`` may be a tensor or a tuple of channel parts standing for their
-    concat (split-skip); ``leaky`` and ``bn`` fold the preceding
-    LeakyReLU and the following eval BatchNorm into the same decoder
-    op (``ops/decoder.py``), which every call goes through."""
+    Eval: ``x`` may be a tensor or a tuple of channel parts standing for
+    their concat (split-skip); ``leaky`` and ``bn`` fold the preceding
+    LeakyReLU and the following eval BatchNorm into the same decoder op
+    (``ops/decoder.py``), which every call goes through.
+
+    Train: :meth:`train_forward`, the JAX package's unfused training
+    math, differentiable: the subpixel phase conv over the edge-padded
+    input then depth-to-space (nearest), or ``conv_transpose2d`` with the
+    flipped kernel (ConvTranspose)."""
 
     def __init__(self, cin: int, cout: int, no_conv_t: bool = True):
         super().__init__()
@@ -128,13 +224,14 @@ class Upsample(nn.Module):
                 else convtranspose_phase_kernel(w))
 
     @torch.no_grad()
-    def freeze(self, bn: BatchNorm | None = None) -> None:
-        """Build the phase kernel (in the weight's dtype) and ``bn``'s
-        phase-tiled affine once, for every later forward. For weights
-        that no longer change: a later change of the weights, their dtype
-        or device needs another ``freeze``."""
+    def freeze(self, dtype: torch.dtype, bn: BatchNorm | None = None) -> None:
+        """Build the phase kernel (in the compute ``dtype``) and ``bn``'s
+        phase-tiled affine once, for every later eval forward. For
+        weights that no longer change: a later change of the weights,
+        their dtype or device needs another ``freeze`` (``MNet.train``
+        drops it)."""
         scale4, bias4 = bn.affine(tile=4) if bn is not None else (None, None)
-        self.frozen = (self.phase_kernel(self.weight.dtype), scale4, bias4)
+        self.frozen = (self.phase_kernel(dtype), scale4, bias4)
 
     def forward(self, x, *, leaky: bool = False,
                 bn: BatchNorm | None = None) -> torch.Tensor:
@@ -149,6 +246,16 @@ class Upsample(nn.Module):
                              else (None, None))
         return decoder_upsample(parts, w4, scale4, bias4, leaky=leaky,
                                 zero_pad=not self.no_conv_t)
+
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        if not self.no_conv_t:
+            return F.conv_transpose2d(x, w.transpose(0, 1).flip(2, 3),
+                                      stride=2, padding=1)
+        n, _, h, wd = x.shape
+        k = subpixel_phase_kernel(w).permute(3, 2, 0, 1)   # (4Co, Ci, 2, 2)
+        y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), k)
+        return subpixel_depth_to_space(y, h, wd, w.shape[0])
 
 
 def get_activation(key: str | None) -> Callable | None:
@@ -167,14 +274,16 @@ def get_activation(key: str | None) -> Callable | None:
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Random init matching flax's defaults in distribution: conv kernels
-    LeCun-normal (truncated at 2 sigma, fan-in = kh*kw*cin), BatchNorm
-    identity (weight 1, bias 0, mean 0, var 1)."""
+    LeCun-normal (truncated at 2 sigma, fan-in = kh*kw*cin), conv biases
+    0, BatchNorm identity (weight 1, bias 0, mean 0, var 1)."""
     for m in module.modules():
-        if isinstance(m, (ConvReflect, Upsample)):
+        if isinstance(m, (ConvReflect, Conv, Upsample)):
             fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
+            if isinstance(m, Conv):
+                m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

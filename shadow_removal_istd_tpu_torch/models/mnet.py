@@ -1,4 +1,4 @@
-"""M-Net generator in eval mode.
+"""M-Net generator.
 
 Port of ``shadow_removal_istd_tpu/models/mnet.py``.
 
@@ -6,8 +6,7 @@ A 4x4-stride-2 reflect-conv stem, a depth-4 encoder of (LeakyReLU ->
 4x4s2 reflect conv -> BN) blocks with channels capped at 8*ngf, a decoder
 of (LeakyReLU -> 2x upsample -> BN) steps whose outputs concatenate the
 matching encoder block's input, and a final upsample back to the input
-resolution with the output activation. Every decoder step, the final one
-included, is one call of the decoder op (``ops/decoder.py``).
+resolution with the output activation.
 
 Executed semantics carried over from the JAX package:
 
@@ -16,11 +15,20 @@ Executed semantics carried over from the JAX package:
   included (leaky twice on the link);
 - the final upsample has no LeakyReLU and no BN (and no bias), then the
   activation;
+- Dropout2d (``drop_rate``) on the concatenated output of every decoder
+  step but the outermost, active in training only;
 - split-skip (eval, nearest-upsample only) carries ``(y, link)`` tuples
   instead of their concat; the op sums per-part kernel slices.
 
-The JAX ``_Up`` takes one of two branches by decoder area (>= 4500);
-both compute the same math, which here is the one op.
+Eval: every decoder step, the final one included, is one call of the
+decoder op (``ops/decoder.py``); the JAX ``_Up`` takes one of two
+branches by decoder area (>= 4500), both the same math, which here is
+the one op. Train: the unfused differentiable form
+(``layers.Upsample.train_forward``) with batch-statistics BN.
+
+``compute_dtype`` (flax's ``dtype``): the input is cast to it and every
+layer computes in it while the parameters keep their own dtype; None
+computes in the parameter dtype.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ class _Down(nn.Module):
 
 
 class _Up(nn.Module):
-    """LeakyReLU -> upsample -> BN as one decoder op, then the link."""
+    """LeakyReLU -> upsample -> BN, then the link: one decoder op in
+    eval, the unfused form in training."""
 
     def __init__(self, cin: int, cout: int, no_conv_t: bool = True):
         super().__init__()
@@ -54,25 +63,29 @@ class _Up(nn.Module):
         self.bn = L.BatchNorm(cout)
 
     def forward(self, x, link, split: bool):
-        y = self.up(x, leaky=True, bn=self.bn)
+        if self.training:
+            y = self.bn(self.up.train_forward(F.leaky_relu(x, 0.2)))
+        else:
+            y = self.up(x, leaky=True, bn=self.bn)
         if split:
             return (y, link)
         return torch.cat([y, link], dim=1)
 
 
 class MNet(nn.Module):
-    """Depth-4 encoder-decoder; output at input resolution. Eval only:
-    the training forward is not ported yet."""
+    """Depth-4 encoder-decoder; output at input resolution."""
 
     def __init__(self, in_channels: int, out_channels: int, ngf: int = 64,
-                 no_conv_t: bool = True, activation: str | None = "tanh",
-                 depth: int = 4, split_skip: bool = False):
+                 drop_rate: float = 0.0, no_conv_t: bool = True,
+                 activation: str | None = "tanh", depth: int = 4,
+                 split_skip: bool = False,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        # the JAX MNet's skip-level Dropout2d is the identity in eval and
-        # its use_selu is unused, so neither is carried over
         self.depth = depth
         self.split = split_skip and no_conv_t
+        self.compute_dtype = compute_dtype
         self.activation = L.get_activation(activation)
+        self.drop = L.Dropout2d(drop_rate)
         down_feats = [(2 ** min(i + 1, 3)) * ngf for i in range(depth)]
         up_feats = [(2 ** min(i, 3)) * ngf for i in range(depth)]
         self.stem = L.ConvReflect(in_channels, ngf, 4, 2, 1)
@@ -89,19 +102,27 @@ class MNet(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.stem.weight.dtype
+        """The compute dtype: ``compute_dtype``, else the parameters'."""
+        return self.compute_dtype or self.stem.weight.dtype
 
     def freeze(self) -> None:
-        """Fix every decoder step's phase kernel and affine for the
-        current weights, dtype and device (``layers.Upsample.freeze``)."""
+        """Fix every decoder step's eval phase kernel and affine for the
+        current weights, dtype and device (``layers.Upsample.freeze``).
+        Entering training mode drops them again."""
         for up in self.ups:
-            up.up.freeze(up.bn)
-        self.final.freeze()
+            up.up.freeze(self.dtype, up.bn)
+        self.final.freeze(self.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "MNet training forward is not ported yet; call .eval()")
+    def train(self, mode: bool = True) -> "MNet":
+        if mode:   # weights are about to change: no stale eval kernels
+            for up in [*(u.up for u in self.ups), self.final]:
+                up.frozen = None
+        return super().train(mode)
+
+    def forward(self, x: torch.Tensor, *,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` draws the Dropout2d masks (training with
+        ``drop_rate > 0`` only)."""
         div = 2 ** (self.depth + 1)
         if x.shape[2] % div or x.shape[3] % div:
             raise ValueError(
@@ -114,7 +135,10 @@ class MNet(nn.Module):
         for down in self.downs:
             y, link = down(y)
             links.append(link)
-        for up, link in zip(self.ups, reversed(links)):
-            y = up(y, link, self.split)
-        y = self.final(y)
+        split = self.split and not self.training
+        for k, (up, link) in enumerate(zip(self.ups, reversed(links))):
+            y = up(y, link, split)
+            if k < self.depth - 1:      # every level but the outermost
+                y = self.drop(y, generator)
+        y = self.final.train_forward(y) if self.training else self.final(y)
         return self.activation(y) if self.activation is not None else y

@@ -1,0 +1,125 @@
+"""Synchronized random augmentation of the training stream group.
+
+Port of ``shadow_removal_istd_tpu/ops/augment.py`` (shear path): the
+reference's RandomScale(+-5%) -> RandomRotate(+-15 deg) ->
+RandomHorizontalFlip(0.5) -> RandomCrop(256) -> [-1, 1] chain, with ONE
+draw per sample shared by every stream of the (shadow, matte,
+shadow-free) group: the streams are concatenated on channels and
+augmented together (``ops/shear.fused_augment_shear``, three
+``hshear`` launches).
+
+The exact bilinear gather path (``method="gather"``, and the JAX
+package's fallback for dimensions that are not multiples of 8) and the
+pre-augmentation resize are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+import torch
+
+from shadow_removal_istd_tpu_torch.ops.shear import fused_augment_shear
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """scale: max relative scale jitter (U[1-s, 1+s]); angle: max
+    rotation in degrees (U[-a, a]); flip_prob: probability of a
+    horizontal flip; crop_size: output crop; resize: pre-augmentation
+    resize (not ported yet); method: "shear" (the port's path) or
+    "gather" (not ported yet)."""
+
+    scale: float = 0.05
+    angle: float = 15.0
+    flip_prob: float = 0.5
+    crop_size: int = 256
+    resize: tuple | None = None
+    method: str = "gather"
+
+
+def check_supported(cfg: AugmentConfig, h: int, w: int) -> None:
+    """Raise where the JAX package would take a path the port lacks: the
+    gather warp (``method="gather"``, or H, W or the crop not multiples of
+    8 under ``method="shear"``) and the pre-augmentation resize."""
+    if cfg.resize is not None:
+        raise NotImplementedError("augmentation resize is not ported yet")
+    if cfg.method not in ("shear", "gather"):
+        raise ValueError(f"unknown augmentation method {cfg.method!r}")
+    if (cfg.method == "gather" or h % 8 or w % 8 or cfg.crop_size % 8):
+        raise NotImplementedError(
+            "gather augmentation not ported yet (method='shear' with H, W "
+            f"and the crop multiples of 8 is; got {cfg.method!r}, {h}x{w}, "
+            f"crop {cfg.crop_size})")
+
+
+def _off_range(dim: int, crop: int) -> tuple[int, int]:
+    """[lo, hi) of a crop offset: inside the image randint(0, dim - crop);
+    dim == crop gives 0; a crop LARGER than the image places the image at
+    a random position inside the zero-padded crop, offsets in
+    [-(crop - dim), 0)."""
+    if dim > crop:
+        return 0, dim - crop
+    if dim == crop:
+        return 0, 1
+    return -(crop - dim), 0
+
+
+def sample_augment_params(generator: torch.Generator, batch: int,
+                          image_shape: tuple[int, int],
+                          cfg: AugmentConfig,
+                          device: str | torch.device = "cpu") -> dict:
+    """Per-sample parameters, one draw per sample per transform, shared
+    by every stream: scale, angle (f32), flip (bool, ``u <= p``), row_off
+    and col_off (int64), all (batch,) on ``device``, drawn from
+    ``generator`` (which lives on that device)."""
+    h, w = image_shape
+
+    def uniform(lo, hi):
+        u = torch.rand(batch, generator=generator, device=device)
+        return lo + u * (hi - lo)
+
+    scale = uniform(1.0 - cfg.scale, 1.0 + cfg.scale)
+    angle = uniform(-cfg.angle, cfg.angle)
+    # the reference flips when rand() <= flip_prob
+    flip = torch.rand(batch, generator=generator,
+                      device=device) <= cfg.flip_prob
+    r_lo, r_hi = _off_range(h, cfg.crop_size)
+    c_lo, c_hi = _off_range(w, cfg.crop_size)
+    if r_lo < 0 or c_lo < 0:
+        logging.getLogger(__name__).warning(
+            "crop_size %d exceeds the %dx%d image: crops are zero-padded "
+            "with the image randomly placed", cfg.crop_size, h, w)
+    row_off = torch.randint(r_lo, r_hi, (batch,), generator=generator,
+                            device=device)
+    col_off = torch.randint(c_lo, c_hi, (batch,), generator=generator,
+                            device=device)
+    return {"scale": scale, "angle": angle, "flip": flip,
+            "row_off": row_off, "col_off": col_off}
+
+
+def augment_batch(generator: torch.Generator | None,
+                  streams: tuple[torch.Tensor, ...], cfg: AugmentConfig,
+                  params: dict | None = None) -> tuple[torch.Tensor, ...]:
+    """Augment a group of (N, H, W, C) uint8 streams with synchronized
+    draws (from ``generator``, unless ``params`` are given). Returns
+    float32 (N, C, crop, crop) crops in [-1, 1], in the same order."""
+    batch, h, w = streams[0].shape[:3]
+    check_supported(cfg, h, w)
+    splits = [s.shape[-1] for s in streams]
+    stacked = torch.cat(list(streams), dim=-1)
+    if params is None:
+        params = sample_augment_params(generator, batch, (h, w), cfg,
+                                       device=stacked.device)
+    warped = fused_augment_shear(stacked, params, cfg.crop_size,
+                                 max_angle_deg=cfg.angle)
+    return tuple(torch.split(warped, splits, dim=1))
+
+
+def normalize_batch(streams: tuple[torch.Tensor, ...]
+                    ) -> tuple[torch.Tensor, ...]:
+    """uint8 (N, H, W, C) -> float32 (N, C, H, W) in [-1, 1], no
+    augmentation (the validation path)."""
+    return tuple(s.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
+                 for s in streams)

@@ -1,12 +1,14 @@
-"""Carry JAX package weights into the port's modules.
+"""Carry weights between the JAX package's flax trees and the port.
 
-The JAX package keeps a generator's weights as the flax tree
+The JAX package keeps a network's weights as the flax tree
 ``{"params": ..., "batch_stats": ...}``; here it arrives as nested dicts
 of numpy arrays (``np.asarray`` of the JAX arrays, or an ``.npz`` read by
 ``serving/engine.py``). HWIO kernels become OIHW; BatchNorm
 ``scale``/``bias``/``mean``/``var`` go to ``weight``/``bias``/
 ``running_mean``/``running_var``. Flax numbers ``_Up_k`` in creation
 order, so ``_Up_0`` is the innermost decoder level (``MNet.ups[0]``).
+MNet, PatchGAN and the VGG-19-BN features are mapped;
+:func:`torch_to_flax_tree` is the inverse.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from torch import nn
 
 from shadow_removal_istd_tpu_torch.models.mnet import MNet
+from shadow_removal_istd_tpu_torch.models.patchgan import PatchGAN
+from shadow_removal_istd_tpu_torch.models.vgg import VGG19Features
 
 TreePath = tuple[str, ...]
 
@@ -73,25 +77,75 @@ def _mnet_targets(m: MNet) -> dict[TreePath, torch.Tensor]:
     return t
 
 
+def _patchgan_targets(m: PatchGAN) -> dict[TreePath, torch.Tensor]:
+    t: dict[TreePath, torch.Tensor] = {
+        ("params", "Conv_0", "Conv_0", "kernel"): m.stem.weight,
+        ("params", "Conv_0", "Conv_0", "bias"): m.stem.bias,
+    }
+    for k, (conv, norm) in enumerate(zip(m.convs, m.norms)):
+        t[("params", f"ConvReflect_{k}", "Conv_0", "kernel")] = conv.weight
+        scope = (f"ActNorm_{k}", "BatchNorm_0")
+        t[("params", *scope, "scale")] = norm.bn.weight
+        t[("params", *scope, "bias")] = norm.bn.bias
+        t[("batch_stats", *scope, "mean")] = norm.bn.running_mean
+        t[("batch_stats", *scope, "var")] = norm.bn.running_var
+    t[("params", f"ConvReflect_{len(m.convs)}", "Conv_0", "kernel")] = \
+        m.final.weight
+    return t
+
+
+def _vgg_targets(m: VGG19Features) -> dict[TreePath, torch.Tensor]:
+    t: dict[TreePath, torch.Tensor] = {}
+    for i, cb in enumerate(m.convbns()):
+        t[("params", f"Conv_{i}", "kernel")] = cb.weight
+        t[("params", f"Conv_{i}", "bias")] = cb.bias
+        t[("params", f"BatchNorm_{i}", "scale")] = cb.bn_weight
+        t[("params", f"BatchNorm_{i}", "bias")] = cb.bn_bias
+        t[("batch_stats", f"BatchNorm_{i}", "mean")] = cb.running_mean
+        t[("batch_stats", f"BatchNorm_{i}", "var")] = cb.running_var
+    return t
+
+
+_TARGETS = {MNet: _mnet_targets, PatchGAN: _patchgan_targets,
+            VGG19Features: _vgg_targets}
+
+
+def targets(module: nn.Module) -> dict[TreePath, torch.Tensor]:
+    """Flax leaf path -> the module tensor it maps to."""
+    fn = _TARGETS.get(type(module))
+    if fn is None:
+        raise NotImplementedError(
+            f"weight conversion for {type(module).__name__} is not ported "
+            "yet")
+    return fn(module)
+
+
+def torch_to_flax_tree(module: nn.Module) -> dict:
+    """The module's weights as the flax ``{"params", "batch_stats"}``
+    tree of f32 numpy leaves (OIHW kernels back to HWIO); the inverse
+    of :func:`flax_tree_to_torch`."""
+    flat = {}
+    for path, src in targets(module).items():
+        arr = src.detach().float().cpu().numpy()
+        flat[path] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+    return unflatten_tree(flat)
+
+
 def flax_tree_to_torch(tree: Mapping, module: nn.Module) -> nn.Module:
     """Load a JAX ``{"params", "batch_stats"}`` tree into ``module``.
 
     Raises on a missing or extra leaf and on any shape mismatch, before
     any value is written. Values are upcast to f32 (exact for bf16) and
     copied into the module's own dtype and device."""
-    if not isinstance(module, MNet):
-        raise NotImplementedError(
-            f"weight conversion for {type(module).__name__} is not ported "
-            "yet")
-    targets = _mnet_targets(module)
+    dsts = targets(module)
     leaves = flatten_tree(tree)
-    missing = sorted(targets.keys() - leaves.keys())
-    extra = sorted(leaves.keys() - targets.keys())
+    missing = sorted(dsts.keys() - leaves.keys())
+    extra = sorted(leaves.keys() - dsts.keys())
     if missing or extra:
         raise ValueError(f"tree does not match {type(module).__name__}: "
                          f"missing {missing}, extra {extra}")
     staged = []
-    for path, dst in targets.items():
+    for path, dst in dsts.items():
         arr = np.asarray(leaves[path]).astype(np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)                    # HWIO -> OIHW

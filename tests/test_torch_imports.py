@@ -34,7 +34,11 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_files_found():
     assert "chip_smoke.py" in FILES
-    assert "shadow_removal_istd_tpu_torch/ops/decoder.py" in FILES
+    for rel in ("ops/decoder.py", "ops/shear.py", "ops/augment.py",
+                "losses/adversarial.py", "losses/visual.py",
+                "data/device_cache.py", "data/synthetic.py",
+                "engine/loop.py", "models/patchgan.py", "models/vgg.py"):
+        assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 
 @pytest.mark.parametrize("rel", FILES)
@@ -47,6 +51,21 @@ def test_engine_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(ngf=4)
+
+
+def test_trainer_without_card_raises(monkeypatch):
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(TrainConfig(ngf=4, ndf=4, batch_size=2, image_size=32,
+                            aug_method="shear"),
+                synthetic_triplets(2, 32, 32), seed=0,
+                allow_missing_vgg=True)
 
 
 def test_chip_smoke_fails_without_card():

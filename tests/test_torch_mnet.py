@@ -23,6 +23,7 @@ is held:
   tests/test_torch_decoder.py::test_phase_kernel_equals_jax;
 - the area gate (>= 4500): the 256x320 cases cross it.
 """
+import copy
 import functools
 
 import jax
@@ -166,9 +167,27 @@ def test_divisibility_check():
 
 
 def test_training_forward_not_ported():
+    """Kept under its first name: the training forward, which once
+    raised "not ported yet", now runs (its parity with JAX is in
+    tests/test_torch_train_models.py), and entering training drops the
+    frozen eval kernels, so an eval after training uses the new
+    weights."""
     g = get_generator("mnet", in_channels=3, out_channels=1, ngf=4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        g(torch.zeros(1, 3, 32, 32))
+    init_weights_(g, torch.Generator().manual_seed(0))
+    x = torch.zeros(2, 3, 32, 32).uniform_(-1, 1, generator=torch.Generator()
+                                           .manual_seed(1))
+    g.eval().freeze()
+    assert g.final.frozen is not None
+    y = g.train()(x)
+    assert y.shape == (2, 1, 32, 32) and y.requires_grad
+    assert g.final.frozen is None
+    assert not torch.equal(g.downs[0].bn.running_mean,
+                           torch.zeros_like(g.downs[0].bn.running_mean))
+    with torch.no_grad():
+        g.stem.weight.mul_(1.5)          # an update after the freeze
+        got = g.eval()(x)
+        fresh = copy.deepcopy(g)         # unfrozen eval, current weights
+        torch.testing.assert_close(got, fresh(x), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("key", ["unet", "denseunet", "stcgan", "nope"])
@@ -219,7 +238,7 @@ def test_batchnorm_eval_matches_jax(dtype):
         j["x"], False).astype(jnp.float32))
     t = {k: torch.from_numpy(np.array(v.astype(jnp.float32)))
          for k, v in j.items()}
-    bn = BatchNorm(c)
+    bn = BatchNorm(c).eval()          # modules start in training mode
     with torch.no_grad():
         for name, key in (("weight", "scale"), ("bias", "bias"),
                           ("running_mean", "mean"), ("running_var", "var")):
