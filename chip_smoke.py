@@ -8,13 +8,20 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 
 Phases; any failure exits non-zero before the result line is printed:
 
-1. build: compiles ``csrc/decoder_upsample.cu`` and ``csrc/hshear.cu``
-   for ``sm_90a`` (one ``nvcc`` each, started together), prints the card,
-   its power limit and the compiler's register report;
-2. decoder kernel vs plain: the decoder kernel against its plain PyTorch
-   version on the card at every MNet decoder step of a 256x256 and a
-   480x640 input at ngf 64, batch 2, f32 and bf16, one-part and
-   split-skip two-part forms (max abs 2e-5 in f32, 3e-2 in bf16);
+1. build: compiles ``csrc/decoder_upsample.cu``,
+   ``csrc/decoder_upsample_tc.cu`` and ``csrc/hshear.cu`` for ``sm_90a``
+   (one ``nvcc`` each, started together), prints the card, its power
+   limit and the compiler's register, spill and shared-memory report;
+2. decoder kernel vs plain: the decoder kernels against their plain
+   PyTorch version on the card at every MNet decoder step of a 256x256
+   and a 480x640 input at ngf 64, batch 2, f32 and bf16, one-part and
+   split-skip two-part forms, edge padding, and at 480x640 in bf16 also
+   zero padding (max abs 2e-5 in f32, 3e-2 in bf16); each check names
+   the variant that ran, which must be the tensor-core kernel for every
+   bf16 step with Co >= 32 and the CUDA-core kernel for the rest; at
+   256x256 the tensor-core steps also count the bf16 outputs that differ
+   from the rounded float64 value, beside both kernels' and the plain
+   version's count (``[accuracy]``);
 3. shear kernel vs plain: ``hshear`` against its plain version at the
    three pass shapes of the training augmentation (batch 16, 7 channels,
    480x640 -> 256) and at ragged ones (max abs 3e-5 on 0-255 data), then
@@ -24,9 +31,10 @@ Phases; any failure exits non-zero before the result line is printed:
    weights) behind ``ShadowRemovalServer`` on loopback answers 4
    concurrent 480x640 PNG requests and one 256x256 (rows in all five PNG
    filter types; the host's decode time per request is printed); replies
-   decode to the right shapes, the decoder kernel's launch count rises
-   by 10 per stacked forward, and the kernel path's uint8 output is
-   within 2 gray levels of the same engine forced onto the plain decoder;
+   decode to the right shapes, the decoder's launch count rises by 10
+   per stacked forward (8 tensor-core, 2 CUDA-core), and the kernel
+   path's uint8 output is within 2 gray levels of the same engine forced
+   onto the plain decoder;
 5. training: ``Trainer`` at the JAX CLI's defaults (G1/G2 MNet ngf 64,
    ConvTranspose decoder, droprate 0.05; D1/D2 PatchGAN ndf 64; batch 16,
    256x256 shear-augmented crops of 64 synthetic 480x640 triplets on the
@@ -34,15 +42,18 @@ Phases; any failure exits non-zero before the result line is printed:
    epochs of 4 steps, validating 16 full-resolution triplets after each:
    metrics finite, every network's parameters and BatchNorm statistics
    moved, ``hshear`` launched exactly 3 times per step and the decoder
-   kernel 10 times per validation forward; then one bf16 epoch;
+   kernel 10 times per validation forward (all CUDA-core in f32); then
+   one bf16 epoch (validation: 8 tensor-core, 2 CUDA-core launches);
 6. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
-   beside the plain version's, a cuDNN convolution of the same step and
-   its bound, and stacked img/s at 256x256, batch 32, bf16; the training
-   step's img/s and its split by phase, each ``hshear`` pass beside its
-   plain version, ``F.grid_sample`` and its bound, the decoder kernel's
-   zero-pad (ConvTranspose) form at the validation shapes, and the
-   validation img/s.
+   beside the CUDA-core variant's on the same inputs (the wide bf16
+   steps' before/after), the plain version's, a cuDNN convolution of the
+   same step and its bound, and stacked img/s at 256x256, batch 32, bf16,
+   with the chosen kernels, the CUDA-core kernel only and the plain
+   decoder, in turns; the training step's img/s and its split by phase,
+   each ``hshear`` pass beside its plain version, ``F.grid_sample`` and
+   its bound, the decoder kernel's zero-pad (ConvTranspose) form at the
+   validation shapes, and the validation img/s.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
@@ -73,12 +84,13 @@ NGF = 64
 DEVICE = "cuda"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SOURCE = "shadow_removal_istd_tpu_torch/csrc/decoder_upsample.cu"
+SOURCE_TC = "shadow_removal_istd_tpu_torch/csrc/decoder_upsample_tc.cu"
 REPLACES = "shadow_removal_istd_tpu/ops/pallas_decoder.py:61"
 SHEAR_SOURCE = "shadow_removal_istd_tpu_torch/csrc/hshear.cu"
 SHEAR_REPLACES = "shadow_removal_istd_tpu/ops/pallas_shear.py:47"
 SHEAR_TOL = 3e-5        # 0-255 data: one f32 ulp at 255
 AUG_TOL = 1e-5          # fused augmentation output in [-1, 1]
-KERNELS = ("decoder_upsample", "hshear")
+KERNELS = ("decoder_upsample", "decoder_upsample_tc", "hshear")
 # the training slice's data: 64 train + 16 validation triplets at ISTD's
 # 480x640, batch 16, 256 crops (TrainConfig's defaults); a CPU rehearsal
 # shrinks these and TRAIN_KW (TrainConfig overrides)
@@ -138,6 +150,65 @@ def step_cost(n, h, w, parts, co, final, elt):
     return flops, nbytes
 
 
+def expected_variant(dtype, final) -> str:
+    """The decoder kernel an MNet step at ngf 64 must run on: every
+    channel count there is a multiple of 8 and every tensor aligned."""
+    return ("tensor_core" if dtype == torch.bfloat16 and not final
+            else "cuda_core")
+
+
+def reset_decoder_counts() -> None:
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+
+    decoder_upsample.launches = 0
+    for k in decoder_upsample.launches_by_variant:
+        decoder_upsample.launches_by_variant[k] = 0
+
+
+def counted(parts, w4, s4, b4, **kw):
+    """``decoder_upsample``'s output and the variant whose count rose."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+
+    before = dict(decoder_upsample.launches_by_variant)
+    out = decoder_upsample(parts, w4, s4, b4, **kw)
+    rose = [k for k, n in decoder_upsample.launches_by_variant.items()
+            if n != before[k]]
+    return out, "+".join(rose)
+
+
+def cuda_core_only(parts, w4, scale4=None, bias4=None, *, leaky,
+                   zero_pad=False):
+    """``decoder_upsample`` with every step on the CUDA-core kernel, the
+    kernel every step ran on before the tensor-core variant (timing
+    only; not counted)."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import _launch
+
+    return _launch(tuple(parts), w4, scale4, bias4, w4.shape[-1] // 4,
+                   leaky, zero_pad, "cuda_core")[0]
+
+
+def decoder_f64(parts, w4, s4, b4, *, leaky, zero_pad=False):
+    """The decoder step's spec (``decoder_upsample_plain``) with the
+    convolution and the affine in float64: the exact value a kernel's
+    bf16 output should round from."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import (
+        subpixel_depth_to_space,
+    )
+
+    F = torch.nn.functional
+    n, _, h, w = parts[0].shape
+    acc, off = 0.0, 0
+    for x in parts:
+        a = F.pad((F.leaky_relu(x, 0.2) if leaky else x).double(),
+                  (1, 1, 1, 1), mode="constant" if zero_pad else "replicate")
+        k = w4[:, :, off:off + x.shape[1]].double().permute(3, 2, 0, 1)
+        acc, off = acc + F.conv2d(a, k), off + x.shape[1]
+    if s4 is not None:
+        acc = acc * s4.double().view(1, -1, 1, 1) \
+            + b4.double().view(1, -1, 1, 1)
+    return subpixel_depth_to_space(acc, h, w, w4.shape[-1] // 4)
+
+
 def time_ms(fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
@@ -177,10 +248,10 @@ def phase_build():
 
 def phase_kernel_vs_plain() -> dict:
     from shadow_removal_istd_tpu_torch.ops.decoder import (
-        decoder_upsample,
         decoder_upsample_plain,
     )
 
+    torch.backends.cudnn.allow_tf32 = False   # the f32 checks hold f32
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for h, w in ((256, 256), (480, 640)):
@@ -192,30 +263,50 @@ def phase_kernel_vs_plain() -> dict:
                     memory_format=torch.channels_last)])]
                 if len(xs) == 2:
                     forms.append(("split", xs))
-                for form, args in forms:
-                    kw = dict(leaky=not final, zero_pad=False)
-                    got = decoder_upsample(args, w4, s4, b4, **kw)
+                # the bf16 validation epoch runs the zero-pad form
+                pads = (False, True) if (
+                    (h, w) == (480, 640) and dtype == torch.bfloat16) \
+                    else (False,)
+                for (form, args), zero_pad in [(f, z) for f in forms
+                                               for z in pads]:
+                    kw = dict(leaky=not final, zero_pad=zero_pad)
+                    got, variant = counted(args, w4, s4, b4, **kw)
                     want = decoder_upsample_plain(args, w4, s4, b4, **kw)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
-                    ok = err <= TOL[dtype] and got.shape == want.shape
+                    ok = (err <= TOL[dtype] and got.shape == want.shape
+                          and variant == expected_variant(dtype, final))
                     worst[dtype] = max(worst[dtype], err)
                     print(f"[check] {h}x{w} step {label:<24} "
-                          f"{str(dtype)[6:]:<8} {form:<6} max_abs_err "
-                          f"{err:.3e} (tol {TOL[dtype]:.0e}) "
+                          f"{str(dtype)[6:]:<8} {form:<6} "
+                          f"{'zero' if zero_pad else 'edge'} {variant:<11} "
+                          f"max_abs_err {err:.3e} (tol {TOL[dtype]:.0e}) "
                           f"{'ok' if ok else 'FAIL'}")
                     if not ok:
-                        raise SystemExit(f"kernel disagrees at {h}x{w} "
-                                         f"{label} {dtype} {form}")
+                        raise SystemExit(f"kernel disagrees or wrong "
+                                         f"variant at {h}x{w} {label} "
+                                         f"{dtype} {form} {kw}")
+                if (h, w) == (256, 256) and variant == "tensor_core":
+                    # outputs off the bf16 rounding of the exact value
+                    exact = decoder_f64(args, w4, s4, b4, **kw).to(dtype)
+                    off = {name: int((o != exact).sum()) for name, o in (
+                        ("tensor_core", got),
+                        ("cuda_core", cuda_core_only(args, w4, s4, b4,
+                                                     **kw)),
+                        ("plain", want))}
+                    print(f"[accuracy] 256x256 step {label:<24} bf16 "
+                          f"outputs off the rounded f64 value, of "
+                          f"{got.numel()}: " + ", ".join(
+                              f"{k} {v}" for k, v in off.items()))
     # the ConvTranspose form (zero padding), f32, at the 16x16 step
     xs, w4, s4, b4 = step_inputs(2, 16, 16, (512, 512), 256, False,
                                  torch.float32, gen)
-    got = decoder_upsample(xs, w4, s4, b4, leaky=True, zero_pad=True)
+    got, variant = counted(xs, w4, s4, b4, leaky=True, zero_pad=True)
     want = decoder_upsample_plain(xs, w4, s4, b4, leaky=True, zero_pad=True)
     err = (got - want).abs().max().item()
-    print(f"[check] zero-pad (ConvTranspose) form 16x16 f32 max_abs_err "
-          f"{err:.3e}")
-    if err > TOL[torch.float32]:
+    print(f"[check] zero-pad (ConvTranspose) form 16x16 f32 {variant} "
+          f"max_abs_err {err:.3e}")
+    if err > TOL[torch.float32] or variant != "cuda_core":
         raise SystemExit("kernel disagrees in the zero-pad form")
     return worst
 
@@ -230,7 +321,7 @@ def _post(addr, body, path="/v1/unshadow"):
         conn.close()
 
 
-def phase_serving() -> int:
+def phase_serving() -> tuple[int, dict]:
     from shadow_removal_istd_tpu_torch.models import layers
     from shadow_removal_istd_tpu_torch.ops.decoder import (
         decoder_upsample,
@@ -273,12 +364,13 @@ def phase_serving() -> int:
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     try:
-        decoder_upsample.launches = 0
+        reset_decoder_counts()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
             replies = list(pool.map(lambda b: _post(srv.address, b), bodies))
         wall = time.perf_counter() - t0
         launches = decoder_upsample.launches
+        by_variant = dict(decoder_upsample.launches_by_variant)
         snap = srv.stats.snapshot()
     finally:
         srv.shutdown()
@@ -291,10 +383,13 @@ def phase_serving() -> int:
             raise SystemExit(f"reply shape {out.shape} != {im.shape}")
     print(f"[serve] {len(replies)} concurrent requests (4x 480x640, "
           f"1x 256x256) answered in {wall:.3f} s; batches "
-          f"{snap['batches']}, kernel launches {launches}")
-    if launches == 0 or launches != 10 * snap["batches"]:
+          f"{snap['batches']}, kernel launches {launches} {by_variant}")
+    nb = snap["batches"]
+    if (launches == 0 or launches != 10 * nb
+            or by_variant != {"tensor_core": 8 * nb, "cuda_core": 2 * nb}):
         raise SystemExit(f"expected 10 kernel launches per stacked "
-                         f"forward, got {launches} for {snap['batches']}")
+                         f"forward (8 tensor-core, 2 CUDA-core), got "
+                         f"{launches} {by_variant} for {nb}")
     got = engine.infer_group(imgs[:4])
     with mock.patch.object(layers, "decoder_upsample",
                            decoder_upsample_plain):
@@ -305,10 +400,10 @@ def phase_serving() -> int:
           f"diff {diff} gray levels (limit 2)")
     if diff > 2:
         raise SystemExit("kernel path disagrees with the plain decoder")
-    return launches
+    return launches, by_variant
 
 
-def phase_timings(worst_err: dict, launches: int) -> dict:
+def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
     from shadow_removal_istd_tpu_torch.models import layers
     from shadow_removal_istd_tpu_torch.ops.decoder import (
         decoder_upsample,
@@ -320,24 +415,34 @@ def phase_timings(worst_err: dict, launches: int) -> dict:
     dt = torch.bfloat16
     totals = {}
     for (h, w), n in (((256, 256), 32), ((480, 640), 4)):
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                   ops_ms=0.0, bytes_ms=0.0)
+        tot = dict(ms=0.0, cuda_core_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, wide_ms=0.0,
+                   wide_cuda_core_ms=0.0, wide_library_ms=0.0,
+                   wide_bound_ms=0.0)
         for label, sh, sw, parts, co, final in decoder_steps(h, w):
             xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final, dt,
                                          gen)
             kw = dict(leaky=not final, zero_pad=False)
-            # the timed inputs, held to the plain version first
-            err = (decoder_upsample(xs, w4, s4, b4, **kw).float()
-                   - decoder_upsample_plain(xs, w4, s4, b4, **kw).float()
-                   ).abs().max().item()
-            worst_err[dt] = max(worst_err[dt], err)
+            # the timed inputs, held to the plain version first, through
+            # the chosen kernel and through the CUDA-core one
+            want = decoder_upsample_plain(xs, w4, s4, b4, **kw).float()
+            got, variant = counted(xs, w4, s4, b4, **kw)
+            err = (got.float() - want).abs().max().item()
+            err_cc = (cuda_core_only(xs, w4, s4, b4, **kw).float()
+                      - want).abs().max().item()
+            worst_err[dt] = max(worst_err[dt], err, err_cc)
+            ok = (max(err, err_cc) <= TOL[dt]
+                  and variant == expected_variant(dt, final))
             print(f"[check] {h}x{w} b{n} step {label:<24} bfloat16 "
-                  f"{'split' if len(xs) == 2 else 'single'} max_abs_err "
-                  f"{err:.3e} (tol {TOL[dt]:.0e}) "
-                  f"{'ok' if err <= TOL[dt] else 'FAIL'}")
-            if err > TOL[dt]:
-                raise SystemExit(f"kernel disagrees at {h}x{w} b{n} {label}")
+                  f"{'split' if len(xs) == 2 else 'single'} {variant} "
+                  f"max_abs_err {err:.3e}, cuda_core {err_cc:.3e} (tol "
+                  f"{TOL[dt]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"kernel disagrees or wrong variant at "
+                                 f"{h}x{w} b{n} {label}")
             ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw))
+            ms_cc = (ms if variant == "cuda_core" else
+                     time_ms(lambda: cuda_core_only(xs, w4, s4, b4, **kw)))
             plain = time_ms(
                 lambda: decoder_upsample_plain(xs, w4, s4, b4, **kw))
             # the step's convolution alone, as one cuDNN call
@@ -349,21 +454,33 @@ def phase_timings(worst_err: dict, launches: int) -> dict:
             flops, nbytes = step_cost(n, sh, sw, parts, co, final, 2)
             t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
             bound = max(t_ops, t_bytes)
-            print(f"[time] {h}x{w} b{n} step {label:<24} kernel {ms:.4f} ms"
-                  f" | plain {plain:.4f} | cudnn conv {lib:.4f} | bound "
-                  f"{bound:.4f} ({'ops' if t_ops >= t_bytes else 'bytes'})"
-                  f" | {flops / ms / 1e9:.1f} TFLOP/s")
+            print(f"[time] {h}x{w} b{n} step {label:<24} {variant} "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) | "
+                  f"cuda_core {ms_cc:.4f} ({flops / ms_cc / 1e9:.1f} "
+                  f"TFLOP/s) | plain {plain:.4f} | cudnn conv {lib:.4f} | "
+                  f"bound {bound:.4f} "
+                  f"({'ops' if t_ops >= t_bytes else 'bytes'})")
             reps = 1 if final else 2        # G1 and G2 each run the step
-            tot["ms"] += reps * ms
-            tot["plain_ms"] += reps * plain
-            tot["library_ms"] += reps * lib
-            tot["bound_ms"] += reps * bound
-            tot["ops_ms"] += reps * t_ops
-            tot["bytes_ms"] += reps * t_bytes
+            for key, v in (("ms", ms), ("cuda_core_ms", ms_cc),
+                           ("plain_ms", plain), ("library_ms", lib),
+                           ("bound_ms", bound), ("ops_ms", t_ops),
+                           ("bytes_ms", t_bytes)):
+                tot[key] += reps * v
+            if not final:
+                for key, v in (("wide_ms", ms), ("wide_cuda_core_ms", ms_cc),
+                               ("wide_library_ms", lib),
+                               ("wide_bound_ms", bound)):
+                    tot[key] += reps * v
         print(f"[time] {h}x{w} b{n} per stacked forward (10 launches): "
-              f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+              f"kernels {tot['ms']:.4f} ms, cuda_core only "
+              f"{tot['cuda_core_ms']:.4f}, plain {tot['plain_ms']:.4f}, "
               f"cudnn conv {tot['library_ms']:.4f}, bound "
               f"{tot['bound_ms']:.4f}")
+        print(f"[time] {h}x{w} b{n} wide bf16 steps (8 launches): "
+              f"tensor_core {tot['wide_ms']:.4f} ms, cuda_core "
+              f"{tot['wide_cuda_core_ms']:.4f}, cudnn conv "
+              f"{tot['wide_library_ms']:.4f}, bound "
+              f"{tot['wide_bound_ms']:.4f}")
         totals[(h, w)] = tot
 
     engine = InferenceEngine("mnet", ngf=NGF, dtype="bfloat16",
@@ -371,13 +488,21 @@ def phase_timings(worst_err: dict, launches: int) -> dict:
                              device=DEVICE)
     x = torch.randint(0, 256, (32, 256, 256, 3), dtype=torch.uint8,
                       device=DEVICE, generator=gen)
-    ms = time_ms(lambda: engine._stacked(x), iters=10)
-    with mock.patch.object(layers, "decoder_upsample",
-                           decoder_upsample_plain):
-        ms_plain = time_ms(lambda: engine._stacked(x), iters=10)
-    print(f"[time] stacked G1+G2 256x256 b32 bf16: {32e3 / ms:.1f} img/s "
-          f"({ms:.3f} ms/batch); plain decoder {32e3 / ms_plain:.1f} img/s "
-          f"({ms_plain:.3f} ms/batch)")
+    # in turns: kernels, CUDA-core only, plain, CUDA-core only, kernels
+    runs = {}
+    for name, fn in (("kernels", decoder_upsample),
+                     ("cuda_core", cuda_core_only),
+                     ("plain", decoder_upsample_plain),
+                     ("cuda_core", cuda_core_only),
+                     ("kernels", decoder_upsample)):
+        with mock.patch.object(layers, "decoder_upsample", fn):
+            runs.setdefault(name, []).append(
+                time_ms(lambda: engine._stacked(x), iters=10))
+    ms = sum(runs["kernels"]) / 2
+    print("[time] stacked G1+G2 256x256 b32 bf16: " + "; ".join(
+        f"{name} {32e3 * len(v) / sum(v):.1f} img/s ("
+        + ", ".join(f"{t:.3f}" for t in v) + " ms/batch)"
+        for name, v in runs.items()))
     img = np.random.default_rng(1).integers(0, 256, (480, 640, 3),
                                             dtype=np.uint8)
     engine.infer_group([img] * 4)
@@ -389,11 +514,18 @@ def phase_timings(worst_err: dict, launches: int) -> dict:
     profile_stacked(engine, x)
 
     t = totals[(256, 256)]
-    return {"name": "decoder_upsample", "route": "cuda", "source": SOURCE,
+    return {"name": "decoder_upsample", "route": "cuda", "source": SOURCE_TC,
+            "sources": [SOURCE_TC, SOURCE],
             "replaces": REPLACES, "launches": launches,
+            "launches_by_variant": by_variant,
             "max_abs_err": max(worst_err.values()),
             "max_abs_err_f32": worst_err[torch.float32],
-            "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+            "ms": round(t["ms"], 5),
+            "cuda_core_ms": round(t["cuda_core_ms"], 5),
+            "wide_ms": round(t["wide_ms"], 5),
+            "wide_cuda_core_ms": round(t["wide_cuda_core_ms"], 5),
+            "stacked_img_s": round(32e3 / ms, 2),
+            "plain_ms": round(t["plain_ms"], 5),
             "bound_ms": round(t["bound_ms"], 5),
             "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
                          else "bytes"),
@@ -581,10 +713,11 @@ def phase_training() -> dict:
                           vgg_weights=vgg)
         before = _snapshot(trainer)
         hshear.launches = 0
-        decoder_upsample.launches = 0
+        reset_decoder_counts()
         trainer.train(epochs, valid_every=1)
         torch.cuda.synchronize()
         n_shear, n_dec = hshear.launches, decoder_upsample.launches
+        by_variant = dict(decoder_upsample.launches_by_variant)
         wall = time.perf_counter() - t0
         steps = epochs * trainer.cfg.steps_per_epoch
         n_valid = epochs * -(-N_VALID // cfg.batch_size)
@@ -592,14 +725,17 @@ def phase_training() -> dict:
               f"{trainer.cfg.steps_per_epoch} steps + {epochs} validations "
               f"in {wall:.1f} s (build and first calls included); hshear "
               f"launches {n_shear} ({steps} steps), decoder launches "
-              f"{n_dec} ({n_valid} validation batches)")
+              f"{n_dec} {by_variant} ({n_valid} validation batches)")
         _check_history(trainer, dtype)
         if n_shear != 3 * steps:
             raise SystemExit(f"expected {3 * steps} hshear launches, got "
                              f"{n_shear}")
-        if n_dec != 10 * n_valid:
-            raise SystemExit(f"expected {10 * n_valid} decoder launches, "
-                             f"got {n_dec}")
+        wide = 8 * n_valid if dtype == "bfloat16" else 0
+        if n_dec != 10 * n_valid or by_variant != {
+                "tensor_core": wide, "cuda_core": 10 * n_valid - wide}:
+            raise SystemExit(f"expected {10 * n_valid} decoder launches "
+                             f"({wide} tensor-core), got {n_dec} "
+                             f"{by_variant}")
         after = _snapshot(trainer)
         for net in before:
             moved = [float((a.float() - b.float()).abs().max())
@@ -802,12 +938,13 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         xs, w4, s4, b4 = step_inputs(b, sh, sw, parts, co, final,
                                      torch.float32, gen)
         kw = dict(leaky=not final, zero_pad=True)
-        err = (decoder_upsample(xs, w4, s4, b4, **kw)
-               - decoder_upsample_plain(xs, w4, s4, b4, **kw)
+        got, variant = counted(xs, w4, s4, b4, **kw)
+        err = (got - decoder_upsample_plain(xs, w4, s4, b4, **kw)
                ).abs().max().item()
         dec["err"] = max(dec["err"], err)
-        if err > TOL[torch.float32]:
-            raise SystemExit(f"zero-pad kernel disagrees at {label}")
+        if err > TOL[torch.float32] or variant != "cuda_core":
+            raise SystemExit(f"zero-pad kernel disagrees at {label} "
+                             f"({variant})")
         ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw), 10)
         plain = time_ms(
             lambda: decoder_upsample_plain(xs, w4, s4, b4, **kw), 10)
@@ -817,7 +954,7 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
         flops, nbytes = step_cost(b, sh, sw, parts, co, final, 4)
         bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-        print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} kernel "
+        print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} {variant} "
               f"{ms:.4f} ms | plain {plain:.4f} | cudnn conv {lib:.4f} | "
               f"bound {bound:.4f} | max_abs_err {err:.2e} | "
               f"{flops / ms / 1e9:.1f} TFLOP/s")
@@ -864,9 +1001,9 @@ def main() -> int:
     phase_build()
     worst = phase_kernel_vs_plain()
     shear_err = phase_shear_vs_plain()
-    launches = phase_serving()
+    launches, by_variant = phase_serving()
     runs = phase_training()
-    kernel = phase_timings(worst, launches)
+    kernel = phase_timings(worst, launches, by_variant)
     shear_entry, extra = phase_train_timings(runs, shear_err)
     kernel.update(extra)
     print(f"[done] {time.perf_counter() - t0:.1f} s")

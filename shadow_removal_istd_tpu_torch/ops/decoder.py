@@ -16,9 +16,17 @@ never formed. The final MNet layer runs without LeakyReLU and without the
 affine (``leaky=False``, no ``scale4``/``bias4``).
 
 Tensors are NCHW in ``channels_last`` memory. ``w4`` keeps the JAX
-package's ``(2, 2, Ci, 4*Co)`` layout. A CUDA tensor goes to the kernel
-(``csrc/decoder_upsample.cu``); a CPU tensor to
-:func:`decoder_upsample_plain`, which is the kernel's spec.
+package's ``(2, 2, Ci, 4*Co)`` layout. A CPU tensor goes to
+:func:`decoder_upsample_plain`, which is the kernels' spec. A CUDA tensor
+goes to one of two hand-written kernels, chosen by shape
+(:func:`decoder_variant`):
+
+- ``tensor_core`` (``csrc/decoder_upsample_tc.cu``): bf16 with Co >= 32,
+  every channel count a multiple of 8 and 16-byte aligned tensors, i.e.
+  every MNet step at ngf 64 but the final one; ``mma.sync`` on the tensor
+  cores fed by a ``cp.async`` pipeline;
+- ``cuda_core`` (``csrc/decoder_upsample.cu``): everything else (f32,
+  the Co 1/3 final layer, ragged channel counts), FMAs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -33,6 +41,11 @@ import torch.nn.functional as F
 from shadow_removal_istd_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# variant -> (csrc/<library>.cu, C entry point); both share one signature
+_KERNELS = {
+    "tensor_core": ("decoder_upsample_tc", "srit_decoder_upsample_tc"),
+    "cuda_core": ("decoder_upsample", "srit_decoder_upsample"),
+}
 
 
 def subpixel_depth_to_space(y: torch.Tensor, h: int, w: int,
@@ -111,10 +124,28 @@ def _check(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
     return co
 
 
+def decoder_variant(dtype: torch.dtype, ci0: int, ci1: int, co: int,
+                    aligned: bool) -> str:
+    """The kernel that runs a decoder step on the card: ``"tensor_core"``
+    for bf16 with ``co >= 32``, ``ci0``, ``ci1`` (0 for one part) and
+    ``co`` multiples of 8 and every tensor 16-byte ``aligned``;
+    ``"cuda_core"`` for everything else."""
+    if (dtype == torch.bfloat16 and co >= 32 and aligned
+            and ci0 % 8 == 0 and ci1 % 8 == 0 and co % 8 == 0):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 @functools.cache
-def _kernel_fn():
-    """The kernel's C entry point (built on first use), typed once."""
-    fn = _build.load("decoder_upsample").srit_decoder_upsample
+def _kernel_fn(variant: str):
+    """A variant's C entry point (built on first use), typed once."""
+    lib, entry = _KERNELS[variant]
+    fn = getattr(_build.load(lib), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
@@ -124,7 +155,10 @@ def _kernel_fn():
 
 def _launch(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
             scale4: torch.Tensor | None, bias4: torch.Tensor | None,
-            co: int, leaky: bool, zero_pad: bool) -> torch.Tensor:
+            co: int, leaky: bool, zero_pad: bool,
+            variant: str | None = None) -> tuple[torch.Tensor, str]:
+    """Launch the kernel :func:`decoder_variant` picks, or ``variant``
+    (a timing run's side-by-side only); returns (output, variant)."""
     x0 = parts[0]
     dev, dtype = x0.device, x0.dtype
     if dtype not in _KERNEL_DTYPES:
@@ -146,8 +180,11 @@ def _launch(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
     ci1 = parts[1].shape[1] if len(parts) == 2 else 0
     out = torch.empty((n, co, 2 * h, 2 * w), dtype=dtype, device=dev,
                       memory_format=torch.channels_last)
+    if variant is None:
+        variant = decoder_variant(dtype, ci0, ci1, co,
+                                  _aligned(*parts, w4, out))
     with torch.cuda.device(dev):
-        rc = _kernel_fn()(_KERNEL_DTYPES[dtype], x0.data_ptr(),
+        rc = _kernel_fn(variant)(_KERNEL_DTYPES[dtype], x0.data_ptr(),
                 parts[1].data_ptr() if ci1 else None, ci0, ci1,
                 w4.data_ptr(),
                 scale4.data_ptr() if scale4 is not None else None,
@@ -155,9 +192,9 @@ def _launch(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
                 out.data_ptr(), n, h, w, co, int(leaky), int(zero_pad),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"decoder_upsample kernel launch failed "
-                           f"(cudaError {rc})")
-    return out
+        raise RuntimeError(f"decoder_upsample {variant} kernel launch "
+                           f"failed (cudaError {rc})")
+    return out, variant
 
 
 def decoder_upsample(parts: Sequence[torch.Tensor], w4: torch.Tensor,
@@ -168,8 +205,9 @@ def decoder_upsample(parts: Sequence[torch.Tensor], w4: torch.Tensor,
     standing for their channel concat. Returns (N, Co, 2H, 2W) in the
     input dtype, ``channels_last``.
 
-    CUDA tensors launch the kernel (counted in
-    ``decoder_upsample.launches``); CPU tensors take
+    CUDA tensors launch the kernel :func:`decoder_variant` picks (counted
+    in ``decoder_upsample.launches`` and, by variant, in
+    ``decoder_upsample.launches_by_variant``); CPU tensors take
     :func:`decoder_upsample_plain`; any other device raises."""
     parts = tuple(parts)
     co = _check(parts, w4, scale4, bias4)
@@ -179,9 +217,11 @@ def decoder_upsample(parts: Sequence[torch.Tensor], w4: torch.Tensor,
                                       leaky=leaky, zero_pad=zero_pad)
     if kind != "cuda":
         raise ValueError(f"decoder_upsample runs on cuda or cpu, not {kind}")
-    out = _launch(parts, w4, scale4, bias4, co, leaky, zero_pad)
+    out, variant = _launch(parts, w4, scale4, bias4, co, leaky, zero_pad)
     decoder_upsample.launches += 1
+    decoder_upsample.launches_by_variant[variant] += 1
     return out
 
 
 decoder_upsample.launches = 0
+decoder_upsample.launches_by_variant = dict.fromkeys(_KERNELS, 0)

@@ -18,8 +18,11 @@ from shadow_removal_istd_tpu.ops.pallas_decoder import (
     reference_decoder_upsample,
 )
 from shadow_removal_istd_tpu_torch.models import layers as tl
+from shadow_removal_istd_tpu_torch.models.mnet import MNet
 from shadow_removal_istd_tpu_torch.ops.decoder import (
+    _aligned,
     decoder_upsample,
+    decoder_variant,
     subpixel_depth_to_space,
 )
 
@@ -189,3 +192,76 @@ def test_zero_pad_form_is_torch_conv_transpose():
     want = torch.nn.functional.conv_transpose2d(
         x, w.flip(2, 3).permute(1, 0, 2, 3), stride=2, padding=1)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+
+
+def _mnet_steps(ngf):
+    """Every decoder step of a split-skip G1 (out 1) and G2 (out 3) MNet
+    at ``ngf``: (label, k, part channels, Co), ``k`` counting from the
+    innermost step (0) to the final one (4), read off the port's modules
+    (built on the meta device: no weights are allocated)."""
+    steps = []
+    for out in (1, 3):
+        with torch.device("meta"):
+            net = MNet(3 if out == 1 else 4, out, ngf=ngf, split_skip=True)
+        for k, up in enumerate([u.up for u in net.ups] + [net.final]):
+            co, ci = up.weight.shape[:2]
+            parts = (ci,) if k == 0 else (ci // 2, ci // 2)
+            steps.append((f"G{1 if out == 1 else 2}-step{k}", k, parts, co))
+    return steps
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ngf,k,parts,co", [
+    (ngf, k, parts, co) for ngf in (64, 4)
+    for _, k, parts, co in _mnet_steps(ngf)], ids=[
+    f"ngf{ngf}-{label}" for ngf in (64, 4)
+    for label, *_ in _mnet_steps(ngf)])
+def test_decoder_variant_at_mnet_steps(ngf, k, parts, co, dtype, aligned):
+    """The tensor-core kernel takes the bf16 steps on aligned tensors
+    whose Co is at least 32: at ngf 64 every step but the final one
+    (Co 512, 256, 128, 64), at ngf 4 only the innermost (Co 32). The
+    rest, f32 included, takes the CUDA-core kernel."""
+    wide = k < 4 if ngf == 64 else k == 0
+    want = ("tensor_core" if dtype == torch.bfloat16 and wide and aligned
+            else "cuda_core")
+    ci1 = parts[1] if len(parts) == 2 else 0
+    assert decoder_variant(dtype, parts[0], ci1, co, aligned) == want
+
+
+@pytest.mark.parametrize("ngf,tensor_core", [(64, 8), (4, 2)])
+def test_stacked_forward_launches_by_variant(ngf, tensor_core):
+    """One bf16 stacked G1+G2 forward: 10 decoder launches, of which 8
+    (ngf 64) or 2 (ngf 4) on the tensor cores."""
+    got = [decoder_variant(torch.bfloat16, parts[0],
+                           parts[1] if len(parts) == 2 else 0, co, True)
+           for _, _, parts, co in _mnet_steps(ngf)]
+    assert len(got) == 10
+    assert got.count("tensor_core") == tensor_core
+    assert got.count("cuda_core") == 10 - tensor_core
+
+
+@pytest.mark.parametrize("parts,co", [
+    ((20,), 64),          # Ci no multiple of 8
+    ((32, 12), 64),       # second part no multiple of 8
+    ((32,), 36),          # Co no multiple of 8
+    ((32,), 24),          # Co below 32
+])
+def test_ragged_channels_run_on_cuda_cores(parts, co):
+    ci1 = parts[1] if len(parts) == 2 else 0
+    assert decoder_variant(torch.bfloat16, parts[0], ci1, co,
+                           True) == "cuda_core"
+
+
+def test_alignment_is_read_off_the_data_pointers():
+    """A channels_last bf16 tensor that starts 2 bytes past a 16-byte
+    boundary is not aligned; a fresh one is."""
+    x = torch.zeros(1, 32, 4, 4, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)
+    y = buf.as_strided(x.shape, x.stride(), 1)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert _aligned(x)
+    assert not _aligned(y) and not _aligned(x, y)
+    assert decoder_variant(torch.bfloat16, 32, 0, 64,
+                           _aligned(y)) == "cuda_core"

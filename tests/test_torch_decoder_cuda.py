@@ -1,12 +1,15 @@
-"""The decoder kernel (``csrc/decoder_upsample.cu``) against its plain
-version, on the card, at ragged shapes the MNet path never gives it.
+"""The decoder kernels (``csrc/decoder_upsample.cu``, the CUDA-core
+variant, and ``csrc/decoder_upsample_tc.cu``, the tensor-core one)
+against their plain version, on the card, at ragged shapes the MNet path
+never gives them.
 
-``chip_smoke.py`` holds the kernel to its plain version at the MNet
+``chip_smoke.py`` holds the kernels to their plain version at the MNet
 decoder shapes, which tile evenly. These cases cut every tile edge
 instead: pixel counts that are no multiple of the block's rows, channel
 counts that are no multiple of the K step or the output tile, unequal
-split-skip parts, both padding forms and both epilogues. Tolerances as
-in chip_smoke.py: 2e-5 in f32 (TF32 off), 3e-2 in bf16.
+split-skip parts, both padding forms and both epilogues. Each case
+asserts which variant ran. Tolerances as in chip_smoke.py: 2e-5 in f32
+(TF32 off), 3e-2 in bf16.
 
 Marked ``cuda``; skips without a card. On a machine with one (the tests'
 conftest imports JAX, which that machine need not have)::
@@ -19,6 +22,8 @@ import torch
 from shadow_removal_istd_tpu_torch.ops.decoder import (
     decoder_upsample,
     decoder_upsample_plain,
+    _launch,
+    decoder_variant,
 )
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +55,26 @@ def _inputs(n, h, w, parts, co, affine, dtype, seed=0):
     return xs, w4, s4, b4
 
 
+def _check(xs, w4, s4, b4, zero_pad, leaky, variant):
+    """One launch through the wrapper: ``variant``'s counter rose by one,
+    the output matches the plain version."""
+    kw = dict(leaky=leaky, zero_pad=zero_pad)
+    before = decoder_upsample.launches
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    got = decoder_upsample(xs, w4, s4, b4, **kw)
+    assert decoder_upsample.launches == before + 1
+    by_variant[variant] += 1
+    assert decoder_upsample.launches_by_variant == by_variant
+    want = decoder_upsample_plain(xs, w4, s4, b4, **kw)
+    torch.cuda.synchronize()
+    n, _, h, w = xs[0].shape
+    assert got.shape == want.shape == (n, w4.shape[-1] // 4, 2 * h, 2 * w)
+    assert got.dtype == xs[0].dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[xs[0].dtype], err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,parts,co", [
     (1, 5, 7, (20,), 40),          # 35 pixels; Ci, Co off every tile
@@ -63,17 +88,47 @@ def _inputs(n, h, w, parts, co, affine, dtype, seed=0):
 def test_kernel_matches_plain(cuda, n, h, w, parts, co, zero_pad, final,
                               dtype):
     xs, w4, s4, b4 = _inputs(n, h, w, parts, co, not final, dtype)
-    kw = dict(leaky=not final, zero_pad=zero_pad)
-    before = decoder_upsample.launches
-    got = decoder_upsample(xs, w4, s4, b4, **kw)
-    assert decoder_upsample.launches == before + 1
-    want = decoder_upsample_plain(xs, w4, s4, b4, **kw)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (n, co, 2 * h, 2 * w)
-    assert got.dtype == dtype
-    assert got.is_contiguous(memory_format=torch.channels_last)
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL[dtype], err
+    ci1 = parts[1] if len(parts) == 2 else 0
+    _check(xs, w4, s4, b4, zero_pad, not final,
+           decoder_variant(dtype, parts[0], ci1, co, True))
+
+
+@pytest.mark.parametrize("n,h,w,parts,co", [
+    (1, 5, 7, (24,), 40),            # 35 pixels: M < one tile; Co ragged
+    (2, 15, 20, (512, 512), 256),    # 600 pixels: M ragged, 64 K tiles
+    (2, 3, 9, (24, 16), 72),         # parts no multiple of BK; Co > BN
+    (2, 1, 1, (32,), 32),            # 1x1 input: every tap clamps
+])
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("final", [False, True])
+def test_tensor_core_variant_matches_plain(cuda, n, h, w, parts, co,
+                                           zero_pad, final):
+    """bf16 with every channel count a multiple of 8 and Co >= 32: the
+    tensor-core kernel, with and without LeakyReLU and the affine."""
+    xs, w4, s4, b4 = _inputs(n, h, w, parts, co, not final, torch.bfloat16)
+    _check(xs, w4, s4, b4, zero_pad, not final, "tensor_core")
+
+
+def _misaligned(x):
+    """A channels_last copy of ``x`` whose data starts 2 bytes past a
+    16-byte boundary."""
+    n, c, h, w = x.shape
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf.as_strided((n, c, h, w), (h * w * c, 1, w * c, c), 1)
+    y.copy_(x)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert y.data_ptr() % 16
+    return y
+
+
+def test_misaligned_bf16_runs_on_cuda_cores(cuda):
+    """A wide bf16 step whose input is not 16-byte aligned takes the
+    CUDA-core kernel; the tensor-core entry refuses it."""
+    xs, w4, s4, b4 = _inputs(2, 4, 6, (32, 32), 64, True, torch.bfloat16)
+    parts = (_misaligned(xs[0]), xs[1])
+    _check(parts, w4, s4, b4, False, True, "cuda_core")
+    with pytest.raises(RuntimeError, match="tensor_core kernel launch"):
+        _launch(parts, w4, s4, b4, 64, True, False, "tensor_core")
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
