@@ -9,19 +9,22 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build: compiles ``csrc/decoder_upsample.cu``,
-   ``csrc/decoder_upsample_tc.cu`` and ``csrc/hshear.cu`` for ``sm_90a``
-   (one ``nvcc`` each, started together), prints the card, its power
-   limit and the compiler's register, spill and shared-memory report;
+   ``csrc/decoder_upsample_tc.cu``, ``csrc/decoder_upsample_narrow.cu``
+   and ``csrc/hshear.cu`` for ``sm_90a`` (one ``nvcc`` each, started
+   together), prints the card, its power limit and the compiler's
+   register, spill and shared-memory report;
 2. decoder kernel vs plain: the decoder kernels against their plain
    PyTorch version on the card at every MNet decoder step of a 256x256
    and a 480x640 input at ngf 64, batch 2, f32 and bf16, one-part and
    split-skip two-part forms, edge padding, and at 480x640 in bf16 also
    zero padding (max abs 2e-5 in f32, 3e-2 in bf16); each check names
-   the variant that ran, which must be the tensor-core kernel for every
-   bf16 step with Co >= 32 and the CUDA-core kernel for the rest; at
-   256x256 the tensor-core steps also count the bf16 outputs that differ
-   from the rounded float64 value, beside both kernels' and the plain
-   version's count (``[accuracy]``);
+   the variant that ran, which must be the narrow kernel for the Co 1/3
+   final steps, the tensor-core kernel for every other bf16 step and the
+   CUDA-core kernel for the other f32 steps; at 256x256 the tensor-core
+   and narrow steps also count the outputs that differ from the rounded
+   float64 value, beside the CUDA-core kernel's and the plain version's
+   count (``[accuracy]``); the zero-pad f32 form at the 16x16 step and
+   the 256x256 final steps;
 3. shear kernel vs plain: ``hshear`` against its plain version at the
    three pass shapes of the training augmentation (batch 16, 7 channels,
    480x640 -> 256) and at ragged ones (max abs 3e-5 on 0-255 data), then
@@ -32,7 +35,7 @@ Phases; any failure exits non-zero before the result line is printed:
    concurrent 480x640 PNG requests and one 256x256 (rows in all five PNG
    filter types; the host's decode time per request is printed); replies
    decode to the right shapes, the decoder's launch count rises by 10
-   per stacked forward (8 tensor-core, 2 CUDA-core), and the kernel
+   per stacked forward (8 tensor-core, 2 narrow), and the kernel
    path's uint8 output is within 2 gray levels of the same engine forced
    onto the plain decoder;
 5. training: ``Trainer`` at the JAX CLI's defaults (G1/G2 MNet ngf 64,
@@ -42,18 +45,20 @@ Phases; any failure exits non-zero before the result line is printed:
    epochs of 4 steps, validating 16 full-resolution triplets after each:
    metrics finite, every network's parameters and BatchNorm statistics
    moved, ``hshear`` launched exactly 3 times per step and the decoder
-   kernel 10 times per validation forward (all CUDA-core in f32); then
-   one bf16 epoch (validation: 8 tensor-core, 2 CUDA-core launches);
+   kernel 10 times per validation forward (8 CUDA-core and 2 narrow in
+   f32); then one bf16 epoch (validation: 8 tensor-core, 2 narrow);
 6. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
-   beside the CUDA-core variant's on the same inputs (the wide bf16
-   steps' before/after), the plain version's, a cuDNN convolution of the
-   same step and its bound, and stacked img/s at 256x256, batch 32, bf16,
+   beside the CUDA-core variant's on the same inputs (the before/after
+   of the wide bf16 steps and of the final ones), the plain version's, a
+   cuDNN convolution of the same step, its bound and, for the final
+   steps, the f32 FMA ceiling; stacked img/s at 256x256, batch 32, bf16,
    with the chosen kernels, the CUDA-core kernel only and the plain
    decoder, in turns; the training step's img/s and its split by phase,
    each ``hshear`` pass beside its plain version, ``F.grid_sample`` and
-   its bound, the decoder kernel's zero-pad (ConvTranspose) form at the
-   validation shapes, and the validation img/s.
+   its bound, the decoder kernels' zero-pad (ConvTranspose) form at the
+   validation shapes (wide and final steps apart), and the validation
+   img/s.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
@@ -85,12 +90,15 @@ DEVICE = "cuda"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SOURCE = "shadow_removal_istd_tpu_torch/csrc/decoder_upsample.cu"
 SOURCE_TC = "shadow_removal_istd_tpu_torch/csrc/decoder_upsample_tc.cu"
+SOURCE_NARROW = ("shadow_removal_istd_tpu_torch/csrc/"
+                 "decoder_upsample_narrow.cu")
 REPLACES = "shadow_removal_istd_tpu/ops/pallas_decoder.py:61"
 SHEAR_SOURCE = "shadow_removal_istd_tpu_torch/csrc/hshear.cu"
 SHEAR_REPLACES = "shadow_removal_istd_tpu/ops/pallas_shear.py:47"
 SHEAR_TOL = 3e-5        # 0-255 data: one f32 ulp at 255
 AUG_TOL = 1e-5          # fused augmentation output in [-1, 1]
-KERNELS = ("decoder_upsample", "decoder_upsample_tc", "hshear")
+KERNELS = ("decoder_upsample", "decoder_upsample_tc",
+           "decoder_upsample_narrow", "hshear")
 # the training slice's data: 64 train + 16 validation triplets at ISTD's
 # 480x640, batch 16, 256 crops (TrainConfig's defaults); a CPU rehearsal
 # shrinks these and TRAIN_KW (TrainConfig overrides)
@@ -140,6 +148,12 @@ def step_inputs(n, h, w, parts, co, final, dtype, gen):
     return xs, w4, s4, b4
 
 
+def fma_ceiling_ms(flops, nbytes) -> float:
+    """The least time of a step on the CUDA cores: its FLOPs at the f32
+    FMA rate or its bytes, whichever is longer."""
+    return max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+
+
 def step_cost(n, h, w, parts, co, final, elt):
     """(FLOPs, bytes) a decoder step must do and move: each input read
     once, each output written once."""
@@ -151,10 +165,13 @@ def step_cost(n, h, w, parts, co, final, elt):
 
 
 def expected_variant(dtype, final) -> str:
-    """The decoder kernel an MNet step at ngf 64 must run on: every
-    channel count there is a multiple of 8 and every tensor aligned."""
-    return ("tensor_core" if dtype == torch.bfloat16 and not final
-            else "cuda_core")
+    """The decoder kernel an MNet step at ngf 64 must run on: the final
+    step (Co 1 or 3) on the narrow kernel, the others, whose channel
+    counts are multiples of 8 on aligned tensors, on the tensor cores in
+    bf16 and the CUDA cores in f32."""
+    if final:
+        return "narrow"
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
 
 
 def reset_decoder_counts() -> None:
@@ -286,28 +303,36 @@ def phase_kernel_vs_plain() -> dict:
                         raise SystemExit(f"kernel disagrees or wrong "
                                          f"variant at {h}x{w} {label} "
                                          f"{dtype} {form} {kw}")
-                if (h, w) == (256, 256) and variant == "tensor_core":
-                    # outputs off the bf16 rounding of the exact value
+                if (h, w) == (256, 256) and variant != "cuda_core":
+                    # outputs off the rounding of the exact value
                     exact = decoder_f64(args, w4, s4, b4, **kw).to(dtype)
                     off = {name: int((o != exact).sum()) for name, o in (
-                        ("tensor_core", got),
+                        (variant, got),
                         ("cuda_core", cuda_core_only(args, w4, s4, b4,
                                                      **kw)),
                         ("plain", want))}
-                    print(f"[accuracy] 256x256 step {label:<24} bf16 "
-                          f"outputs off the rounded f64 value, of "
-                          f"{got.numel()}: " + ", ".join(
+                    print(f"[accuracy] 256x256 step {label:<24} "
+                          f"{str(dtype)[6:]} outputs off the rounded f64 "
+                          f"value, of {got.numel()}: " + ", ".join(
                               f"{k} {v}" for k, v in off.items()))
-    # the ConvTranspose form (zero padding), f32, at the 16x16 step
-    xs, w4, s4, b4 = step_inputs(2, 16, 16, (512, 512), 256, False,
-                                 torch.float32, gen)
-    got, variant = counted(xs, w4, s4, b4, leaky=True, zero_pad=True)
-    want = decoder_upsample_plain(xs, w4, s4, b4, leaky=True, zero_pad=True)
-    err = (got - want).abs().max().item()
-    print(f"[check] zero-pad (ConvTranspose) form 16x16 f32 {variant} "
-          f"max_abs_err {err:.3e}")
-    if err > TOL[torch.float32] or variant != "cuda_core":
-        raise SystemExit("kernel disagrees in the zero-pad form")
+    # the ConvTranspose form (zero padding), f32, at the 16x16 step and
+    # the 256x256 final steps (one part, as the validation MNet runs it)
+    for sh, parts, co, final in ((16, (512, 512), 256, False),
+                                 (128, (128,), 1, True),
+                                 (128, (128,), 3, True)):
+        xs, w4, s4, b4 = step_inputs(2, sh, sh, parts, co, final,
+                                     torch.float32, gen)
+        kw = dict(leaky=not final, zero_pad=True)
+        got, variant = counted(xs, w4, s4, b4, **kw)
+        want = decoder_upsample_plain(xs, w4, s4, b4, **kw)
+        err = (got - want).abs().max().item()
+        worst[torch.float32] = max(worst[torch.float32], err)
+        print(f"[check] zero-pad (ConvTranspose) form {sh}x{sh} "
+              f"{'+'.join(map(str, parts))}->{co} f32 {variant} "
+              f"max_abs_err {err:.3e}")
+        if (err > TOL[torch.float32]
+                or variant != expected_variant(torch.float32, final)):
+            raise SystemExit("kernel disagrees in the zero-pad form")
     return worst
 
 
@@ -386,9 +411,10 @@ def phase_serving() -> tuple[int, dict]:
           f"{snap['batches']}, kernel launches {launches} {by_variant}")
     nb = snap["batches"]
     if (launches == 0 or launches != 10 * nb
-            or by_variant != {"tensor_core": 8 * nb, "cuda_core": 2 * nb}):
+            or by_variant != {"tensor_core": 8 * nb, "narrow": 2 * nb,
+                              "cuda_core": 0}):
         raise SystemExit(f"expected 10 kernel launches per stacked "
-                         f"forward (8 tensor-core, 2 CUDA-core), got "
+                         f"forward (8 tensor-core, 2 narrow), got "
                          f"{launches} {by_variant} for {nb}")
     got = engine.infer_group(imgs[:4])
     with mock.patch.object(layers, "decoder_upsample",
@@ -415,10 +441,12 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
     dt = torch.bfloat16
     totals = {}
     for (h, w), n in (((256, 256), 32), ((480, 640), 4)):
-        tot = dict(ms=0.0, cuda_core_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0, wide_ms=0.0,
-                   wide_cuda_core_ms=0.0, wide_library_ms=0.0,
-                   wide_bound_ms=0.0)
+        # sums over the forward's 10 launches, and apart over its 8 wide
+        # steps and its 2 final ones
+        tot = {f"{g}{k}": 0.0 for g in ("", "wide_", "final_")
+               for k in ("ms", "cuda_core_ms", "plain_ms", "library_ms",
+                         "bound_ms", "fma_ms")}
+        tot.update(ops_ms=0.0, bytes_ms=0.0)
         for label, sh, sw, parts, co, final in decoder_steps(h, w):
             xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final, dt,
                                          gen)
@@ -454,23 +482,23 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
             flops, nbytes = step_cost(n, sh, sw, parts, co, final, 2)
             t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
             bound = max(t_ops, t_bytes)
+            fma = fma_ceiling_ms(flops, nbytes)
             print(f"[time] {h}x{w} b{n} step {label:<24} {variant} "
                   f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) | "
                   f"cuda_core {ms_cc:.4f} ({flops / ms_cc / 1e9:.1f} "
                   f"TFLOP/s) | plain {plain:.4f} | cudnn conv {lib:.4f} | "
                   f"bound {bound:.4f} "
-                  f"({'ops' if t_ops >= t_bytes else 'bytes'})")
+                  f"({'ops' if t_ops >= t_bytes else 'bytes'}) | f32 FMA "
+                  f"ceiling {fma:.4f}")
             reps = 1 if final else 2        # G1 and G2 each run the step
+            group = "final_" if final else "wide_"
             for key, v in (("ms", ms), ("cuda_core_ms", ms_cc),
                            ("plain_ms", plain), ("library_ms", lib),
-                           ("bound_ms", bound), ("ops_ms", t_ops),
-                           ("bytes_ms", t_bytes)):
+                           ("bound_ms", bound), ("fma_ms", fma)):
                 tot[key] += reps * v
-            if not final:
-                for key, v in (("wide_ms", ms), ("wide_cuda_core_ms", ms_cc),
-                               ("wide_library_ms", lib),
-                               ("wide_bound_ms", bound)):
-                    tot[key] += reps * v
+                tot[group + key] += reps * v
+            tot["ops_ms"] += reps * t_ops
+            tot["bytes_ms"] += reps * t_bytes
         print(f"[time] {h}x{w} b{n} per stacked forward (10 launches): "
               f"kernels {tot['ms']:.4f} ms, cuda_core only "
               f"{tot['cuda_core_ms']:.4f}, plain {tot['plain_ms']:.4f}, "
@@ -481,6 +509,13 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
               f"{tot['wide_cuda_core_ms']:.4f}, cudnn conv "
               f"{tot['wide_library_ms']:.4f}, bound "
               f"{tot['wide_bound_ms']:.4f}")
+        print(f"[time] {h}x{w} b{n} final steps (2 launches): narrow "
+              f"{tot['final_ms']:.4f} ms, cuda_core "
+              f"{tot['final_cuda_core_ms']:.4f}, plain "
+              f"{tot['final_plain_ms']:.4f}, cudnn conv "
+              f"{tot['final_library_ms']:.4f}, bound "
+              f"{tot['final_bound_ms']:.4f}, f32 FMA ceiling "
+              f"{tot['final_fma_ms']:.4f}")
         totals[(h, w)] = tot
 
     engine = InferenceEngine("mnet", ngf=NGF, dtype="bfloat16",
@@ -515,7 +550,7 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
 
     t = totals[(256, 256)]
     return {"name": "decoder_upsample", "route": "cuda", "source": SOURCE_TC,
-            "sources": [SOURCE_TC, SOURCE],
+            "sources": [SOURCE_TC, SOURCE_NARROW, SOURCE],
             "replaces": REPLACES, "launches": launches,
             "launches_by_variant": by_variant,
             "max_abs_err": max(worst_err.values()),
@@ -524,6 +559,8 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
             "cuda_core_ms": round(t["cuda_core_ms"], 5),
             "wide_ms": round(t["wide_ms"], 5),
             "wide_cuda_core_ms": round(t["wide_cuda_core_ms"], 5),
+            "narrow_ms": round(t["final_ms"], 5),
+            "narrow_cuda_core_ms": round(t["final_cuda_core_ms"], 5),
             "stacked_img_s": round(32e3 / ms, 2),
             "plain_ms": round(t["plain_ms"], 5),
             "bound_ms": round(t["bound_ms"], 5),
@@ -730,12 +767,13 @@ def phase_training() -> dict:
         if n_shear != 3 * steps:
             raise SystemExit(f"expected {3 * steps} hshear launches, got "
                              f"{n_shear}")
-        wide = 8 * n_valid if dtype == "bfloat16" else 0
-        if n_dec != 10 * n_valid or by_variant != {
-                "tensor_core": wide, "cuda_core": 10 * n_valid - wide}:
+        wide = 8 * n_valid
+        want = {"tensor_core": wide if dtype == "bfloat16" else 0,
+                "cuda_core": 0 if dtype == "bfloat16" else wide,
+                "narrow": 2 * n_valid}
+        if n_dec != 10 * n_valid or by_variant != want:
             raise SystemExit(f"expected {10 * n_valid} decoder launches "
-                             f"({wide} tensor-core), got {n_dec} "
-                             f"{by_variant}")
+                             f"{want}, got {n_dec} {by_variant}")
         after = _snapshot(trainer)
         for net in before:
             moved = [float((a.float() - b.float()).abs().max())
@@ -929,10 +967,14 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
 
     tot = time_shear_passes()
 
-    # the decoder kernel's zero-pad (ConvTranspose) form at the
-    # validation shapes: 480x640, batch 16, f32, one part
+    # the decoder kernels' zero-pad (ConvTranspose) form at the
+    # validation shapes: 480x640, batch 16, f32, one part; the final
+    # steps also through the CUDA-core kernel (before/after)
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    dec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    dec = {f"{g}{k}": 0.0 for g in ("", "wide_", "final_")
+           for k in ("ms", "cuda_core_ms", "plain_ms", "library_ms",
+                     "bound_ms")}
+    dec["err"] = 0.0
     for label, sh, sw, parts, co, final in decoder_steps(*DATA_HW):
         parts = (sum(parts),)
         xs, w4, s4, b4 = step_inputs(b, sh, sw, parts, co, final,
@@ -942,10 +984,13 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         err = (got - decoder_upsample_plain(xs, w4, s4, b4, **kw)
                ).abs().max().item()
         dec["err"] = max(dec["err"], err)
-        if err > TOL[torch.float32] or variant != "cuda_core":
+        if (err > TOL[torch.float32]
+                or variant != expected_variant(torch.float32, final)):
             raise SystemExit(f"zero-pad kernel disagrees at {label} "
                              f"({variant})")
         ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw), 10)
+        ms_cc = (ms if variant == "cuda_core" else time_ms(
+            lambda: cuda_core_only(xs, w4, s4, b4, **kw), 10))
         plain = time_ms(
             lambda: decoder_upsample_plain(xs, w4, s4, b4, **kw), 10)
         a = torch.nn.functional.pad(xs[0], (1, 1, 1, 1))
@@ -953,20 +998,30 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
             memory_format=torch.channels_last)
         lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
         flops, nbytes = step_cost(b, sh, sw, parts, co, final, 4)
-        bound = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+        bound = fma_ceiling_ms(flops, nbytes)
         print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} {variant} "
-              f"{ms:.4f} ms | plain {plain:.4f} | cudnn conv {lib:.4f} | "
-              f"bound {bound:.4f} | max_abs_err {err:.2e} | "
-              f"{flops / ms / 1e9:.1f} TFLOP/s")
+              f"{ms:.4f} ms | cuda_core {ms_cc:.4f} | plain {plain:.4f} | "
+              f"cudnn conv {lib:.4f} | bound {bound:.4f} | max_abs_err "
+              f"{err:.2e} | {flops / ms / 1e9:.1f} TFLOP/s")
         reps = 1 if final else 2
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+        group = "final_" if final else "wide_"
+        for key, v in (("ms", ms), ("cuda_core_ms", ms_cc),
+                       ("plain_ms", plain), ("library_ms", lib),
                        ("bound_ms", bound)):
             dec[key] += reps * v
+            dec[group + key] += reps * v
     print(f"[time] zero-pad per stacked forward 480x640 b{b} f32 (10 "
-          f"launches): kernel {dec['ms']:.4f} ms, plain "
-          f"{dec['plain_ms']:.4f}, cudnn conv {dec['library_ms']:.4f}, "
-          f"bound {dec['bound_ms']:.4f}; max_abs_err {dec['err']:.2e} "
-          f"(tol 2e-5)")
+          f"launches): kernels {dec['ms']:.4f} ms, cuda_core only "
+          f"{dec['cuda_core_ms']:.4f}, plain {dec['plain_ms']:.4f}, cudnn "
+          f"conv {dec['library_ms']:.4f}, bound {dec['bound_ms']:.4f}; "
+          f"max_abs_err {dec['err']:.2e} (tol 2e-5)")
+    for group, name, n in (("wide_", "cuda_core", 8), ("final_", "narrow", 2)):
+        print(f"[time] zero-pad 480x640 b{b} f32 {group[:-1]} steps ({n} "
+              f"launches): {name} {dec[group + 'ms']:.4f} ms, cuda_core "
+              f"{dec[group + 'cuda_core_ms']:.4f}, plain "
+              f"{dec[group + 'plain_ms']:.4f}, cudnn conv "
+              f"{dec[group + 'library_ms']:.4f}, bound "
+              f"{dec[group + 'bound_ms']:.4f}")
 
     # validation throughput: eval_step on one full-resolution batch
     sel = torch.arange(b, device=DEVICE)
@@ -986,7 +1041,10 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         "shape": "one augmentation = 3 passes, batch 16, 7 channels, "
                  "480x640 -> 256, f32"}
     extra = {"launches_valid": runs["float32"]["decoder_launches"],
-             "zero_pad_ms": round(dec["ms"], 5)}
+             "zero_pad_ms": round(dec["ms"], 5),
+             "zero_pad_narrow_ms": round(dec["final_ms"], 5),
+             "zero_pad_narrow_cuda_core_ms": round(
+                 dec["final_cuda_core_ms"], 5)}
     return shear_entry, extra
 
 

@@ -230,7 +230,8 @@ int launch(const Params& p, cudaStream_t stream) {
     decoder_upsample_kernel<T, BM, BN, BK, TM, TN>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(p);
   } else {
-    // narrow outputs (the final layer, Co 1 or 3): one pixel per thread
+    // Co below 32 (on the MNet path only at small ngf; Co <= 4, the final
+    // layer, runs on decoder_upsample_narrow.cu): one pixel per thread
     constexpr int BM = 128, BN = 4, BK = 16, TM = 1, TN = 4;
     const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
                     (p.co + BN - 1) / BN, 4);

@@ -1,8 +1,9 @@
 // Fused MNet decoder step on Hopper's tensor cores (sm_90a), CUDA C++:
 // the bf16 form for wide outputs (Co >= 32, every channel count a multiple
-// of 8, 16-byte aligned tensors). The rest (f32, the Co 1/3 final layer,
-// ragged channel counts) runs on decoder_upsample.cu; ops/decoder.py
-// picks one of the two by shape (decoder_variant).
+// of 8, 16-byte aligned tensors). Co <= 4 (the final layer) runs on
+// decoder_upsample_narrow.cu, the rest (f32, ragged channel counts) on
+// decoder_upsample.cu; ops/decoder.py picks one of the three by shape
+// (decoder_variant).
 //
 // Replaces shadow_removal_istd_tpu/ops/pallas_decoder.py::_kernel (entry
 // point fused_decoder_upsample) for those shapes, and computes what

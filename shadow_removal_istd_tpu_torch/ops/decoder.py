@@ -1,4 +1,4 @@
-"""The MNet decoder step as one op, with its CUDA kernel and plain version.
+"""The MNet decoder step as one op, with its CUDA kernels and plain version.
 
 Port of ``shadow_removal_istd_tpu/ops/pallas_decoder.py``
 (``fused_decoder_upsample``): LeakyReLU(0.2) -> 2x2 subpixel phase conv
@@ -18,15 +18,20 @@ affine (``leaky=False``, no ``scale4``/``bias4``).
 Tensors are NCHW in ``channels_last`` memory. ``w4`` keeps the JAX
 package's ``(2, 2, Ci, 4*Co)`` layout. A CPU tensor goes to
 :func:`decoder_upsample_plain`, which is the kernels' spec. A CUDA tensor
-goes to one of two hand-written kernels, chosen by shape
+goes to one of three hand-written kernels, chosen by shape
 (:func:`decoder_variant`):
 
+- ``narrow`` (``csrc/decoder_upsample_narrow.cu``): Co <= 4 in either
+  dtype, i.e. the Co 1/3 final layer; one pass over a spatial tile that
+  reads each input element once for all four phases and taps, FMAs on
+  the CUDA cores;
 - ``tensor_core`` (``csrc/decoder_upsample_tc.cu``): bf16 with Co >= 32,
   every channel count a multiple of 8 and 16-byte aligned tensors, i.e.
   every MNet step at ngf 64 but the final one; ``mma.sync`` on the tensor
   cores fed by a ``cp.async`` pipeline;
-- ``cuda_core`` (``csrc/decoder_upsample.cu``): everything else (f32,
-  the Co 1/3 final layer, ragged channel counts), FMAs on the CUDA cores.
+- ``cuda_core`` (``csrc/decoder_upsample.cu``): everything else (f32 and
+  ragged channel counts with Co >= 5), an implicit GEMM per phase with
+  FMAs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -41,10 +46,11 @@ import torch.nn.functional as F
 from shadow_removal_istd_tpu_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# variant -> (csrc/<library>.cu, C entry point); both share one signature
+# variant -> (csrc/<library>.cu, C entry point); all share one signature
 _KERNELS = {
     "tensor_core": ("decoder_upsample_tc", "srit_decoder_upsample_tc"),
     "cuda_core": ("decoder_upsample", "srit_decoder_upsample"),
+    "narrow": ("decoder_upsample_narrow", "srit_decoder_upsample_narrow"),
 }
 
 
@@ -126,10 +132,13 @@ def _check(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
 
 def decoder_variant(dtype: torch.dtype, ci0: int, ci1: int, co: int,
                     aligned: bool) -> str:
-    """The kernel that runs a decoder step on the card: ``"tensor_core"``
-    for bf16 with ``co >= 32``, ``ci0``, ``ci1`` (0 for one part) and
-    ``co`` multiples of 8 and every tensor 16-byte ``aligned``;
-    ``"cuda_core"`` for everything else."""
+    """The kernel that runs a decoder step on the card: ``"narrow"`` for
+    ``1 <= co <= 4``, whatever the dtype, channel counts and alignment;
+    ``"tensor_core"`` for bf16 with ``co >= 32``, ``ci0``, ``ci1`` (0 for
+    one part) and ``co`` multiples of 8 and every tensor 16-byte
+    ``aligned``; ``"cuda_core"`` for everything else."""
+    if 1 <= co <= 4:
+        return "narrow"
     if (dtype == torch.bfloat16 and co >= 32 and aligned
             and ci0 % 8 == 0 and ci1 % 8 == 0 and co % 8 == 0):
         return "tensor_core"

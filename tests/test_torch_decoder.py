@@ -68,6 +68,8 @@ def _jax_step(x, w4, s4, b4, dtype, fused):
     (1, 12, 16, 8, 8),
     (2, 6, 10, 8, 16),
     (1, 16, 16, 32, 8),
+    (1, 6, 10, 16, 1),    # Co 1 and 3: the narrow kernel's shapes
+    (2, 8, 8, 16, 3),
 ])
 def test_one_part_matches_jax(shape, dtype):
     n, h, w, ci, co = shape
@@ -100,15 +102,22 @@ def test_two_parts_match_jax_on_concat(dtype):
                                    atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("no_conv_t", [True, False])
-@pytest.mark.parametrize("split", [False, True])
-def test_upsample_module_matches_jax(split, no_conv_t, dtype):
-    """The final-layer form (no LeakyReLU, no affine) through
+_UPSAMPLE_CASES = [(split, no_conv_t, dtype, co)
+                   for dtype in ("float32", "bfloat16")
+                   for no_conv_t in (True, False)
+                   for split in (False, True) for co in (3, 1)]
+
+
+@pytest.mark.parametrize(
+    "split,no_conv_t,dtype,co", _UPSAMPLE_CASES,
+    ids=[f"{s}-{n}-{d}" + ("" if co == 3 else f"-co{co}")
+         for s, n, d, co in _UPSAMPLE_CASES])
+def test_upsample_module_matches_jax(split, no_conv_t, dtype, co):
+    """The final-layer form (no LeakyReLU, no affine, Co 3 or 1) through
     ``layers.Upsample`` vs the JAX ``Upsample``, in both upsample forms:
     this holds ``subpixel_phase_kernel`` and the ConvTranspose phase
     kernel (zero padding) to flax's own convs."""
-    n, h, w, ca, cb, co = 2, 6, 8, 8, 8, 3
+    n, h, w, ca, cb = 2, 6, 8, 8, 8
     rng = np.random.default_rng(2)
     k = 3 if no_conv_t else 4
     wk = (rng.standard_normal((k, k, ca + cb, co)) * 0.1).astype(np.float32)
@@ -218,27 +227,49 @@ def _mnet_steps(ngf):
     f"ngf{ngf}-{label}" for ngf in (64, 4)
     for label, *_ in _mnet_steps(ngf)])
 def test_decoder_variant_at_mnet_steps(ngf, k, parts, co, dtype, aligned):
-    """The tensor-core kernel takes the bf16 steps on aligned tensors
-    whose Co is at least 32: at ngf 64 every step but the final one
-    (Co 512, 256, 128, 64), at ngf 4 only the innermost (Co 32). The
-    rest, f32 included, takes the CUDA-core kernel."""
+    """The narrow kernel takes every step with Co <= 4 in both dtypes: at
+    ngf 64 the final one (Co 1, 3), at ngf 4 also the outermost (Co 4).
+    The tensor-core kernel takes the bf16 steps on aligned tensors whose
+    Co is at least 32: at ngf 64 every other step (Co 512, 256, 128, 64),
+    at ngf 4 only the innermost (Co 32). The rest, f32 included, takes
+    the CUDA-core kernel."""
     wide = k < 4 if ngf == 64 else k == 0
-    want = ("tensor_core" if dtype == torch.bfloat16 and wide and aligned
-            else "cuda_core")
+    if co <= 4:
+        want = "narrow"
+    elif dtype == torch.bfloat16 and wide and aligned:
+        want = "tensor_core"
+    else:
+        want = "cuda_core"
     ci1 = parts[1] if len(parts) == 2 else 0
     assert decoder_variant(dtype, parts[0], ci1, co, aligned) == want
 
 
 @pytest.mark.parametrize("ngf,tensor_core", [(64, 8), (4, 2)])
 def test_stacked_forward_launches_by_variant(ngf, tensor_core):
-    """One bf16 stacked G1+G2 forward: 10 decoder launches, of which 8
-    (ngf 64) or 2 (ngf 4) on the tensor cores."""
+    """One bf16 stacked G1+G2 forward: 10 decoder launches. At ngf 64, 8
+    on the tensor cores and the 2 final ones narrow; at ngf 4, 2 on the
+    tensor cores (Co 32), 4 narrow (the Co 4 step and the final one of
+    each G) and 4 on the CUDA cores (Co 16 and 8)."""
+    narrow = {64: 2, 4: 4}[ngf]
     got = [decoder_variant(torch.bfloat16, parts[0],
                            parts[1] if len(parts) == 2 else 0, co, True)
            for _, _, parts, co in _mnet_steps(ngf)]
     assert len(got) == 10
     assert got.count("tensor_core") == tensor_core
-    assert got.count("cuda_core") == 10 - tensor_core
+    assert got.count("narrow") == narrow
+    assert got.count("cuda_core") == 10 - tensor_core - narrow
+
+
+@pytest.mark.parametrize("parts", [(3,), (9, 5), (130,), (64, 64)])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("co", [1, 2, 3, 4, 5, 8])
+def test_narrow_rule(co, dtype, aligned, parts):
+    """Co 1..4 take the narrow kernel whatever the dtype, channel counts
+    and alignment; Co 5 and 8 stay on the CUDA cores."""
+    ci1 = parts[1] if len(parts) == 2 else 0
+    want = "narrow" if co <= 4 else "cuda_core"
+    assert decoder_variant(dtype, parts[0], ci1, co, aligned) == want
 
 
 @pytest.mark.parametrize("parts,co", [

@@ -1,13 +1,15 @@
 """The decoder kernels (``csrc/decoder_upsample.cu``, the CUDA-core
-variant, and ``csrc/decoder_upsample_tc.cu``, the tensor-core one)
-against their plain version, on the card, at ragged shapes the MNet path
-never gives them.
+variant, ``csrc/decoder_upsample_tc.cu``, the tensor-core one, and
+``csrc/decoder_upsample_narrow.cu``, the Co <= 4 one) against their plain
+version, on the card, at ragged shapes the MNet path never gives them.
 
 ``chip_smoke.py`` holds the kernels to their plain version at the MNet
 decoder shapes, which tile evenly. These cases cut every tile edge
 instead: pixel counts that are no multiple of the block's rows, channel
-counts that are no multiple of the K step or the output tile, unequal
-split-skip parts, both padding forms and both epilogues. Each case
+counts that are no multiple of the K step, the output tile or the
+narrow kernel's channel chunk, spatial sizes that are no multiple of the
+narrow kernel's tile, unequal split-skip parts, both padding forms and
+both epilogues. Each case
 asserts which variant ran. Tolerances as in chip_smoke.py: 2e-5 in f32
 (TF32 off), 3e-2 in bf16.
 
@@ -79,9 +81,10 @@ def _check(xs, w4, s4, b4, zero_pad, leaky, variant):
 @pytest.mark.parametrize("n,h,w,parts,co", [
     (1, 5, 7, (20,), 40),          # 35 pixels; Ci, Co off every tile
     (2, 3, 9, (24, 13), 70),       # unequal parts, Co past one tile
-    (3, 4, 6, (9, 5), 3),          # narrow config, Co 3
-    (1, 11, 13, (16, 16), 1),      # narrow config, Co 1
+    (3, 4, 6, (9, 5), 3),          # narrow kernel, Co 3
+    (1, 11, 13, (16, 16), 1),      # narrow kernel, Co 1
     (2, 1, 1, (33,), 32),          # 1x1 input: every tap clamps
+    (2, 3, 5, (7,), 8),            # CUDA-core kernel below Co 32
 ])
 @pytest.mark.parametrize("zero_pad", [False, True])
 @pytest.mark.parametrize("final", [False, True])
@@ -110,7 +113,7 @@ def test_tensor_core_variant_matches_plain(cuda, n, h, w, parts, co,
 
 
 def _misaligned(x):
-    """A channels_last copy of ``x`` whose data starts 2 bytes past a
+    """A channels_last copy of ``x`` whose data starts one element past a
     16-byte boundary."""
     n, c, h, w = x.shape
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
@@ -129,6 +132,39 @@ def test_misaligned_bf16_runs_on_cuda_cores(cuda):
     _check(parts, w4, s4, b4, False, True, "cuda_core")
     with pytest.raises(RuntimeError, match="tensor_core kernel launch"):
         _launch(parts, w4, s4, b4, 64, True, False, "tensor_core")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("co", [1, 2, 3, 4])
+@pytest.mark.parametrize("n,h,w,parts", [
+    (1, 1, 1, (5,)),            # 1x1 input: every tap clamps
+    (2, 3, 9, (9, 5)),          # unequal parts, chunks that do not divide
+    (1, 11, 13, (64, 64)),      # the final layer's parts; one ragged tile
+    (2, 9, 35, (130,)),         # W past one tile; a ragged last chunk
+    (1, 37, 33, (16, 8)),       # H past one tile; 16-byte vector loads
+])
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("final", [False, True])
+def test_narrow_variant_matches_plain(cuda, n, h, w, parts, co, zero_pad,
+                                      final, dtype):
+    """Co <= 4: the narrow kernel, with and without LeakyReLU and the
+    affine, in both dtypes and padding forms."""
+    xs, w4, s4, b4 = _inputs(n, h, w, parts, co, not final, dtype)
+    _check(xs, w4, s4, b4, zero_pad, not final, "narrow")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_input_runs_narrow(cuda, dtype):
+    """An input that is not 16-byte aligned takes the narrow kernel's
+    scalar loads."""
+    xs, w4, s4, b4 = _inputs(2, 5, 7, (16, 8), 3, True, dtype)
+    _check((_misaligned(xs[0]), xs[1]), w4, s4, b4, False, True, "narrow")
+
+
+def test_narrow_entry_refuses_wide_outputs(cuda):
+    xs, w4, s4, b4 = _inputs(1, 4, 4, (8,), 5, True, torch.float32)
+    with pytest.raises(RuntimeError, match="narrow kernel launch"):
+        _launch(tuple(xs), w4, s4, b4, 5, True, False, "narrow")
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
