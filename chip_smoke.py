@@ -23,8 +23,9 @@ Phases; any failure exits non-zero before the result line is printed:
    CUDA-core kernel for the other f32 steps; at 256x256 the tensor-core
    and narrow steps also count the outputs that differ from the rounded
    float64 value, beside the CUDA-core kernel's and the plain version's
-   count (``[accuracy]``); the zero-pad f32 form at the 16x16 step and
-   the 256x256 final steps;
+   count, and so does the CUDA-core kernel at the f32 K = 4096 step
+   (``[accuracy]``); the zero-pad f32 form at the 16x16 step and the
+   256x256 final steps;
 3. shear kernel vs plain: ``hshear`` against its plain version at the
    three pass shapes of the training augmentation (batch 16, 7 channels,
    480x640 -> 256) and at ragged ones (max abs 3e-5 on 0-255 data), then
@@ -54,15 +55,25 @@ Phases; any failure exits non-zero before the result line is printed:
    cuDNN convolution of the same step, its bound and, for the final
    steps, the f32 FMA ceiling; stacked img/s at 256x256, batch 32, bf16,
    with the chosen kernels, the CUDA-core kernel only and the plain
-   decoder, in turns; the training step's img/s and its split by phase,
-   each ``hshear`` pass beside its plain version, ``F.grid_sample`` and
-   its bound, the decoder kernels' zero-pad (ConvTranspose) form at the
-   validation shapes (wide and final steps apart), and the validation
-   img/s.
+   decoder, in turns; f32 serving at 256x256, batch 32: each wide step on
+   the CUDA-core kernel beside cuDNN f32 and its FMA ceiling, and the
+   stacked img/s (8 CUDA-core and 2 narrow launches a forward); the
+   training step's img/s and its split by phase, each ``hshear`` pass
+   beside its plain version, ``F.grid_sample`` and its bound, the decoder
+   kernels' zero-pad (ConvTranspose) form at the validation shapes (wide
+   and final steps apart; each wide step's TFLOP/s and share of the f32
+   FMA rate), and the validation img/s.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --compare NAME=PATH [NAME=PATH ...]`` does none
+of that: it builds each given source of the CUDA-core kernel (e.g. an
+earlier commit's ``csrc/decoder_upsample.cu``, unpacked by ``git
+archive`` into a git-ignored directory) with its C entry renamed, and
+times it beside the checkout's at the f32 wide steps of validation and
+serving, with cuDNN f32 and the bound (``[compare]`` lines).
 """
 
 from __future__ import annotations
@@ -303,18 +314,22 @@ def phase_kernel_vs_plain() -> dict:
                         raise SystemExit(f"kernel disagrees or wrong "
                                          f"variant at {h}x{w} {label} "
                                          f"{dtype} {form} {kw}")
-                if (h, w) == (256, 256) and variant != "cuda_core":
-                    # outputs off the rounding of the exact value
-                    exact = decoder_f64(args, w4, s4, b4, **kw).to(dtype)
-                    off = {name: int((o != exact).sum()) for name, o in (
-                        (variant, got),
-                        ("cuda_core", cuda_core_only(args, w4, s4, b4,
-                                                     **kw)),
-                        ("plain", want))}
+                if (h, w) == (256, 256) and (variant != "cuda_core"
+                                             or 4 * sum(parts) == 4096):
+                    # outputs off the rounding of the exact value; in f32
+                    # at the K = 4096 step, where the sum is longest
+                    exact = decoder_f64(args, w4, s4, b4, **kw)
+                    runs = [(variant, got), ("plain", want)]
+                    if variant != "cuda_core":
+                        runs.insert(1, ("cuda_core", cuda_core_only(
+                            args, w4, s4, b4, **kw)))
                     print(f"[accuracy] 256x256 step {label:<24} "
                           f"{str(dtype)[6:]} outputs off the rounded f64 "
-                          f"value, of {got.numel()}: " + ", ".join(
-                              f"{k} {v}" for k, v in off.items()))
+                          f"value, of {got.numel()} (max abs off f64): "
+                          + ", ".join(
+                              f"{k} {int((o != exact.to(dtype)).sum())} "
+                              f"({(o.double() - exact).abs().max():.2e})"
+                              for k, o in runs))
     # the ConvTranspose form (zero padding), f32, at the 16x16 step and
     # the 256x256 final steps (one part, as the validation MNet runs it)
     for sh, parts, co, final in ((16, (512, 512), 256, False),
@@ -546,6 +561,7 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
         engine.infer_group([img] * 4)
     print(f"[time] infer_group 480x640 b4 bf16 (host included): "
           f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
+    f32 = time_f32_serving(gen, x)
     profile_stacked(engine, x)
 
     t = totals[(256, 256)]
@@ -567,7 +583,83 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
             "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
                          else "bytes"),
             "library_ms": round(t["library_ms"], 5),
-            "shape": "one stacked G1+G2 forward, 256x256, batch 32, bf16"}
+            "shape": "one stacked G1+G2 forward, 256x256, batch 32, bf16",
+            **f32}
+
+
+def time_f32_serving(gen, x) -> dict:
+    """f32 serving (``InferenceEngine(dtype="float32")``, the exact-eval
+    numerics) at 256x256, batch 32: each wide step on the CUDA-core kernel,
+    held to its plain version, beside one cuDNN f32 convolution (TF32 off)
+    and its f32 FMA ceiling; then the stacked forward's img/s, whose 10
+    launches must be 8 CUDA-core and 2 narrow."""
+    from shadow_removal_istd_tpu_torch.models import layers
+    from shadow_removal_istd_tpu_torch.ops.decoder import (
+        decoder_upsample,
+        decoder_upsample_plain,
+    )
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+    dt, n = torch.float32, x.shape[0]
+    tot = dict.fromkeys(("ms", "library_ms", "bound_ms", "flops"), 0.0)
+    for label, sh, sw, parts, co, final in decoder_steps(256, 256):
+        if final:
+            continue
+        xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final, dt, gen)
+        kw = dict(leaky=True, zero_pad=False)
+        got, variant = counted(xs, w4, s4, b4, **kw)
+        err = (got - decoder_upsample_plain(xs, w4, s4, b4, **kw)
+               ).abs().max().item()
+        if err > TOL[dt] or variant != "cuda_core":
+            raise SystemExit(f"f32 serving step {label}: {variant} "
+                             f"max_abs_err {err:.3e}")
+        ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw), 10)
+        a = torch.nn.functional.pad(torch.cat(xs, 1), (1, 1, 1, 1),
+                                    mode="replicate")
+        k = w4.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
+        flops, nbytes = step_cost(n, sh, sw, parts, co, final, 4)
+        bound = fma_ceiling_ms(flops, nbytes)
+        print(f"[time] f32 serving 256x256 b{n} step {label:<24} "
+              f"{variant} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound / ms:.0f} % of the f32 FMA ceiling) | cudnn "
+              f"conv {lib:.4f} | bound {bound:.4f} | max_abs_err "
+              f"{err:.2e}")
+        for key, v in (("ms", ms), ("library_ms", lib), ("bound_ms", bound),
+                       ("flops", flops)):
+            tot[key] += 2 * v               # G1 and G2 each run the step
+    print(f"[time] f32 serving 256x256 b{n} wide steps (8 launches, "
+          f"{tot['flops']:.4g} FLOP): cuda_core {tot['ms']:.4f} ms, cudnn "
+          f"conv {tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}")
+    engine = InferenceEngine("mnet", ngf=NGF, dtype="float32",
+                             split_skip=True, max_batch=n, seed=0,
+                             device=DEVICE)
+    engine._stacked(x)
+    torch.cuda.synchronize()
+    reset_decoder_counts()
+    engine._stacked(x)
+    torch.cuda.synchronize()
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    if by_variant != {"tensor_core": 0, "cuda_core": 8, "narrow": 2}:
+        raise SystemExit(f"f32 stacked forward: expected 8 cuda_core and 2 "
+                         f"narrow launches, got {by_variant}")
+    runs = {}
+    for name, fn in (("kernels", decoder_upsample),
+                     ("plain", decoder_upsample_plain),
+                     ("kernels", decoder_upsample)):
+        with mock.patch.object(layers, "decoder_upsample", fn):
+            runs.setdefault(name, []).append(
+                time_ms(lambda: engine._stacked(x), iters=5))
+    print(f"[time] stacked G1+G2 256x256 b{n} f32 (launches {by_variant}): "
+          + "; ".join(f"{name} {n * 1e3 * len(v) / sum(v):.1f} img/s ("
+                      + ", ".join(f"{t:.3f}" for t in v) + " ms/batch)"
+                      for name, v in runs.items()))
+    return {"f32_wide_ms": round(tot["ms"], 5),
+            "f32_wide_library_ms": round(tot["library_ms"], 5),
+            "f32_wide_bound_ms": round(tot["bound_ms"], 5),
+            "f32_stacked_img_s": round(
+                n * 1e3 * len(runs["kernels"]) / sum(runs["kernels"]), 2)}
 
 
 def profile_stacked(engine, x) -> None:
@@ -1002,7 +1094,9 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} {variant} "
               f"{ms:.4f} ms | cuda_core {ms_cc:.4f} | plain {plain:.4f} | "
               f"cudnn conv {lib:.4f} | bound {bound:.4f} | max_abs_err "
-              f"{err:.2e} | {flops / ms / 1e9:.1f} TFLOP/s")
+              f"{err:.2e} | {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * flops / ms * 1e3 / PEAK_F32:.0f} % of the f32 FMA "
+              f"rate (cudnn {flops / lib / 1e9:.1f} TFLOP/s)")
         reps = 1 if final else 2
         group = "final_" if final else "wide_"
         for key, v in (("ms", ms), ("cuda_core_ms", ms_cc),
@@ -1042,16 +1136,121 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
                  "480x640 -> 256, f32"}
     extra = {"launches_valid": runs["float32"]["decoder_launches"],
              "zero_pad_ms": round(dec["ms"], 5),
+             "zero_pad_wide_ms": round(dec["wide_ms"], 5),
+             "zero_pad_wide_library_ms": round(dec["wide_library_ms"], 5),
+             "zero_pad_wide_bound_ms": round(dec["wide_bound_ms"], 5),
              "zero_pad_narrow_ms": round(dec["final_ms"], 5),
              "zero_pad_narrow_cuda_core_ms": round(
                  dec["final_cuda_core_ms"], 5)}
     return shear_entry, extra
 
 
+def build_renamed(name: str, path: str):
+    """A CUDA-core decoder source (e.g. an earlier commit's
+    ``csrc/decoder_upsample.cu``) built with its C entry renamed, so it
+    loads beside the checkout's; typed like the checkout's entry."""
+    import ctypes
+
+    from shadow_removal_istd_tpu_torch.ops import _build, decoder
+
+    entry = f"srit_decoder_upsample_{name}"
+    lib = _build.BUILD_DIR / f"libcompare_{name}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                           f"-Dsrit_decoder_upsample={entry}", "-o",
+                           str(lib), path], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed on {path}:\n{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if any(k in line for k in ("registers", "spill")):
+            print(f"[ptxas] {name}: {line.strip()}")
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = decoder._kernel_fn("cuda_core").argtypes
+    return fn
+
+
+def compare_cuda_core(sources: dict[str, str]) -> None:
+    """The checkout's CUDA-core kernel beside other sources of it, at the
+    wide steps of f32 validation (480x640, batch 16, zero pad, one part)
+    and f32 serving (256x256, batch 32, edge pad, two parts): each output
+    held to the plain version and compared bit for bit with the
+    checkout's, then timed in turns (checkout, others, others reversed,
+    checkout) beside one cuDNN f32 convolution and the f32 FMA ceiling."""
+    from shadow_removal_istd_tpu_torch.ops import decoder
+
+    decoder._kernel_fn("cuda_core")     # the checkout's, built first
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        fns = dict(zip(sources, pool.map(build_renamed, sources,
+                                         sources.values())))
+    real = decoder._kernel_fn
+    names = ["cuda_core", *fns]
+    order = names + names[:0:-1] + names[:1]
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    for (h, w), n, zero_pad in (((480, 640), 16, True),
+                                ((256, 256), 32, False)):
+        tot: dict[str, float] = {}
+        for label, sh, sw, parts, co, final in decoder_steps(h, w):
+            if final:
+                continue
+            if zero_pad:
+                parts = (sum(parts),)   # the validation MNet's one part
+            xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final,
+                                         torch.float32, gen)
+            kw = dict(leaky=True, zero_pad=zero_pad)
+
+            def run(name):
+                return decoder._launch(tuple(xs), w4, s4, b4, co, True,
+                                       zero_pad, name)[0]
+
+            want = decoder.decoder_upsample_plain(xs, w4, s4, b4, **kw)
+            line = f"[compare] {h}x{w} b{n} f32 step {label:<24}"
+            with mock.patch.object(decoder, "_kernel_fn",
+                                   lambda v: fns.get(v) or real(v)):
+                ref = run("cuda_core")
+                for name in names:
+                    got = run(name)
+                    err = (got - want).abs().max().item()
+                    if err > TOL[torch.float32]:
+                        raise SystemExit(f"{name} disagrees at {label}: "
+                                         f"{err:.3e}")
+                    line += (f" | {name} err {err:.2e}, "
+                             f"{int((got != ref).sum())} differ")
+                times: dict[str, list] = {}
+                for name in order:
+                    times.setdefault(name, []).append(
+                        time_ms(lambda: run(name), 10))
+            a = torch.nn.functional.pad(torch.cat(xs, 1), (1, 1, 1, 1),
+                                        mode="constant" if zero_pad
+                                        else "replicate")
+            k = w4.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
+            flops, nbytes = step_cost(n, sh, sw, parts, co, final, 4)
+            bound = fma_ceiling_ms(flops, nbytes)
+            for name, v in times.items():
+                ms = sum(v) / len(v)
+                tot[name] = tot.get(name, 0.0) + 2 * ms
+                line += (f" | {name} " + "/".join(f"{t:.4f}" for t in v)
+                         + f" ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+            for key, v in (("cudnn", lib), ("bound", bound)):
+                tot[key] = tot.get(key, 0.0) + 2 * v
+            print(f"{line} | cudnn conv {lib:.4f} ({flops / lib / 1e9:.1f} "
+                  f"TFLOP/s) | bound {bound:.4f}", flush=True)
+        print(f"[compare] {h}x{w} b{n} f32 8 wide launches: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in tot.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--compare"]:
+        # python3 chip_smoke.py --compare NAME=PATH [NAME=PATH ...]
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[card] {nvidia_smi()}")
+        compare_cuda_core(dict(a.split("=", 1) for a in sys.argv[2:]))
+        return 0
     # f32 comparisons hold full f32: no TF32 in cuDNN or cuBLAS
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

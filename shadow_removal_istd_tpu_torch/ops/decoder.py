@@ -31,7 +31,9 @@ goes to one of three hand-written kernels, chosen by shape
   cores fed by a ``cp.async`` pipeline;
 - ``cuda_core`` (``csrc/decoder_upsample.cu``): everything else (f32 and
   ragged channel counts with Co >= 5), an implicit GEMM per phase with
-  FMAs on the CUDA cores.
+  FMAs on the CUDA cores, register-blocked (8x8 outputs a thread in
+  128x128 or 128x64 tiles) and pipelined (the next K chunk's loads in
+  flight during the FMAs, two shared-memory buffers).
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ instead: pixel counts that are no multiple of the block's rows, channel
 counts that are no multiple of the K step, the output tile or the
 narrow kernel's channel chunk, spatial sizes that are no multiple of the
 narrow kernel's tile, unequal split-skip parts, both padding forms and
-both epilogues. Each case
+both epilogues; the CUDA-core kernel's three tiles (128x128, 128x64,
+128x16) on its 16-byte and its scalar loads, and at K = 4096. Each case
 asserts which variant ran. Tolerances as in chip_smoke.py: 2e-5 in f32
 (TF32 off), 3e-2 in bf16.
 
@@ -122,6 +123,71 @@ def _misaligned(x):
     assert y.is_contiguous(memory_format=torch.channels_last)
     assert y.data_ptr() % 16
     return y
+
+
+def _check_cuda_core(xs, w4, s4, b4, zero_pad, leaky):
+    """The CUDA-core kernel on these inputs: through the wrapper (its
+    count rises) where the rule picks it, else forced, as chip_smoke
+    forces it for its side-by-side timings."""
+    ci1 = xs[1].shape[1] if len(xs) == 2 else 0
+    co = w4.shape[-1] // 4
+    if decoder_variant(xs[0].dtype, xs[0].shape[1], ci1, co,
+                       all(x.data_ptr() % 16 == 0 for x in xs)) \
+            == "cuda_core":
+        _check(xs, w4, s4, b4, zero_pad, leaky, "cuda_core")
+        return
+    got, variant = _launch(tuple(xs), w4, s4, b4, co, leaky, zero_pad,
+                           "cuda_core")
+    assert variant == "cuda_core"
+    want = decoder_upsample_plain(xs, w4, s4, b4, leaky=leaky,
+                                  zero_pad=zero_pad)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[xs[0].dtype], err
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,n,h,w,parts,co,misaligned", [
+    (F32, 1, 13, 11, (16,), 64, False),    # 143 pixels: M off the 128 rows
+    (BF16, 1, 13, 11, (16,), 64, False),
+    (F32, 1, 9, 17, (24, 8), 96, False),   # Co 96: off the 64-wide tile
+    (BF16, 1, 9, 17, (24, 8), 96, False),
+    (F32, 1, 9, 17, (16,), 136, False),    # Co 136: off both wide tiles
+    (BF16, 1, 9, 17, (16,), 136, False),
+    (F32, 1, 10, 15, (44,), 128, False),   # Ci 44: a ragged 8-channel chunk
+    (BF16, 1, 10, 15, (44,), 128, False),
+    (F32, 1, 9, 15, (13, 6), 70, False),   # f32 channels off 4: scalar loads
+    (F32, 2, 5, 7, (16, 8), 40, True),     # misaligned f32: scalar loads
+    (F32, 2, 15, 20, (512, 512), 256, False),  # K = 4096
+    (F32, 1, 4, 5, (12, 20), 5, False),    # Co 5: the narrow-N instance
+    (BF16, 1, 4, 5, (12, 20), 5, False),
+    (F32, 1, 4, 5, (16,), 24, False),      # Co 24
+    (BF16, 1, 4, 5, (16,), 24, False),
+])
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("final", [False, True])
+def test_cuda_core_tiles_match_plain(cuda, dtype, n, h, w, parts, co,
+                                     misaligned, zero_pad, final):
+    """The CUDA-core kernel's tiles (128x128, 128x64, 128x16) cut at
+    every edge, on its 16-byte and its scalar loads, with and without
+    LeakyReLU and the affine, in both padding forms."""
+    xs, w4, s4, b4 = _inputs(n, h, w, parts, co, not final, dtype)
+    if misaligned:
+        xs = [_misaligned(xs[0])] + xs[1:]
+    _check_cuda_core(xs, w4, s4, b4, zero_pad, not final)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("co", [1, 3])
+@pytest.mark.parametrize("zero_pad", [False, True])
+def test_cuda_core_forced_at_final_widths(cuda, dtype, co, zero_pad):
+    """The final layer's Co 1 and 3 forced onto the CUDA-core kernel, as
+    chip_smoke times it beside the narrow one."""
+    xs, w4, _, _ = _inputs(2, 11, 13, (64, 64), co, False, dtype)
+    _check_cuda_core(xs, w4, None, None, zero_pad, False)
 
 
 def test_misaligned_bf16_runs_on_cuda_cores(cuda):
