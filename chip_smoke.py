@@ -28,7 +28,10 @@ Phases; any failure exits non-zero before the result line is printed:
    256x256 final steps;
 3. shear kernel vs plain: ``hshear`` against its plain version at the
    three pass shapes of the training augmentation (batch 16, 7 channels,
-   480x640 -> 256) and at ragged ones (max abs 3e-5 on 0-255 data), then
+   480x640 -> 256; passes 1 and 2 write the transposed layout the next
+   pass reads, pass 3 the normal one) and at ragged ones in both layouts
+   (W0 off 4, tiles cut at both edges, pad 0, a misaligned view): 0
+   outputs may differ (and max abs 3e-5 on 0-255 data), then
    ``fused_augment_shear`` through the kernel against the same through
    the plain version (1e-5 on its [-1, 1] output);
 4. serving: ``InferenceEngine`` (ngf 64, bf16, split-skip, seeded random
@@ -58,8 +61,12 @@ Phases; any failure exits non-zero before the result line is printed:
    decoder, in turns; f32 serving at 256x256, batch 32: each wide step on
    the CUDA-core kernel beside cuDNN f32 and its FMA ceiling, and the
    stacked img/s (8 CUDA-core and 2 narrow launches a forward); the
-   training step's img/s and its split by phase, each ``hshear`` pass
-   beside its plain version, ``F.grid_sample`` and its bound, the decoder
+   training step's img/s and its split by phase, each ``hshear`` pass in
+   its path layout beside the normal layout, its plain version,
+   ``F.grid_sample`` and its bound; ``shear_rotate_crop`` folded beside
+   unfolded (the normal layout and two transpose copies) with a profiler
+   pass that must show 3 ``hshear`` kernels and no image-sized copy; the
+   decoder
    kernels' zero-pad (ConvTranspose) form at the validation shapes (wide
    and final steps apart; each wide step's TFLOP/s and share of the f32
    FMA rate), and the validation img/s.
@@ -74,6 +81,12 @@ earlier commit's ``csrc/decoder_upsample.cu``, unpacked by ``git
 archive`` into a git-ignored directory) with its C entry renamed, and
 times it beside the checkout's at the f32 wide steps of validation and
 serving, with cuDNN f32 and the bound (``[compare]`` lines).
+``python3 chip_smoke.py --compare-hshear NAME=PATH [NAME=PATH ...]``
+does the same for sources of ``csrc/hshear.cu``: each runs the three
+passes of one augmentation (in the path's layouts where its C entry
+takes ``transpose_out``, else in the normal layout, as the kernel's
+first version did), compared bit for bit with the checkout's kernel and
+timed beside it in turns, and the whole rotation through it.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -688,14 +702,15 @@ def profile_stacked(engine, x) -> None:
 
 def _record_passes(fn):
     """Run ``fn()`` with ``ops.shear.hshear`` wrapped to record each
-    call's ``(img, shifts, out_w, pad)``; returns (fn's result, calls)."""
+    call's ``(img, shifts, out_w, pad, transpose_out)``; returns (fn's
+    result, calls)."""
     from shadow_removal_istd_tpu_torch.ops import shear
 
     calls, real = [], shear.hshear
 
-    def recorder(img, shifts, out_w, pad):
-        calls.append((img, shifts, out_w, pad))
-        return real(img, shifts, out_w, pad)
+    def recorder(img, shifts, out_w, pad, *, transpose_out=False):
+        calls.append((img, shifts, out_w, pad, transpose_out))
+        return real(img, shifts, out_w, pad, transpose_out=transpose_out)
 
     with mock.patch.object(shear, "hshear", recorder):
         out = fn()
@@ -748,40 +763,63 @@ def grid_for(img, shifts, out_w):
     return torch.stack([xs, ys], dim=-1)
 
 
+def _layout_name(transpose_out: bool) -> str:
+    return "transposed" if transpose_out else "normal"
+
+
 def phase_shear_vs_plain() -> float:
+    """``hshear`` against ``hshear_plain``: each pass of one augmentation
+    in the layout the path gives it, and ragged cases (tiles cut at both
+    edges, W0 off 4 so 4-byte copies run, pad 0, out_w > W0, a
+    misaligned ``img`` view) in both layouts; the outputs must agree bit
+    for bit (and within SHEAR_TOL). Then ``fused_augment_shear`` through
+    the kernel against its plain path."""
     from shadow_removal_istd_tpu_torch.ops import shear
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     u8, params = _aug_inputs(gen)
     got, calls = _record_passes(
         lambda: shear.fused_augment_shear(u8, params, CROP))
+    if [c[4] for c in calls] != [True, True, False]:
+        raise SystemExit(f"fused_augment_shear made hshear calls with "
+                         f"transpose_out {[c[4] for c in calls]}, expected "
+                         "[True, True, False]")
     worst = 0.0
-    cases = [(f"pass {i + 1}", img, shifts, out_w, pad)
-             for i, (img, shifts, out_w, pad) in enumerate(calls)]
+    cases = [(f"pass {i + 1}", *call) for i, call in enumerate(calls)]
     for b, c, h, w0, out_w, pad, lo, hi in (
             (1, 1, 5, 37, 29, 3, -9.0, 40.0),       # clips both ends
-            (2, 3, 13, 300, 257, 11, -20.0, 60.0),  # out_w one past a block
+            (2, 3, 13, 300, 257, 11, -20.0, 60.0),  # out_w one past a tile
             (3, 7, 9, 64, 700, 400, -400.0, 100.0),  # out_w > W0
-            (1, 7, 17, 255, 1, 0, -3.0, 300.0)):    # one output column
+            (1, 7, 17, 255, 1, 0, -3.0, 300.0),     # one output column
+            (2, 7, 33, 66, 70, 5, -8.0, 8.0),       # W0 % 4 == 2, H 33
+            (1, 8, 40, 480, 256, 0, 0.0, 223.0),    # pad 0, C 8
+            (2, 7, 36, 712, 130, 4, -4.0, 580.0)):  # out_w % 4 == 2
         img = torch.rand(b, c, h, w0, device=DEVICE, generator=gen) * 255
         shifts = lo + (hi - lo) * torch.rand(b, h, device=DEVICE,
                                              generator=gen)
-        cases.append(("ragged", img, shifts, out_w, pad))
-    for label, img, shifts, out_w, pad in cases:
-        k = shear.hshear(img, shifts, out_w, pad)
-        p = shear.hshear_plain(img, shifts, out_w, pad)
+        cases += [("ragged", img, shifts, out_w, pad, t)
+                  for t in (False, True)]
+    # a contiguous view 4 bytes past a 16-byte boundary, NaN around it
+    n = 2 * 7 * 40 * 64
+    buf = torch.full((n + 4,), float("nan"), device=DEVICE)
+    img = buf[1:1 + n].view(2, 7, 40, 64)
+    img.copy_(torch.rand(2, 7, 40, 64, device=DEVICE, generator=gen) * 255)
+    shifts = -12.0 + 24.0 * torch.rand(2, 40, device=DEVICE, generator=gen)
+    cases += [("misaligned", img, shifts, 72, 8, t) for t in (False, True)]
+    for label, img, shifts, out_w, pad, t in cases:
+        k = shear.hshear(img, shifts, out_w, pad, transpose_out=t)
+        p = shear.hshear_plain(img, shifts, out_w, pad, transpose_out=t)
         torch.cuda.synchronize()
         err = (k - p).abs().max().item()
+        differ = int((k != p).sum())
         worst = max(worst, err)
-        ok = err <= SHEAR_TOL and k.shape == p.shape
-        print(f"[check] hshear {label:<7} in {tuple(img.shape)} out_w "
-              f"{out_w} pad {pad}: max_abs_err {err:.3e} (tol "
-              f"{SHEAR_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        ok = err <= SHEAR_TOL and differ == 0 and k.shape == p.shape
+        print(f"[check] hshear {label:<10} in {tuple(img.shape)} out_w "
+              f"{out_w} pad {pad} {_layout_name(t):<10}: {differ} of "
+              f"{k.numel()} outputs differ from plain, max_abs_err "
+              f"{err:.3e} (tol {SHEAR_TOL:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"hshear kernel disagrees ({label})")
-    if len(calls) != 3:
-        raise SystemExit(f"fused_augment_shear made {len(calls)} hshear "
-                         "calls, expected 3")
     with mock.patch.object(shear, "hshear", shear.hshear_plain):
         want = shear.fused_augment_shear(u8, params, CROP)
     err = (got - want).abs().max().item()
@@ -975,42 +1013,223 @@ def profile_train_step(trainer) -> None:
           "the step")
 
 
-def time_shear_passes() -> dict:
-    """Each ``hshear`` pass of one augmentation at the slice's shapes,
-    on one real draw: the kernel alone (taps formed beforehand), the
-    wrapper, the plain version, ``F.grid_sample`` and the bound."""
+def time_shear_passes(others: dict | None = None) -> dict:
+    """Each ``hshear`` pass of one augmentation at the slice's shapes, on
+    one real draw, in the layout the path gives it: the kernel alone
+    (taps formed beforehand), the wrapper, the kernel in the normal
+    layout, the plain version (in the path's layout), ``F.grid_sample``
+    (normal layout) and the bound; then the whole rotation
+    (:func:`time_rotation`). ``others`` maps a name to the C entry of
+    another ``hshear`` source (:func:`build_renamed`): one with
+    ``transpose_out`` runs the path's layout, one without (e.g. the
+    kernel's first version) the normal layout; each is compared bit for
+    bit with the checkout's kernel in the same layout, and all are timed
+    in turns."""
     from shadow_removal_istd_tpu_torch.ops import shear
 
+    others = others or {}
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     u8, params = _aug_inputs(gen)
     _, calls = _record_passes(
         lambda: shear.fused_augment_shear(u8, params, CROP))
     tot: dict[str, float] = {}
-    for i, (img, shifts, out_w, pad) in enumerate(calls):
+    for i, (img, shifts, out_w, pad, t) in enumerate(calls):
         grid = grid_for(img, shifts, out_w)
         kint, frac = shear._taps(img, shifts, out_w, pad)
-        ms = time_ms(lambda: shear.launch(img, kint, frac, out_w, pad))
-        wrapped = time_ms(lambda: shear.hshear(img, shifts, out_w, pad))
-        plain = time_ms(lambda: shear.hshear_plain(img, shifts, out_w, pad))
+        wrapped = time_ms(lambda: shear.hshear(img, shifts, out_w, pad,
+                                               transpose_out=t))
+        plain = time_ms(lambda: shear.hshear_plain(img, shifts, out_w, pad,
+                                                   transpose_out=t))
         lib = time_ms(lambda: torch.nn.functional.grid_sample(
             img, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True))
+        runs = {"kernel": lambda: shear.launch(img, kint, frac, out_w, pad,
+                                               t),
+                "normal": lambda: shear.launch(img, kint, frac, out_w, pad)}
+        for name, fn in others.items():
+            lay = t and fn.transposes
+
+            def run(fn=fn, lay=lay):
+                return _launch_entry(fn, img, kint, frac, out_w, pad, lay)
+            differ = int((run() != runs["kernel" if lay else "normal"]()
+                          ).sum())
+            print(f"[compare] hshear pass {i + 1} {name} "
+                  f"({_layout_name(lay)}): {differ} outputs differ from "
+                  "the checkout's kernel")
+            if differ:
+                raise SystemExit(f"{name} disagrees with the checkout")
+            runs[name] = run
+        times: dict[str, list] = {}
+        for name in list(runs) + list(runs)[::-1]:
+            times.setdefault(name, []).append(time_ms(runs[name]))
+        ms = sum(times["kernel"]) / 2
         ops, nbytes = shear_cost(img, shifts, out_w, pad)
         bound = max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+        row = {"ms": ms, "wrapped_ms": wrapped, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": bound,
+               **{f"{k}_ms": sum(v) / len(v) for k, v in times.items()
+                  if k != "kernel"}}
         print(f"[time] hshear pass {i + 1} in {tuple(img.shape)} out_w "
-              f"{out_w} pad {pad}: kernel {ms:.4f} ms (wrapper, taps "
-              f"formed: {wrapped:.4f}) | plain {plain:.4f} | grid_sample "
-              f"{lib:.4f} | bound {bound:.4f} (bytes, {nbytes / 1e6:.1f} "
-              f"MB) | {nbytes / ms / 1e6:.0f} GB/s")
-        for k, v in (("ms", ms), ("wrapped_ms", wrapped),
-                     ("plain_ms", plain), ("library_ms", lib),
-                     ("bound_ms", bound)):
+              f"{out_w} pad {pad} {_layout_name(t)}: kernel {ms:.4f} ms "
+              f"(wrapper, taps formed: {wrapped:.4f}) | "
+              + " | ".join(f"{k} " + "/".join(f"{x:.4f}" for x in v)
+                           for k, v in times.items() if k != "kernel")
+              + f" | plain {plain:.4f} | grid_sample {lib:.4f} | bound "
+              f"{bound:.4f} (bytes, {nbytes / 1e6:.1f} MB) | "
+              f"{nbytes / ms / 1e6:.0f} GB/s ({100 * bound / ms:.0f} % of "
+              f"the bound)")
+        for k, v in row.items():
             tot[k] = tot.get(k, 0.0) + v
     print(f"[time] hshear per augmentation (3 launches): kernel "
-          f"{tot['ms']:.4f} ms, wrapper {tot['wrapped_ms']:.4f}, plain "
-          f"{tot['plain_ms']:.4f}, grid_sample {tot['library_ms']:.4f}, "
-          f"bound {tot['bound_ms']:.4f}")
+          f"{tot['ms']:.4f} ms ({100 * tot['bound_ms'] / tot['ms']:.0f} % of "
+          f"the bound), wrapper {tot['wrapped_ms']:.4f}, "
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in tot.items()
+                      if k not in ("ms", "wrapped_ms", "plain_ms",
+                                   "library_ms", "bound_ms"))
+          + f", plain {tot['plain_ms']:.4f}, grid_sample "
+          f"{tot['library_ms']:.4f}, bound {tot['bound_ms']:.4f}")
+    tot.update(time_rotation(u8, params, tot["bound_ms"], others))
     return tot
+
+
+def _launch_entry(fn, img, kint, frac, out_w, pad, transpose_out=False):
+    """One launch of another ``hshear`` source's C entry on formed taps
+    (``transpose_out`` only where its entry takes it)."""
+    b, c, h, _ = img.shape
+    out = torch.empty((b, c, out_w, h) if transpose_out else
+                      (b, c, h, out_w), device=img.device)
+    flag = (int(transpose_out),) if fn.transposes else ()
+    rc = fn(img.data_ptr(), kint.data_ptr(), frac.data_ptr(),
+            out.data_ptr(), *img.shape, out_w, pad, *flag,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SystemExit(f"hshear launch of another source failed ({rc})")
+    return out
+
+
+def _entry_hshear(fn):
+    """``hshear`` through another source's C entry, the taps formed as
+    the wrapper forms them: ``transpose_out`` passed on where the entry
+    takes it, else the normal layout and a transpose copy."""
+    from shadow_removal_istd_tpu_torch.ops.shear import _taps
+
+    def entry(img, shifts, out_w, pad, *, transpose_out=False):
+        kint, frac = _taps(img, shifts, out_w, pad)
+        lay = transpose_out and fn.transposes
+        out = _launch_entry(fn, img, kint, frac, out_w, pad, lay)
+        if transpose_out and not lay:
+            out = out.transpose(2, 3).contiguous()
+        return out
+    return entry
+
+
+def _unfolded_hshear(real):
+    """``hshear`` as the rotation ran it before the transposes were
+    folded into the kernel: the normal layout, then a transpose copy."""
+    def unfolded(img, shifts, out_w, pad, *, transpose_out=False):
+        out = real(img, shifts, out_w, pad)
+        return out.transpose(2, 3).contiguous() if transpose_out else out
+    return unfolded
+
+
+def time_rotation(u8, params, bound_ms: float, others: dict) -> dict:
+    """``shear_rotate_crop`` on one augmentation's scaled input, folded (3
+    kernels writing the next pass's layout) beside unfolded (normal
+    layout and two transpose copies), outputs compared bit for bit: the
+    time between CUDA events over 20 calls (host launch gaps included:
+    ~20 small per-row ops a call), in turns, and the device time summed
+    over one call's kernels (torch.profiler). The folded call must launch
+    exactly 3 ``hshear`` kernels, no op on an image-sized tensor, and take
+    less device time than the unfolded one. Each of ``others`` (C
+    entries of other ``hshear`` sources) runs the unfolded composition
+    too: the whole rotation as that source's tree ran it."""
+    from shadow_removal_istd_tpu_torch.ops import shear
+
+    x = shear.scale_center(u8.permute(0, 3, 1, 2).float(),
+                           params["scale"].float())
+    args = (params["angle"], params["row_off"], params["col_off"], CROP)
+
+    def through(fn):
+        def run():
+            with mock.patch.object(shear, "hshear", fn):
+                return shear.shear_rotate_crop(x, *args)
+        return run
+
+    def run_folded():
+        return shear.shear_rotate_crop(x, *args)
+
+    runs = {"folded": run_folded,
+            "unfolded": through(_unfolded_hshear(shear.hshear)),
+            **{f"{k} {'folded' if fn.transposes else 'unfolded'}":
+               through(_entry_hshear(fn)) for k, fn in others.items()}}
+    ref = run_folded()
+    differ = {k: int((fn() != ref).sum()) for k, fn in runs.items()}
+    times: dict[str, list] = {}
+    for name in list(runs) + list(runs)[::-1]:
+        times.setdefault(name, []).append(time_ms(runs[name]))
+    limit = x.shape[0] * (x.shape[2] + x.shape[3] + CROP)
+    dev = {k: profile_rotation(k, fn, limit) for k, fn in runs.items()}
+    print(f"[time] shear_rotate_crop b{AUG_BATCH} {DATA_HW[0]}x{DATA_HW[1]}x7"
+          f" -> {CROP}, whole rotation (unfolded: the normal layout + 2 "
+          "transpose copies): " + " | ".join(
+              f"{k} " + "/".join(f"{t:.4f}" for t in times[k])
+              + f" ms by events, {dev[k][0]:.4f} ms of kernels, "
+              f"{differ[k]} outputs differ" for k in runs)
+          + f" | kernels' bound {bound_ms:.4f}")
+    n_differ = sum(differ.values())
+    n_shear, big = dev["folded"][1:]
+    if n_differ or n_shear != 3 or big or dev["folded"][0] >= \
+            dev["unfolded"][0]:
+        raise SystemExit(f"folded shear_rotate_crop: {n_differ} outputs "
+                         f"differ, {n_shear} hshear kernels, {len(big)} "
+                         "image-sized ops, or not less device time than "
+                         "unfolded")
+    return {"rotate_ms": sum(times["folded"]) / 2,
+            "rotate_unfolded_ms": sum(times["unfolded"]) / 2,
+            "rotate_device_ms": dev["folded"][0],
+            "rotate_unfolded_device_ms": dev["unfolded"][0]}
+
+
+def profile_rotation(label, fn, limit: int) -> tuple[float, int, list]:
+    """Kernels of one ``fn()`` (torch.profiler), printed as ``[profile]``
+    rows; returns (kernel ms, ``hshear`` launches, the aten ops whose
+    input holds more than ``limit`` elements: the per-row shift arrays
+    are smaller, an image-sized copy or transpose is not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kern = [e for e in prof.key_averages() if dev_us(e) > 0
+            and getattr(e, "device_type", torch.autograd.DeviceType.CUDA)
+            == torch.autograd.DeviceType.CUDA]
+    total = sum(dev_us(e) for e in kern)
+    n_shear = sum(e.count for e in kern if "hshear" in e.key)
+    print(f"[profile] shear_rotate_crop {label}: kernel time "
+          f"{total / 1e3:.4f} ms over {sum(e.count for e in kern)} "
+          f"launches, {n_shear} hshear")
+    for e in sorted(kern, key=lambda e: -dev_us(e)):
+        print(f"[profile] {dev_us(e) / 1e3:9.4f} ms "
+              f"{100 * dev_us(e) / max(total, 1):5.1f}% x{e.count:<3} "
+              f"{e.key[:90]}")
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.key.startswith("aten::")]
+    if not any(any(e.input_shapes or []) for e in ops):
+        raise SystemExit("the profiler recorded no input shapes")
+    big = [e for e in ops if any(math.prod(s) > limit
+                                 for s in (e.input_shapes or []) if s
+                                 and all(isinstance(d, int) for d in s))]
+    for e in big:
+        print(f"[profile] {label}: image-sized op {e.key} {e.input_shapes}")
+    return total / 1e3, n_shear, big
 
 
 def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
@@ -1132,8 +1351,12 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         "ms": round(tot["ms"], 5), "plain_ms": round(tot["plain_ms"], 5),
         "bound_ms": round(tot["bound_ms"], 5), "bound_by": "bytes",
         "library_ms": round(tot["library_ms"], 5),
-        "shape": "one augmentation = 3 passes, batch 16, 7 channels, "
-                 "480x640 -> 256, f32"}
+        "normal_layout_ms": round(tot["normal_ms"], 5),
+        **{k: round(tot[k], 5) for k in (
+            "rotate_ms", "rotate_unfolded_ms", "rotate_device_ms",
+            "rotate_unfolded_device_ms")},
+        "shape": "one augmentation = 3 passes (2 written transposed), "
+                 "batch 16, 7 channels, 480x640 -> 256, f32"}
     extra = {"launches_valid": runs["float32"]["decoder_launches"],
              "zero_pad_ms": round(dec["ms"], 5),
              "zero_pad_wide_ms": round(dec["wide_ms"], 5),
@@ -1145,28 +1368,35 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
     return shear_entry, extra
 
 
-def build_renamed(name: str, path: str):
-    """A CUDA-core decoder source (e.g. an earlier commit's
-    ``csrc/decoder_upsample.cu``) built with its C entry renamed, so it
-    loads beside the checkout's; typed like the checkout's entry."""
+def build_renamed(name: str, path: str,
+                  entry: str = "srit_decoder_upsample"):
+    """A kernel source (e.g. an earlier commit's
+    ``csrc/decoder_upsample.cu``, whose C entry is ``entry``) built with
+    its C entry renamed, so it loads beside the checkout's; typed like
+    the checkout's CUDA-core decoder entry, or like ``hshear``'s with or
+    without ``transpose_out`` (``fn.transposes``), as the source has it."""
     import ctypes
 
     from shadow_removal_istd_tpu_torch.ops import _build, decoder
 
-    entry = f"srit_decoder_upsample_{name}"
-    lib = _build.BUILD_DIR / f"libcompare_{name}.so"
+    renamed = f"{entry}_{name}"
+    lib = _build.BUILD_DIR / f"libcompare_{entry}_{name}.so"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                           f"-Dsrit_decoder_upsample={entry}", "-o",
+                           f"-D{entry}={renamed}", "-o",
                            str(lib), path], capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {path}:\n{proc.stderr}")
     for line in (proc.stdout + proc.stderr).splitlines():
         if any(k in line for k in ("registers", "spill")):
             print(f"[ptxas] {name}: {line.strip()}")
-    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    fn = getattr(ctypes.CDLL(str(lib)), renamed)
     fn.restype = ctypes.c_int
-    fn.argtypes = decoder._kernel_fn("cuda_core").argtypes
+    fn.transposes = "int transpose_out" in Path(path).read_text()
+    fn.argtypes = (decoder._kernel_fn("cuda_core").argtypes
+                   if entry == "srit_decoder_upsample" else
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+                       6 + fn.transposes) + [ctypes.c_void_p])
     return fn
 
 
@@ -1250,6 +1480,13 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(f"[card] {nvidia_smi()}")
         compare_cuda_core(dict(a.split("=", 1) for a in sys.argv[2:]))
+        return 0
+    if sys.argv[1:2] == ["--compare-hshear"]:
+        # python3 chip_smoke.py --compare-hshear NAME=PATH [NAME=PATH ...]
+        print(f"[card] {nvidia_smi()}")
+        sources = dict(a.split("=", 1) for a in sys.argv[2:])
+        time_shear_passes({name: build_renamed(name, path, "srit_hshear")
+                           for name, path in sources.items()})
         return 0
     # f32 comparisons hold full f32: no TF32 in cuDNN or cuBLAS
     torch.backends.cudnn.allow_tf32 = False

@@ -5,7 +5,8 @@ Port of ``shadow_removal_istd_tpu/ops/pallas_shear.py``. A rotation
 decomposes into three shears, R(t) = ShearX(-tan(t/2)) . ShearY(sin t) .
 ShearX(-tan(t/2)), and a shear is a per-row constant fractional
 translation: :func:`hshear`. The vertical shear runs as a horizontal one
-on the transposed image.
+on the transposed image; the passes before it write their output
+transposed (``transpose_out``), so no transpose copy runs between them.
 
 Layout: images are (B, C, H, W) f32 throughout (the JAX functions take
 and return NHWC at their ends; the port's models take NCHW, so
@@ -67,13 +68,18 @@ def _lerp_plain(img: torch.Tensor, kint: torch.Tensor, frac: torch.Tensor,
     return a * (1.0 - f) + b * f
 
 
+def _layout(out: torch.Tensor, transpose_out: bool) -> torch.Tensor:
+    return out.transpose(2, 3).contiguous() if transpose_out else out
+
+
 def hshear_plain(img: torch.Tensor, shifts: torch.Tensor, out_w: int,
-                 pad: int) -> torch.Tensor:
+                 pad: int, *, transpose_out: bool = False) -> torch.Tensor:
     """The kernel's spec in plain PyTorch: zero-pad the rows by ``pad``,
     gather columns ``k+j`` and ``k+j+1``, lerp in the JAX order
-    ``a*(1-f) + b*f`` (separate ops, so the card rounds as the kernel)."""
+    ``a*(1-f) + b*f`` (separate ops, so the card rounds as the kernel);
+    with ``transpose_out``, then laid out as (B, C, out_w, H)."""
     kint, frac = _taps(img, shifts, out_w, pad)
-    return _lerp_plain(img, kint, frac, out_w, pad)
+    return _layout(_lerp_plain(img, kint, frac, out_w, pad), transpose_out)
 
 
 @functools.cache
@@ -81,47 +87,54 @@ def _kernel_fn():
     """The kernel's C entry point (built on first use), typed once."""
     fn = _build.load("hshear").srit_hshear
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     return fn
 
 
 def hshear(img: torch.Tensor, shifts: torch.Tensor, out_w: int,
-           pad: int) -> torch.Tensor:
+           pad: int, *, transpose_out: bool = False) -> torch.Tensor:
     """Batched horizontal fractional shear.
 
     img: (B, C, H, W0) float32, UNPADDED. shifts: (B, H) float32, the
     source x of output column 0 of each row in image coordinates (values
     in [-pad, W0 + pad - out_w] reach into a zero border of ``pad``
     columns). Returns (B, C, H, out_w): ``out[..., r, j]`` samples source
-    column ``shifts[r] + j`` linearly.
+    column ``shifts[r] + j`` linearly; with ``transpose_out`` the same
+    values as (B, C, out_w, H), the layout the next pass of
+    :func:`shear_rotate_crop` shears (the kernel writes it directly).
 
     CUDA tensors launch the kernel (counted in ``hshear.launches``); CPU
     tensors take :func:`hshear_plain`; any other device raises."""
     kint, frac = _taps(img, shifts, out_w, pad)
     kind = img.device.type
     if kind == "cpu":
-        return _lerp_plain(img, kint, frac, out_w, pad)
+        return _layout(_lerp_plain(img, kint, frac, out_w, pad),
+                       transpose_out)
     if kind != "cuda":
         raise ValueError(f"hshear runs on cuda or cpu, not {kind}")
     if not img.is_contiguous():
         raise ValueError("hshear's kernel takes a contiguous img")
-    out = launch(img, kint.contiguous(), frac.contiguous(), out_w, pad)
+    out = launch(img, kint.contiguous(), frac.contiguous(), out_w, pad,
+                 transpose_out)
     _HSHEAR.launches += 1
     return out
 
 
 def launch(img: torch.Tensor, kint: torch.Tensor, frac: torch.Tensor,
-           out_w: int, pad: int) -> torch.Tensor:
+           out_w: int, pad: int, transpose_out: bool = False
+           ) -> torch.Tensor:
     """One kernel launch on formed taps (contiguous CUDA tensors, as
     :func:`hshear` checks and forms them); uncounted, for timing the
-    kernel alone."""
+    kernel alone. The C entry picks its instance by shape and alignment
+    (16-byte or 4-byte input copies; float4 or scalar stores)."""
     bsz, c, h, w0 = img.shape
-    out = torch.empty((bsz, c, h, out_w), dtype=torch.float32,
-                      device=img.device)
+    shape = (bsz, c, out_w, h) if transpose_out else (bsz, c, h, out_w)
+    out = torch.empty(shape, dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
         rc = _kernel_fn()(img.data_ptr(), kint.data_ptr(), frac.data_ptr(),
                           out.data_ptr(), bsz, c, h, w0, out_w, pad,
+                          int(transpose_out),
                           torch.cuda.current_stream(img.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hshear kernel launch failed (cudaError {rc})")
@@ -184,19 +197,20 @@ def shear_rotate_crop(img: torch.Tensor, angle_deg: torch.Tensor,
     dev = img.device
     ro = row_off.float()
 
-    # pass 1: x-shear onto the expanded canvas (true x = c - margin)
+    # pass 1: x-shear onto the expanded canvas (true x = c - margin),
+    # written transposed for pass 2
     rows = torch.arange(h, dtype=torch.float32, device=dev)
     s1 = a[:, None] * (rows[None, :] - cy) - margin            # (B, H)
-    x = hshear(img.contiguous(), s1, wx, pad1)
+    x = hshear(img.contiguous(), s1, wx, pad1,
+               transpose_out=True)                             # (B,C,Wx,H)
 
-    # pass 2: y-shear as an x-shear of the transpose, cropping rows
-    x = x.transpose(2, 3).contiguous()                         # (B,C,Wx,H)
+    # pass 2: y-shear as an x-shear of the transpose, cropping rows,
+    # written transposed back for pass 3
     cols = torch.arange(wx, dtype=torch.float32, device=dev) - margin
     s2 = b[:, None] * (cols[None, :] - cx) + ro[:, None]       # (B, Wx)
-    x = hshear(x, s2, crop, pad2)
+    x = hshear(x, s2, crop, pad2, transpose_out=True)          # (B,C,crop,Wx)
 
     # pass 3: final x-shear + column crop off the expanded canvas
-    x = x.transpose(2, 3).contiguous()                         # (B,C,crop,Wx)
     rows_c = torch.arange(crop, dtype=torch.float32, device=dev)
     abs_rows = rows_c[None, :] + ro[:, None]
     s3 = (a[:, None] * (abs_rows - cy) + col_off.float()[:, None]

@@ -77,6 +77,63 @@ def test_plain_matches_oracle_and_jax(b, c, h, w0, out_w, pad, rng_):
     assert torch.equal(plain, torch.from_numpy(got))
 
 
+@pytest.mark.parametrize("b,c,h,w0,out_w,pad,rng_", SHAPES)
+def test_transposed_layout_matches(b, c, h, w0, out_w, pad, rng_):
+    """``transpose_out`` lays out the same values as (B, C, out_w, H),
+    exactly, in the wrapper and in the plain version; the JAX kernel,
+    transposed, agrees where it runs (H % 8 == 0)."""
+    rng = np.random.default_rng(b * 1000 + h + 1)
+    img = torch.from_numpy(rng.uniform(0, 1, (b, c, h, w0)).astype(
+        np.float32))
+    shifts = torch.from_numpy(rng.uniform(*rng_, (b, h)).astype(np.float32))
+    normal = shear.hshear(img, shifts, out_w, pad)
+    got = shear.hshear(img, shifts, out_w, pad, transpose_out=True)
+    assert got.shape == (b, c, out_w, h) and got.is_contiguous()
+    assert torch.equal(got, normal.transpose(2, 3))
+    assert torch.equal(shear.hshear_plain(img, shifts, out_w, pad,
+                                          transpose_out=True), got)
+    assert torch.equal(shear.hshear_plain(img, shifts, out_w, pad), normal)
+    if h % 8 == 0:
+        want = np.asarray(jshear.hshear(jnp.asarray(img.numpy()),
+                                        jnp.asarray(shifts.numpy()), out_w,
+                                        pad, interpret=True))
+        np.testing.assert_allclose(got.numpy(), want.transpose(0, 1, 3, 2),
+                                   atol=1e-6)
+
+
+def _recording_hshear(monkeypatch, fold: bool):
+    """Patch ``shear.hshear`` to record each call's ``transpose_out``;
+    with ``fold`` False, run each transposed pass unfolded: the normal
+    layout, then an explicit transpose copy."""
+    calls, real = [], shear.hshear
+
+    def rec(img, shifts, out_w, pad, *, transpose_out=False):
+        calls.append(transpose_out)
+        if fold:
+            return real(img, shifts, out_w, pad, transpose_out=transpose_out)
+        out = real(img, shifts, out_w, pad)
+        return out.transpose(2, 3).contiguous() if transpose_out else out
+
+    monkeypatch.setattr(shear, "hshear", rec)
+    return calls
+
+
+@pytest.mark.parametrize("angle", [0.0, 9.0, -14.0])
+def test_shear_rotate_crop_folds_the_transposes(monkeypatch, angle):
+    """Passes 1 and 2 write transposed and pass 3 normal, and the folded
+    composition equals the unfolded one (explicit transposes) exactly."""
+    img = torch.from_numpy(_smooth(48, 64)).permute(0, 3, 1, 2)
+    args = (torch.tensor([angle]), torch.tensor([5]), torch.tensor([9]), 32)
+    outs = {}
+    for fold in (True, False):
+        with monkeypatch.context() as m:
+            calls = _recording_hshear(m, fold)
+            outs[fold] = shear.shear_rotate_crop(img, *args)
+        assert calls == [True, True, False]
+    assert outs[True].shape == (1, 3, 32, 32)
+    assert torch.equal(outs[True], outs[False])
+
+
 def test_zero_shift_identity():
     img = np.random.default_rng(1).uniform(0, 1, (1, 3, 8, 128)).astype(
         np.float32)
