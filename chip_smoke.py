@@ -51,7 +51,25 @@ Phases; any failure exits non-zero before the result line is printed:
    moved, ``hshear`` launched exactly 3 times per step and the decoder
    kernel 10 times per validation forward (8 CUDA-core and 2 narrow in
    f32); then one bf16 epoch (validation: 8 tensor-core, 2 narrow);
-6. timings (CUDA events; torch.profiler): each decoder step's kernel
+   the VGG weights reach the trainer as a converted ``.npz`` file;
+6. cli: ``write_istd_layout`` writes an ISTD directory of 32 train and 8
+   test 480x640 triplets (the port's PNG encoder, rows in all five filter
+   types), whose decode is timed per stream (``[time] istd load``, with
+   the library decoder if any and the stdlib codec); ``cli.main --tasks
+   train infer`` at the CLI's defaults (ngf 64, ndf 64, batch 16, 256
+   crops, f32, shear augmentation, that VGG file) runs 2 epochs,
+   validating, saving the checkpoint and writing weight files after
+   each, then infers the test split to PNGs: ``hshear`` launched 3 times
+   a step, the decoder 10 times per stacked forward (8 CUDA-core, 2
+   narrow) over 2 validations and the inference, the 8 weight files and
+   the checkpoint exist, 2 x 8 PNGs decode to 480x640, and they are
+   within 2 gray levels of the same inference run on the plain decoder;
+   then ``--tasks train --epochs 3 --load-checkpoint`` starts at epoch 2
+   from a state bit-identical to the saved run's (weights, BN
+   statistics, both Adam states with their steps' dtype and device,
+   step) and trains its epoch (``[time] checkpoint``, ``[time] cli
+   infer`` img/s with the PNG writes, the phase's wall time);
+7. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
    beside the CUDA-core variant's on the same inputs (the before/after
    of the wide bf16 steps and of the final ones), the plain version's, a
@@ -95,6 +113,7 @@ import http.client
 import importlib.util
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -131,6 +150,14 @@ DATA_HW = (480, 640)
 N_TRAIN, N_VALID = 64, 16
 AUG_BATCH, CROP = 16, 256
 TRAIN_KW: dict = {}
+# the CLI phase: an ISTD directory of 32 train + 8 test triplets at
+# DATA_HW, trained and inferred at the CLI's defaults (CLI_ARGS adds
+# flags: a CPU rehearsal's devices and widths)
+CLI_TRAIN, CLI_TEST = 32, 8
+CLI_ARGS: list = []
+# files the phases write (weights, checkpoints, the ISTD directory, PNGs):
+# a git-ignored directory of the checkout, removed at the end
+SMOKE_DIR = Path("_smoke")
 
 
 def nvidia_smi() -> str:
@@ -852,36 +879,57 @@ def _check_history(trainer, label) -> None:
         raise SystemExit(f"{label}: non-finite validation total")
 
 
-def phase_training() -> dict:
-    from shadow_removal_istd_tpu_torch.data.synthetic import (
-        synthetic_triplets,
-    )
-    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
-    from shadow_removal_istd_tpu_torch.engine.loop import Trainer
+def write_vgg_npz(path: Path) -> None:
+    """A seeded random VGG-19-BN as the converted ``.npz`` that
+    ``--vgg-weights`` reads (``models/vgg.py::load_vgg_npz``'s keys,
+    kernels HWIO)."""
     from shadow_removal_istd_tpu_torch.models.vgg import (
         VGG19Features,
         init_vgg_,
     )
+
+    vgg = init_vgg_(VGG19Features(), torch.Generator().manual_seed(0))
+    arrays = {}
+    for i, m in enumerate(vgg.convbns()):
+        for key, t in ((f"conv{i}_kernel", m.weight.permute(2, 3, 1, 0)),
+                       (f"conv{i}_bias", m.bias),
+                       (f"bn{i}_scale", m.bn_weight),
+                       (f"bn{i}_bias", m.bn_bias),
+                       (f"bn{i}_mean", m.running_mean),
+                       (f"bn{i}_var", m.running_var)):
+            arrays[key] = t.detach().contiguous().numpy()
+    np.savez(path, **arrays)
+
+
+def phase_training(vgg_path: Path) -> dict:
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
     from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
     from shadow_removal_istd_tpu_torch.ops.shear import hshear
 
     t0 = time.perf_counter()
     train = synthetic_triplets(N_TRAIN, *DATA_HW, seed=0)
     valid = synthetic_triplets(N_VALID, *DATA_HW, seed=1)
-    vgg = init_vgg_(VGG19Features(), torch.Generator().manual_seed(0))
     print(f"[train] {N_TRAIN} + {N_VALID} synthetic {DATA_HW[0]}x"
           f"{DATA_HW[1]} triplets in {time.perf_counter() - t0:.1f} s")
     out = {}
     for dtype, epochs in (("float32", 2), ("bfloat16", 1)):
         cfg = TrainConfig(aug_method="shear", compute_dtype=dtype,
                           **TRAIN_KW)
+        files = SMOKE_DIR / f"train_{dtype}"
+        run = RunConfig(seed=0, valid_every=1, vgg_weights=str(vgg_path),
+                        weights_dir=str(files), logs_dir=str(files),
+                        checkpoint_path=str(files / "checkpoint.msgpack"))
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, train, valid, seed=0, device=DEVICE,
-                          vgg_weights=vgg)
+        trainer = Trainer(cfg, run, train_streams=train,
+                          valid_streams=valid, device=DEVICE)
         before = _snapshot(trainer)
         hshear.launches = 0
         reset_decoder_counts()
-        trainer.train(epochs, valid_every=1)
+        trainer.train(epochs)
         torch.cuda.synchronize()
         n_shear, n_dec = hshear.launches, decoder_upsample.launches
         by_variant = dict(decoder_upsample.launches_by_variant)
@@ -890,7 +938,8 @@ def phase_training() -> dict:
         n_valid = epochs * -(-N_VALID // cfg.batch_size)
         print(f"[train] {dtype}: {epochs} epochs x "
               f"{trainer.cfg.steps_per_epoch} steps + {epochs} validations "
-              f"in {wall:.1f} s (build and first calls included); hshear "
+              f"in {wall:.1f} s (build, first calls and the epoch-0 weight "
+              f"and checkpoint files included); hshear "
               f"launches {n_shear} ({steps} steps), decoder launches "
               f"{n_dec} {by_variant} ({n_valid} validation batches)")
         _check_history(trainer, dtype)
@@ -918,6 +967,260 @@ def phase_training() -> dict:
         out[dtype] = dict(trainer=trainer, shear_launches=n_shear,
                           decoder_launches=n_dec)
     return out
+
+
+def _leaves_differ(a: dict, b: dict) -> tuple[int, int]:
+    """(leaves, leaves not bit-identical) of two flax-form state trees."""
+    from shadow_removal_istd_tpu_torch.tools.convert import flatten_tree
+
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    if fa.keys() != fb.keys():
+        return len(fa), len(fa.keys() ^ fb.keys())
+    bad = sum(1 for k in fa if fa[k] is not None and not (
+        np.asarray(fa[k]).dtype == np.asarray(fb[k]).dtype
+        and np.array_equal(fa[k], fb[k])))
+    return len(fa), bad
+
+
+def _adam_steps(state) -> list:
+    """Every parameter's Adam ``step`` as (dtype, device, value), in the
+    optimizers' order."""
+    return [(t.dtype, t.device, float(t))
+            for o in (state.opt_g, state.opt_d)
+            for g in o.param_groups for p in g["params"]
+            for t in (o.state[p]["step"],)]
+
+
+def phase_cli(vgg_path: Path) -> dict:
+    """``cli.main`` over an ISTD directory: train -> checkpoint -> infer,
+    the same infer on the plain decoder, then a run resumed from the
+    checkpoint. Returns the kernels' launch counts in the train + infer
+    run."""
+    import logging
+
+    from shadow_removal_istd_tpu_torch.cli.main import build_parser
+    from shadow_removal_istd_tpu_torch.cli.main import main as cli_main
+    from shadow_removal_istd_tpu_torch.data.istd import ISTDDataset
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        write_istd_layout,
+    )
+    from shadow_removal_istd_tpu_torch.engine import loop
+    from shadow_removal_istd_tpu_torch.models import layers
+    from shadow_removal_istd_tpu_torch.ops.decoder import (
+        decoder_upsample,
+        decoder_upsample_plain,
+    )
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+    from shadow_removal_istd_tpu_torch.tools.convert import (
+        load_train_state,
+        train_state_to_flax,
+    )
+    from shadow_removal_istd_tpu_torch.utils import image_io
+    from shadow_removal_istd_tpu_torch.utils.msgpack_codec import (
+        from_bytes,
+        to_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "cli"
+    istd = root / "istd"
+    t0 = time.perf_counter()
+    write_istd_layout(str(istd), CLI_TRAIN, CLI_TEST, *DATA_HW)
+    print(f"[cli] wrote an ISTD directory of {CLI_TRAIN} + {CLI_TEST} "
+          f"{DATA_HW[0]}x{DATA_HW[1]} triplets (port PNG encoder, rows in "
+          f"all five filter types) in {time.perf_counter() - t0:.1f} s")
+    lib = image_io._library_decoder()
+    lib_name = ("the stdlib codec" if lib is None else
+                "cv2" if importlib.util.find_spec("cv2") else "PIL")
+    decoders = [(lib_name, lib)] + ([("the stdlib codec", None)]
+                                    if lib is not None else [])
+    for name, dec in decoders:
+        with mock.patch.object(image_io, "_library_decoder", lambda: dec):
+            for stream in ("img", "matte", "target"):
+                t0 = time.perf_counter()
+                ISTDDataset(str(istd), "train", datas=(stream,)).load_all()
+                dt = time.perf_counter() - t0
+                threads = os.cpu_count() if dec is not None else 1
+                print(f"[time] istd load {stream:<6} {DATA_HW[0]}x"
+                      f"{DATA_HW[1]}: {dt / CLI_TRAIN:.4f} s per image "
+                      f"({CLI_TRAIN} images, {name}, {threads} threads)")
+    one = (istd / "train" / "train_A" / "000-train.png").read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        image_io.png_decode(one)
+    print(f"[time] istd load one {DATA_HW[0]}x{DATA_HW[1]} RGB PNG, stdlib "
+          f"codec, one thread: {(time.perf_counter() - t0) / 3:.4f} s")
+
+    base = ["--data-dir", str(istd), "--vgg-weights", str(vgg_path),
+            "--weights", str(root / "w"), "--logs", str(root / "l"),
+            *CLI_ARGS]
+    suffix = "_lr0.00050_SGAN"
+    wdir = root / f"w{suffix}"
+    seen: dict = {"save": [], "load": [], "infer": [], "trainers": []}
+    orig = {k: getattr(loop.Trainer, k)
+            for k in ("train", "save", "load", "infer")}
+
+    def train(self, epochs):
+        seen["trainers"].append(self)
+        return orig["train"](self, epochs)
+
+    def save(self, epoch):
+        t0 = time.perf_counter()
+        orig["save"](self, epoch)
+        seen["save"].append(time.perf_counter() - t0)
+
+    def load(self, path=None):
+        t0 = time.perf_counter()
+        orig["load"](self, path)
+        seen["load"].append(time.perf_counter() - t0)
+        seen["loaded"] = (self.start_epoch, train_state_to_flax(self.state),
+                          _adam_steps(self.state))
+
+    def infer(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = orig["infer"](self)
+        torch.cuda.synchronize()
+        seen["infer"].append((n, time.perf_counter() - t0))
+        return n
+
+    def run_cli(*argv):
+        handlers = list(logging.getLogger().handlers)
+        try:
+            with mock.patch.multiple(loop.Trainer, train=train, save=save,
+                                     load=load, infer=infer):
+                cli_main(build_parser().parse_args([*argv, *base]))
+        finally:    # each run adds its log handlers to the root logger
+            for h in logging.getLogger().handlers[len(handlers):]:
+                h.close()
+            logging.getLogger().handlers[:] = handlers
+        torch.cuda.synchronize()
+
+    # 1. train 2 epochs (validating and saving after each), then infer
+    t0 = time.perf_counter()
+    hshear.launches = 0
+    reset_decoder_counts()
+    run_cli("--tasks", "train", "infer", "--epochs", "2", "--valid-every",
+            "1", "--save-every", "1", "--log-every", "1", "--infered",
+            str(root / "out"))
+    n_shear, n_dec = hshear.launches, decoder_upsample.launches
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    wall = time.perf_counter() - t0
+    trainer = seen["trainers"][0]
+    b = trainer.cfg.batch_size
+    steps = 2 * trainer.cfg.steps_per_epoch
+    forwards = 3 * -(-CLI_TEST // b)       # 2 validations + infer
+    print(f"[cli] --tasks train infer: 2 epochs x "
+          f"{trainer.cfg.steps_per_epoch} steps + 2 validations + infer of "
+          f"{CLI_TEST} in {wall:.1f} s (data load, first calls and files "
+          f"included); hshear launches {n_shear} ({steps} steps), decoder "
+          f"launches {n_dec} {by_variant} ({forwards} stacked forwards)")
+    _check_history(trainer, "cli")
+    if n_shear != 3 * steps:
+        raise SystemExit(f"cli: expected {3 * steps} hshear launches, got "
+                         f"{n_shear}")
+    want = {"tensor_core": 0, "cuda_core": 8 * forwards,
+            "narrow": 2 * forwards}
+    if n_dec != 10 * forwards or by_variant != want:
+        raise SystemExit(f"cli: expected {10 * forwards} decoder launches "
+                         f"{want}, got {n_dec} {by_variant}")
+    names = sorted(f"{n}_{c}_{s}.msgpack" for n, c in (
+        ("G1", "MNet"), ("G2", "MNet"), ("D1", "PatchGAN"),
+        ("D2", "PatchGAN")) for s in ("best", "latest"))
+    missing = [f for f in [*names, "checkpoint.msgpack"]
+               if not (wdir / f).is_file()]
+    if missing:
+        raise SystemExit(f"cli: missing files {missing}")
+    mb = (wdir / "checkpoint.msgpack").stat().st_size / 1e6
+    weights_mb = sum((wdir / f).stat().st_size for f in names) / 2e6
+    print(f"[time] checkpoint save ({mb:.1f} MB): " + ", ".join(
+        f"{t * 1e3:.1f}" for t in seen["save"]) + " ms; the 4 weight "
+        f"files of one suffix: {weights_mb:.1f} MB")
+    # the save and the load by part, on the trained state (the load puts
+    # the same values back)
+    t = [time.perf_counter()]
+    tree = train_state_to_flax(trainer.state)
+    t.append(time.perf_counter())
+    data = to_bytes({"epoch": 2, "state": tree})
+    t.append(time.perf_counter())
+    (root / "parts.msgpack").write_bytes(data)
+    t.append(time.perf_counter())
+    data = (root / "parts.msgpack").read_bytes()
+    t.append(time.perf_counter())
+    tree = from_bytes(data)["state"]
+    t.append(time.perf_counter())
+    load_train_state(tree, trainer.state)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ms = [(b_ - a) * 1e3 for a, b_ in zip(t, t[1:])]
+    print(f"[time] checkpoint parts: state -> host tree {ms[0]:.1f} ms, "
+          f"encode {ms[1]:.1f}, write {ms[2]:.1f}; read {ms[3]:.1f}, "
+          f"decode {ms[4]:.1f}, into the state {ms[5]:.1f}")
+    del data, tree
+    (n_img, dt), = seen["infer"]
+    print(f"[time] cli infer: {n_img} images {DATA_HW[0]}x{DATA_HW[1]} "
+          f"in {dt:.3f} s = "
+          f"{n_img / dt:.1f} img/s (G1 -> G2 f32 and PNG writes, batch {b})")
+    outs = {}
+    for sub, read, shape in (("shadowless", image_io.imread_color,
+                              (*DATA_HW, 3)),
+                             ("matte", image_io.imread_gray, DATA_HW)):
+        files = sorted((root / "out" / sub / "istd").glob("*.png"))
+        arrays = [read(str(f)) for f in files]
+        if len(files) != CLI_TEST or any(a.shape != shape for a in arrays):
+            raise SystemExit(f"cli infer: {sub}: {len(files)} PNGs of "
+                             f"shapes {sorted({a.shape for a in arrays})}")
+        outs[sub] = arrays
+
+    # 2. the same inference on the plain decoder
+    with mock.patch.object(layers, "decoder_upsample",
+                           decoder_upsample_plain):
+        run_cli("--tasks", "infer", "--load-weights-g1",
+                str(wdir / "G1_MNet_latest.msgpack"), "--load-weights-g2",
+                str(wdir / "G2_MNet_latest.msgpack"), "--infered",
+                str(root / "out_plain"))
+    diff = 0
+    for sub, read in (("shadowless", image_io.imread_color),
+                      ("matte", image_io.imread_gray)):
+        files = sorted((root / "out_plain" / sub / "istd").glob("*.png"))
+        for got, f in zip(outs[sub], files):
+            diff = max(diff, int(np.abs(got.astype(np.int16)
+                                        - read(str(f))).max()))
+    print(f"[cli] infer, kernel vs plain decoder: max diff {diff} gray "
+          f"levels over 2 x {CLI_TEST} PNGs (limit 2)")
+    if diff > 2:
+        raise SystemExit("cli infer disagrees with the plain decoder")
+
+    # 3. resume from the checkpoint for a third epoch
+    saved = train_state_to_flax(trainer.state)
+    saved_steps = _adam_steps(trainer.state)
+    hshear.launches = 0
+    reset_decoder_counts()
+    run_cli("--tasks", "train", "--epochs", "3", "--valid-every", "1",
+            "--save-every", "1", "--log-every", "1", "--load-checkpoint",
+            str(wdir / "checkpoint.msgpack"))
+    start, loaded, steps_loaded = seen["loaded"]
+    leaves, bad = _leaves_differ(saved, loaded)
+    step_ok = steps_loaded == saved_steps
+    resumed = seen["trainers"][-1]
+    n_steps = resumed.cfg.steps_per_epoch
+    print(f"[time] checkpoint load ({mb:.1f} MB): "
+          f"{seen['load'][0] * 1e3:.1f} ms")
+    print(f"[cli] resume: started at epoch {start}; the loaded state vs "
+          f"the saved run's: {leaves} leaves (weights, BN statistics, both "
+          f"Adam states, step), {bad} not bit-identical; {len(saved_steps)} "
+          f"Adam steps equal in value, dtype and device: {step_ok}; then "
+          f"{len(resumed.history)} epoch, hshear launches "
+          f"{hshear.launches}, decoder launches {decoder_upsample.launches}")
+    _check_history(resumed, "cli resumed")
+    if (start != 2 or bad or not step_ok or len(resumed.history) != 1
+            or hshear.launches != 3 * n_steps
+            or decoder_upsample.launches != 10 * -(-CLI_TEST // b)):
+        raise SystemExit("cli: the resumed run did not continue the saved "
+                         "one")
+    print(f"[time] cli phase: {time.perf_counter() - t_phase:.1f} s")
+    seen.clear()
+    return {"decoder": n_dec, "hshear": n_shear}
 
 
 def _median(xs):
@@ -1234,7 +1537,6 @@ def profile_rotation(label, fn, limit: int) -> tuple[float, int, list]:
 
 def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
     from shadow_removal_istd_tpu_torch.engine.steps import eval_step
-    from shadow_removal_istd_tpu_torch.ops.augment import normalize_batch
     from shadow_removal_istd_tpu_torch.ops.decoder import (
         decoder_upsample,
         decoder_upsample_plain,
@@ -1337,8 +1639,7 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
               f"{dec[group + 'bound_ms']:.4f}")
 
     # validation throughput: eval_step on one full-resolution batch
-    sel = torch.arange(b, device=DEVICE)
-    batch = normalize_batch(trainer.valid.gather(sel))
+    batch = next(trainer.valid_batches())
     ms = time_ms(lambda: eval_step(trainer.state, batch), 5)
     print(f"[time] validation eval_step 480x640 b{b} f32: {ms:.3f} ms = "
           f"{b * 1e3 / ms:.1f} img/s")
@@ -1492,14 +1793,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
-    worst = phase_kernel_vs_plain()
-    shear_err = phase_shear_vs_plain()
-    launches, by_variant = phase_serving()
-    runs = phase_training()
-    kernel = phase_timings(worst, launches, by_variant)
-    shear_entry, extra = phase_train_timings(runs, shear_err)
-    kernel.update(extra)
+    SMOKE_DIR.mkdir(exist_ok=True)
+    try:
+        phase_build()
+        worst = phase_kernel_vs_plain()
+        shear_err = phase_shear_vs_plain()
+        launches, by_variant = phase_serving()
+        vgg_path = SMOKE_DIR / "vgg19_bn_random.npz"
+        write_vgg_npz(vgg_path)
+        runs = phase_training(vgg_path)
+        cli = phase_cli(vgg_path)
+        kernel = phase_timings(worst, launches, by_variant)
+        shear_entry, extra = phase_train_timings(runs, shear_err)
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    kernel.update(extra, launches_cli=cli["decoder"])
+    shear_entry["launches_cli"] = cli["hshear"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": [kernel, shear_entry]}))

@@ -17,7 +17,11 @@ import torch
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``"cuda"`` (the default) or ``"cpu"``; raises when CUDA is asked
     for and absent, so nothing silently runs on the CPU."""
-    dev = torch.device(device)
+    try:
+        dev = torch.device(device)
+    except RuntimeError as exc:      # an unknown device type
+        raise ValueError(f"device must be cuda or cpu, got {device!r}"
+                         ) from exc
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {device!r}")
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -1,6 +1,6 @@
 """Synthetic ISTD-like triplets for tests, smoke runs and benchmarks;
-port of ``shadow_removal_istd_tpu/data/synthetic.py::synthetic_triplets``
-(same numpy draws, so the same seed gives the same arrays).
+port of ``shadow_removal_istd_tpu/data/synthetic.py`` (same numpy draws,
+so the same seed gives the same arrays).
 
 Structured, not noise: a smooth base image, a soft elliptical shadow
 matte, and the shadowed image derived from them, so the supervised
@@ -9,7 +9,11 @@ losses have real signal to fit.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from shadow_removal_istd_tpu_torch.utils.image_io import imwrite
 
 
 def synthetic_triplets(n: int = 8, h: int = 480, w: int = 640,
@@ -40,3 +44,25 @@ def synthetic_triplets(n: int = 8, h: int = 480, w: int = 640,
 
     return {"img": to_u8(imgs), "mask": to_u8(masks)[..., None],
             "matte": to_u8(mattes)[..., None], "target": to_u8(targets)}
+
+
+def write_istd_layout(root: str, n_train: int = 4, n_test: int = 2,
+                      h: int = 96, w: int = 128, seed: int = 0) -> None:
+    """Materialize a synthetic ISTD directory tree (``{subset}/
+    {subset}_{A,B,matte,C_fixed}/NNN-{subset}.png``), the same pixels as
+    the JAX package's. Rows cycle through the five PNG filter types, so
+    a reader's every unfilter path is exercised."""
+    filters = np.arange(h) % 5
+    for subset, n in (("train", n_train), ("test", n_test)):
+        data = synthetic_triplets(n, h, w, seed=seed + (subset == "test"))
+        dirs = {"img": f"{subset}_A", "mask": f"{subset}_B",
+                "matte": f"{subset}_matte", "target": f"{subset}_C_fixed"}
+        for stream, d in dirs.items():
+            path = os.path.join(root, subset, d)
+            os.makedirs(path, exist_ok=True)
+            for i in range(n):
+                arr = data[stream][i]
+                if arr.shape[-1] == 1:
+                    arr = arr[..., 0]
+                imwrite(os.path.join(path, f"{i:03d}-{subset}.png"), arr,
+                        filters)

@@ -1,16 +1,25 @@
-"""Trainer: fused training epochs, validation and best-model tracking.
+"""Trainer: fused training epochs, validation, best-model tracking,
+per-network weight files, checkpoints and inference to PNG files.
 
-Port of the core of ``shadow_removal_istd_tpu/engine/loop.py::Trainer``
-(the ``--device-cache`` fused path): the uint8 training streams live on
-the card (``data/device_cache.py``), every epoch runs ``engine/epoch.py``
-(gather -> ``hshear`` augmentation -> adversarial step), and every
-``valid_every`` epochs :meth:`Trainer.run_valid_epoch` runs
-``eval_step`` over full-resolution validation batches, keeping the best
-``total`` (0.8*G + 0.2*D).
+Port of ``shadow_removal_istd_tpu/engine/loop.py`` (its ``--device-cache``
+path). Data comes from ISTD directories (``run.data_dirs``) or injected
+streams. The uint8 training streams live on the card
+(``data/device_cache.py``) and every epoch runs ``engine/epoch.py``
+(gather -> ``hshear`` augmentation -> adversarial step); validation and
+inference walk the test split in order through the host
+``BatchPipeline``, keeping the ragged last batch. Every ``valid_every``
+epochs :meth:`Trainer.run_valid_epoch` runs ``eval_step`` at full
+resolution, keeping the best ``total`` (0.8*G + 0.2*D) and writing the
+``best`` weight files on improvement; the ``latest`` ones are written on
+every ``log_every`` epoch and the full checkpoint every ``save_every``.
+Files are the JAX package's flax msgpack files (``engine/checkpoint.py``).
 
-Not ported yet: checkpoints and per-network weight files, TensorBoard
-scalars and images, the CLI, ISTD directory and HDF5 loading, the
-plateau schedule, preemption and the in-training evaluation protocol.
+Not ported yet (``RunConfig`` raises where one is asked for): the HDF5
+dataset, the orbax backend, the host-pipeline training epoch
+(``device_cache=False``), profiler traces, the in-training evaluation
+protocol, pipeline-parallel inference. TensorBoard scalars and images
+(``vis_every``), the plateau schedule and the preemption save are not
+ported either: epoch metrics go to the log.
 
 Precision: PyTorch runs f32 cuDNN convolutions in TF32 by default. The
 trainer turns TF32 off for cuDNN and cuBLAS (process-wide flags), so an
@@ -24,15 +33,20 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch import nn
 
 from shadow_removal_istd_tpu_torch import resolve_device
 from shadow_removal_istd_tpu_torch.data.device_cache import (
     DeviceDatasetCache,
 )
+from shadow_removal_istd_tpu_torch.data.istd import ISTDDataset
+from shadow_removal_istd_tpu_torch.data.pipeline import BatchPipeline
+from shadow_removal_istd_tpu_torch.engine import checkpoint as ckpt
 from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
 from shadow_removal_istd_tpu_torch.engine.epoch import (
     RngStreams,
@@ -40,18 +54,68 @@ from shadow_removal_istd_tpu_torch.engine.epoch import (
     make_epoch,
 )
 from shadow_removal_istd_tpu_torch.engine.state import TrainState, init_state
-from shadow_removal_istd_tpu_torch.engine.steps import METRIC_KEYS, eval_step
-from shadow_removal_istd_tpu_torch.models.vgg import (
-    VGG19Features,
-    load_vgg_npz,
+from shadow_removal_istd_tpu_torch.engine.steps import (
+    METRIC_KEYS,
+    eval_step,
+    infer_step,
 )
+from shadow_removal_istd_tpu_torch.models.vgg import load_vgg_npz
 from shadow_removal_istd_tpu_torch.ops.augment import (
     AugmentConfig,
     check_supported,
+    denormalize,
+    float_to_uint8,
     normalize_batch,
 )
+from shadow_removal_istd_tpu_torch.utils.image_io import imwrite
 
 logger = logging.getLogger(__name__)
+
+
+@dataclass
+class RunConfig:
+    """Run-level knobs (paths, intervals): the non-model CLI surface,
+    with the JAX package's fields and defaults, except ``device_cache``,
+    which is True: the port trains on the device cache only."""
+
+    data_dirs: tuple[str, ...] = ()
+    data_h5: str | None = None
+    logs_dir: str = "./logs"
+    weights_dir: str = "./weights"
+    infered_dir: str = "./infered"
+    checkpoint_path: str = "./checkpoint.msgpack"
+    checkpoint_backend: str = "msgpack"
+    log_every: int = 3
+    valid_every: int = 10
+    vis_every: int = 50
+    save_every: int = 50
+    seed: int = 38107943
+    vgg_weights: str | None = None
+    allow_missing_vgg: bool = False  # warn instead of failing when the
+    # visual-loss lambdas are nonzero but no VGG weights are available
+    tasks: tuple[str, ...] = ("train",)
+    device_cache: bool = True
+    profile_dir: str | None = None
+    preempt_save: bool = True
+    eval_metrics: bool = False
+    pipeline_infer: bool = False
+
+    def __post_init__(self):
+        unported = {
+            "data_h5": self.data_h5 is not None,
+            "checkpoint_backend='orbax'": self.checkpoint_backend == "orbax",
+            "device_cache=False (the host-pipeline epoch)":
+                not self.device_cache,
+            "profile_dir": self.profile_dir is not None,
+            "eval_metrics": self.eval_metrics,
+            "pipeline_infer": self.pipeline_infer,
+        }
+        for name, is_set in unported.items():
+            if is_set:
+                raise NotImplementedError(f"{name} is not ported yet")
+        if self.checkpoint_backend != "msgpack":
+            raise ValueError(f"unknown checkpoint backend "
+                             f"{self.checkpoint_backend!r}")
 
 
 def _select(streams: dict[str, np.ndarray], cfg: TrainConfig) -> dict:
@@ -64,88 +128,141 @@ def _select(streams: dict[str, np.ndarray], cfg: TrainConfig) -> dict:
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, train_streams: dict,
-                 valid_streams: dict | None = None, *, seed: int,
-                 device: str | torch.device = "cuda",
-                 vgg_weights: str | nn.Module | None = None,
-                 allow_missing_vgg: bool = False):
+    def __init__(self, cfg: TrainConfig, run: RunConfig,
+                 train_streams: dict | None = None,
+                 valid_streams: dict | None = None,
+                 valid_names: list[str] | None = None, *,
+                 device: str | torch.device = "cuda"):
         """``train_streams``/``valid_streams``: dicts of (N, H, W, C)
-        uint8 numpy arrays (``cfg.train_datas`` picks three of them).
-        ``vgg_weights``: a converted ``.npz`` path or a VGG module (e.g.
-        seeded random weights); nonzero visual lambdas need one unless
-        ``allow_missing_vgg``, which then trains without those terms."""
+        uint8 numpy arrays (``cfg.train_datas`` picks three of them),
+        injected directly; otherwise ISTD directories from
+        ``run.data_dirs`` are loaded (reference src/cgan.py:98-121).
+        Injected validation streams take precedence over the
+        directories' test split."""
         self.device = resolve_device(device)
-        self.seed = seed
-        self.cache = DeviceDatasetCache(_select(train_streams, cfg),
-                                        self.device)
-        steps = self.cache.n // cfg.batch_size
-        if steps == 0:
-            raise ValueError(f"{self.cache.n} training samples make no "
-                             f"batch of {cfg.batch_size}")
+        self.run = run
+        if train_streams is None and run.data_dirs:
+            train_streams, loaded_valid, loaded_names = self._load_dirs(cfg)
+            if valid_streams is None:
+                valid_streams, valid_names = loaded_valid, loaded_names
+        self.valid_names = valid_names or []
+
+        self.cache = None
+        steps = 1
+        if train_streams:
+            self.cache = DeviceDatasetCache(_select(train_streams, cfg),
+                                            self.device)
+            steps = self.cache.n // cfg.batch_size
+            if steps == 0:
+                raise ValueError(f"{self.cache.n} training samples make no "
+                                 f"batch of {cfg.batch_size}")
+        # the lr schedule decays once per epoch, like the reference's
         self.cfg = dataclasses.replace(cfg, steps_per_epoch=steps)
-        _, h, w, _ = self.cache.arrays[0].shape
         self.aug_cfg = AugmentConfig(
             scale=cfg.aug_scale, angle=cfg.aug_angle, flip_prob=0.5,
             crop_size=cfg.image_size, resize=cfg.aug_resize,
             method=cfg.aug_method)
-        check_supported(self.aug_cfg, h, w)
-        self.valid = (DeviceDatasetCache(_select(valid_streams, cfg),
-                                         self.device)
-                      if valid_streams else None)
+        if self.cache is not None:
+            check_supported(self.aug_cfg, *self.cache.arrays[0].shape[1:3])
+        self.valid_pipe = (
+            BatchPipeline(_select(valid_streams, cfg), cfg.batch_size,
+                          shuffle=False, drop_last=False, seed=run.seed)
+            if valid_streams else None)
 
         vgg = None
-        if isinstance(vgg_weights, nn.Module):
-            vgg = vgg_weights
-        elif vgg_weights:
-            if not os.path.isfile(vgg_weights):
+        if run.vgg_weights:
+            if not os.path.isfile(run.vgg_weights):
                 raise FileNotFoundError(
-                    f"vgg_weights {vgg_weights!r} does not exist")
-            vgg = load_vgg_npz(vgg_weights)
-        elif cfg.use_visual_loss and (cfg.lambda4 or cfg.lambda5):
+                    f"--vgg-weights {run.vgg_weights!r} does not exist")
+            vgg = load_vgg_npz(run.vgg_weights)
+        elif (cfg.use_visual_loss and (cfg.lambda4 or cfg.lambda5)
+              and "train" in run.tasks):
             msg = (f"visual loss weights lambda4={cfg.lambda4}/lambda5="
                    f"{cfg.lambda5} are nonzero but no VGG weights were "
                    "given: convert them once with tools/convert_vgg.py and "
-                   "pass vgg_weights, or set lambda4 = lambda5 = 0, or pass "
-                   "allow_missing_vgg=True to train WITHOUT the perceptual "
-                   "terms")
-            if not allow_missing_vgg:
+                   "pass --vgg-weights, or set --lambda4 0 --lambda5 0, or "
+                   "pass --allow-missing-vgg to train WITHOUT the "
+                   "perceptual terms")
+            if not run.allow_missing_vgg:
                 raise ValueError(msg)
             logger.warning("%s (continuing without them)", msg)
-        if vgg is not None and not isinstance(vgg, VGG19Features):
-            raise TypeError(f"vgg_weights module must be VGG19Features, "
-                            f"got {type(vgg).__name__}")
 
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         init_gen = torch.Generator().manual_seed(
-            derive_seed(seed, 0, 0, "init"))
+            derive_seed(run.seed, 0, 0, "init"))
         self.state: TrainState = init_state(self.cfg, init_gen, self.device,
                                             vgg=vgg)
         self.epoch_fn = make_epoch(self.aug_cfg)
+        self.start_epoch = 0
         self.best_loss = float("inf")
         self.history: list[dict[str, float]] = []
+        self.last_valid: dict[str, float] = {}
+
+    # ------------------------------------------------------------ data
+    def _load_dirs(self, cfg: TrainConfig):
+        train_parts, valid_parts, names = [], [], []
+        for d in self.run.data_dirs:
+            name = os.path.basename(os.path.normpath(d))
+            tr = ISTDDataset(d, "train", datas=cfg.train_datas, name=name)
+            va = ISTDDataset(d, "test", datas=cfg.train_datas, name=name)
+            t0 = time.perf_counter()
+            train_parts.append(tr.load_all())
+            valid_parts.append(va.load_all())
+            logger.info("loaded %s: %d train + %d test samples in %.1f s",
+                        d, len(tr), len(va), time.perf_counter() - t0)
+            names.extend(va.filename(i) for i in range(len(va)))
+        keys = train_parts[0].keys()
+        train = {k: np.concatenate([p[k] for p in train_parts]) for k in keys}
+        valid = {k: np.concatenate([p[k] for p in valid_parts]) for k in keys}
+        return train, valid, names
+
+    def valid_batches(self):
+        """The validation split in order, normalized NCHW on the card."""
+        for raw in self.valid_pipe.epoch():
+            yield normalize_batch(tuple(torch.from_numpy(a).to(self.device)
+                                        for a in raw))
+
+    def _save_weights(self, suffix: str) -> None:
+        ckpt.save_model_weights(self.state, self.run.weights_dir, suffix)
 
     # ----------------------------------------------------------- train
-    def train(self, epochs: int, valid_every: int = 10) -> None:
-        """Epochs ``0 .. epochs-1``; validates after every epoch that is
-        a multiple of ``valid_every`` and keeps the best ``total``. Reads
-        the epoch's metric sums back once per epoch (``history``)."""
-        for epoch in range(epochs):
+    def train(self, epochs: int) -> None:
+        """Epochs ``start_epoch .. epochs-1``. Reads the epoch's metric
+        sums back once per epoch (``history``)."""
+        if self.cache is None:
+            raise ValueError("no training data")
+        run = self.run
+        t_start = time.time()
+        logger.info("start training: %d epochs, %d steps/epoch", epochs,
+                    self.cfg.steps_per_epoch)
+        for epoch in range(self.start_epoch, epochs):
             sums, n = self.run_train_epoch(epoch)
             self.history.append({k: float(v) / n for k, v in sums.items()})
-            if self.valid is not None and epoch % valid_every == 0:
+            if epoch % run.log_every == 0:
+                logger.info("train epoch %d: %s", epoch, ", ".join(
+                    f"{k} {self.history[-1][k]:.4f}"
+                    for k in METRIC_KEYS[:10]))
+                self._save_weights("latest")
+            if epoch % run.valid_every == 0 and self.valid_pipe:
                 total = self.run_valid_epoch(epoch)
                 if total < self.best_loss:
                     self.best_loss = total
+                    self._save_weights("best")
                     logger.info("improvement after epoch %d, error=%.4f",
                                 epoch, total)
+            if epoch % run.save_every == 0:
+                # the epoch is complete: resume continues with the next
+                self.save(epoch + 1)
+        logger.info("training time %.1fs; best validation loss %.3f",
+                    time.time() - t_start, self.best_loss)
 
     def run_train_epoch(self, epoch: int
                         ) -> tuple[dict[str, torch.Tensor], int]:
         """One fused epoch; returns the metric sums (device tensors, not
         read back) and the step count."""
-        gen = RngStreams(self.seed, epoch, self.device)
+        gen = RngStreams(self.run.seed, epoch, self.device)
         idx = self.cache.epoch_indices(gen.generator("shuffle"),
                                        self.cfg.batch_size)
         self.state, sums = self.epoch_fn(self.state, self.cache.arrays, idx,
@@ -153,18 +270,14 @@ class Trainer:
         return sums, idx.shape[0]
 
     def run_valid_epoch(self, epoch: int) -> float:
-        """``eval_step`` over the validation streams at full resolution,
+        """``eval_step`` over the validation split at full resolution,
         in order, keeping the ragged last batch; returns the mean of the
         batches' ``total`` and stores every metric's mean in
         ``last_valid``. The eval generators use the current weights (no
         frozen decoder kernels: ``MNet.train`` drops them)."""
-        b = self.cfg.batch_size
         sums: dict[str, torch.Tensor] = {}
         n = 0
-        for start in range(0, self.valid.n, b):
-            sel = torch.arange(start, min(start + b, self.valid.n),
-                               device=self.device)
-            batch = normalize_batch(self.valid.gather(sel))
+        for batch in self.valid_batches():
             for k, v in eval_step(self.state, batch).items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
@@ -173,3 +286,65 @@ class Trainer:
             f"{k} {self.last_valid[k]:.4f}" for k in (*METRIC_KEYS[:6],
                                                       "total")))
         return self.last_valid["total"]
+
+    # ------------------------------------------------------- inference
+    @torch.no_grad()
+    def infer(self) -> int:
+        """G1 -> G2 over the validation split in the compute dtype,
+        written to ``{infered}/shadowless/{name}.png`` (BGR) and
+        ``{infered}/matte/{name}.png`` (reference src/cgan.py:420-464).
+        PNG encoding runs on a small thread pool (zlib releases the GIL)
+        while the next batch computes. Returns the image count."""
+        if self.valid_pipe is None:
+            raise ValueError("no validation data")
+        g1, g2 = self.state.models.g1, self.state.models.g2
+        g1.eval()
+        g2.eval()
+        for sub in ("shadowless", "matte"):
+            os.makedirs(os.path.join(self.run.infered_dir, sub),
+                        exist_ok=True)
+        idx = 0
+        futures = []
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            for x, _, _ in self.valid_batches():
+                m, y = infer_step(g1, g2, x)
+                m_np = float_to_uint8(denormalize(m))[:, 0].cpu().numpy()
+                y_np = float_to_uint8(denormalize(y)).permute(
+                    0, 2, 3, 1).cpu().numpy()
+                for i in range(m_np.shape[0]):
+                    name = (self.valid_names[idx]
+                            if idx < len(self.valid_names)
+                            else f"{idx:05d}")
+                    for sub, arr in (("shadowless", y_np[i]),
+                                     ("matte", m_np[i])):
+                        path = os.path.join(self.run.infered_dir, sub,
+                                            f"{name}.png")
+                        os.makedirs(os.path.dirname(path), exist_ok=True)
+                        futures.append(pool.submit(imwrite, path, arr))
+                    idx += 1
+                # bound the pending writes to ~2 batches of outputs
+                while len(futures) > 4 * max(self.cfg.batch_size, 1):
+                    futures.pop(0).result()
+            for f in futures:
+                f.result()  # surface any write error
+        return idx
+
+    # ------------------------------------------------------ checkpoint
+    def save(self, epoch: int) -> None:
+        ckpt.save_checkpoint(self.state, self.run.checkpoint_path, epoch,
+                             host={"best_loss": self.best_loss})
+
+    def load(self, path: str | None = None) -> None:
+        path = path or self.run.checkpoint_path
+        epoch, host = ckpt.load_checkpoint(self.state, path)
+        self.start_epoch = epoch
+        if "best_loss" in host:
+            self.best_loss = float(host["best_loss"])
+        logger.info("checkpoint loaded (epoch %d)", epoch)
+
+    def load_weights(self, g1=None, g2=None, d1=None, d2=None) -> None:
+        """Per-network weight loading (reference src/cgan.py:525-542)."""
+        for net, path in (("G1", g1), ("G2", g2), ("D1", d1), ("D2", d2)):
+            if path:
+                ckpt.load_model_weights(self.state, net, path)
+                logger.info("loaded %s weights: %s", net, path)

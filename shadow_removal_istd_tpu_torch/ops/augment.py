@@ -123,3 +123,15 @@ def normalize_batch(streams: tuple[torch.Tensor, ...]
     augmentation (the validation path)."""
     return tuple(s.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
                  for s in streams)
+
+
+def denormalize(img: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> [0, 1], in the input's dtype (reference
+    src/cgan.py:441-442)."""
+    return img * 0.5 + 0.5
+
+
+def float_to_uint8(img: torch.Tensor) -> torch.Tensor:
+    """[0, 1] -> uint8: clip, scale by 255 and truncate, as numpy's
+    ``astype(uint8)`` (reference src/utils.py:65-67)."""
+    return (img.clamp(0.0, 1.0) * 255.0).to(torch.uint8)

@@ -12,8 +12,9 @@ Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
   bfloat16 (BatchNorm statistics included), as the JAX engine casts
   every leaf; ``dtype="float32"`` keeps exact-eval numerics.
 
-Not ported yet (they raise): ``dtype="int8"``, ``devices > 1``, the
-StableHLO ``ArtifactEngine`` and reading flax msgpack weight files.
+Weights load from the JAX package's per-network flax msgpack files or
+from ``.npz`` files of the same tree. Not ported yet (they raise):
+``dtype="int8"``, ``devices > 1`` and the StableHLO ``ArtifactEngine``.
 """
 
 from __future__ import annotations
@@ -27,10 +28,15 @@ from shadow_removal_istd_tpu_torch import resolve_device
 from shadow_removal_istd_tpu_torch.engine.steps import infer_step
 from shadow_removal_istd_tpu_torch.models import get_generator
 from shadow_removal_istd_tpu_torch.models.layers import init_weights_
+from shadow_removal_istd_tpu_torch.ops.augment import (
+    denormalize,
+    float_to_uint8,
+)
 from shadow_removal_istd_tpu_torch.tools.convert import (
     flax_tree_to_torch,
     unflatten_tree,
 )
+from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
 
 # Spatial divisibility MNet needs at its default depth (stem + 4 halvings)
 _MNET_PAD = 32
@@ -42,9 +48,8 @@ def _next_pow2(n: int) -> int:
 
 
 def _to_u8(t: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] NCHW -> uint8 NHWC (truncating, as ``astype(uint8)``)."""
-    u = ((t.float() * 0.5 + 0.5).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-    return u.permute(0, 2, 3, 1)
+    """[-1, 1] NCHW -> uint8 NHWC, through f32."""
+    return float_to_uint8(denormalize(t.float())).permute(0, 2, 3, 1)
 
 
 class InferenceEngine:
@@ -108,22 +113,22 @@ class InferenceEngine:
         self._adopt(g1, g2)
 
     @staticmethod
-    def _read_npz(path: str) -> dict:
+    def _read_tree(path: str) -> dict:
         if path.endswith(".msgpack"):
-            raise NotImplementedError(
-                "reading flax msgpack weights is not ported yet; save the "
-                "variable tree as .npz (keys '/'-joined flax paths)")
+            with open(path, "rb") as f:
+                return from_bytes(f.read())
         with np.load(path, allow_pickle=False) as z:
             return unflatten_tree({tuple(k.split("/")): z[k]
                                    for k in z.files})
 
     def load_weights(self, g1_path: str, g2_path: str) -> None:
-        """Load per-network ``.npz`` files whose keys are the flax
-        variable paths joined by ``/`` (e.g.
-        ``params/_Down_0/BatchNorm_0/scale``). Atomic, as
+        """Load per-network weight files: the JAX package's flax msgpack
+        files (``G1_MNet_best.msgpack``, ``{"params", "batch_stats"}``),
+        or ``.npz`` files whose keys are the flax variable paths joined
+        by ``/`` (e.g. ``params/_Down_0/BatchNorm_0/scale``). Atomic, as
         :meth:`set_variables`."""
-        self.set_variables(self._read_npz(g1_path),
-                           self._read_npz(g2_path))
+        self.set_variables(self._read_tree(g1_path),
+                           self._read_tree(g2_path))
 
     # -- inference ----------------------------------------------------
 

@@ -14,15 +14,17 @@ Port of ``shadow_removal_istd_tpu/serving/server.py``: a dependency-free
 
 Endpoints:
   POST /v1/unshadow[?output=shadowless|matte]  image bytes -> PNG
-  POST /admin/reload                           {"g1","g2"} .npz paths
+  POST /admin/reload                           {"g1","g2"} weight paths
                                                -> zero-downtime reload
   GET  /healthz                                liveness + device
   GET  /stats                                  counters + latency
                                                percentiles (JSON)
 
 Run: ``python -m shadow_removal_istd_tpu_torch.serving
---load-weights-g1 G1.npz --load-weights-g2 G2.npz`` (``--device cpu`` to
-run without a card).
+--load-weights-g1 G1_MNet_best.msgpack --load-weights-g2
+G2_MNet_best.msgpack`` (flax msgpack weight files, as either package's
+trainer writes them, or ``.npz``; ``--device cpu`` to run without a
+card).
 """
 
 from __future__ import annotations
@@ -323,9 +325,6 @@ def _make_handler(batcher: MicroBatcher, stats: ServerStats,
             except FileNotFoundError as exc:
                 self._err(400, str(exc))
                 return
-            except NotImplementedError as exc:  # e.g. a msgpack file
-                self._err(501, str(exc))
-                return
             except Exception as exc:
                 logger.exception("reload failed")
                 self._err(500, str(exc))
@@ -462,8 +461,8 @@ def main(argv=None) -> int:
                     choices=["bfloat16", "float32", "int8"],
                     help="int8 serving is not ported yet")
     ap.add_argument("--load-weights-g1", default=None,
-                    help="G1 .npz weight file (flax variable paths "
-                         "joined by '/')")
+                    help="G1 weight file: flax .msgpack, or .npz with "
+                         "the flax variable paths joined by '/'")
     ap.add_argument("--load-weights-g2", default=None)
     ap.add_argument("--artifact", default=None,
                     help="StableHLO artifact serving is not ported yet")

@@ -8,12 +8,25 @@ of numpy arrays (``np.asarray`` of the JAX arrays, or an ``.npz`` read by
 ``running_mean``/``running_var``. Flax numbers ``_Up_k`` in creation
 order, so ``_Up_0`` is the innermost decoder level (``MNet.ups[0]``).
 MNet, PatchGAN and the VGG-19-BN features are mapped;
-:func:`torch_to_flax_tree` is the inverse.
+:func:`torch_to_flax_tree` is the inverse. Trees come out with their
+keys sorted, as JAX's tree utilities leave them, so a tree encodes to the
+bytes the JAX package writes for the same values.
+
+:func:`train_state_to_flax` / :func:`load_train_state` carry the whole
+train state: the JAX ``TrainState`` as flax serializes it,
+``{"step", "g_params", "d_params", "batch_stats", "opt_g", "opt_d", "k1",
+"k2", "softadapt"}``, with each optimizer as optax's Adam chain
+``{"0": {"count", "mu", "nu"}, "1": {"count"}}``. Adam's moments are
+``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``, found by parameter
+identity through the same leaf map as the weights (so kernels go through
+the same HWIO <-> OIHW transpose), and ``count`` is every parameter's
+Adam ``step`` and ``TrainState.step``.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -22,6 +35,9 @@ from torch import nn
 from shadow_removal_istd_tpu_torch.models.mnet import MNet
 from shadow_removal_istd_tpu_torch.models.patchgan import PatchGAN
 from shadow_removal_istd_tpu_torch.models.vgg import VGG19Features
+
+if TYPE_CHECKING:
+    from shadow_removal_istd_tpu_torch.engine.state import TrainState
 
 TreePath = tuple[str, ...]
 
@@ -39,9 +55,9 @@ def flatten_tree(tree: Mapping,
 
 
 def unflatten_tree(flat: Mapping[TreePath, object]) -> dict:
-    """``{path tuple: leaf}`` -> nested dicts."""
+    """``{path tuple: leaf}`` -> nested dicts, keys sorted."""
     tree: dict = {}
-    for path, leaf in flat.items():
+    for path, leaf in sorted(flat.items()):
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -120,15 +136,55 @@ def targets(module: nn.Module) -> dict[TreePath, torch.Tensor]:
     return fn(module)
 
 
+def _to_flax(t: torch.Tensor) -> np.ndarray:
+    """An f32 numpy copy (never a view of a live CPU tensor) in flax's
+    layout. The OIHW -> HWIO transpose runs where the tensor lives, then
+    one copy moves it to the host: numpy's strided copy of such a
+    transpose moves ~0.1 GB/s."""
+    t = t.detach().float()
+    if t.ndim == 4:
+        t = t.permute(2, 3, 1, 0)
+    return t.contiguous().to("cpu", copy=True).numpy()
+
+
+def _from_flax(leaf, path: TreePath, like: torch.Tensor) -> torch.Tensor:
+    """One flax leaf as a contiguous f32 tensor in the port's layout on
+    ``like``'s device (the HWIO -> OIHW transpose runs there); raises on
+    a shape mismatch. Values are upcast to f32 (exact for bf16)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.float()
+    else:
+        t = torch.from_numpy(np.array(leaf, np.float32))
+    perm = (3, 2, 0, 1) if t.ndim == 4 else tuple(range(t.ndim))
+    shape = tuple(t.shape[i] for i in perm)
+    if shape != tuple(like.shape):
+        raise ValueError(f"{'/'.join(path)}: shape {shape} does not match "
+                         f"{tuple(like.shape)}")
+    return t.to(like.device).permute(perm).contiguous()
+
+
+def _match(tree: Mapping, dsts: Mapping[TreePath, torch.Tensor],
+           what: str) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``(destination, value)`` for every leaf of ``tree``; raises on a
+    missing or extra leaf or a shape mismatch, before anything is
+    written."""
+    leaves = flatten_tree(tree)
+    missing = sorted(dsts.keys() - leaves.keys())
+    extra = sorted(leaves.keys() - dsts.keys())
+    if missing or extra:
+        raise ValueError(f"tree does not match {what}: missing {missing}, "
+                         f"extra {extra}")
+    return [(dst, _from_flax(leaves[path], path, dst))
+            for path, dst in dsts.items()]
+
+
 def torch_to_flax_tree(module: nn.Module) -> dict:
     """The module's weights as the flax ``{"params", "batch_stats"}``
     tree of f32 numpy leaves (OIHW kernels back to HWIO); the inverse
     of :func:`flax_tree_to_torch`."""
-    flat = {}
-    for path, src in targets(module).items():
-        arr = src.detach().float().cpu().numpy()
-        flat[path] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
-    return unflatten_tree(flat)
+    tree = unflatten_tree({path: _to_flax(src)
+                           for path, src in targets(module).items()})
+    return {k: tree[k] for k in ("params", "batch_stats")}  # flax's order
 
 
 def flax_tree_to_torch(tree: Mapping, module: nn.Module) -> nn.Module:
@@ -137,23 +193,122 @@ def flax_tree_to_torch(tree: Mapping, module: nn.Module) -> nn.Module:
     Raises on a missing or extra leaf and on any shape mismatch, before
     any value is written. Values are upcast to f32 (exact for bf16) and
     copied into the module's own dtype and device."""
-    dsts = targets(module)
-    leaves = flatten_tree(tree)
-    missing = sorted(dsts.keys() - leaves.keys())
-    extra = sorted(leaves.keys() - dsts.keys())
-    if missing or extra:
-        raise ValueError(f"tree does not match {type(module).__name__}: "
-                         f"missing {missing}, extra {extra}")
-    staged = []
-    for path, dst in dsts.items():
-        arr = np.asarray(leaves[path]).astype(np.float32)
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)                    # HWIO -> OIHW
-        if tuple(arr.shape) != tuple(dst.shape):
-            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} does not "
-                             f"match {tuple(dst.shape)}")
-        staged.append((dst, torch.from_numpy(np.ascontiguousarray(arr))))
+    staged = _match(tree, targets(module), type(module).__name__)
     with torch.no_grad():
         for dst, src in staged:
             dst.copy_(src)
     return module
+
+
+# ----------------------------------------------------------- train state
+
+_G, _D = ("g1", "g2"), ("d1", "d2")
+_FIELDS = ("step", "g_params", "d_params", "batch_stats", "opt_g", "opt_d",
+           "k1", "k2", "softadapt")
+_UNPORTED = ("BEGAN's k1/k2 and SoftAdapt are not ported yet: a checkpoint "
+             "with nonzero k1/k2 or a softadapt state cannot be loaded")
+
+
+def _param_targets(module: nn.Module) -> dict[TreePath, torch.Tensor]:
+    """Flax ``params`` path (without the ``params`` root) -> parameter."""
+    return {path[1:]: t for path, t in targets(module).items()
+            if path[0] == "params"}
+
+
+def _adam_tree(opt: torch.optim.Optimizer, nets: dict[str, nn.Module],
+               count: np.ndarray) -> dict:
+    """optax's ``adam`` chain state: the moments of every parameter of
+    ``nets`` (zeros before the first step, as optax initialises them)."""
+    moments = {}
+    for which, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        moments[which] = {
+            name: unflatten_tree({
+                path: _to_flax(opt.state[p][key] if p in opt.state
+                               else torch.zeros_like(p))
+                for path, p in _param_targets(net).items()})
+            for name, net in nets.items()}
+    return {"0": {"count": count.copy(), **moments},
+            "1": {"count": count.copy()}}
+
+
+def train_state_to_flax(state: "TrainState") -> dict:
+    """The port's train state as the JAX ``TrainState`` tree that
+    ``flax.serialization`` writes (numpy leaves, keys in its order)."""
+    nets = {k: getattr(state.models, k) for k in (*_G, *_D)}
+    trees = {k: torch_to_flax_tree(m) for k, m in nets.items()}
+    step = np.asarray(state.step, np.int32)
+    return {
+        "step": step,
+        "g_params": {k: trees[k]["params"] for k in _G},
+        "d_params": {k: trees[k]["params"] for k in _D},
+        "batch_stats": {k: trees[k]["batch_stats"] for k in sorted(trees)},
+        "opt_g": _adam_tree(state.opt_g, {k: nets[k] for k in _G}, step),
+        "opt_d": _adam_tree(state.opt_d, {k: nets[k] for k in _D}, step),
+        "k1": np.zeros((), np.float32),
+        "k2": np.zeros((), np.float32),
+        "softadapt": None,
+    }
+
+
+def _adam_state_dict(opt: torch.optim.Optimizer, staged: dict,
+                     count: int) -> dict:
+    """``opt.state_dict()`` with each parameter's state replaced by the
+    staged moments, keyed by the parameter's index in ``opt`` (found by
+    identity). ``step`` is an f32 CPU scalar tensor, what
+    ``torch.optim.Adam`` creates without ``capturable``/``fused``;
+    the moments are already on the parameter's device. Count 0 leaves
+    the state empty, as a fresh optimizer's."""
+    index = {id(p): i for i, p in enumerate(
+        p for g in opt.param_groups for p in g["params"])}
+    sd = opt.state_dict()
+    sd["state"] = {} if count == 0 else {
+        index[id(p)]: {"step": torch.tensor(float(count),
+                                            dtype=torch.float32),
+                       "exp_avg": mu, "exp_avg_sq": nu}
+        for p, (mu, nu) in staged.items()}
+    return sd
+
+
+def load_train_state(tree: Mapping, state: "TrainState") -> None:
+    """Load a JAX ``TrainState`` tree (:func:`train_state_to_flax`'s
+    form) into ``state`` in place.
+
+    Fields the tree lacks keep their current values (the JAX package's
+    forward-compatibility rule). Everything is checked (leaves, shapes,
+    equal counts, zero k1/k2, no SoftAdapt) before anything is
+    written."""
+    tree = dict(tree)
+    missing = [k for k in _FIELDS if k not in tree]
+    if missing:
+        current = train_state_to_flax(state)
+        tree.update({k: current[k] for k in missing})
+    if (any(np.any(np.asarray(tree[k]) != 0) for k in ("k1", "k2"))
+            or tree["softadapt"] is not None):
+        raise NotImplementedError(_UNPORTED)
+    counts = {int(np.asarray(c)) for c in (
+        tree["step"], *(tree[o][i]["count"] for o in ("opt_g", "opt_d")
+                        for i in ("0", "1")))}
+    if len(counts) != 1:
+        raise ValueError(f"step and optimizer counts differ: {counts}")
+    (count,) = counts
+    copies, adam = [], []
+    for opt_key, group, names, opt in (
+            ("opt_g", "g_params", _G, state.opt_g),
+            ("opt_d", "d_params", _D, state.opt_d)):
+        staged: dict = {}
+        for k in names:
+            net = getattr(state.models, k)
+            copies += _match({"params": tree[group][k],
+                              "batch_stats": tree["batch_stats"][k]},
+                             targets(net), k)
+            dsts = _param_targets(net)
+            mus = dict(_match(tree[opt_key]["0"]["mu"][k], dsts, f"{k} mu"))
+            nus = dict(_match(tree[opt_key]["0"]["nu"][k], dsts, f"{k} nu"))
+            staged.update({p: (mus[p], nus[p]) for p in dsts.values()})
+        adam.append((opt, _adam_state_dict(opt, staged, count)))
+    with torch.no_grad():
+        for dst, src in copies:
+            dst.copy_(src)
+    for opt, sd in adam:
+        opt.load_state_dict(sd)
+    state.step = count

@@ -1,11 +1,17 @@
-"""Image bytes <-> uint8 arrays in the reference's BGR convention.
+"""Image files and bytes <-> uint8 arrays in the reference's BGR
+convention.
 
-Port of ``imdecode_color``/``imencode_png`` from
-``shadow_removal_istd_tpu/utils/image_io.py``. Decoding goes through cv2,
-or else PIL, when one is importable (both decode in C). A serving host
-may have neither, so 8-bit gray/RGB/RGBA non-interlaced PNG is also read
-and written by the small stdlib (``zlib``) + numpy codec below, which is
-what such a host decodes with. Encoding always uses that codec.
+Port of ``imread_color``/``imread_gray``/``imwrite``/``imdecode_color``/
+``imencode_png`` from ``shadow_removal_istd_tpu/utils/image_io.py``.
+Decoding goes through cv2, or else PIL, when one is importable (both
+decode in C). A host may have neither, so 8-bit gray/RGB/RGBA
+non-interlaced PNG is also read and written by the small stdlib
+(``zlib``) + numpy codec below, which is what such a host decodes with.
+Encoding always uses that codec.
+
+Gray reads: a gray PNG decodes to its own bytes on every path. A color
+PNG read as gray has a bit-exact decode only through cv2 (its RGB ->
+gray rounding is its own); PIL and the stdlib codec refuse it.
 """
 
 from __future__ import annotations
@@ -140,17 +146,24 @@ def png_decode(data: bytes) -> np.ndarray | None:
     return _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, c))
 
 
+_NO_GRAY = ("no bit-exact gray decode of a color PNG without cv2 (its "
+            "RGB -> gray rounding is its own); store the stream as gray "
+            "PNGs or install cv2")
+
+
 @functools.cache
-def _library_decoder() -> Callable[[bytes], np.ndarray] | None:
-    """cv2's, else PIL's, decode to HxWx3 uint8 BGR; None with neither."""
+def _library_decoder() -> Callable[[bytes, bool], np.ndarray] | None:
+    """cv2's, else PIL's, ``decode(data, gray)``: HxWx3 uint8 BGR, or
+    HxW uint8 when ``gray``; None with neither library."""
     try:
         import cv2
     except ImportError:
         cv2 = None
     if cv2 is not None:
-        def decode(data: bytes) -> np.ndarray:
+        def decode(data: bytes, gray: bool = False) -> np.ndarray:
             img = cv2.imdecode(np.frombuffer(data, np.uint8),
-                               cv2.IMREAD_COLOR)
+                               cv2.IMREAD_GRAYSCALE if gray
+                               else cv2.IMREAD_COLOR)
             if img is None:
                 raise ValueError("could not decode image bytes")
             return img
@@ -160,13 +173,35 @@ def _library_decoder() -> Callable[[bytes], np.ndarray] | None:
     except ImportError:
         return None
 
-    def decode(data: bytes) -> np.ndarray:
+    def decode(data: bytes, gray: bool = False) -> np.ndarray:
         try:
-            img = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            img = Image.open(io.BytesIO(data))
+            if gray:
+                if img.mode != "L":
+                    raise ValueError(f"{_NO_GRAY} (PIL mode {img.mode})")
+                return np.asarray(img).copy()
+            img = np.asarray(img.convert("RGB"))
         except (UnidentifiedImageError, OSError) as exc:
             raise ValueError("could not decode image bytes") from exc
         return img[..., ::-1].copy()  # RGB -> BGR
     return decode
+
+
+def decodes_in_c() -> bool:
+    """Whether cv2 or PIL decodes. Their C code releases the GIL, so
+    decodes overlap on threads; the stdlib codec's Average/Paeth
+    unfilter is thousands of small numpy calls that hold it, and threads
+    only contend (3x slower than one thread at 480x640 on an 8-core
+    H100 host, ``chip_smoke.py``)."""
+    return _library_decoder() is not None
+
+
+def _png_only(data: bytes) -> np.ndarray:
+    img = png_decode(data) if data.startswith(_SIG) else None
+    if img is None:
+        raise ValueError("could not decode image bytes: without cv2 or PIL "
+                         "only 8-bit gray/RGB/RGBA non-interlaced PNG is read")
+    return img
 
 
 def imdecode_color(data: bytes) -> np.ndarray:
@@ -175,17 +210,51 @@ def imdecode_color(data: bytes) -> np.ndarray:
     decode = _library_decoder()
     if decode is not None:
         return decode(data)
-    img = png_decode(data) if data.startswith(_SIG) else None
-    if img is None:
-        raise ValueError("could not decode image bytes: without cv2 or PIL "
-                         "only 8-bit gray/RGB/RGBA non-interlaced PNG is read")
+    img = _png_only(data)
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return img[..., 2::-1].copy()          # RGB(A) -> BGR
 
 
-def imencode_png(img: np.ndarray) -> bytes:
+def imdecode_gray(data: bytes) -> np.ndarray:
+    """Decode encoded image bytes to HxW uint8 (cv2's
+    ``IMREAD_GRAYSCALE``); see the module note on color files."""
+    decode = _library_decoder()
+    if decode is not None:
+        return decode(data, gray=True)
+    img = _png_only(data)
+    if img.shape[2] != 1:
+        raise ValueError(f"{_NO_GRAY} ({img.shape[2]}-channel PNG)")
+    return img[..., 0]
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def imread_color(path: str) -> np.ndarray:
+    """Read an image file as HxWx3 uint8 in BGR order (cv2 convention)."""
+    return imdecode_color(_read(path))
+
+
+def imread_gray(path: str) -> np.ndarray:
+    """Read an image file as HxW uint8 grayscale."""
+    return imdecode_gray(_read(path))
+
+
+def imwrite(path: str, img: np.ndarray,
+            filters: int | Sequence[int] = 0) -> None:
+    """Write a uint8 image as PNG; 3-channel input is interpreted as BGR.
+    ``filters``: the PNG row filter types, as :func:`png_encode`."""
+    data = imencode_png(img, filters)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def imencode_png(img: np.ndarray,
+                 filters: int | Sequence[int] = 0) -> bytes:
     """Encode a uint8 image (3-channel interpreted as BGR) to PNG bytes."""
     if img.ndim == 3 and img.shape[2] == 3:
         img = np.ascontiguousarray(img[..., ::-1])  # BGR -> RGB
-    return png_encode(img)
+    return png_encode(img, filters)

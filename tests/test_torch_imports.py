@@ -1,7 +1,8 @@
 """Import hygiene of the port: no JAX, no JAX package, no silent CPU.
 
 Walks the AST of every module of ``shadow_removal_istd_tpu_torch`` and
-of ``chip_smoke.py``: none may import ``jax``, ``flax``, ``optax`` or
+of ``chip_smoke.py``: none may import ``jax``, ``flax``, ``optax``,
+``msgpack`` (absent on a CUDA host; the port has its own codec) or
 anything of ``shadow_removal_istd_tpu`` (modules without JAX included).
 """
 import ast
@@ -16,7 +17,7 @@ import torch
 from shadow_removal_istd_tpu_torch.serving import InferenceEngine
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "optax", "shadow_removal_istd_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "msgpack", "shadow_removal_istd_tpu"}
 FILES = sorted(p.relative_to(REPO).as_posix() for p in
                [*(REPO / "shadow_removal_istd_tpu_torch").rglob("*.py"),
                 REPO / "chip_smoke.py"])
@@ -37,7 +38,9 @@ def test_port_files_found():
     for rel in ("ops/decoder.py", "ops/shear.py", "ops/augment.py",
                 "losses/adversarial.py", "losses/visual.py",
                 "data/device_cache.py", "data/synthetic.py",
-                "engine/loop.py", "models/patchgan.py", "models/vgg.py"):
+                "data/istd.py", "data/pipeline.py", "engine/loop.py",
+                "engine/checkpoint.py", "utils/msgpack_codec.py",
+                "cli/main.py", "models/patchgan.py", "models/vgg.py"):
         assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 
@@ -58,14 +61,14 @@ def test_trainer_without_card_raises(monkeypatch):
         synthetic_triplets,
     )
     from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
-    from shadow_removal_istd_tpu_torch.engine.loop import Trainer
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(TrainConfig(ngf=4, ndf=4, batch_size=2, image_size=32,
                             aug_method="shear"),
-                synthetic_triplets(2, 32, 32), seed=0,
-                allow_missing_vgg=True)
+                RunConfig(seed=0, allow_missing_vgg=True),
+                train_streams=synthetic_triplets(2, 32, 32))
 
 
 def test_chip_smoke_fails_without_card():

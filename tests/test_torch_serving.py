@@ -142,6 +142,26 @@ class TestEngine:
         assert not np.array_equal(before, want)
         np.testing.assert_array_equal(fresh.infer_group([img])[0][1], want)
 
+    def test_load_weights_msgpack(self, tmp_path, engine, jax_engine):
+        """The JAX package's per-network weight files (flax msgpack, as
+        its ``save_model_weights`` writes them) load as the .npz route
+        does."""
+        from flax import serialization
+
+        paths = []
+        for name, v in (("G1", jax_engine.v1), ("G2", jax_engine.v2)):
+            path = tmp_path / f"{name}_MNet_best.msgpack"
+            path.write_bytes(serialization.to_bytes(
+                {"params": v["params"], "batch_stats": v["batch_stats"]}))
+            paths.append(str(path))
+        fresh = InferenceEngine(seed=7, **ENGINE_KW)
+        img = _img(32, 32, seed=23)
+        fresh.load_weights(*paths)
+        for (m, y), (wm, wy) in zip(fresh.infer_group([img]),
+                                    engine.infer_group([img])):
+            np.testing.assert_array_equal(m, wm)
+            np.testing.assert_array_equal(y, wy)
+
     def test_load_weights_is_atomic(self, tmp_path, jax_engine):
         _save_npz(tmp_path / "g1.npz", jax_engine.v1)
         _save_npz(tmp_path / "g2.npz", jax_engine.v1)  # G1 tree for G2
@@ -152,17 +172,13 @@ class TestEngine:
                              str(tmp_path / "g2.npz"))
         assert eng.g1 is g1 and eng.g2 is g2
 
-    @pytest.mark.parametrize("what", ["int8", "devices", "msgpack",
-                                      "artifact"])
+    @pytest.mark.parametrize("what", ["int8", "devices", "artifact"])
     def test_not_ported_yet(self, what):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             if what == "int8":
                 InferenceEngine(ngf=4, dtype="int8", device="cpu")
             elif what == "devices":
                 InferenceEngine(ngf=4, devices=2, device="cpu")
-            elif what == "msgpack":
-                InferenceEngine(**ENGINE_KW).load_weights("G1.msgpack",
-                                                          "G2.msgpack")
             else:
                 ArtifactEngine("model.shlo")
 
@@ -271,9 +287,9 @@ class TestHTTP:
             assert _post(srv, json.dumps({"g1": "/nope.npz",
                                           "g2": "/nope.npz"}).encode(),
                          path="/admin/reload")[0] == 400
-            assert _post(srv, json.dumps({"g1": "a.msgpack",
-                                          "g2": "b.msgpack"}).encode(),
-                         path="/admin/reload")[0] == 501
+            assert _post(srv, json.dumps({"g1": "/nope.msgpack",
+                                          "g2": "/nope.msgpack"}).encode(),
+                         path="/admin/reload")[0] == 400
         finally:
             srv.shutdown()
 

@@ -349,29 +349,34 @@ def test_rng_streams_are_pure_functions_of_seed_epoch_step():
         assert not torch.equal(draw(3, 1, 2, "augment"), draw(*other))
 
 
-def _tiny_trainer(**kw):
+def _tiny_trainer(tmp_path=None, run=None, **kw):
     from shadow_removal_istd_tpu_torch.data.synthetic import (
         synthetic_triplets,
     )
-    from shadow_removal_istd_tpu_torch.engine.loop import Trainer
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
 
     cfg = TrainConfig(**{**BASE, "image_size": 32, **kw.pop("cfg", {})})
-    return Trainer(cfg, synthetic_triplets(4, 48, 64, seed=0),
-                   synthetic_triplets(3, 64, 64, seed=1), seed=0,
-                   device="cpu", **kw)
+    dirs = {} if tmp_path is None else dict(
+        weights_dir=str(tmp_path / "w"), logs_dir=str(tmp_path / "l"),
+        checkpoint_path=str(tmp_path / "w" / "checkpoint.msgpack"))
+    return Trainer(cfg, RunConfig(seed=0, **dirs, **(run or {}), **kw),
+                   train_streams=synthetic_triplets(4, 48, 64, seed=0),
+                   valid_streams=synthetic_triplets(3, 64, 64, seed=1),
+                   device="cpu")
 
 
-def test_trainer_trains_and_validates_on_the_cpu():
-    t = _tiny_trainer(cfg={"use_visual_loss": False})
+def test_trainer_trains_and_validates_on_the_cpu(tmp_path):
+    run = dict(valid_every=1, log_every=1, save_every=1)
+    t = _tiny_trainer(tmp_path, run, cfg={"use_visual_loss": False})
     assert t.cfg.steps_per_epoch == 2
-    t.train(2, valid_every=1)
+    t.train(2)
     assert len(t.history) == 2 and t.state.step == 4
     assert all(np.isfinite(v) for h in t.history for v in h.values())
     assert set(t.last_valid) == {*METRIC_KEYS, "total"}
     assert t.best_loss <= t.last_valid["total"]
     # same seed, same run: randomness is a function of (seed, epoch, step)
-    t2 = _tiny_trainer(cfg={"use_visual_loss": False})
-    t2.train(2, valid_every=1)
+    t2 = _tiny_trainer(tmp_path, run, cfg={"use_visual_loss": False})
+    t2.train(2)
     assert t2.history == t.history
 
 
@@ -382,6 +387,8 @@ def test_trainer_vgg_rule():
     assert t.state.vgg is None
     with pytest.raises(FileNotFoundError):
         _tiny_trainer(vgg_weights="/nonexistent/vgg19_bn.npz")
+    # an inference-only run needs no VGG
+    assert _tiny_trainer(tasks=("infer",)).state.vgg is None
 
 
 @pytest.mark.parametrize("field,value", [
