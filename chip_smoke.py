@@ -69,7 +69,25 @@ Phases; any failure exits non-zero before the result line is printed:
    statistics, both Adam states with their steps' dtype and device,
    step) and trains its epoch (``[time] checkpoint``, ``[time] cli
    infer`` img/s with the PNG writes, the phase's wall time);
-7. timings (CUDA events; torch.profiler): each decoder step's kernel
+7. eval: ``ops/resize.resize`` at 480x640 -> 256x256 and -> 300x400
+   (area) and 256x256 -> 480x640 (linear), batch 16, within 1e-5 of
+   float64 numpy applied with the same matrices; ``rgb_to_lab`` within
+   1e-3 LAB units of float64 and ``aggregate_regions`` of
+   ``region_metrics`` within rtol 1e-5 of float64 sums, on 16 480x640
+   images; an ISTD directory of 16 train + 32 test 480x640 triplets;
+   ``metrics/eval_cli.all_metrics`` (masks at size 256 and at the native
+   size, and the maskless PSNR/SSIM path) on the card equal to the same
+   on the CPU (rtol 1e-5), with images/s and the host decode apart;
+   ``cli.main --tasks train infer --eval-metrics``: ``Eval/*`` of the
+   validation within rtol 5e-4 of the offline ``all_metrics`` on the PNGs
+   ``infer`` wrote, 10 decoder launches per validation batch (8
+   CUDA-core, 2 narrow); the gather augmentation of a batch-16 480x640x7
+   uint8 group to 256x256 within 1e-3 of a float64 numpy inverse-affine
+   bilinear with the same parameters, the identity warp equal to the
+   crop (flipped where drawn) exactly, no ``hshear`` launch, timed beside
+   the shear path; 3 training steps on it (no ``hshear`` launch) beside
+   3 on the shear path;
+8. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
    beside the CUDA-core variant's on the same inputs (the before/after
    of the wide bf16 steps and of the final ones), the plain version's, a
@@ -155,6 +173,16 @@ TRAIN_KW: dict = {}
 # flags: a CPU rehearsal's devices and widths)
 CLI_TRAIN, CLI_TEST = 32, 8
 CLI_ARGS: list = []
+# the eval phase: an ISTD directory of 16 train + 32 test triplets at
+# DATA_HW (one training step, two validation batches of 16), the resize
+# checks' other shapes, and its tolerances
+EVAL_TRAIN, EVAL_TEST = 16, 32
+RESIZE_TO = (300, 400)      # the legacy tree's pre-augmentation resize
+RESIZE_TOL = 1e-5           # [0, 1] data, against float64
+LAB_TOL = 1e-3              # LAB units, against float64
+EVAL_RTOL = 1e-5            # dataset metrics: f32 sums vs float64, card vs CPU
+EVAL_CLI_RTOL = 5e-4        # in-training Eval/* vs the offline CLI
+GATHER_TOL = 1e-3           # gather augmentation on [-1, 1], vs float64
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -1223,6 +1251,360 @@ def phase_cli(vgg_path: Path) -> dict:
     return {"decoder": n_dec, "hshear": n_shear}
 
 
+def _resize_f64(x64: np.ndarray, size, method: str) -> np.ndarray:
+    """``ops/resize.py``'s two contractions in float64 numpy, with its
+    own (float32) weight matrices."""
+    from shadow_removal_istd_tpu_torch.ops import resize as rs
+
+    mat = {"linear": rs.resize_matrix_linear, "area": rs.resize_matrix_area}
+    rh = mat[method](x64.shape[1], size[0]).astype(np.float64)
+    rw = mat[method](x64.shape[2], size[1]).astype(np.float64)
+    out = np.einsum("oh,nhwc->nowc", rh, x64)
+    return np.einsum("pw,nowc->nopc", rw, out)
+
+
+def _lab_f64(rgb: np.ndarray) -> np.ndarray:
+    """sRGB [0, 1] -> CIELAB in float64: ``ops/color.py``'s formulas and
+    constants."""
+    from shadow_removal_istd_tpu_torch.ops import color
+
+    lin = np.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4,
+                   rgb / 12.92)
+    xyz = lin @ color._XYZ_FROM_RGB.astype(np.float64).T
+    t = xyz / color._WHITE_D65.astype(np.float64)
+    f = np.where(t > 0.008856, np.cbrt(t), 7.787 * t + 16.0 / 116.0)
+    return np.stack([116.0 * f[..., 1] - 16.0, 500.0 * (f[..., 0] - f[..., 1]),
+                     200.0 * (f[..., 1] - f[..., 2])], axis=-1)
+
+
+def _regions_f64(lab1, lab2, mask) -> dict:
+    dist = np.sqrt(((lab1 - lab2) ** 2).sum(-1))
+    ad = np.abs(lab1 - lab2).sum(-1)
+    inv = ~mask
+    return {"rmse_sum": dist[mask].sum(), "mae_sum": ad[mask].sum(),
+            "pixels": float(mask.sum()), "rmse_non_sum": dist[inv].sum(),
+            "mae_non_sum": ad[inv].sum(), "pixels_non": float(inv.sum())}
+
+
+def _gather_f64(u8: np.ndarray, params: dict, crop: int) -> np.ndarray:
+    """The fused warp + flip + crop in float64 numpy, image by image:
+    ``cv.getRotationMatrix2D`` about the center, its inverse, and the
+    bilinear blend of the four neighbours, each counting zero outside
+    the image; (N, crop, crop, C) in [-1, 1]."""
+    n, h, w, c = u8.shape
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    p = {k: v.cpu().numpy() for k, v in params.items()}
+    out = np.empty((n, crop, crop, c))
+    for i in range(n):
+        th = np.deg2rad(np.float64(p["angle"][i]))
+        a = p["scale"][i] * np.cos(th)
+        b = p["scale"][i] * np.sin(th)
+        fwd = np.array([[a, b, (1 - a) * cx - b * cy],
+                        [-b, a, b * cx + (1 - a) * cy]])
+        inv = np.linalg.inv(np.vstack([fwd, [0.0, 0.0, 1.0]]))[:2]
+        rows = np.arange(crop) + float(p["row_off"][i])
+        cols = np.arange(crop) + float(p["col_off"][i])
+        if p["flip"][i]:
+            cols = (w - 1.0) - cols
+        xg, yg = np.meshgrid(cols, rows)
+        xs = inv[0, 0] * xg + inv[0, 1] * yg + inv[0, 2]
+        ys = inv[1, 0] * xg + inv[1, 1] * yg + inv[1, 2]
+        x0, y0 = np.floor(xs).astype(np.int64), np.floor(ys).astype(np.int64)
+        fx, fy = (xs - x0)[..., None], (ys - y0)[..., None]
+
+        def tap(yy, xx):
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            v = u8[i, np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+            return v * ok[..., None]
+
+        out[i] = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
+                  + fy * ((1 - fx) * tap(y0 + 1, x0)
+                          + fx * tap(y0 + 1, x0 + 1)))
+    return out * (2.0 / 255.0) - 1.0
+
+
+def _identity_crop(img, ro: int, co: int, flip: bool, crop: int):
+    """The (crop, crop) window of an (H, W, C) image at (ro, co) of the
+    image, or of its mirror image when ``flip``."""
+    w = img.shape[1]
+    rows = img[ro:ro + crop]
+    return rows[:, w - co - crop:w - co].flip(1) if flip else rows[
+        :, co:co + crop]
+
+
+def _run_cli(argv: list) -> None:
+    """``cli.main`` on ``argv``, its log handlers removed after."""
+    import logging
+
+    from shadow_removal_istd_tpu_torch.cli.main import build_parser
+    from shadow_removal_istd_tpu_torch.cli.main import main as cli_main
+
+    handlers = list(logging.getLogger().handlers)
+    try:
+        cli_main(build_parser().parse_args(argv))
+    finally:
+        for h in logging.getLogger().handlers[len(handlers):]:
+            h.close()
+        logging.getLogger().handlers[:] = handlers
+    torch.cuda.synchronize()
+
+
+def _timed_all_metrics(*args, **kw) -> tuple[dict, dict]:
+    """``eval_cli.all_metrics`` with its wall time split into the host's
+    PNG decode, the host's gaussian mask filter, and the rest (device
+    resizes, LAB, sums, transfers and their waits)."""
+    from scipy import ndimage
+
+    from shadow_removal_istd_tpu_torch.metrics import eval_cli
+
+    spent = {"decode": 0.0, "filter": 0.0}
+
+    def timed(key, fn):
+        def inner(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return inner
+
+    with mock.patch.multiple(
+            eval_cli, _load_rgb01=timed("decode", eval_cli._load_rgb01),
+            _load_mask01=timed("decode", eval_cli._load_mask01)), \
+            mock.patch.object(ndimage, "gaussian_filter",
+                              timed("filter", ndimage.gaussian_filter)):
+        t0 = time.perf_counter()
+        out = eval_cli.all_metrics(*args, **kw)
+        spent["wall"] = time.perf_counter() - t0
+    spent["device"] = spent["wall"] - spent["decode"] - spent["filter"]
+    return out, spent
+
+
+def _same_metrics(a: dict, b: dict, rtol: float) -> float:
+    """Largest relative difference over the keys (NaN equal to NaN);
+    raises if the keys differ."""
+    if a.keys() != b.keys():
+        raise SystemExit(f"metric keys differ: {sorted(a)} vs {sorted(b)}")
+    worst = 0.0
+    for k in a:
+        if math.isnan(a[k]) or math.isnan(b[k]):
+            if not (math.isnan(a[k]) and math.isnan(b[k])):
+                return math.inf
+            continue
+        worst = max(worst, abs(a[k] - b[k]) / max(abs(b[k]), 1e-30))
+    return worst
+
+
+def phase_eval(vgg_path: Path, trainer) -> dict:
+    """The evaluation protocol and the gather augmentation on the card:
+    resize, LAB and region sums against float64; the eval CLI's dataset
+    metrics on the card against the CPU; ``--eval-metrics`` end to end
+    against the offline CLI on the PNGs ``infer`` wrote; the gather
+    augmentation against float64 and beside the shear path; 3 training
+    steps on it. Returns the kernels' launch counts on these paths."""
+    import copy
+    import dataclasses
+
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        write_istd_layout,
+    )
+    from shadow_removal_istd_tpu_torch.engine import loop
+    from shadow_removal_istd_tpu_torch.metrics.eval_cli import all_metrics
+    from shadow_removal_istd_tpu_torch.metrics.metrics import (
+        aggregate_regions,
+        region_metrics,
+    )
+    from shadow_removal_istd_tpu_torch.ops.augment import (
+        AugmentConfig,
+        augment_batch,
+        sample_augment_params,
+    )
+    from shadow_removal_istd_tpu_torch.ops.color import rgb_to_lab
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.ops.resize import resize
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    b, (h, w), crop = AUG_BATCH, DATA_HW, CROP
+
+    # 1. resize against float64 numpy with the same matrices
+    for (src, dst, method) in ((DATA_HW, (crop, crop), "area"),
+                               (DATA_HW, RESIZE_TO, "area"),
+                               ((crop, crop), DATA_HW, "linear")):
+        x = torch.rand(b, *src, 3, device=DEVICE, generator=gen)
+        got = resize(x, dst)
+        ref = _resize_f64(x[:4].double().cpu().numpy(), dst, method)
+        err = float(np.abs(got[:4].double().cpu().numpy() - ref).max())
+        ms = time_ms(lambda: resize(x, dst), 10)
+        print(f"[eval] resize {src[0]}x{src[1]} -> {dst[0]}x{dst[1]} "
+              f"({method}, b{b}, 3 channels, f32): max abs err vs float64 "
+              f"{err:.2e} (tol {RESIZE_TOL:.0e})")
+        print(f"[time] resize {src[0]}x{src[1]} -> {dst[0]}x{dst[1]} "
+              f"{method} b{b}: {ms:.4f} ms")
+        if not err <= RESIZE_TOL:
+            raise SystemExit("resize disagrees with float64")
+
+    # 2. LAB and the region sums against float64 numpy
+    rgb1 = torch.rand(b, h, w, 3, device=DEVICE, generator=gen)
+    rgb2 = (rgb1 + 0.1 * torch.rand(b, h, w, 3, device=DEVICE,
+                                    generator=gen)).clamp(0, 1)
+    mask = torch.rand(b, h, w, device=DEVICE, generator=gen) > 0.7
+    lab1, lab2 = rgb_to_lab(rgb1), rgb_to_lab(rgb2)
+    ref = _lab_f64(rgb1[:4].double().cpu().numpy())
+    lab_err = float(np.abs(lab1[:4].double().cpu().numpy() - ref).max())
+    got = aggregate_regions([region_metrics(lab1, lab2, mask)])
+    want = aggregate_regions([_regions_f64(
+        lab1.double().cpu().numpy(), lab2.double().cpu().numpy(),
+        mask.cpu().numpy())])
+    agg_err = _same_metrics(got, want, EVAL_RTOL)
+    ms = time_ms(lambda: region_metrics(rgb_to_lab(rgb1), rgb_to_lab(rgb2),
+                                        mask), 10)
+    print(f"[eval] rgb_to_lab {b}x{h}x{w}: max abs err vs float64 "
+          f"{lab_err:.2e} LAB units (tol {LAB_TOL:.0e}); aggregate_regions "
+          f"of region_metrics vs float64 sums: max rel err {agg_err:.2e} "
+          f"(tol {EVAL_RTOL:.0e})")
+    print(f"[time] 2 x rgb_to_lab + region_metrics {b}x{h}x{w}: {ms:.4f} ms "
+          f"per batch")
+    if not (lab_err <= LAB_TOL and agg_err <= EVAL_RTOL):
+        raise SystemExit("LAB or region metrics disagree with float64")
+
+    # 3. the eval CLI's dataset metrics, card against CPU
+    root = SMOKE_DIR / "eval"
+    istd = root / "istd"
+    t0 = time.perf_counter()
+    write_istd_layout(str(istd), EVAL_TRAIN, EVAL_TEST, h, w, seed=2)
+    print(f"[eval] wrote an ISTD directory of {EVAL_TRAIN} + {EVAL_TEST} "
+          f"{h}x{w} triplets in {time.perf_counter() - t0:.1f} s")
+    test = istd / "test"
+    dirs = (str(test / "test_C_fixed"), str(test / "test_A"))
+    masks = str(test / "test_B")
+    for label, kw in ((f"mask, size {crop}", dict(maskdir=masks, size=crop)),
+                      ("mask, native size", dict(maskdir=masks, size=None)),
+                      (f"maskless PSNR/SSIM, size {crop}", dict(size=crop))):
+        on_card, t = _timed_all_metrics(*dirs, device=DEVICE, **kw)
+        on_cpu = all_metrics(*dirs, device="cpu", **kw)
+        err = _same_metrics(on_card, on_cpu, EVAL_RTOL)
+        n = EVAL_TEST
+        print(f"[eval] all_metrics ({label}): card vs CPU max rel diff "
+              f"{err:.2e} (tol {EVAL_RTOL:.0e}); " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in on_card.items()))
+        print(f"[time] eval cli ({label}) {n} images {h}x{w} on the card: "
+              f"{n / t['wall']:.1f} img/s; host decode {t['decode']:.3f} s "
+              f"({1e3 * t['decode'] / n:.2f} ms/image), host mask filter "
+              f"{t['filter']:.3f} s, device metric and transfers "
+              f"{t['device']:.3f} s ({1e3 * t['device'] / n:.2f} ms/image)")
+        if not err <= EVAL_RTOL:
+            raise SystemExit(f"all_metrics ({label}): card and CPU disagree")
+
+    # 4. --eval-metrics end to end: Eval/* of the last validation against
+    # the offline CLI on the PNGs infer wrote
+    seen: dict = {"valid": []}
+    orig_train, orig_valid = loop.Trainer.train, loop.Trainer.run_valid_epoch
+
+    def train(self, epochs):
+        seen["trainer"] = self
+        return orig_train(self, epochs)
+
+    def run_valid_epoch(self, epoch):
+        before = dict(decoder_upsample.launches_by_variant)
+        out = orig_valid(self, epoch)
+        seen["valid"].append({k: v - before[k] for k, v in
+                              decoder_upsample.launches_by_variant.items()})
+        return out
+
+    hshear.launches = 0
+    reset_decoder_counts()
+    t0 = time.perf_counter()
+    with mock.patch.multiple(loop.Trainer, train=train,
+                             run_valid_epoch=run_valid_epoch):
+        _run_cli(["--tasks", "train", "infer", "--eval-metrics", "--epochs",
+                  "1", "--data-dir", str(istd), "--vgg-weights",
+                  str(vgg_path), "--weights", str(root / "w"), "--logs",
+                  str(root / "l"), "--infered", str(root / "out"),
+                  *CLI_ARGS])
+    wall = time.perf_counter() - t0
+    n_shear, n_dec = hshear.launches, decoder_upsample.launches
+    tr = seen["trainer"]
+    per_batch = -(-EVAL_TEST // tr.cfg.batch_size)
+    offline = all_metrics(str(test / "test_C_fixed"),
+                          str(root / "out" / "shadowless" / "istd"),
+                          maskdir=str(test / "test_B"), device=DEVICE)
+    got = {k: tr.last_eval[f"Eval/{k}"] for k in loop.EVAL_KEYS}
+    err = _same_metrics(got, {k: offline[k] for k in loop.EVAL_KEYS},
+                        EVAL_CLI_RTOL)
+    want = {"tensor_core": 0, "cuda_core": 8 * per_batch,
+            "narrow": 2 * per_batch}
+    print(f"[eval] --tasks train infer --eval-metrics: {wall:.1f} s (data "
+          f"load, 1 step, validation, infer of {EVAL_TEST}); Eval/* " +
+          ", ".join(f"{k} {v:.4f}" for k, v in got.items()) +
+          f"; vs the offline CLI on the infer PNGs: max rel diff {err:.2e} "
+          f"(tol {EVAL_CLI_RTOL:.0e}); decoder launches in the validation "
+          f"{seen['valid']} ({per_batch} batches), in the run {n_dec}, "
+          f"hshear {n_shear}")
+    if not err <= EVAL_CLI_RTOL:
+        raise SystemExit("Eval/* disagrees with the offline CLI")
+    if seen["valid"] != [want] or n_dec != 10 * 2 * per_batch:
+        raise SystemExit(f"expected {want} decoder launches per validation "
+                         f"and {20 * per_batch} in the run")
+
+    # 5. the gather augmentation: against float64, flips and offsets
+    # exact, timed beside the shear path
+    u8 = torch.randint(0, 256, (b, h, w, 7), dtype=torch.uint8,
+                       device=DEVICE, generator=gen)
+    streams = (u8[..., :3], u8[..., 3:4], u8[..., 4:])
+    g_cfg = AugmentConfig(crop_size=crop)
+    s_cfg = AugmentConfig(crop_size=crop, method="shear")
+    params = sample_augment_params(gen, b, (h, w), g_cfg, DEVICE)
+    hshear.launches = 0
+    got = torch.cat(augment_batch(None, streams, g_cfg, params=params),
+                    dim=1).permute(0, 2, 3, 1)
+    ref = _gather_f64(u8.cpu().numpy(), params, crop)
+    g_err = float(np.abs(got.double().cpu().numpy() - ref).max())
+    # no rotation, no scale: the crop at its offsets, mirrored where drawn
+    eye = dict(params, scale=torch.ones_like(params["scale"]),
+               angle=torch.zeros_like(params["angle"]))
+    warped = torch.cat(augment_batch(None, streams, g_cfg, params=eye), 1)
+    exact = all(
+        torch.equal(warped[i], _identity_crop(u8[i], ro, co, f, crop)
+                    .permute(2, 0, 1).float() * (2.0 / 255.0) - 1.0)
+        for i, (ro, co, f) in enumerate(zip(eye["row_off"].tolist(),
+                                            eye["col_off"].tolist(),
+                                            eye["flip"].tolist())))
+    n_aug = hshear.launches
+    g_ms = time_ms(lambda: augment_batch(None, streams, g_cfg,
+                                         params=params), 10)
+    s_ms = time_ms(lambda: augment_batch(None, streams, s_cfg,
+                                         params=params), 10)
+    print(f"[eval] gather augmentation b{b} {h}x{w}x7 uint8 -> {crop}x"
+          f"{crop}: max abs err vs float64 {g_err:.2e} on [-1, 1] (tol "
+          f"{GATHER_TOL:.0e}); identity warp = the crop at its offsets, "
+          f"flipped where drawn, exactly: {exact}; hshear launches "
+          f"{n_aug}")
+    print(f"[time] augmentation b{b} {h}x{w}x7 -> {crop}x{crop}: gather "
+          f"{g_ms:.4f} ms, shear {s_ms:.4f} ms (gather / shear "
+          f"{g_ms / s_ms:.2f})")
+    if not (g_err <= GATHER_TOL and exact and n_aug == 0):
+        raise SystemExit("gather augmentation disagrees")
+
+    # 6. training steps on the gather path beside the shear path
+    gather_tr = copy.copy(trainer)
+    gather_tr.aug_cfg = dataclasses.replace(trainer.aug_cfg, method="gather")
+    hshear.launches = 0
+    g_step = time_train_steps(gather_tr, 3)["step"]
+    n_gather = hshear.launches
+    s_step = time_train_steps(trainer, 3)["step"]
+    tb = trainer.cfg.batch_size
+    print(f"[time] train step {crop}x{crop} b{tb} f32, median of 3: gather "
+          f"augmentation {g_step:.3f} ms = {tb * 1e3 / g_step:.1f} img/s, "
+          f"shear {s_step:.3f} ms = {tb * 1e3 / s_step:.1f} img/s; hshear "
+          f"launches on the gather steps {n_gather}")
+    if n_gather != 0:
+        raise SystemExit("the gather path launched hshear")
+    print(f"[time] eval phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"decoder": n_dec, "hshear": n_shear, "hshear_gather": n_gather}
+
+
 def _median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (
@@ -1803,12 +2185,16 @@ def main() -> int:
         write_vgg_npz(vgg_path)
         runs = phase_training(vgg_path)
         cli = phase_cli(vgg_path)
+        ev = phase_eval(vgg_path, runs["float32"]["trainer"])
         kernel = phase_timings(worst, launches, by_variant)
         shear_entry, extra = phase_train_timings(runs, shear_err)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
-    kernel.update(extra, launches_cli=cli["decoder"])
-    shear_entry["launches_cli"] = cli["hshear"]
+    kernel.update(extra, launches_cli=cli["decoder"],
+                  launches_eval=ev["decoder"])
+    shear_entry.update(launches_cli=cli["hshear"],
+                       launches_eval=ev["hshear"],
+                       launches_gather=ev["hshear_gather"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": [kernel, shear_entry]}))

@@ -61,7 +61,6 @@ _UNPORTED_FLAGS = {
     "--num-processes": ("num_processes", lambda v: v is not None),
     "--process-id": ("process_id", lambda v: v is not None),
     "--pipeline-infer": ("pipeline_infer", bool),
-    "--eval-metrics": ("eval_metrics", bool),
     "--export-stablehlo": ("export_stablehlo", lambda v: v is not None),
     "--profile-dir": ("profile_dir", lambda v: v is not None),
     "--checkpoint-backend orbax": ("checkpoint_backend",
@@ -164,8 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "training path ported)")
     parser.add_argument("--aug-method", default="shear",
                         choices=["gather", "shear"],
-                        help="augmentation kernel: exact bilinear gather "
-                             "(not ported yet) or the 3-shear hshear path")
+                        help="augmentation path: exact bilinear gather "
+                             "(cv2 geometry) or the 3-shear hshear kernel")
     parser.add_argument("--profile-dir", default=None,
                         help="profiler trace directory (not ported yet)")
     parser.add_argument("--spatial-shard", type=int, default=1,
@@ -199,8 +198,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="pipeline-parallel inference (not ported "
                              "yet)")
     parser.add_argument("--eval-metrics", action="store_true",
-                        help="in-training ISTD eval protocol (not ported "
-                             "yet)")
+                        help="score each validation by the ISTD protocol "
+                             "(LAB RMSE/MAE, Eval/* in the log)")
     parser.add_argument("--preempt-save", type=str2bool, default=True,
                         help="checkpoint on SIGTERM (not ported yet; "
                              "kept for CLI parity)")

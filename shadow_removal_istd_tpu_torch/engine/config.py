@@ -45,7 +45,7 @@ class TrainConfig:
     batch_size: int = 16
     aug_scale: float = 0.05
     aug_angle: float = 15.0
-    aug_method: str = "gather"    # the port runs "shear"
+    aug_method: str = "gather"    # or "shear" (the hshear kernel path)
 
     # legacy-tree options
     lr_schedule: str = "exponential"
@@ -74,8 +74,6 @@ class TrainConfig:
             "lr_schedule='plateau'": self.lr_schedule == "plateau",
             "remat": self.remat,
             "dcgan_init": self.dcgan_init,
-            "aug_resize": self.aug_resize is not None,
-            "valid_resize": self.valid_resize is not None,
             "use_selu": self.use_selu,
         }
         for name, is_set in unported.items():

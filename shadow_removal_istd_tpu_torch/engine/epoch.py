@@ -1,6 +1,7 @@
 """One training epoch over the device-resident dataset: gather ->
-augment (the ``hshear`` kernel) -> train step, per step, with no host
-work and no host sync inside the epoch.
+augment (the configuration's method: the exact bilinear gather or the
+``hshear`` kernel) -> train step, per step, with no host work and no
+host sync inside the epoch.
 
 Port of ``shadow_removal_istd_tpu/engine/epoch.py``. JAX compiles the
 epoch into one ``lax.scan``; PyTorch runs it eagerly, step by step, and

@@ -7,19 +7,27 @@ streams. The uint8 training streams live on the card
 (``data/device_cache.py``) and every epoch runs ``engine/epoch.py``
 (gather -> ``hshear`` augmentation -> adversarial step); validation and
 inference walk the test split in order through the host
-``BatchPipeline``, keeping the ragged last batch. Every ``valid_every``
-epochs :meth:`Trainer.run_valid_epoch` runs ``eval_step`` at full
-resolution, keeping the best ``total`` (0.8*G + 0.2*D) and writing the
-``best`` weight files on improvement; the ``latest`` ones are written on
-every ``log_every`` epoch and the full checkpoint every ``save_every``.
-Files are the JAX package's flax msgpack files (``engine/checkpoint.py``).
+``BatchPipeline``, keeping the ragged last batch (resized to
+``valid_resize`` when set). Every ``valid_every`` epochs
+:meth:`Trainer.run_valid_epoch` runs ``eval_step``, keeping the best
+``total`` (0.8*G + 0.2*D) and writing the ``best`` weight files on
+improvement; the ``latest`` ones are written on every ``log_every`` epoch
+and the full checkpoint every ``save_every``. Files are the JAX package's
+flax msgpack files (``engine/checkpoint.py``).
+
+With ``run.eval_metrics`` each validation also scores ``eval_step``'s
+predictions by the ISTD protocol (LAB RMSE/MAE over shadow, non-shadow
+and all pixels, reference src/eval.py) against the binary ``test_B``
+masks, snapped to the PNG grids the offline ``metrics/eval_cli.py``
+reads, and passes ``Eval/*`` (``EvalProxy/*`` when the masks are
+missing and the matte stands in) to ``Trainer.eval_writer``.
 
 Not ported yet (``RunConfig`` raises where one is asked for): the HDF5
 dataset, the orbax backend, the host-pipeline training epoch
-(``device_cache=False``), profiler traces, the in-training evaluation
-protocol, pipeline-parallel inference. TensorBoard scalars and images
-(``vis_every``), the plateau schedule and the preemption save are not
-ported either: epoch metrics go to the log.
+(``device_cache=False``), profiler traces, pipeline-parallel inference.
+TensorBoard scalars and images (``vis_every``), the plateau schedule and
+the preemption save are not ported either: epoch metrics go to the log,
+``Eval/*`` to the log and the writer hook.
 
 Precision: PyTorch runs f32 cuDNN convolutions in TF32 by default. The
 trainer turns TF32 off for cuDNN and cuBLAS (process-wide flags), so an
@@ -59,14 +67,19 @@ from shadow_removal_istd_tpu_torch.engine.steps import (
     eval_step,
     infer_step,
 )
+from shadow_removal_istd_tpu_torch.metrics.metrics import (
+    aggregate_regions,
+    region_metrics,
+)
 from shadow_removal_istd_tpu_torch.models.vgg import load_vgg_npz
 from shadow_removal_istd_tpu_torch.ops.augment import (
     AugmentConfig,
-    check_supported,
     denormalize,
     float_to_uint8,
     normalize_batch,
 )
+from shadow_removal_istd_tpu_torch.ops.color import bgr_to_rgb, rgb_to_lab
+from shadow_removal_istd_tpu_torch.ops.resize import resize, resize_linear
 from shadow_removal_istd_tpu_torch.utils.image_io import imwrite
 
 logger = logging.getLogger(__name__)
@@ -107,7 +120,6 @@ class RunConfig:
             "device_cache=False (the host-pipeline epoch)":
                 not self.device_cache,
             "profile_dir": self.profile_dir is not None,
-            "eval_metrics": self.eval_metrics,
             "pipeline_infer": self.pipeline_infer,
         }
         for name, is_set in unported.items():
@@ -116,6 +128,24 @@ class RunConfig:
         if self.checkpoint_backend != "msgpack":
             raise ValueError(f"unknown checkpoint backend "
                              f"{self.checkpoint_backend!r}")
+
+
+EVAL_KEYS = ("rmse", "rmse_non", "rmse_all", "mae", "mae_non", "mae_all")
+
+
+class KeepLast:
+    """The trainer's default writer hook (the ``add_scalar(tag, value,
+    epoch)`` surface of a TensorBoard writer): keeps each tag's last
+    value in ``values``."""
+
+    def __init__(self, values: dict[str, float]):
+        self.values = values
+
+    def add_scalar(self, tag: str, value: float, epoch: int) -> None:
+        self.values[tag] = float(value)
+
+    def flush(self) -> None:
+        pass
 
 
 def _select(streams: dict[str, np.ndarray], cfg: TrainConfig) -> dict:
@@ -141,6 +171,8 @@ class Trainer:
         directories' test split."""
         self.device = resolve_device(device)
         self.run = run
+        streams_injected = (train_streams is not None
+                            or valid_streams is not None)
         if train_streams is None and run.data_dirs:
             train_streams, loaded_valid, loaded_names = self._load_dirs(cfg)
             if valid_streams is None:
@@ -162,8 +194,6 @@ class Trainer:
             scale=cfg.aug_scale, angle=cfg.aug_angle, flip_prob=0.5,
             crop_size=cfg.image_size, resize=cfg.aug_resize,
             method=cfg.aug_method)
-        if self.cache is not None:
-            check_supported(self.aug_cfg, *self.cache.arrays[0].shape[1:3])
         self.valid_pipe = (
             BatchPipeline(_select(valid_streams, cfg), cfg.batch_size,
                           shuffle=False, drop_last=False, seed=run.seed)
@@ -199,6 +229,30 @@ class Trainer:
         self.best_loss = float("inf")
         self.history: list[dict[str, float]] = []
         self.last_valid: dict[str, float] = {}
+        self.last_eval: dict[str, float] = {}
+        self.eval_writer = KeepLast(self.last_eval)
+        # the binary shadow masks of the validation split for the eval
+        # protocol (reference src/eval.py:67-70 reads the mask directory,
+        # not the matte), loaded apart when the streams lack them
+        self._valid_masks = None
+        if (run.eval_metrics and "mask" not in cfg.train_datas
+                and streams_injected):
+            # masks from run.data_dirs would be ordered against another
+            # validation set than the injected one
+            logger.warning(
+                "--eval-metrics with injected validation streams: no "
+                "aligned mask stream; Eval scalars use the matte proxy "
+                "(tagged EvalProxy/*)")
+        elif run.eval_metrics and "mask" not in cfg.train_datas:
+            try:
+                self._valid_masks = np.concatenate([
+                    ISTDDataset(d, "test", datas=("mask",)).load_all()["mask"]
+                    for d in run.data_dirs])
+            except FileNotFoundError:
+                logger.warning(
+                    "--eval-metrics: no binary mask directory (test_B) "
+                    "found under %s; Eval scalars fall back to the matte "
+                    "proxy (tagged EvalProxy/*)", run.data_dirs)
 
     # ------------------------------------------------------------ data
     def _load_dirs(self, cfg: TrainConfig):
@@ -219,10 +273,15 @@ class Trainer:
         return train, valid, names
 
     def valid_batches(self):
-        """The validation split in order, normalized NCHW on the card."""
+        """The validation split in order, normalized NCHW on the card,
+        resized first (NHWC, ``resize(method="auto")``) when
+        ``valid_resize`` is set."""
+        size = self.cfg.valid_resize
         for raw in self.valid_pipe.epoch():
-            yield normalize_batch(tuple(torch.from_numpy(a).to(self.device)
-                                        for a in raw))
+            streams = tuple(torch.from_numpy(a).to(self.device) for a in raw)
+            if size is not None:
+                streams = tuple(resize(s.float(), size) for s in streams)
+            yield normalize_batch(streams)
 
     def _save_weights(self, suffix: str) -> None:
         ckpt.save_model_weights(self.state, self.run.weights_dir, suffix)
@@ -270,29 +329,97 @@ class Trainer:
         return sums, idx.shape[0]
 
     def run_valid_epoch(self, epoch: int) -> float:
-        """``eval_step`` over the validation split at full resolution,
-        in order, keeping the ragged last batch; returns the mean of the
-        batches' ``total`` and stores every metric's mean in
-        ``last_valid``. The eval generators use the current weights (no
-        frozen decoder kernels: ``MNet.train`` drops them)."""
+        """``eval_step`` over the validation split in order, keeping the
+        ragged last batch; returns the mean of the batches' ``total`` and
+        stores every metric's mean in ``last_valid``. The eval generators
+        use the current weights (no frozen decoder kernels:
+        ``MNet.train`` drops them). With ``run.eval_metrics``, the
+        protocol's sums of each batch's ``y_pred`` are aggregated and
+        passed to ``eval_writer`` as ``Eval/*`` or ``EvalProxy/*``."""
         sums: dict[str, torch.Tensor] = {}
-        n = 0
+        lab_parts = []
+        n = ofs = 0
         for batch in self.valid_batches():
-            for k, v in eval_step(self.state, batch).items():
+            metrics, (_, y_pred) = eval_step(self.state, batch,
+                                             return_preds=True)
+            n_b = batch[0].shape[0]
+            if self.run.eval_metrics:
+                mask = self._protocol_mask(batch[1], ofs, n_b)
+                lab_parts.append(self._lab_parts(y_pred, batch[2], mask))
+            ofs += n_b
+            for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
         self.last_valid = {k: float(v) / n for k, v in sums.items()}
         logger.info("valid epoch %d: %s", epoch, ", ".join(
             f"{k} {self.last_valid[k]:.4f}" for k in (*METRIC_KEYS[:6],
                                                       "total")))
+        if lab_parts:
+            agg = aggregate_regions(lab_parts)
+            # the binary mask stream gives the paper's protocol (Eval/*);
+            # the matte threshold is only a proxy for it
+            tag = "Eval" if self._has_protocol_masks() else "EvalProxy"
+            for k in EVAL_KEYS:
+                self.eval_writer.add_scalar(f"{tag}/{k}", agg[k], epoch)
+            self.eval_writer.flush()
+            logger.info(
+                "eval protocol%s @ epoch %d: RMSE shadow %.2f / "
+                "non-shadow %.2f / all %.2f",
+                "" if tag == "Eval" else " (matte proxy)", epoch,
+                agg["rmse"], agg["rmse_non"], agg["rmse_all"])
         return self.last_valid["total"]
+
+    def _has_protocol_masks(self) -> bool:
+        """True when the shadow mask behind ``Eval/*`` is the protocol's
+        binary ``_B`` stream, not the matte-threshold proxy."""
+        return (self._valid_masks is not None
+                or "mask" in self.cfg.train_datas)
+
+    def _protocol_mask(self, m: torch.Tensor, ofs: int,
+                       n: int) -> torch.Tensor:
+        """Boolean (N, H, W) shadow mask of one validation batch: the
+        loaded binary masks binarized as the protocol's ``img_as_bool``
+        (uint8 >= 128; after ``valid_resize``, the resized [0, 1] mask >
+        0.5); else the ``m`` stream (NCHW in [-1, 1]) > 0, which is the
+        mask itself when the datas hold it and the matte proxy
+        otherwise."""
+        if self._valid_masks is None:
+            return m[:, 0] > 0.0
+        u8 = torch.from_numpy(self._valid_masks[ofs:ofs + n, ..., 0]).to(
+            self.device)
+        if self.cfg.valid_resize is not None:
+            f = resize(u8.float()[..., None] / 255.0, self.cfg.valid_resize)
+            return f[..., 0] > 0.5
+        return u8 >= 128
+
+    @staticmethod
+    def _lab_parts(y_pred: torch.Tensor, y: torch.Tensor,
+                   mask: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The protocol's sums of one batch, on the card. ``y_pred`` and
+        ``y`` are BGR NCHW in [-1, 1]; the protocol scores RGB 8-bit PNGs
+        (reference src/eval.py:63-70), so both sides are snapped to their
+        PNG grids first: the prediction through the writer's own ops
+        (``float_to_uint8`` truncates), the target by rounding (half to
+        even) back to its uint8 source. At native resolution ``Eval/*``
+        then equals ``metrics/eval_cli.py`` on the PNGs ``infer`` writes;
+        with ``valid_resize`` or ``infer_resize`` it tracks them only."""
+        q_pred = float_to_uint8(denormalize(y_pred)).float() / 255.0
+        q_tgt = torch.round(denormalize(y.float()).clamp(0.0, 1.0)
+                            * 255.0) / 255.0
+
+        def to_lab(t):
+            return rgb_to_lab(bgr_to_rgb(t.permute(0, 2, 3, 1)))
+
+        return region_metrics(to_lab(q_pred), to_lab(q_tgt), mask)
 
     # ------------------------------------------------------- inference
     @torch.no_grad()
     def infer(self) -> int:
         """G1 -> G2 over the validation split in the compute dtype,
         written to ``{infered}/shadowless/{name}.png`` (BGR) and
-        ``{infered}/matte/{name}.png`` (reference src/cgan.py:420-464).
+        ``{infered}/matte/{name}.png`` (reference src/cgan.py:420-464),
+        resized bilinearly to ``infer_resize`` first when it is set (the
+        legacy tree's outputs, reference STCGAN/stcgan.py:366-373).
         PNG encoding runs on a small thread pool (zlib releases the GIL)
         while the next batch computes. Returns the image count."""
         if self.valid_pipe is None:
@@ -308,9 +435,13 @@ class Trainer:
         with ThreadPoolExecutor(max_workers=4) as pool:
             for x, _, _ in self.valid_batches():
                 m, y = infer_step(g1, g2, x)
-                m_np = float_to_uint8(denormalize(m))[:, 0].cpu().numpy()
-                y_np = float_to_uint8(denormalize(y)).permute(
-                    0, 2, 3, 1).cpu().numpy()
+                m = denormalize(m).permute(0, 2, 3, 1)
+                y = denormalize(y).permute(0, 2, 3, 1)
+                if self.cfg.infer_resize is not None:
+                    m = resize_linear(m, self.cfg.infer_resize)
+                    y = resize_linear(y, self.cfg.infer_resize)
+                m_np = float_to_uint8(m)[..., 0].cpu().numpy()
+                y_np = float_to_uint8(y).cpu().numpy()
                 for i in range(m_np.shape[0]):
                     name = (self.valid_names[idx]
                             if idx < len(self.valid_names)

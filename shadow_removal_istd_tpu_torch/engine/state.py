@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from shadow_removal_istd_tpu_torch import resolve_device
 from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
 from shadow_removal_istd_tpu_torch.losses.adversarial import (
     AdversarialLoss,
@@ -94,12 +95,13 @@ def set_learning_rates(state: TrainState) -> None:
 
 
 def init_state(cfg: TrainConfig, generator: torch.Generator,
-               device: str | torch.device = "cpu",
+               device: str | torch.device = "cuda",
                vgg: VGG19Features | None = None) -> TrainState:
     """Build the four networks with flax's init distributions
     (LeCun-normal truncated kernels, zero biases, identity BN) drawn from
-    ``generator`` in the order G1, G2, D1, D2, on ``device`` in f32, and
-    both optimizers."""
+    ``generator`` (a CPU generator) in the order G1, G2, D1, D2, on
+    ``device`` in f32, and both optimizers."""
+    device = resolve_device(device)
     models = build_models(cfg)
     for net in models.all():
         init_weights_(net, generator)

@@ -156,10 +156,12 @@ def train_step(state: TrainState, batch, gens=(None, None),
 
 
 @torch.no_grad()
-def eval_step(state: TrainState, batch) -> dict[str, torch.Tensor]:
+def eval_step(state: TrainState, batch, return_preds: bool = False):
     """Validation: eval-mode forwards (the generators' decoder steps go
     through the decoder op), no updates, the train step's losses plus
-    the model-selection proxy ``total = 0.8*G + 0.2*D``."""
+    the model-selection proxy ``total = 0.8*G + 0.2*D``. With
+    ``return_preds``, returns ``(metrics, (m_pred, y_pred))``: the
+    evaluation protocol scores these without a second G forward."""
     cfg, nets, adv = state.cfg, state.models, state.adv
     g1, g2, d1, d2 = nets.all()
     x, m, y = batch
@@ -189,4 +191,5 @@ def eval_step(state: TrainState, batch) -> dict[str, torch.Tensor]:
            "vis2": vis2, "total": 0.8 * g_total + 0.2 * d_total,
            "D1_real": c1_real.mean(), "D1_fake": c1_fake.mean(),
            "D2_real": c2_real.mean(), "D2_fake": c2_fake.mean()}
-    return {k: v.float() for k, v in out.items()}
+    metrics = {k: v.float() for k, v in out.items()}
+    return (metrics, (m_pred, y_pred)) if return_preds else metrics

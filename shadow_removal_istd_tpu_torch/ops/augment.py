@@ -1,16 +1,22 @@
 """Synchronized random augmentation of the training stream group.
 
-Port of ``shadow_removal_istd_tpu/ops/augment.py`` (shear path): the
-reference's RandomScale(+-5%) -> RandomRotate(+-15 deg) ->
-RandomHorizontalFlip(0.5) -> RandomCrop(256) -> [-1, 1] chain, with ONE
-draw per sample shared by every stream of the (shadow, matte,
-shadow-free) group: the streams are concatenated on channels and
-augmented together (``ops/shear.fused_augment_shear``, three
-``hshear`` launches).
+Port of ``shadow_removal_istd_tpu/ops/augment.py``: the reference's
+RandomScale(+-5%) -> RandomRotate(+-15 deg) -> RandomHorizontalFlip(0.5)
+-> RandomCrop(256) -> [-1, 1] chain, with ONE draw per sample shared by
+every stream of the (shadow, matte, shadow-free) group: the streams are
+concatenated on channels and augmented together, by one of two paths:
 
-The exact bilinear gather path (``method="gather"``, and the JAX
-package's fallback for dimensions that are not multiples of 8) and the
-pre-augmentation resize are not ported yet and raise.
+- ``method="gather"``: scale and rotation compose into one affine, the
+  flip mirrors the destination plane and the crop offsets its grid, so
+  the whole chain is one exact bilinear gather (``ops/warp.affine_warp``,
+  cv2's geometry);
+- ``method="shear"``: a center scale by two matmuls, then a rotation by
+  three ``hshear`` launches (``ops/shear.fused_augment_shear``). It needs
+  H, W and the crop to be multiples of 8; other shapes take the gather
+  path, as in the JAX package.
+
+An optional pre-augmentation resize (``AugmentConfig.resize``, the legacy
+tree's 300x400) resamples the group exactly first (``ops/resize.resize``).
 """
 
 from __future__ import annotations
@@ -20,16 +26,22 @@ from dataclasses import dataclass
 
 import torch
 
+from shadow_removal_istd_tpu_torch.ops.resize import resize
 from shadow_removal_istd_tpu_torch.ops.shear import fused_augment_shear
+from shadow_removal_istd_tpu_torch.ops.warp import (
+    affine_warp,
+    invert_affine,
+    rotation_scale_matrix,
+)
 
 
 @dataclass(frozen=True)
 class AugmentConfig:
     """scale: max relative scale jitter (U[1-s, 1+s]); angle: max
     rotation in degrees (U[-a, a]); flip_prob: probability of a
-    horizontal flip; crop_size: output crop; resize: pre-augmentation
-    resize (not ported yet); method: "shear" (the port's path) or
-    "gather" (not ported yet)."""
+    horizontal flip; crop_size: output crop; resize: optional
+    pre-augmentation resize to (rows, cols); method: "gather" (the exact
+    bilinear gather) or "shear" (the ``hshear`` path)."""
 
     scale: float = 0.05
     angle: float = 15.0
@@ -38,20 +50,33 @@ class AugmentConfig:
     resize: tuple | None = None
     method: str = "gather"
 
+    def __post_init__(self):
+        if self.method not in ("shear", "gather"):
+            raise ValueError(f"unknown augmentation method {self.method!r}")
 
-def check_supported(cfg: AugmentConfig, h: int, w: int) -> None:
-    """Raise where the JAX package would take a path the port lacks: the
-    gather warp (``method="gather"``, or H, W or the crop not multiples of
-    8 under ``method="shear"``) and the pre-augmentation resize."""
-    if cfg.resize is not None:
-        raise NotImplementedError("augmentation resize is not ported yet")
-    if cfg.method not in ("shear", "gather"):
-        raise ValueError(f"unknown augmentation method {cfg.method!r}")
-    if (cfg.method == "gather" or h % 8 or w % 8 or cfg.crop_size % 8):
-        raise NotImplementedError(
-            "gather augmentation not ported yet (method='shear' with H, W "
-            f"and the crop multiples of 8 is; got {cfg.method!r}, {h}x{w}, "
-            f"crop {cfg.crop_size})")
+
+def uses_shear(cfg: AugmentConfig, h: int, w: int) -> bool:
+    """Whether (H, W) images (after the pre-augmentation resize) take the
+    ``hshear`` path: ``method="shear"`` and H, W and the crop multiples
+    of 8; otherwise the gather path runs."""
+    return (cfg.method == "shear" and h % 8 == 0 and w % 8 == 0
+            and cfg.crop_size % 8 == 0)
+
+
+def augment_gather(stacked: torch.Tensor, params: dict,
+                   crop: int) -> torch.Tensor:
+    """Fused warp + flip + crop of (N, H, W, C) images (uint8 or float)
+    by one bilinear gather each; float32 (N, C, crop, crop) in [-1, 1]."""
+    _, h, w, _ = stacked.shape
+    center = ((w - 1) / 2.0, (h - 1) / 2.0)
+    inv = invert_affine(rotation_scale_matrix(
+        params["angle"].float(), params["scale"].float(), center))
+    warped = affine_warp(stacked, inv, out_shape=(crop, crop),
+                         offset=(params["row_off"], params["col_off"]),
+                         flip=params["flip"])
+    # uint8 [0, 255] -> [-1, 1] (reference src/utils.py:60-62)
+    warped = warped * (2.0 / 255.0) - 1.0
+    return warped.permute(0, 3, 1, 2).contiguous()
 
 
 def _off_range(dim: int, crop: int) -> tuple[int, int]:
@@ -103,17 +128,23 @@ def augment_batch(generator: torch.Generator | None,
                   streams: tuple[torch.Tensor, ...], cfg: AugmentConfig,
                   params: dict | None = None) -> tuple[torch.Tensor, ...]:
     """Augment a group of (N, H, W, C) uint8 streams with synchronized
-    draws (from ``generator``, unless ``params`` are given). Returns
-    float32 (N, C, crop, crop) crops in [-1, 1], in the same order."""
-    batch, h, w = streams[0].shape[:3]
-    check_supported(cfg, h, w)
+    draws (from ``generator``, unless ``params`` are given; their offsets
+    are drawn for the resized shape). Returns float32 (N, C, crop, crop)
+    crops in [-1, 1], in the same order."""
+    batch = streams[0].shape[0]
     splits = [s.shape[-1] for s in streams]
     stacked = torch.cat(list(streams), dim=-1)
+    if cfg.resize is not None:
+        stacked = resize(stacked.float(), cfg.resize, method="auto")
+    h, w = stacked.shape[1:3]
     if params is None:
         params = sample_augment_params(generator, batch, (h, w), cfg,
                                        device=stacked.device)
-    warped = fused_augment_shear(stacked, params, cfg.crop_size,
-                                 max_angle_deg=cfg.angle)
+    if uses_shear(cfg, h, w):
+        warped = fused_augment_shear(stacked, params, cfg.crop_size,
+                                     max_angle_deg=cfg.angle)
+    else:
+        warped = augment_gather(stacked, params, cfg.crop_size)
     return tuple(torch.split(warped, splits, dim=1))
 
 

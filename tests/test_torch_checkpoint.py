@@ -235,7 +235,7 @@ def jax_side():
 
 def _port_state(seed=0):
     cfg = TrainConfig(**CFG, use_visual_loss=False)
-    return init_state(cfg, torch.Generator().manual_seed(seed))
+    return init_state(cfg, torch.Generator().manual_seed(seed), device="cpu")
 
 
 def _trained_port_state():

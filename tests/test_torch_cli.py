@@ -4,6 +4,7 @@ serve`` end to end on a synthetic ISTD directory (64x64, 4 train and 2
 test triplets, MNet ngf 4, PatchGAN ndf 4, 32x32 crops, batch 2), a
 resumed run equal bit for bit to the uninterrupted one, inference PNGs
 against the JAX package's ``Trainer.infer`` from the same weight files,
+``--eval-metrics`` and ``--aug-method gather`` through a resumed run,
 and every flag whose feature is not ported refused.
 """
 import http.client
@@ -293,7 +294,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
     (["--num-processes", "2"], NotImplementedError, "--num-processes"),
     (["--process-id", "0"], NotImplementedError, "--process-id"),
     (["--pipeline-infer"], NotImplementedError, "--pipeline-infer"),
-    (["--eval-metrics"], NotImplementedError, "--eval-metrics"),
     (["--export-stablehlo", "m.shlo"], NotImplementedError,
      "--export-stablehlo"),
     (["--profile-dir", "p"], NotImplementedError, "--profile-dir"),
@@ -307,7 +307,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
     (["--SELU", "yes"], NotImplementedError, "use_selu"),
     (["--net-D", "began"], NotImplementedError, "began"),
     (["--net-G", "unet"], NotImplementedError, "unet"),
-    (["--aug-method", "gather"], NotImplementedError, "gather"),
 ])
 def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
     argv = _argv(istd_root, str(tmp_path), "--tasks", "train",
@@ -317,6 +316,34 @@ def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
                                                     + 2:],
              *(["--devices", "cpu"] if "--devices" not in extra else []),
              *extra)
+
+
+@pytest.mark.parametrize("extra,logged", [
+    (["--eval-metrics"], "eval protocol @ epoch 1: RMSE shadow"),
+    (["--aug-method", "gather"], "train epoch 1:"),
+])
+def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
+    """The in-training eval protocol (``Eval/*`` in the log, against the
+    directory's ``test_B`` masks) and the gather augmentation run; a run
+    resumed from the first epoch's checkpoint ends with the same files,
+    byte for byte, as the uninterrupted one (the gather path draws its
+    parameters from the same (seed, epoch, step) streams)."""
+    common = ("--tasks", "train", "--allow-missing-vgg", *extra)
+    _run(*_argv(istd_root, f"{tmp_path}/a", *common, "--epochs", "2"))
+    _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "1"))
+    _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "2",
+                "--load-checkpoint",
+                f"{tmp_path}/b/w{SUFFIX}/checkpoint.msgpack"))
+    a, b = f"{tmp_path}/a/w{SUFFIX}", f"{tmp_path}/b/w{SUFFIX}"
+    files = sorted(os.listdir(a))
+    assert files == sorted(os.listdir(b)) and len(files) == 9
+    for f in files:
+        with open(f"{a}/{f}", "rb") as fa, open(f"{b}/{f}", "rb") as fb:
+            assert fa.read() == fb.read(), f
+    logs = f"{tmp_path}/a/l{SUFFIX}"
+    text = "".join(open(f"{logs}/{f}").read() for f in os.listdir(logs)
+                   if f.endswith(".log"))
+    assert logged in text
 
 
 def test_without_card_the_cli_raises(istd_root, tmp_path, monkeypatch):

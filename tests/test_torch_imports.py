@@ -40,7 +40,9 @@ def test_port_files_found():
                 "data/device_cache.py", "data/synthetic.py",
                 "data/istd.py", "data/pipeline.py", "engine/loop.py",
                 "engine/checkpoint.py", "utils/msgpack_codec.py",
-                "cli/main.py", "models/patchgan.py", "models/vgg.py"):
+                "cli/main.py", "models/patchgan.py", "models/vgg.py",
+                "ops/color.py", "ops/resize.py", "ops/warp.py",
+                "metrics/metrics.py", "metrics/eval_cli.py"):
         assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 
@@ -69,6 +71,15 @@ def test_trainer_without_card_raises(monkeypatch):
                             aug_method="shear"),
                 RunConfig(seed=0, allow_missing_vgg=True),
                 train_streams=synthetic_triplets(2, 32, 32))
+
+
+def test_init_state_without_card_raises(monkeypatch):
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.state import init_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(TrainConfig(ngf=4, ndf=4), torch.Generator())
 
 
 def test_chip_smoke_fails_without_card():

@@ -6,7 +6,9 @@ On the CPU ``hshear`` runs its plain version, the CUDA kernel's spec
 (tests/test_torch_shear_cuda.py holds the kernel to it on the card).
 Tolerances: the plain shear 1e-6 on [0, 1] data (f32 lerp, the same
 ops); the fused augmentation 1e-5 on its [-1, 1] output (the angle's
-tan/sin and the scale matmuls round differently in XLA and PyTorch).
+tan/sin and the scale matmuls round differently in XLA and PyTorch); the
+gather path, which shapes off multiples of 8 take, 1e-3 (as in
+tests/test_torch_warp.py).
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,8 @@ from shadow_removal_istd_tpu_torch.ops.augment import (
     normalize_batch,
     sample_augment_params,
 )
+
+from test_torch_warp import jax_augment
 
 
 def _oracle(img, shifts, out_w, pad):
@@ -259,11 +263,24 @@ def test_sample_augment_params_ranges(h, w, crop):
                                              ("shear", 44, 64, 32),
                                              ("shear", 48, 60, 32),
                                              ("shear", 48, 64, 30)])
-def test_gather_path_raises(method, h, w, crop):
-    x = torch.zeros(1, h, w, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="gather augmentation"):
-        augment_batch(torch.Generator(), (x,),
-                      AugmentConfig(crop_size=crop, method=method))
+def test_gather_path_matches_jax(method, h, w, crop, monkeypatch):
+    """``method="gather"``, and ``"shear"`` with H, W or the crop not a
+    multiple of 8, take the exact gather path in both packages (no
+    ``hshear`` call), and agree on the same explicit parameters."""
+    rng = np.random.default_rng(h + w + crop)
+    u8 = rng.integers(0, 256, (2, h, w, 7), dtype=np.uint8)
+    streams = (u8[..., :3], u8[..., 3:4], u8[..., 4:])
+    p = _params(rng, 2, h, w, crop, [True, False])
+    want = jax_augment(streams, p, JAugmentConfig(crop_size=crop,
+                                                  method=method))
+    monkeypatch.setattr(shear, "hshear", None)      # must not be reached
+    got = augment_batch(None, tuple(map(torch.from_numpy, streams)),
+                        AugmentConfig(crop_size=crop, method=method),
+                        params={k: torch.from_numpy(v) for k, v in p.items()})
+    for g, w_ in zip(got, want):
+        assert g.shape == (2, w_.shape[-1], crop, crop)
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), w_,
+                                   atol=1e-3, rtol=0)
 
 
 def test_normalize_batch():

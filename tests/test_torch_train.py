@@ -65,7 +65,10 @@ from shadow_removal_istd_tpu_torch.engine.steps import (
 )
 from shadow_removal_istd_tpu_torch.losses import make_adversarial_loss
 from shadow_removal_istd_tpu_torch.models.vgg import VGG19Features
-from shadow_removal_istd_tpu_torch.ops.augment import AugmentConfig
+from shadow_removal_istd_tpu_torch.ops.augment import (
+    AugmentConfig,
+    augment_batch,
+)
 from shadow_removal_istd_tpu_torch.tools.convert import (
     flatten_tree,
     flax_tree_to_torch,
@@ -393,13 +396,72 @@ def test_trainer_vgg_rule():
 
 @pytest.mark.parametrize("field,value", [
     ("net_d", "began"), ("softadapt", True), ("lr_schedule", "plateau"),
-    ("remat", True), ("dcgan_init", True), ("aug_resize", (300, 400)),
-    ("valid_resize", (240, 320))])
+    ("remat", True), ("dcgan_init", True)])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TrainConfig(**{field: value})
 
 
-def test_trainer_rejects_the_gather_augmentation():
-    with pytest.raises(NotImplementedError, match="gather augmentation"):
-        _tiny_trainer(cfg={"aug_method": "gather"}, allow_missing_vgg=True)
+@pytest.mark.parametrize("field,value", [("aug_resize", (300, 400)),
+                                         ("valid_resize", (240, 320))])
+def test_resize_options_run_and_match_jax(field, value, tmp_path):
+    """The legacy tree's resizes: the resized streams equal the JAX
+    package's (the augmentation's resize through ``augment_batch`` with
+    explicit parameters, the validation streams through its ``resize`` +
+    ``normalize_batch``), and the trainer trains with the augmentation's.
+    (MNet takes no 240x320 input, in either package: a validation at
+    ``valid_resize`` runs in tests/test_torch_eval_protocol.py.)"""
+    from shadow_removal_istd_tpu.ops import augment as jaugment
+    from shadow_removal_istd_tpu.ops.resize import resize as j_resize
+
+    from test_torch_warp import jax_augment
+
+    t = _tiny_trainer(tmp_path, cfg={field: value,
+                                     "use_visual_loss": False})
+    raw = next(t.valid_pipe.epoch())          # 2 of the 64x64 triplets
+    if field == "valid_resize":
+        got = next(t.valid_batches())
+        want = jaugment.normalize_batch(tuple(
+            j_resize(jnp.asarray(a, jnp.float32), value) for a in raw))
+        for g, w_ in zip(got, want):
+            assert g.shape == (raw[0].shape[0], w_.shape[-1], *value)
+            np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                       np.asarray(w_), atol=1e-5, rtol=0)
+        return
+    rng = np.random.default_rng(31)
+    p = {"scale": rng.uniform(0.95, 1.05, 2).astype(np.float32),
+         "angle": rng.uniform(-15, 15, 2).astype(np.float32),
+         "flip": np.array([True, False]),
+         "row_off": rng.integers(0, value[0] - 32, 2).astype(np.int32),
+         "col_off": rng.integers(0, value[1] - 32, 2).astype(np.int32)}
+    want = jax_augment(raw, p, jaugment.AugmentConfig(crop_size=32,
+                                                      resize=value))
+    got = augment_batch(None, tuple(map(torch.from_numpy, raw)), t.aug_cfg,
+                        params={k: torch.from_numpy(v) for k, v in p.items()})
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), w_,
+                                   atol=1e-3, rtol=0)
+    t.train(1)
+    assert all(np.isfinite(v) for v in t.history[0].values())
+    assert np.isfinite(t.last_valid["total"])
+
+
+def test_trainer_trains_with_the_gather_augmentation(monkeypatch,
+                                                     tmp_path):
+    """``TrainConfig``'s default ``aug_method="gather"`` trains, reaches
+    no ``hshear`` call, and draws its parameters from the same
+    (seed, epoch, step) streams: two runs are bit-identical."""
+    from shadow_removal_istd_tpu_torch.ops import shear
+
+    monkeypatch.setattr(shear, "hshear", None)      # must not be reached
+    runs = []
+    for _ in range(2):
+        t = _tiny_trainer(tmp_path, cfg={"aug_method": "gather",
+                                         "use_visual_loss": False})
+        assert t.aug_cfg.method == "gather"
+        t.train(2)
+        runs.append((t.history, [p.detach().clone() for p in
+                                 t.state.models.g2.parameters()]))
+    assert all(np.isfinite(v) for h in runs[0][0] for v in h.values())
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
