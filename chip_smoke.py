@@ -87,7 +87,27 @@ Phases; any failure exits non-zero before the result line is printed:
    crop (flipped where drawn) exactly, no ``hshear`` launch, timed beside
    the shear path; 3 training steps on it (no ``hshear`` launch) beside
    3 on the shear path;
-8. timings (CUDA events; torch.profiler): each decoder step's kernel
+8. zoo: the decoder kernels at UNet's four up-conv shapes (1024->512 at
+   16x16 .. 128->64 at 128x128 for a 256x256 input; no LeakyReLU, no
+   BN), both pads, f32 and bf16, against the plain version (2e-5 / 3e-2)
+   and at the K = 4096 step against float64, then timed at a 256x256
+   batch-32 bf16 forward's shapes and a 480x640 batch-16 f32
+   validation's (zero pad) beside the plain version, cuDNN's phase conv
+   and ``conv_transpose2d`` and the bound;
+   ``InferenceEngine(net_g="unet")`` bf16 at 256x256 batch 32: 8
+   tensor-core and no narrow launches a stacked forward, uint8 within 2
+   gray levels of the plain path, img/s beside MNet's; ``Trainer`` with
+   UNet G and BEGAN D at the CLI's defaults (ngf/ndf 64, f32, shear
+   augmentation, 256 crops of 32 480x640 triplets, batch 16, the random
+   VGG file): one epoch and a 480x640 validation, k1/k2 within [0, 1]
+   and, from 0.5, moved by the timed steps, 8 CUDA-core launches a
+   stacked forward; DenseUNet G + dummy D
+   with SoftAdapt for one epoch (weights moved, sum 1); the legacy CLI
+   (``cli.stcgan_main --tasks train infer``, pix2pix ngf 64 and NLayer ndf
+   64) on the ``cli`` phase's ISTD directory for 2 epochs: plateau state
+   in the checkpoint, no decoder launch, 192x256 PNGs; its G1 -> G2 at
+   480x640 through the engine; the train-step img/s of each;
+9. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
    beside the CUDA-core variant's on the same inputs (the before/after
    of the wide bf16 steps and of the final ones), the plain version's, a
@@ -183,6 +203,15 @@ LAB_TOL = 1e-3              # LAB units, against float64
 EVAL_RTOL = 1e-5            # dataset metrics: f32 sums vs float64, card vs CPU
 EVAL_CLI_RTOL = 5e-4        # in-training Eval/* vs the offline CLI
 GATHER_TOL = 1e-3           # gather augmentation on [-1, 1], vs float64
+# the zoo phase: UNet's up-convs at 256x256 (batch 32 in bf16 serving),
+# UNet + BEGAN and DenseUNet + dummy training on 32 train + 16 validation
+# triplets at DATA_HW, and the legacy CLI at its fixed widths (LEGACY_ARGS
+# adds flags: a CPU rehearsal's devices, batch and crop)
+ZOO_HW = (256, 256)
+ZOO_SERVE_BATCH = 32
+ZOO_TRAIN, ZOO_VALID = 32, 16
+LEGACY_NGF = 64
+LEGACY_ARGS: list = []
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -731,7 +760,7 @@ def time_f32_serving(gen, x) -> dict:
                 n * 1e3 * len(runs["kernels"]) / sum(runs["kernels"]), 2)}
 
 
-def profile_stacked(engine, x) -> None:
+def profile_stacked(engine, x, label: str = "stacked 256x256 b32") -> None:
     """Device time by kernel over one stacked forward (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -746,10 +775,15 @@ def profile_stacked(engine, x) -> None:
                        getattr(e, "self_cuda_time_total", 0))
 
     rows = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # kernel rows only: an aten op and the kernels it launches are
+    # separate rows, and summing both counted the time twice
+    rows = [e for e in rows if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA] or rows
     total = sum(dev_us(e) for e in rows)
-    print(f"[profile] stacked 256x256 b32: device time {total / 1e3:.3f} ms "
-          f"over {len(rows)} kernel names")
-    for e in sorted(rows, key=lambda e: -dev_us(e))[:10]:
+    print(f"[profile] {label}: device time {total / 1e3:.3f} ms "
+          f"over {len(rows)} kernel names, {sum(e.count for e in rows)} "
+          f"launches")
+    for e in sorted(rows, key=lambda e: -dev_us(e))[:12]:
         print(f"[profile] {dev_us(e) / 1e3:9.3f} ms "
               f"{100 * dev_us(e) / max(total, 1):5.1f}% "
               f"x{e.count:<4} {e.key[:90]}")
@@ -1650,7 +1684,8 @@ def time_train_steps(trainer, steps: int = 7) -> dict:
     return {k: _median(v) for k, v in phases.items()}
 
 
-def profile_train_step(trainer) -> None:
+def profile_train_step(trainer,
+                       label: str = "train step 256x256 b16 f32") -> None:
     """Device time by kernel over one training step (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1685,7 +1720,7 @@ def profile_train_step(trainer) -> None:
     kern = [e for e in rows if getattr(e, "device_type", None)
             == torch.autograd.DeviceType.CUDA] or rows
     total = sum(dev_us(e) for e in kern)
-    print(f"[profile] train step 256x256 b16 f32: kernel time "
+    print(f"[profile] {label}: kernel time "
           f"{total / 1e3:.3f} ms over {sum(e.count for e in kern)} "
           f"launches, {len(kern)} names")
     for e in sorted(kern, key=lambda e: -dev_us(e))[:14]:
@@ -2051,6 +2086,371 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
     return shear_entry, extra
 
 
+def unet_upconv_steps(h: int, w: int, ngf: int = NGF):
+    """UNet's decoder up-convs of an HxW input (depth 4), innermost
+    first: (label, H, W, Ci, Co) at the step's input resolution. Each
+    runs without LeakyReLU and BN, so it is a ``final``-form decoder
+    step with Co >= 64."""
+    return [(f"{h >> k}x{w >> k} {ngf << k}->{ngf << (k - 1)}", h >> k,
+             w >> k, ngf << k, ngf << (k - 1)) for k in (4, 3, 2, 1)]
+
+
+def _zoo_kernels(gen) -> dict:
+    """K1 at UNet's four up-conv shapes, both pads, f32 and bf16: held
+    to the plain version (and, at the K = 4096 step, to float64), then
+    timed at a 256x256 batch-32 bf16 forward's shapes (edge pad) and a
+    480x640 batch-16 f32 validation's (zero pad) beside the plain
+    version, cuDNN's phase conv and ``conv_transpose2d``, and the
+    bound."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import (
+        decoder_upsample,
+        decoder_upsample_plain,
+    )
+
+    F = torch.nn.functional
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for label, sh, sw, ci, co in unet_upconv_steps(*ZOO_HW):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, w4, _, _ = step_inputs(2, sh, sw, (ci,), co, True, dtype,
+                                       gen)
+            for zero_pad in (False, True):
+                kw = dict(leaky=False, zero_pad=zero_pad)
+                got, variant = counted(xs, w4, None, None, **kw)
+                want = decoder_upsample_plain(xs, w4, None, None, **kw)
+                err = (got.float() - want.float()).abs().max().item()
+                exp = ("tensor_core" if dtype == torch.bfloat16
+                       else "cuda_core")
+                ok = err <= TOL[dtype] and variant == exp
+                worst[dtype] = max(worst[dtype], err)
+                extra = ""
+                if 4 * ci == 4096:
+                    exact = decoder_f64(xs, w4, None, None, **kw)
+                    off = (got.double() - exact).abs().max().item()
+                    extra = f", f64 {off:.2e}"
+                    ok = ok and off <= TOL[dtype]
+                print(f"[zoo] K1 UNet step {label:<18} {str(dtype)[6:]:<8} "
+                      f"{'zero' if zero_pad else 'edge'} {variant:<11} "
+                      f"max_abs_err {err:.3e}{extra} (tol {TOL[dtype]:.0e}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"zoo: K1 disagrees or wrong variant "
+                                     f"at UNet step {label} {dtype} {kw}")
+    out = {"worst": worst}
+    # bf16 serving (the engine's edge-pad form) and f32 validation (the
+    # CLI's ConvTranspose form, zero pad), each step's 2 launches summed
+    for key, dt, (h, w), n, zero_pad in (
+            ("bf16", torch.bfloat16, ZOO_HW, ZOO_SERVE_BATCH, False),
+            ("f32", torch.float32, DATA_HW, ZOO_VALID, True)):
+        tot = dict.fromkeys(("ms", "plain_ms", "conv_ms", "convt_ms",
+                             "bound_ms", "ops_ms", "bytes_ms", "flops"), 0.0)
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+        for label, sh, sw, ci, co in unet_upconv_steps(h, w):
+            xs, w4, _, _ = step_inputs(n, sh, sw, (ci,), co, True, dt, gen)
+            kw = dict(leaky=False, zero_pad=zero_pad)
+            got, variant = counted(xs, w4, None, None, **kw)
+            err = (got.float() - decoder_upsample_plain(
+                xs, w4, None, None, **kw).float()).abs().max().item()
+            exp = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+            if err > TOL[dt] or variant != exp:
+                raise SystemExit(f"zoo: timed UNet step {label} {key}: "
+                                 f"{variant} {err:.3e}")
+            ms = time_ms(lambda: decoder_upsample(xs, w4, None, None, **kw))
+            plain = time_ms(lambda: decoder_upsample_plain(
+                xs, w4, None, None, **kw), 5)
+            # one cuDNN call of the same work: the phase conv over the
+            # padded input, and the up-conv as conv_transpose2d
+            a = F.pad(xs[0], (1, 1, 1, 1),
+                      mode="constant" if zero_pad else "replicate")
+            k = w4.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            conv = time_ms(lambda: F.conv2d(a, k))
+            wt = (torch.randn(ci, co, 4, 4, device=DEVICE, generator=gen)
+                  / (16 * ci) ** 0.5).to(dt)
+            convt = time_ms(lambda: F.conv_transpose2d(xs[0], wt, stride=2,
+                                                       padding=1))
+            flops, nbytes = step_cost(n, sh, sw, (ci,), co, True,
+                                      xs[0].element_size())
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+            print(f"[time] zoo UNet {h}x{w} b{n} {key} "
+                  f"{'zero' if zero_pad else 'edge'} step {label:<18} "
+                  f"{variant} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
+                  f"| plain {plain:.4f} | cudnn conv {conv:.4f} | cudnn "
+                  f"conv_transpose2d {convt:.4f} | bound "
+                  f"{max(t_ops, t_bytes):.4f} "
+                  f"({'ops' if t_ops >= t_bytes else 'bytes'})")
+            for name, v in (("ms", ms), ("plain_ms", plain),
+                            ("conv_ms", conv), ("convt_ms", convt),
+                            ("bound_ms", max(t_ops, t_bytes)),
+                            ("ops_ms", t_ops), ("bytes_ms", t_bytes),
+                            ("flops", flops)):
+                tot[name] += 2 * v          # G1 and G2 each run the step
+        print(f"[time] zoo UNet {h}x{w} b{n} {key} up-convs (8 launches, "
+              f"{tot['flops']:.4g} FLOP): {exp} {tot['ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f}, cudnn conv {tot['conv_ms']:.4f}, "
+              f"cudnn conv_transpose2d {tot['convt_ms']:.4f}, bound "
+              f"{tot['bound_ms']:.4f}")
+        out[key] = {k: round(v, 5) for k, v in tot.items()}
+    return out
+
+
+def _zoo_serving(gen) -> dict:
+    """UNet bf16 stacked serving through ``InferenceEngine(net_g="unet")``
+    at 256x256, batch 32: 8 tensor-core and no narrow launches a
+    forward, uint8 within 2 gray levels of the plain path, img/s beside
+    MNet's in the same turns."""
+    from shadow_removal_istd_tpu_torch.models import layers
+    from shadow_removal_istd_tpu_torch.ops.decoder import (
+        decoder_upsample,
+        decoder_upsample_plain,
+    )
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+    n = ZOO_SERVE_BATCH
+    engines = {k: InferenceEngine(k, ngf=NGF, dtype="bfloat16",
+                                  max_batch=n, seed=0, device=DEVICE)
+               for k in ("unet", "mnet")}
+    x = torch.randint(0, 256, (n, *ZOO_HW, 3), dtype=torch.uint8,
+                      device=DEVICE, generator=gen)
+    unet = engines["unet"]
+    unet._stacked(x)
+    torch.cuda.synchronize()
+    reset_decoder_counts()
+    m_k, y_k = unet._stacked(x)
+    torch.cuda.synchronize()
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    with mock.patch.object(layers, "decoder_upsample",
+                           decoder_upsample_plain):
+        m_p, y_p = unet._stacked(x)
+    diff = max(int((a.int() - b.int()).abs().max())
+               for a, b in ((m_k, m_p), (y_k, y_p)))
+    print(f"[zoo] UNet bf16 stacked forward 256x256 b{n}: decoder launches "
+          f"{by_variant}; kernel vs plain decoder max diff {diff} gray "
+          f"levels (limit 2)")
+    if by_variant != {"tensor_core": 8, "cuda_core": 0, "narrow": 0}:
+        raise SystemExit(f"zoo: UNet bf16 forward: expected 8 tensor_core "
+                         f"launches, got {by_variant}")
+    if diff > 2:
+        raise SystemExit("zoo: UNet kernel path disagrees with the plain "
+                         "decoder")
+    runs = {}
+    for name in ("unet", "mnet", "mnet", "unet"):
+        runs.setdefault(name, []).append(
+            time_ms(lambda: engines[name]._stacked(x), iters=5))
+    profile_stacked(unet, x, f"zoo UNet stacked 256x256 b{n} bf16")
+    img_s = {k: n * 1e3 * len(v) / sum(v) for k, v in runs.items()}
+    print(f"[time] zoo stacked G1+G2 256x256 b{n} bf16: " + "; ".join(
+        f"{k} {img_s[k]:.1f} img/s (" + ", ".join(f"{t:.3f}" for t in v)
+        + " ms/batch)" for k, v in runs.items()))
+    return {"by_variant": by_variant, "diff": diff,
+            **{f"{k}_img_s": round(v, 2) for k, v in img_s.items()}}
+
+
+def _zoo_trainer(cfg_kw: dict, vgg_path, train, valid, name: str):
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
+
+    files = SMOKE_DIR / f"zoo_{name}"
+    run = RunConfig(seed=0, valid_every=1, vgg_weights=str(vgg_path),
+                    weights_dir=str(files), logs_dir=str(files),
+                    checkpoint_path=str(files / "checkpoint.msgpack"))
+    return Trainer(TrainConfig(**{**cfg_kw, **TRAIN_KW}), run,
+                   train_streams=train, valid_streams=valid, device=DEVICE)
+
+
+def _step_img_s(trainer, label: str) -> float:
+    ph = time_train_steps(trainer, steps=3)
+    img_s = trainer.cfg.batch_size * 1e3 / ph["step"]
+    print(f"[time] zoo train step {label}: {ph['step']:.3f} ms, "
+          f"{img_s:.1f} img/s (median of 3, CUDA events; " + ", ".join(
+              f"{k} {v:.2f}" for k, v in ph.items() if k != "step") + ")")
+    return img_s
+
+
+def _zoo_training(vgg_path) -> dict:
+    """UNet G + BEGAN D at the CLI's defaults (f32, 256 crops, batch
+    16, full widths) for one epoch and a 480x640 validation: k1/k2 in
+    [0, 1] (and moved by the timed steps from 0.5), 8 CUDA-core decoder
+    launches per stacked forward; then DenseUNet G + dummy D with
+    SoftAdapt for one epoch."""
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+
+    train = synthetic_triplets(ZOO_TRAIN, *DATA_HW, seed=2)
+    valid = synthetic_triplets(ZOO_VALID, *DATA_HW, seed=3)
+    out = {}
+    t0 = time.perf_counter()
+    tr = _zoo_trainer(dict(net_g="unet", net_d="began", aug_method="shear"),
+                      vgg_path, train, valid, "began")
+    k0 = (float(tr.state.k1), float(tr.state.k2))
+    reset_decoder_counts()
+    tr.train(1)
+    torch.cuda.synchronize()
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    forwards = -(-ZOO_VALID // tr.cfg.batch_size)
+    k = (float(tr.state.k1), float(tr.state.k2))
+    print(f"[zoo] UNet + BEGAN f32: 1 epoch x {tr.cfg.steps_per_epoch} "
+          f"steps + a {DATA_HW[0]}x{DATA_HW[1]} validation in "
+          f"{time.perf_counter() - t0:.1f} s; k1 {k0[0]} -> {k[0]:.6g}, k2 "
+          f"{k0[1]} -> {k[1]:.6g}; decoder launches {by_variant} "
+          f"({forwards} stacked forwards)")
+    _check_history(tr, "zoo UNet + BEGAN")
+    if not all(0.0 <= v <= 1.0 for v in k):
+        raise SystemExit(f"zoo: BEGAN k1/k2 {k} left [0, 1]")
+    if by_variant != {"tensor_core": 0, "cuda_core": 8 * forwards,
+                      "narrow": 0}:
+        raise SystemExit(f"zoo: UNet f32 validation: expected "
+                         f"{8 * forwards} cuda_core launches, got "
+                         f"{by_variant}")
+    # from k = 0.5 the clip cannot hold k still: the timed steps must
+    # move both, on the card, within [0, 1]
+    tr.state.k1 = torch.full((), 0.5, device=DEVICE)
+    tr.state.k2 = torch.full((), 0.5, device=DEVICE)
+    img_s = _step_img_s(tr, "UNet + BEGAN f32")
+    k = (float(tr.state.k1), float(tr.state.k2))
+    profile_train_step(tr, "zoo train step UNet + BEGAN 256x256 b16 f32")
+    print(f"[zoo] BEGAN k1, k2 after 4 more steps from 0.5: {k[0]:.6g}, "
+          f"{k[1]:.6g}")
+    if not all(0.0 <= v <= 1.0 and v != 0.5 for v in k):
+        raise SystemExit(f"zoo: BEGAN k1/k2 {k} did not move within [0, 1]")
+    out.update(began_decoder=sum(by_variant.values()),
+               unet_began_img_s=round(img_s, 2))
+    del tr
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tr = _zoo_trainer(dict(net_g="denseunet", net_d="dummy", softadapt=True,
+                           aug_method="shear"), vgg_path, train, None,
+                      "softadapt")
+    w0 = tr.state.softadapt.weights.clone()
+    tr.train(1)
+    w = tr.state.softadapt.weights
+    print(f"[zoo] DenseUNet + dummy D + SoftAdapt f32: 1 epoch x "
+          f"{tr.cfg.steps_per_epoch} steps in {time.perf_counter() - t0:.1f}"
+          f" s; weights {[round(v, 5) for v in w0.tolist()]} -> "
+          f"{[round(v, 5) for v in w.tolist()]} (sum {float(w.sum()):.6f})")
+    for i, h in enumerate(tr.history):
+        if not all(math.isfinite(v) for v in h.values()):
+            raise SystemExit(f"zoo: DenseUNet epoch {i}: non-finite {h}")
+    if torch.equal(w, w0) or abs(float(w.sum()) - 1.0) > 1e-5:
+        raise SystemExit("zoo: SoftAdapt weights did not move or lost "
+                         "their sum")
+    out["denseunet_softadapt_img_s"] = round(
+        _step_img_s(tr, "DenseUNet + dummy + SoftAdapt f32"), 2)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_legacy() -> dict:
+    """``cli.stcgan_main --tasks train infer`` at full width on the
+    ``cli`` phase's ISTD directory (train_B masks as G1's targets): 2
+    epochs with plateau, DCGAN init and the legacy resizes, then infer
+    to 192x256 PNGs; no decoder launch. Then the legacy G1 -> G2 at
+    480x640 (odd halvings in pix2pix) through the engine, finite."""
+    import logging
+
+    from shadow_removal_istd_tpu_torch.cli import stcgan_main
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        write_istd_layout,
+    )
+    from shadow_removal_istd_tpu_torch.engine import loop
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+    from shadow_removal_istd_tpu_torch.utils import image_io
+    from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
+
+    istd = SMOKE_DIR / "cli" / "istd"
+    if not istd.is_dir():
+        write_istd_layout(str(istd), CLI_TRAIN, CLI_TEST, *DATA_HW)
+    root = SMOKE_DIR / "legacy"
+    trainers = []
+    orig_train = loop.Trainer.train
+
+    def train(self, epochs):
+        trainers.append(self)
+        return orig_train(self, epochs)
+
+    t0 = time.perf_counter()
+    reset_decoder_counts()
+    handlers = list(logging.getLogger().handlers)
+    try:
+        with mock.patch.object(loop.Trainer, "train", train):
+            stcgan_main.main(stcgan_main.build_parser().parse_args([
+                "--tasks", "train", "infer", "--devices", DEVICE,
+                "--data-dir", str(istd), "--epochs", "2", "--log-every",
+                "1", "--valid-every", "1", "--weights", str(root / "w"),
+                "--logs", str(root / "l"), "--infered", str(root / "out"),
+                *LEGACY_ARGS]))
+    finally:
+        for h in logging.getLogger().handlers[len(handlers):]:
+            h.close()
+        logging.getLogger().handlers[:] = handlers
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_dec = decoder_upsample.launches
+    tr = trainers[0]
+    print(f"[zoo] legacy CLI (pix2pix ngf {tr.cfg.ngf}, NLayer ndf "
+          f"{tr.cfg.ndf}, plateau, DCGAN init, resize 300x400 -> "
+          f"{tr.cfg.image_size} crops, batch {tr.cfg.batch_size}): 2 epochs "
+          f"x {tr.cfg.steps_per_epoch} steps + 2 validations at 256x256 + "
+          f"infer of {CLI_TEST} in {wall:.1f} s; decoder launches {n_dec}")
+    _check_history(tr, "zoo legacy")
+    ck = from_bytes((root / "w" / "checkpoint.msgpack").read_bytes())
+    plateau = {k: ck.get("host", {}).get(k) for k in ("plateau_g",
+                                                      "plateau_d")}
+    print(f"[zoo] legacy checkpoint epoch {ck['epoch']}, host plateau "
+          f"state {plateau}")
+    if n_dec != 0 or None in plateau.values() or ck["epoch"] != 2:
+        raise SystemExit("zoo: legacy run reached the decoder or lost its "
+                         "plateau state")
+    shapes = set()
+    for sub, read in (("shadowless", image_io.imread_color),
+                      ("matte", image_io.imread_gray)):
+        files = sorted((root / "out" / sub / "istd").glob("*.png"))
+        shapes |= {read(str(f)).shape[:2] for f in files}
+        if len(files) != CLI_TEST:
+            raise SystemExit(f"zoo: legacy infer wrote {len(files)} {sub}")
+    print(f"[zoo] legacy infer PNG sizes {sorted(shapes)} (want 192x256)")
+    if shapes != {(192, 256)}:
+        raise SystemExit("zoo: legacy infer outputs are not 192x256")
+    img_s = _step_img_s(tr, "legacy pix2pix + NLayer f32")
+    del tr, trainers[:]
+    torch.cuda.empty_cache()
+    engine = InferenceEngine("stcgan", ngf=LEGACY_NGF, dtype="float32",
+                             max_batch=2, device=DEVICE)
+    w = root / "w"
+    engine.load_weights(str(w / "G1_Pix2PixUNet_latest.msgpack"),
+                        str(w / "G2_Pix2PixUNet_latest.msgpack"))
+    img = np.random.default_rng(5).integers(0, 256, (*DATA_HW, 3),
+                                            dtype=np.uint8)
+    reset_decoder_counts()
+    (m, y), _ = engine.infer_group([img, img[::-1]])
+    print(f"[zoo] legacy G1 -> G2 f32 at {DATA_HW[0]}x{DATA_HW[1]} "
+          f"(bucket {engine.bucket_of(*DATA_HW)}): matte {m.shape}, "
+          f"shadow-free {y.shape}, decoder launches "
+          f"{decoder_upsample.launches}")
+    if m.shape != DATA_HW or y.shape != (*DATA_HW, 3):
+        raise SystemExit("zoo: legacy 480x640 inference has wrong shapes")
+    return {"legacy_img_s": round(img_s, 2)}
+
+
+def phase_zoo(vgg_path: Path) -> dict:
+    """The model zoo and the legacy tree on the card (see the module
+    docstring, phase 9); returns the K1 numbers and launch counts."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    kern = _zoo_kernels(gen)
+    serve = _zoo_serving(gen)
+    trained = _zoo_training(vgg_path)
+    legacy = _zoo_legacy()
+    print(f"[time] zoo phase: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kern, "serve": serve, **trained, **legacy,
+            "decoder": sum(serve["by_variant"].values())
+            + trained["began_decoder"]}
+
+
 def build_renamed(name: str, path: str,
                   entry: str = "srit_decoder_upsample"):
     """A kernel source (e.g. an earlier commit's
@@ -2186,12 +2586,27 @@ def main() -> int:
         runs = phase_training(vgg_path)
         cli = phase_cli(vgg_path)
         ev = phase_eval(vgg_path, runs["float32"]["trainer"])
+        zoo = phase_zoo(vgg_path)
         kernel = phase_timings(worst, launches, by_variant)
         shear_entry, extra = phase_train_timings(runs, shear_err)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    zk = zoo["kernels"]
     kernel.update(extra, launches_cli=cli["decoder"],
-                  launches_eval=ev["decoder"])
+                  launches_eval=ev["decoder"], launches_zoo=zoo["decoder"],
+                  max_abs_err=max(kernel["max_abs_err"],
+                                  *zk["worst"].values()),
+                  **{f"zoo_unet_upconv_{key}": {
+                      "ms": t["ms"], "plain_ms": t["plain_ms"],
+                      "library_ms": t["convt_ms"], "conv_ms": t["conv_ms"],
+                      "bound_ms": t["bound_ms"],
+                      "bound_by": ("operations" if t["ops_ms"] >= t[
+                          "bytes_ms"] else "bytes")}
+                     for key, t in ((k, zk[k]) for k in ("bf16", "f32"))},
+                  zoo_stacked_img_s={k: zoo["serve"][f"{k}_img_s"]
+                                     for k in ("unet", "mnet")},
+                  zoo_train_img_s={k: zoo[f"{k}_img_s"] for k in (
+                      "unet_began", "denseunet_softadapt", "legacy")})
     shear_entry.update(launches_cli=cli["hshear"],
                        launches_eval=ev["hshear"],
                        launches_gather=ev["hshear_gather"])

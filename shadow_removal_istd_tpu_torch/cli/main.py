@@ -13,8 +13,9 @@ Differences:
   list or another platform raises. Without a card ``cuda`` raises: the
   CPU runs only when asked for.
 - Flags whose feature is not ported raise ``NotImplementedError`` naming
-  the flag when set away from their default; so do the model options
-  ``TrainConfig`` refuses. TensorBoard is not ported: epoch metrics go to
+  the flag when set away from their default; so does ``--remat``, which
+  ``TrainConfig`` refuses. Every ``--net-G``/``--net-D`` choice,
+  ``--softadapt`` and ``--SELU`` run. TensorBoard is not ported: epoch metrics go to
   the log file.
 
 Weight and checkpoint files are the JAX package's flax msgpack files, so
@@ -365,7 +366,8 @@ def _serve(trainer, cfg, args) -> None:
     )
 
     engine = InferenceEngine(
-        cfg.net_g, ngf=cfg.ngf, nn_upconv=cfg.nn_upconv,
+        cfg.net_g, ngf=cfg.ngf, droprate=cfg.droprate,
+        nn_upconv=cfg.nn_upconv, use_selu=cfg.use_selu,
         activation=cfg.activation,
         dtype=("bfloat16" if cfg.compute_dtype == "bfloat16"
                else "float32"),

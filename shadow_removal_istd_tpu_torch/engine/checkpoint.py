@@ -6,8 +6,9 @@ other writes. Port of ``shadow_removal_istd_tpu/engine/checkpoint.py``.
    .msgpack`` holding ``{"params", "batch_stats"}``, loadable one by one
    (``--load-weights-*``, and the serving engine).
 2. The full training state (step, parameters, BatchNorm statistics, both
-   Adam states, BEGAN's k1/k2 as zeros) as one file ``{"epoch", "state",
-   "host"}``, where ``host`` carries the best validation loss.
+   Adam states, BEGAN's k1/k2, the SoftAdapt state) as one file
+   ``{"epoch", "state", "host"}``, where ``host`` carries the best
+   validation loss and the plateau controllers' state.
 
 The tree mapping is ``tools/convert.py``'s; the encoding
 ``utils/msgpack_codec.py``'s. The orbax backend is not ported.
@@ -78,7 +79,7 @@ def save_checkpoint(state: TrainState, path: str, epoch: int = 0,
                     host: dict | None = None) -> None:
     """Full training state to one file, ``epoch`` recorded; ``host``
     carries host-side state outside the networks (the best validation
-    loss)."""
+    loss, the plateau controllers)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {"epoch": epoch, "state": train_state_to_flax(state)}
     if host:

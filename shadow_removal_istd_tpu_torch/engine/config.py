@@ -1,6 +1,9 @@
 """Training configuration; port of
 ``shadow_removal_istd_tpu/engine/config.py`` with the same fields and
-defaults. Options whose code is not ported yet raise when set."""
+defaults. ``remat`` is not ported yet and raises when set: re-running a
+forward inside the backward (``torch.utils.checkpoint``) would move the
+BatchNorm running statistics twice and redraw the Dropout2d masks from
+generators whose state it does not restore."""
 
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ class TrainConfig:
     aug_method: str = "gather"    # or "shear" (the hshear kernel path)
 
     # legacy-tree options
-    lr_schedule: str = "exponential"
+    lr_schedule: str = "exponential"   # or "plateau" (ReduceLROnPlateau)
     aug_resize: tuple | None = None
     valid_resize: tuple | None = None
     infer_resize: tuple | None = None
@@ -68,17 +71,8 @@ class TrainConfig:
             # the reference zeroes the adversarial terms for the dummy D
             object.__setattr__(self, "lambda2", 0.0)
             object.__setattr__(self, "lambda3", 0.0)
-        unported = {
-            "net_d='began'": self.began,
-            "softadapt": self.softadapt,
-            "lr_schedule='plateau'": self.lr_schedule == "plateau",
-            "remat": self.remat,
-            "dcgan_init": self.dcgan_init,
-            "use_selu": self.use_selu,
-        }
-        for name, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if self.remat:
+            raise NotImplementedError("remat is not ported yet")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError("compute_dtype must be float32 or bfloat16, "
                              f"got {self.compute_dtype!r}")

@@ -25,9 +25,17 @@ missing and the matte stands in) to ``Trainer.eval_writer``.
 Not ported yet (``RunConfig`` raises where one is asked for): the HDF5
 dataset, the orbax backend, the host-pipeline training epoch
 (``device_cache=False``), profiler traces, pipeline-parallel inference.
-TensorBoard scalars and images (``vis_every``), the plateau schedule and
-the preemption save are not ported either: epoch metrics go to the log,
-``Eval/*`` to the log and the writer hook.
+TensorBoard scalars and images (``vis_every``) and the preemption save
+are not ported either: epoch metrics go to the log, ``Eval/*`` to the
+log and the writer hook.
+
+The legacy tree's options: ``dcgan_init`` re-initializes the four
+networks DCGAN-style at start, drawn from the ``init`` stream after the
+default init; under ``lr_schedule="plateau"`` two ReduceLROnPlateau
+controllers step once per epoch on the SUMMED epoch ``G`` and ``D``
+(read back with the epoch's other sums) and scale the constant base
+rates; their state rides in the checkpoint's ``host`` section as
+``plateau_g``/``plateau_d``, as in the JAX package.
 
 Precision: PyTorch runs f32 cuDNN convolutions in TF32 by default. The
 trainer turns TF32 off for cuDNN and cuBLAS (process-wide flags), so an
@@ -61,6 +69,7 @@ from shadow_removal_istd_tpu_torch.engine.epoch import (
     derive_seed,
     make_epoch,
 )
+from shadow_removal_istd_tpu_torch.engine.schedules import ReduceLROnPlateau
 from shadow_removal_istd_tpu_torch.engine.state import TrainState, init_state
 from shadow_removal_istd_tpu_torch.engine.steps import (
     METRIC_KEYS,
@@ -71,6 +80,7 @@ from shadow_removal_istd_tpu_torch.metrics.metrics import (
     aggregate_regions,
     region_metrics,
 )
+from shadow_removal_istd_tpu_torch.models.layers import apply_dcgan_init_
 from shadow_removal_istd_tpu_torch.models.vgg import load_vgg_npz
 from shadow_removal_istd_tpu_torch.ops.augment import (
     AugmentConfig,
@@ -224,6 +234,16 @@ class Trainer:
             derive_seed(run.seed, 0, 0, "init"))
         self.state: TrainState = init_state(self.cfg, init_gen, self.device,
                                             vgg=vgg)
+        if self.cfg.dcgan_init:
+            # the legacy tree applies DCGAN init when no weights are
+            # loaded (reference STCGAN/stcgan.py:408-433)
+            bn_mean = 0.0 if self.cfg.dcgan_bn_compat else 1.0
+            for net in self.state.models.all():
+                apply_dcgan_init_(net, init_gen, bn_mean)
+        self.plateau_g = self.plateau_d = None
+        if self.cfg.lr_schedule == "plateau":
+            self.plateau_g = ReduceLROnPlateau(self.cfg.lr_g)
+            self.plateau_d = ReduceLROnPlateau(self.cfg.lr_d)
         self.epoch_fn = make_epoch(self.aug_cfg)
         self.start_epoch = 0
         self.best_loss = float("inf")
@@ -298,7 +318,14 @@ class Trainer:
                     self.cfg.steps_per_epoch)
         for epoch in range(self.start_epoch, epochs):
             sums, n = self.run_train_epoch(epoch)
-            self.history.append({k: float(v) / n for k, v in sums.items()})
+            sums = {k: float(v) for k, v in sums.items()}
+            self.history.append({k: v / n for k, v in sums.items()})
+            if self.plateau_g is not None:
+                # the legacy scheduler steps on the SUMMED epoch losses
+                # (reference STCGAN/stcgan.py:315-317)
+                self.plateau_g.step(sums["G"])
+                self.plateau_d.step(sums["D"])
+                self._apply_plateau()
             if epoch % run.log_every == 0:
                 logger.info("train epoch %d: %s", epoch, ", ".join(
                     f"{k} {self.history[-1][k]:.4f}"
@@ -461,9 +488,18 @@ class Trainer:
         return idx
 
     # ------------------------------------------------------ checkpoint
+    def _apply_plateau(self) -> None:
+        """The controllers' scales onto the state's learning rates."""
+        self.state.lr_scale_g = self.plateau_g.scale
+        self.state.lr_scale_d = self.plateau_d.scale
+
     def save(self, epoch: int) -> None:
+        host = {"best_loss": self.best_loss}
+        if self.plateau_g is not None:
+            host["plateau_g"] = self.plateau_g.state_dict()
+            host["plateau_d"] = self.plateau_d.state_dict()
         ckpt.save_checkpoint(self.state, self.run.checkpoint_path, epoch,
-                             host={"best_loss": self.best_loss})
+                             host=host)
 
     def load(self, path: str | None = None) -> None:
         path = path or self.run.checkpoint_path
@@ -471,6 +507,10 @@ class Trainer:
         self.start_epoch = epoch
         if "best_loss" in host:
             self.best_loss = float(host["best_loss"])
+        if self.plateau_g is not None and "plateau_g" in host:
+            self.plateau_g.load_state_dict(host["plateau_g"])
+            self.plateau_d.load_state_dict(host["plateau_d"])
+            self._apply_plateau()
         logger.info("checkpoint loaded (epoch %d)", epoch)
 
     def load_weights(self, g1=None, g2=None, d1=None, d2=None) -> None:

@@ -1,8 +1,11 @@
-"""Train state: the four networks, both Adam optimizers and the step
-count; port of ``shadow_removal_istd_tpu/engine/state.py``.
+"""Train state: the four networks, both Adam optimizers, the step
+count, BEGAN's k1/k2 and the SoftAdapt state; port of
+``shadow_removal_istd_tpu/engine/state.py``.
 
 The JAX package threads one immutable pytree through a pure step; here
 the modules and optimizers are updated in place by ``engine/steps.py``.
+k1, k2 and the SoftAdapt tensors stay on the networks' device, so the
+step that updates them waits for nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
 from shadow_removal_istd_tpu_torch.losses.adversarial import (
     AdversarialLoss,
     make_adversarial_loss,
+)
+from shadow_removal_istd_tpu_torch.losses.softadapt import (
+    SoftAdaptState,
+    softadapt_init,
 )
 from shadow_removal_istd_tpu_torch.models import (
     get_discriminator,
@@ -48,22 +55,47 @@ class TrainState:
     adv: AdversarialLoss
     vgg: VGG19Features | None = None
     step: int = 0           # optimiser steps taken (host counter)
+    # BEGAN balance terms (f32 0-d tensors; zeros on the networks'
+    # device when not given)
+    k1: torch.Tensor | None = None
+    k2: torch.Tensor | None = None
+    # SoftAdapt weights over the (adv, data, visual) groups: with
+    # cfg.softadapt, initialised to [1, lambda1, lambda2] normalized
+    softadapt: SoftAdaptState | None = None
+    # the plateau controllers' scales of the base rates (host floats)
+    lr_scale_g: float = 1.0
+    lr_scale_d: float = 1.0
+
+    def __post_init__(self):
+        dev = next(self.models.g1.parameters()).device
+        if self.k1 is None:
+            self.k1 = torch.zeros((), device=dev)
+        if self.k2 is None:
+            self.k2 = torch.zeros((), device=dev)
+        if self.softadapt is None and self.cfg.softadapt:
+            self.softadapt = softadapt_init(
+                3, init_weights=[1.0, self.cfg.lambda1, self.cfg.lambda2],
+                device=dev)
 
 
 def build_models(cfg: TrainConfig) -> Models:
-    """G1 (3 -> 1), G2 (4 -> 3), D1 (4 in), D2 (7 in), the reference's
-    channel wiring."""
+    """G1 (3 -> 1), G2 (4 -> 3), D1 (4 in, 1 out), D2 (7 in, 3 out), the
+    reference's channel wiring; the out channels matter to the BEGAN
+    and dummy Ds, which reconstruct or map per pixel."""
     dt = _DTYPES[cfg.compute_dtype]
     g_kw = dict(ngf=cfg.ngf, drop_rate=cfg.droprate,
-                no_conv_t=cfg.nn_upconv, activation=cfg.activation,
+                no_conv_t=cfg.nn_upconv, use_selu=cfg.use_selu,
+                activation=cfg.activation, compute_dtype=dt)
+    d_kw = dict(ndf=cfg.ndf, use_selu=cfg.use_selu, use_sigmoid=False,
                 compute_dtype=dt)
-    d_kw = dict(ndf=cfg.ndf, compute_dtype=dt)
     return Models(
         g1=get_generator(cfg.net_g, in_channels=3, out_channels=1, **g_kw),
         g2=get_generator(cfg.net_g, in_channels=3 + 1, out_channels=3,
                          **g_kw),
-        d1=get_discriminator(cfg.net_d, in_channels=3 + 1, **d_kw),
-        d2=get_discriminator(cfg.net_d, in_channels=3 + 3 + 1, **d_kw))
+        d1=get_discriminator(cfg.net_d, in_channels=3 + 1, out_channels=1,
+                             **d_kw),
+        d2=get_discriminator(cfg.net_d, in_channels=3 + 3 + 1,
+                             out_channels=3, **d_kw))
 
 
 def make_optimizers(cfg: TrainConfig, models: Models
@@ -83,15 +115,19 @@ def make_optimizers(cfg: TrainConfig, models: Models
 
 def learning_rate(base: float, cfg: TrainConfig, i: int) -> float:
     """Rate of optimiser step ``i`` (0-based): ``base * (1 - decay) **
-    (i // steps_per_epoch)``, optax's schedule on its update count."""
+    (i // steps_per_epoch)``, optax's schedule on its update count;
+    under ``lr_schedule="plateau"`` the constant ``base`` (the plateau
+    controller scales it, ``set_learning_rates``)."""
+    if cfg.lr_schedule == "plateau":
+        return base
     return base * (1.0 - cfg.decay) ** (i // max(cfg.steps_per_epoch, 1))
 
 
 def set_learning_rates(state: TrainState) -> None:
-    for opt, base in ((state.opt_g, state.cfg.lr_g),
-                      (state.opt_d, state.cfg.lr_d)):
+    for opt, base, scale in ((state.opt_g, state.cfg.lr_g, state.lr_scale_g),
+                             (state.opt_d, state.cfg.lr_d, state.lr_scale_d)):
         for group in opt.param_groups:
-            group["lr"] = learning_rate(base, state.cfg, state.step)
+            group["lr"] = learning_rate(base, state.cfg, state.step) * scale
 
 
 def init_state(cfg: TrainConfig, generator: torch.Generator,

@@ -16,9 +16,17 @@
    l5*vis2``, backward through the graph of step 1;
 5. the G Adam update.
 
+BEGAN (``net_d="began"``) swaps the adversarial terms for L1
+reconstructions: D's ``real - k * fake`` per D, G's reconstruction of
+its fake against the DETACHED prediction, and after the G update
+``k <- clip(k + 0.001 * (0.7 * L_real - L_fake), 0, 1)`` from the D
+phase's losses. SoftAdapt (``cfg.softadapt``) combines the (adversarial,
+data, visual) groups with its detached weights in place of the lambdas,
+then updates the weights from the groups.
+
 The visual terms are gated per lambda: a zero lambda costs no VGG pass.
 Metrics are detached 0-d tensors on the step's device; nothing here
-waits for the device.
+waits for the device (k1, k2 and the SoftAdapt state stay there too).
 """
 
 from __future__ import annotations
@@ -33,7 +41,14 @@ from shadow_removal_istd_tpu_torch.engine.state import (
     TrainState,
     set_learning_rates,
 )
-from shadow_removal_istd_tpu_torch.losses import l1_loss, visual_loss
+from shadow_removal_istd_tpu_torch.losses import (
+    began_d_loss,
+    began_k_update,
+    l1_loss,
+    softadapt_combine,
+    softadapt_update,
+    visual_loss,
+)
 
 METRIC_KEYS = ("G", "G1", "G2", "D", "D1", "D2", "data1", "data2",
                "vis1", "vis2", "D1_real", "D1_fake", "D2_real", "D2_fake")
@@ -116,8 +131,14 @@ def train_step(state: TrainState, batch, gens=(None, None),
     c1_fake = d1(_cat(x, m_sg))
     c2_real = d2(_cat(x, m, y))
     c2_fake = d2(_cat(x, m_sg, y_sg))
-    d1_l = adv.d_loss(c1_real, c1_fake)
-    d2_l = adv.d_loss(c2_real, c2_fake)
+    if cfg.began:
+        began = (l1_loss(c1_real, m), l1_loss(c1_fake, m_sg),
+                 l1_loss(c2_real, y), l1_loss(c2_fake, y_sg))
+        d1_l = began_d_loss(state.k1, began[0], began[1])
+        d2_l = began_d_loss(state.k2, began[2], began[3])
+    else:
+        d1_l = adv.d_loss(c1_real, c1_fake)
+        d2_l = adv.d_loss(c2_real, c2_fake)
     d_total = cfg.lambda2 * d1_l + cfg.lambda3 * d2_l
     state.opt_d.zero_grad(set_to_none=True)
     d_total.backward()
@@ -130,23 +151,41 @@ def train_step(state: TrainState, batch, gens=(None, None),
         g_c1_fake = d1(_cat(x, m_pred))
         g_c2_real = d2(_cat(x, m, y))
         g_c2_fake = d2(_cat(x, m_pred, y_pred))
-        g1_l = adv.g_loss(g_c1_real, g_c1_fake)
-        g2_l = adv.g_loss(g_c2_real, g_c2_fake)
+        if cfg.began:
+            g1_l = l1_loss(g_c1_fake, m_sg)
+            g2_l = l1_loss(g_c2_fake, y_sg)
+        else:
+            g1_l = adv.g_loss(g_c1_real, g_c1_fake)
+            g2_l = adv.g_loss(g_c2_real, g_c2_fake)
         data1 = l1_loss(m_pred, m)
         data2 = l1_loss(y_pred, y)
         mark("g_adv")
         vis1 = vis1_fn(m_pred, m)
         vis2 = vis2_fn(y_pred, y)
         mark("g_visual")
-        g_total = (data1 + cfg.lambda1 * data2
-                   + cfg.lambda2 * g1_l + cfg.lambda3 * g2_l
-                   + cfg.lambda4 * vis1 + cfg.lambda5 * vis2)
+        if cfg.softadapt:
+            # the lambdas live in the weights ([1, l1, l2] at init), not
+            # in the groups, so they are not applied twice
+            groups = torch.stack([(g1_l + g2_l).float(),
+                                  (data1 + data2).float(),
+                                  (vis1 + vis2).float()])
+            g_total = softadapt_combine(state.softadapt, groups)
+        else:
+            g_total = (data1 + cfg.lambda1 * data2
+                       + cfg.lambda2 * g1_l + cfg.lambda3 * g2_l
+                       + cfg.lambda4 * vis1 + cfg.lambda5 * vis2)
         state.opt_g.zero_grad(set_to_none=True)
         g_total.backward()
         mark("g_backward")
     state.opt_g.step()
     mark("adam_g")
     state.step += 1
+    with torch.no_grad():
+        if cfg.began:
+            state.k1 = began_k_update(state.k1, began[0], began[1])
+            state.k2 = began_k_update(state.k2, began[2], began[3])
+        if cfg.softadapt:
+            state.softadapt = softadapt_update(state.softadapt, groups)
 
     out = {"G": g_total, "G1": g1_l, "G2": g2_l, "D": d_total, "D1": d1_l,
            "D2": d2_l, "data1": data1, "data2": data2, "vis1": vis1,
@@ -159,7 +198,8 @@ def train_step(state: TrainState, batch, gens=(None, None),
 def eval_step(state: TrainState, batch, return_preds: bool = False):
     """Validation: eval-mode forwards (the generators' decoder steps go
     through the decoder op), no updates, the train step's losses plus
-    the model-selection proxy ``total = 0.8*G + 0.2*D``. With
+    the model-selection proxy ``total = 0.8*G + 0.2*D``; the fixed
+    lambdas weigh G even under SoftAdapt, as in the JAX package. With
     ``return_preds``, returns ``(metrics, (m_pred, y_pred))``: the
     evaluation protocol scores these without a second G forward."""
     cfg, nets, adv = state.cfg, state.models, state.adv
@@ -174,10 +214,16 @@ def eval_step(state: TrainState, batch, return_preds: bool = False):
     c1_fake = d1(_cat(x, m_pred))
     c2_real = d2(_cat(x, m, y))
     c2_fake = d2(_cat(x, m_pred, y_pred))
-    d1_l = adv.d_loss(c1_real, c1_fake)
-    d2_l = adv.d_loss(c2_real, c2_fake)
-    g1_l = adv.g_loss(c1_real, c1_fake)
-    g2_l = adv.g_loss(c2_real, c2_fake)
+    if cfg.began:
+        g1_l = l1_loss(c1_fake, m_pred)
+        g2_l = l1_loss(c2_fake, y_pred)
+        d1_l = began_d_loss(state.k1, l1_loss(c1_real, m), g1_l)
+        d2_l = began_d_loss(state.k2, l1_loss(c2_real, y), g2_l)
+    else:
+        d1_l = adv.d_loss(c1_real, c1_fake)
+        d2_l = adv.d_loss(c2_real, c2_fake)
+        g1_l = adv.g_loss(c1_real, c1_fake)
+        g2_l = adv.g_loss(c2_real, c2_fake)
     data1 = l1_loss(m_pred, m)
     data2 = l1_loss(y_pred, y)
     vis1 = vis1_fn(m_pred, m)

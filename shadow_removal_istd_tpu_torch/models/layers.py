@@ -1,10 +1,11 @@
-"""MNet, PatchGAN and VGG building blocks in PyTorch.
+"""Building blocks of the model zoo in PyTorch.
 
 Port of ``shadow_removal_istd_tpu/models/layers.py``. Modules take NCHW
-tensors and keep their weights OIHW; the ConvTranspose weight keeps the
-JAX package's (unflipped) kernel, see :func:`convtranspose_phase_kernel`.
-Weights come from :func:`init_weights_` (seeded ``torch.Generator``) or
-from a JAX tree via ``tools/convert.py``.
+tensors and keep their weights OIHW; a ConvTranspose weight keeps the
+JAX package's (unflipped) kernel, see :func:`convtranspose_phase_kernel`
+and :class:`ConvTranspose`. Weights come from :func:`init_weights_`
+(seeded ``torch.Generator``), from :func:`apply_dcgan_init_` or from a
+JAX tree via ``tools/convert.py``.
 
 Compute dtype. A convolution casts its weight to the dtype of its input,
 as flax's ``Conv(dtype=...)`` casts kernels at use: a model casts its
@@ -35,9 +36,22 @@ from shadow_removal_istd_tpu_torch.ops.decoder import (
 )
 
 
+def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
+    """``jnp.pad(mode="reflect")`` of H and W by ``p``: a side of one
+    pixel repeats it (numpy's rule; torch refuses to reflect it), as a
+    DenseUNet bottleneck at a 32-pixel bucket has."""
+    h, w = x.shape[2], x.shape[3]
+    if h > p and w > p:
+        return F.pad(x, (p, p, p, p), mode="reflect")
+    if p != 1:
+        raise ValueError(f"reflect pad {p} of a {h}x{w} input")
+    x = F.pad(x, (p, p, 0, 0), mode="reflect" if w > p else "replicate")
+    return F.pad(x, (0, 0, p, p), mode="reflect" if h > p else "replicate")
+
+
 class ConvReflect(nn.Module):
     """Conv2d with reflection padding and no bias (torch
-    ``padding_mode='reflect'``)."""
+    ``padding_mode='reflect'``); every use in the zoo is bias-free."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1):
@@ -47,27 +61,51 @@ class ConvReflect(nn.Module):
             torch.empty(cout, cin, kernel_size, kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = self.padding
-        if p > 0:
-            x = F.pad(x, (p, p, p, p), mode="reflect")
+        if self.padding > 0:
+            x = reflect_pad(x, self.padding)
         return F.conv2d(x, self.weight.to(x.dtype), stride=self.stride)
 
 
 class Conv(nn.Module):
-    """Conv2d with zero padding and a bias (torch's default padding);
-    PatchGAN's stem."""
+    """Conv2d with zero padding (torch's default padding) and an
+    optional bias: PatchGAN's stem, the pix2pix, NLayer and BEGAN convs,
+    and with ``kernel_size=1, padding=0`` flax's plain 1x1 ``nn.Conv``."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 4,
-                 stride: int = 2, padding: int = 1):
+                 stride: int = 2, padding: int = 1, bias: bool = True):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(
             torch.empty(cout, cin, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.conv2d(x, self.weight.to(x.dtype), b,
                         stride=self.stride, padding=self.padding)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with stride ``stride``: the weight is
+    flax's kernel (``(Co, Ci, k, k)`` from its HWIO), applied unflipped,
+    which is torch's ``conv_transpose2d`` with the kernel flipped.
+    ``padding=1`` with ``k=4, stride=2`` is flax's ``'SAME'`` (output
+    2x, pix2pix); ``padding=0`` with ``k=stride`` is ``'VALID'``
+    (DenseUNet's 2x2)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, bias: bool = False):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype).transpose(0, 1).flip(2, 3)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.conv_transpose2d(x, w, b, stride=self.stride,
+                                  padding=self.padding)
 
 
 class BatchNorm(nn.Module):
@@ -132,13 +170,16 @@ class BatchNorm(nn.Module):
 
 class ActNorm(nn.Module):
     """LeakyReLU(0.2) then BatchNorm (the activation comes first, as in
-    the JAX package's ``ActNorm``); PatchGAN's block norm."""
+    the JAX package's ``ActNorm``), or with ``use_selu`` SELU alone, which
+    leaves no BatchNorm (``bn`` is None)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, use_selu: bool = False):
         super().__init__()
-        self.bn = BatchNorm(c)
+        self.bn = None if use_selu else BatchNorm(c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bn is None:
+            return F.selu(x)
         return self.bn(F.leaky_relu(x, 0.2))
 
 
@@ -163,6 +204,56 @@ class Dropout2d(nn.Module):
         mask = torch.rand(x.shape[0], x.shape[1], 1, 1, device=x.device,
                           generator=generator) < keep
         return torch.where(mask, x / keep, 0.0)
+
+
+class AlphaDropout(nn.Module):
+    """SELU-compatible alpha dropout (torch nn.AlphaDropout): dropped
+    values go to ``alpha' = -selu_alpha * selu_scale``, then the affine
+    ``a*x + b`` keeps mean and variance; one draw per value from the
+    ``generator`` passed to ``forward``; the identity in eval."""
+
+    alpha_prime = -1.7580993408473766
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("AlphaDropout in training needs a generator")
+        keep = 1.0 - self.p
+        ap = self.alpha_prime
+        mask = torch.rand(x.shape, device=x.device,
+                          generator=generator) < keep
+        a = (keep + ap ** 2 * keep * (1 - keep)) ** -0.5
+        b = -a * ap * (1 - keep)
+        return a * torch.where(mask, x, ap) + b
+
+
+def make_dropout(use_selu: bool, rate: float) -> nn.Module | None:
+    """Dropout factory: None at rate 0, AlphaDropout under SELU, else
+    Dropout2d."""
+    if rate == 0:
+        return None
+    return AlphaDropout(rate) if use_selu else Dropout2d(rate)
+
+
+def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Max pool, stride == window (torch F.max_pool2d(x, 2))."""
+    return F.max_pool2d(x, window)
+
+
+def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Average pool, stride == window (torch nn.AvgPool2d(2))."""
+    return F.avg_pool2d(x, window)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling by an integer factor."""
+    return x.repeat_interleave(factor, 2).repeat_interleave(factor, 3)
 
 
 def subpixel_phase_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -271,21 +362,49 @@ def get_activation(key: str | None) -> Callable | None:
     raise ValueError(f"unknown activation: {key}")
 
 
+_CONVS = (ConvReflect, Conv, ConvTranspose, Upsample)
+
+
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Random init matching flax's defaults in distribution: conv kernels
-    LeCun-normal (truncated at 2 sigma, fan-in = kh*kw*cin), conv biases
-    0, BatchNorm identity (weight 1, bias 0, mean 0, var 1)."""
+    """Random init matching flax's defaults in distribution: conv and
+    transposed-conv kernels LeCun-normal (truncated at 2 sigma, fan-in =
+    kh*kw*cin), biases 0, BatchNorm identity (weight 1, bias 0, mean 0,
+    var 1)."""
     for m in module.modules():
-        if isinstance(m, (ConvReflect, Conv, Upsample)):
+        if isinstance(m, _CONVS):
             fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            if isinstance(m, Conv):
+            if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+
+
+@torch.no_grad()
+def apply_dcgan_init_(module: nn.Module, generator: torch.Generator,
+                      bn_scale_mean: float = 1.0,
+                      stddev: float = 0.02) -> None:
+    """DCGAN re-init, the JAX ``apply_dcgan_init``: every conv and
+    transposed-conv kernel ~ N(0, stddev), every bias 0, every BatchNorm
+    scale ~ N(bn_scale_mean, stddev); running statistics untouched.
+    ``bn_scale_mean=0.0`` reproduces the reference's N(0, .02) BN-scale
+    init. Values are drawn on the CPU from ``generator`` (a CPU
+    generator), in module order, and copied to the weights' device."""
+    def normal(t, mean):
+        t.copy_(torch.empty(t.shape).normal_(mean, stddev,
+                                             generator=generator))
+
+    for m in module.modules():
+        if isinstance(m, _CONVS):
+            normal(m.weight, 0.0)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            normal(m.weight, bn_scale_mean)
+            m.bias.zero_()

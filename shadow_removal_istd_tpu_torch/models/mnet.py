@@ -29,6 +29,8 @@ the one op. Train: the unfused differentiable form
 ``compute_dtype`` (flax's ``dtype``): the input is cast to it and every
 layer computes in it while the parameters keep their own dtype; None
 computes in the parameter dtype.
+``use_selu`` is accepted for the registry's uniform keywords and unused,
+as in the JAX package and the reference.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class MNet(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, ngf: int = 64,
                  drop_rate: float = 0.0, no_conv_t: bool = True,
                  activation: str | None = "tanh", depth: int = 4,
-                 split_skip: bool = False,
+                 split_skip: bool = False, use_selu: bool = False,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.depth = depth

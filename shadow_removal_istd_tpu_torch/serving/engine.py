@@ -2,6 +2,9 @@
 
 Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
 
+- **Any generator key.** ``mnet``, ``unet``, ``denseunet`` or ``stcgan``
+  (pix2pix), each with its own default bucket multiple; UNet's up-convs
+  run on the decoder kernel (K1), as MNet's decoder does.
 - **Shape buckets.** Every request size is padded up to a bucket
   (multiples of ``pad_multiple`` per spatial dim) and the batch to a
   power of two, with pad value 128, i.e. ~0 after the reference's
@@ -38,8 +41,10 @@ from shadow_removal_istd_tpu_torch.tools.convert import (
 )
 from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
 
-# Spatial divisibility MNet needs at its default depth (stem + 4 halvings)
-_MNET_PAD = 32
+# Spatial divisibility each generator needs at its default depth (MNet,
+# UNet and DenseUNet raise on indivisible sizes; the pix2pix 'stcgan' G
+# pads internally but is bucketed anyway to bound the shapes it sees)
+_DEFAULT_PAD = {"mnet": 32, "unet": 16, "denseunet": 32, "stcgan": 32}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -61,7 +66,8 @@ class InferenceEngine:
     """
 
     def __init__(self, net_g: str = "mnet", *, ngf: int = 64,
-                 nn_upconv: bool = True, activation: str = "tanh",
+                 droprate: float = 0.0, nn_upconv: bool = True,
+                 use_selu: bool = False, activation: str = "tanh",
                  dtype: str = "bfloat16", split_skip: bool = True,
                  pad_multiple: int | None = None, max_batch: int = 8,
                  devices: int | None = None, seed: int = 0,
@@ -76,15 +82,17 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.net_g = net_g.lower()
-        self._g_kw = dict(ngf=ngf, no_conv_t=nn_upconv,
-                          activation=activation, split_skip=split_skip)
+        self._g_kw = dict(ngf=ngf, drop_rate=droprate, no_conv_t=nn_upconv,
+                          use_selu=use_selu, activation=activation)
+        if self.net_g == "mnet":
+            self._g_kw["split_skip"] = split_skip
         # G1: shadow image -> matte; G2: image ++ matte -> shadow-free
         g1, g2 = self._new_pair()
         gen = torch.Generator().manual_seed(seed)
         init_weights_(g1, gen)
         init_weights_(g2, gen)
         self._adopt(g1, g2)
-        self.pad_multiple = int(pad_multiple or _MNET_PAD)
+        self.pad_multiple = int(pad_multiple or _DEFAULT_PAD[self.net_g])
         self.max_batch = int(max_batch)
 
     # -- weights ------------------------------------------------------
@@ -99,7 +107,8 @@ class InferenceEngine:
         for g in (g1, g2):
             g.to(device=self.device, dtype=_DTYPES[self.dtype])
             g.eval().requires_grad_(False)
-            g.freeze()     # the weights are fixed from here on
+            if hasattr(g, "freeze"):   # MNet: the weights are fixed now
+                g.freeze()
         self.g1, self.g2 = g1, g2
 
     def set_variables(self, v1: dict, v2: dict) -> None:

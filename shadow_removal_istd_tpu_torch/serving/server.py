@@ -443,7 +443,8 @@ def main(argv=None) -> int:
         description="Shadow-removal serving daemon (stacked G1+G2)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8650)
-    ap.add_argument("--net-G", default="mnet", choices=["mnet"])
+    ap.add_argument("--net-G", default="mnet",
+                    choices=["unet", "mnet", "denseunet", "stcgan"])
     ap.add_argument("--ngf", type=int, default=64)
     ap.add_argument("--activation", default="tanh")
     ap.add_argument("--no-nn-upconv", action="store_true",

@@ -5,9 +5,13 @@ The JAX package keeps a network's weights as the flax tree
 of numpy arrays (``np.asarray`` of the JAX arrays, or an ``.npz`` read by
 ``serving/engine.py``). HWIO kernels become OIHW; BatchNorm
 ``scale``/``bias``/``mean``/``var`` go to ``weight``/``bias``/
-``running_mean``/``running_var``. Flax numbers ``_Up_k`` in creation
-order, so ``_Up_0`` is the innermost decoder level (``MNet.ups[0]``).
-MNet, PatchGAN and the VGG-19-BN features are mapped;
+``running_mean``/``running_var``. Flax numbers submodules per class in
+creation order within each scope, so ``_Up_0`` is the innermost decoder
+level (``MNet.ups[0]``), and pix2pix's recursion numbers its convs and
+BatchNorms in call order in one scope. Every network of the zoo (MNet,
+PatchGAN, UNet, DenseUNet, Pix2PixUNet, NLayerDiscriminator, BEGAN,
+DummyNet) and the VGG-19-BN features are mapped; one without BatchNorm
+(SELU, the dummy D) has an empty ``batch_stats``.
 :func:`torch_to_flax_tree` is the inverse. Trees come out with their
 keys sorted, as JAX's tree utilities leave them, so a tree encodes to the
 bytes the JAX package writes for the same values.
@@ -16,11 +20,14 @@ bytes the JAX package writes for the same values.
 train state: the JAX ``TrainState`` as flax serializes it,
 ``{"step", "g_params", "d_params", "batch_stats", "opt_g", "opt_d", "k1",
 "k2", "softadapt"}``, with each optimizer as optax's Adam chain
-``{"0": {"count", "mu", "nu"}, "1": {"count"}}``. Adam's moments are
+``{"0": {"count", "mu", "nu"}, "1": {"count"}}`` (``"1": {}`` under the
+plateau schedule, whose constant rate optax keeps no count for). Adam's
+moments are
 ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``, found by parameter
 identity through the same leaf map as the weights (so kernels go through
 the same HWIO <-> OIHW transpose), and ``count`` is every parameter's
-Adam ``step`` and ``TrainState.step``.
+Adam ``step`` and ``TrainState.step``. BEGAN's ``k1``/``k2`` and the SoftAdapt
+state (``{"weights", "prev_loss"}``, or None) cross as they are.
 """
 
 from __future__ import annotations
@@ -32,8 +39,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from shadow_removal_istd_tpu_torch.models.mnet import MNet
-from shadow_removal_istd_tpu_torch.models.patchgan import PatchGAN
+from shadow_removal_istd_tpu_torch.losses.softadapt import SoftAdaptState
+from shadow_removal_istd_tpu_torch.models import (
+    BEGAN,
+    DenseUNet,
+    DummyNet,
+    MNet,
+    NLayerDiscriminator,
+    PatchGAN,
+    Pix2PixUNet,
+    UNet,
+)
 from shadow_removal_istd_tpu_torch.models.vgg import VGG19Features
 
 if TYPE_CHECKING:
@@ -65,53 +81,138 @@ def unflatten_tree(flat: Mapping[TreePath, object]) -> dict:
     return tree
 
 
-def _mnet_targets(m: MNet) -> dict[TreePath, torch.Tensor]:
-    """Flax leaf path -> the port tensor it fills."""
-    t: dict[TreePath, torch.Tensor] = {}
+Targets = dict[TreePath, torch.Tensor]
 
-    def conv(path: TreePath, mod: nn.Module) -> None:
-        t[("params", *path, "kernel")] = mod.weight
 
-    def bn(scope: str, mod: nn.Module) -> None:
-        t[("params", scope, "BatchNorm_0", "scale")] = mod.weight
-        t[("params", scope, "BatchNorm_0", "bias")] = mod.bias
-        t[("batch_stats", scope, "BatchNorm_0", "mean")] = mod.running_mean
-        t[("batch_stats", scope, "BatchNorm_0", "var")] = mod.running_var
+def _conv(t: Targets, path: TreePath, mod: nn.Module) -> None:
+    """A flax (transposed-)conv's ``kernel``, and its ``bias`` if any."""
+    t[("params", *path, "kernel")] = mod.weight
+    if getattr(mod, "bias", None) is not None:
+        t[("params", *path, "bias")] = mod.bias
 
-    def up(path: TreePath, mod: nn.Module) -> None:
-        conv(path + (("ConvReflect_0", "Conv_0") if mod.no_conv_t
+
+def _bn(t: Targets, path: TreePath, mod: nn.Module) -> None:
+    t[("params", *path, "scale")] = mod.weight
+    t[("params", *path, "bias")] = mod.bias
+    t[("batch_stats", *path, "mean")] = mod.running_mean
+    t[("batch_stats", *path, "var")] = mod.running_var
+
+
+def _actnorm(t: Targets, path: TreePath, mod: nn.Module) -> None:
+    """ActNorm's BatchNorm; SELU leaves no leaves."""
+    if mod.bn is not None:
+        _bn(t, path + ("BatchNorm_0",), mod.bn)
+
+
+def _up(t: Targets, path: TreePath, mod: nn.Module) -> None:
+    """``layers.Upsample``'s conv at its flax path."""
+    _conv(t, path + (("ConvReflect_0", "Conv_0") if mod.no_conv_t
                      else ("ConvTranspose_0",)), mod)
 
-    conv(("ConvReflect_0", "Conv_0"), m.stem)
+
+def _mnet_targets(m: MNet) -> Targets:
+    """Flax leaf path -> the port tensor it fills."""
+    t: Targets = {}
+    _conv(t, ("ConvReflect_0", "Conv_0"), m.stem)
     for k, d in enumerate(m.downs):
-        conv((f"_Down_{k}", "ConvReflect_0", "Conv_0"), d.conv)
-        bn(f"_Down_{k}", d.bn)
+        _conv(t, (f"_Down_{k}", "ConvReflect_0", "Conv_0"), d.conv)
+        _bn(t, (f"_Down_{k}", "BatchNorm_0"), d.bn)
     for k, u in enumerate(m.ups):
-        up((f"_Up_{k}", "Upsample_0"), u.up)
-        bn(f"_Up_{k}", u.bn)
-    up(("Upsample_0",), m.final)
+        _up(t, (f"_Up_{k}", "Upsample_0"), u.up)
+        _bn(t, (f"_Up_{k}", "BatchNorm_0"), u.bn)
+    _up(t, ("Upsample_0",), m.final)
     return t
 
 
-def _patchgan_targets(m: PatchGAN) -> dict[TreePath, torch.Tensor]:
-    t: dict[TreePath, torch.Tensor] = {
-        ("params", "Conv_0", "Conv_0", "kernel"): m.stem.weight,
-        ("params", "Conv_0", "Conv_0", "bias"): m.stem.bias,
-    }
+def _patchgan_targets(m: PatchGAN) -> Targets:
+    t: Targets = {}
+    _conv(t, ("Conv_0", "Conv_0"), m.stem)
     for k, (conv, norm) in enumerate(zip(m.convs, m.norms)):
-        t[("params", f"ConvReflect_{k}", "Conv_0", "kernel")] = conv.weight
-        scope = (f"ActNorm_{k}", "BatchNorm_0")
-        t[("params", *scope, "scale")] = norm.bn.weight
-        t[("params", *scope, "bias")] = norm.bn.bias
-        t[("batch_stats", *scope, "mean")] = norm.bn.running_mean
-        t[("batch_stats", *scope, "var")] = norm.bn.running_var
-    t[("params", f"ConvReflect_{len(m.convs)}", "Conv_0", "kernel")] = \
-        m.final.weight
+        _conv(t, (f"ConvReflect_{k}", "Conv_0"), conv)
+        _actnorm(t, (f"ActNorm_{k}",), norm)
+    _conv(t, (f"ConvReflect_{len(m.convs)}", "Conv_0"), m.final)
     return t
 
 
-def _vgg_targets(m: VGG19Features) -> dict[TreePath, torch.Tensor]:
-    t: dict[TreePath, torch.Tensor] = {}
+def _unet_targets(m: UNet) -> Targets:
+    """``_DoubleConv_j``: the encoder blocks, the bottleneck, then the
+    decoder blocks innermost first; ``Upsample_0`` is the innermost."""
+    t: Targets = {}
+    blocks = [*m.downs, m.bottleneck, *m.dec]
+    for j, b in enumerate(blocks):
+        for k, (conv, norm) in enumerate(((b.conv0, b.norm0),
+                                          (b.conv1, b.norm1))):
+            _conv(t, (f"_DoubleConv_{j}", f"ConvReflect_{k}", "Conv_0"), conv)
+            _actnorm(t, (f"_DoubleConv_{j}", f"ActNorm_{k}"), norm)
+    for k, up in enumerate(m.ups):
+        _up(t, (f"Upsample_{k}",), up)
+    _conv(t, ("Conv_0",), m.final)
+    return t
+
+
+def _denseunet_targets(m: DenseUNet) -> Targets:
+    t: Targets = {}
+    _conv(t, ("Conv_0",), m.in_conv)
+    _conv(t, ("Conv_1",), m.out_conv)
+    for j, b in enumerate([*m.enc, m.bottleneck, *m.dec]):
+        for k, (bn, conv) in enumerate(zip(b.bns, b.convs)):
+            _bn(t, (f"_DenseBlock_{j}", f"BatchNorm_{k}"), bn)
+            _conv(t, (f"_DenseBlock_{j}", f"ConvReflect_{k}", "Conv_0"),
+                  conv)
+    for k, d in enumerate(m.tdown):
+        _bn(t, (f"_TransDown_{k}", "BatchNorm_0"), d.bn)
+        _conv(t, (f"_TransDown_{k}", "Conv_0"), d.conv)
+    for k, u in enumerate(m.tup):
+        _conv(t, (f"_TransUp_{k}", *(("ConvReflect_0", "Conv_0")
+                                     if u.no_conv_t
+                                     else ("ConvTranspose_0",))), u.conv)
+    return t
+
+
+def _pix2pix_targets(m: Pix2PixUNet) -> Targets:
+    """One flax scope numbered in creation order: the down convs
+    outermost first (``Conv_k`` is level k), the down BNs (levels 1 ..
+    n-2), then up the recursion innermost first: ``ConvTranspose_k`` is
+    level n-1-k, each followed by its BN (levels n-1 .. 1)."""
+    t: Targets = {}
+    n = m.num_downs
+    for lv, conv in enumerate(m.downs):
+        _conv(t, (f"Conv_{lv}", "Conv_0"), conv)
+    bns = [*m.down_bns, *reversed(m.up_bns)]
+    for k, bn in enumerate(bns):
+        _bn(t, (f"BatchNorm_{k}",), bn)
+    for lv, up in enumerate(m.ups):
+        _conv(t, (f"ConvTranspose_{n - 1 - lv}",), up)
+    return t
+
+
+def _nlayer_targets(m: NLayerDiscriminator) -> Targets:
+    t: Targets = {}
+    for k, conv in enumerate(m.convs):
+        _conv(t, (f"Conv_{k}", "Conv_0"), conv)
+    for k, bn in enumerate(m.bns):
+        _bn(t, (f"BatchNorm_{k}",), bn)
+    return t
+
+
+def _began_targets(m: BEGAN) -> Targets:
+    t: Targets = {}
+    convs = [m.stem, *m.enc_convs, *m.mid, *m.dec_convs, m.out]
+    for k, conv in enumerate(convs):
+        _conv(t, (f"Conv_{k}", "Conv_0"), conv)
+    for k, norm in enumerate([m.stem_norm, *m.enc_norms, *m.dec_norms]):
+        _actnorm(t, (f"ActNorm_{k}",), norm)
+    return t
+
+
+def _dummy_targets(m: DummyNet) -> Targets:
+    t: Targets = {}
+    _conv(t, ("Conv_0",), m.conv)
+    return t
+
+
+def _vgg_targets(m: VGG19Features) -> Targets:
+    t: Targets = {}
     for i, cb in enumerate(m.convbns()):
         t[("params", f"Conv_{i}", "kernel")] = cb.weight
         t[("params", f"Conv_{i}", "bias")] = cb.bias
@@ -123,7 +224,10 @@ def _vgg_targets(m: VGG19Features) -> dict[TreePath, torch.Tensor]:
 
 
 _TARGETS = {MNet: _mnet_targets, PatchGAN: _patchgan_targets,
-            VGG19Features: _vgg_targets}
+            UNet: _unet_targets, DenseUNet: _denseunet_targets,
+            Pix2PixUNet: _pix2pix_targets,
+            NLayerDiscriminator: _nlayer_targets, BEGAN: _began_targets,
+            DummyNet: _dummy_targets, VGG19Features: _vgg_targets}
 
 
 def targets(module: nn.Module) -> dict[TreePath, torch.Tensor]:
@@ -184,7 +288,8 @@ def torch_to_flax_tree(module: nn.Module) -> dict:
     of :func:`flax_tree_to_torch`."""
     tree = unflatten_tree({path: _to_flax(src)
                            for path, src in targets(module).items()})
-    return {k: tree[k] for k in ("params", "batch_stats")}  # flax's order
+    # flax's order; a network without BatchNorm has empty batch_stats
+    return {k: tree.get(k, {}) for k in ("params", "batch_stats")}
 
 
 def flax_tree_to_torch(tree: Mapping, module: nn.Module) -> nn.Module:
@@ -205,8 +310,6 @@ def flax_tree_to_torch(tree: Mapping, module: nn.Module) -> nn.Module:
 _G, _D = ("g1", "g2"), ("d1", "d2")
 _FIELDS = ("step", "g_params", "d_params", "batch_stats", "opt_g", "opt_d",
            "k1", "k2", "softadapt")
-_UNPORTED = ("BEGAN's k1/k2 and SoftAdapt are not ported yet: a checkpoint "
-             "with nonzero k1/k2 or a softadapt state cannot be loaded")
 
 
 def _param_targets(module: nn.Module) -> dict[TreePath, torch.Tensor]:
@@ -216,9 +319,11 @@ def _param_targets(module: nn.Module) -> dict[TreePath, torch.Tensor]:
 
 
 def _adam_tree(opt: torch.optim.Optimizer, nets: dict[str, nn.Module],
-               count: np.ndarray) -> dict:
+               count: np.ndarray, scheduled: bool = True) -> dict:
     """optax's ``adam`` chain state: the moments of every parameter of
-    ``nets`` (zeros before the first step, as optax initialises them)."""
+    ``nets`` (zeros before the first step, as optax initialises them),
+    then the learning-rate stage, which counts steps only when the rate
+    is ``scheduled`` (optax's empty state for a constant rate)."""
     moments = {}
     for which, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
         moments[which] = {
@@ -228,7 +333,7 @@ def _adam_tree(opt: torch.optim.Optimizer, nets: dict[str, nn.Module],
                 for path, p in _param_targets(net).items()})
             for name, net in nets.items()}
     return {"0": {"count": count.copy(), **moments},
-            "1": {"count": count.copy()}}
+            "1": {"count": count.copy()} if scheduled else {}}
 
 
 def train_state_to_flax(state: "TrainState") -> dict:
@@ -237,16 +342,22 @@ def train_state_to_flax(state: "TrainState") -> dict:
     nets = {k: getattr(state.models, k) for k in (*_G, *_D)}
     trees = {k: torch_to_flax_tree(m) for k, m in nets.items()}
     step = np.asarray(state.step, np.int32)
+    scheduled = state.cfg.lr_schedule != "plateau"
     return {
         "step": step,
         "g_params": {k: trees[k]["params"] for k in _G},
         "d_params": {k: trees[k]["params"] for k in _D},
         "batch_stats": {k: trees[k]["batch_stats"] for k in sorted(trees)},
-        "opt_g": _adam_tree(state.opt_g, {k: nets[k] for k in _G}, step),
-        "opt_d": _adam_tree(state.opt_d, {k: nets[k] for k in _D}, step),
-        "k1": np.zeros((), np.float32),
-        "k2": np.zeros((), np.float32),
-        "softadapt": None,
+        "opt_g": _adam_tree(state.opt_g, {k: nets[k] for k in _G}, step,
+                            scheduled),
+        "opt_d": _adam_tree(state.opt_d, {k: nets[k] for k in _D}, step,
+                            scheduled),
+        "k1": _to_flax(state.k1),
+        "k2": _to_flax(state.k2),
+        # SoftAdaptState as flax writes a NamedTuple: a map of its fields
+        "softadapt": (None if state.softadapt is None else
+                      {k: _to_flax(v)
+                       for k, v in state.softadapt._asdict().items()}),
     }
 
 
@@ -275,19 +386,32 @@ def load_train_state(tree: Mapping, state: "TrainState") -> None:
 
     Fields the tree lacks keep their current values (the JAX package's
     forward-compatibility rule). Everything is checked (leaves, shapes,
-    equal counts, zero k1/k2, no SoftAdapt) before anything is
-    written."""
+    equal counts, a SoftAdapt state where the state has one) before
+    anything is written."""
     tree = dict(tree)
     missing = [k for k in _FIELDS if k not in tree]
     if missing:
         current = train_state_to_flax(state)
         tree.update({k: current[k] for k in missing})
-    if (any(np.any(np.asarray(tree[k]) != 0) for k in ("k1", "k2"))
-            or tree["softadapt"] is not None):
-        raise NotImplementedError(_UNPORTED)
+    ks = [_from_flax(tree[k], (k,), getattr(state, k)) for k in ("k1", "k2")]
+    softadapt = None
+    if tree["softadapt"] is not None:
+        sa = tree["softadapt"]
+        if set(sa) != set(SoftAdaptState._fields):
+            raise ValueError(f"softadapt: expected the fields "
+                             f"{SoftAdaptState._fields}, got {sorted(sa)}")
+        like = state.softadapt or SoftAdaptState(
+            torch.zeros(3, device=state.k1.device),
+            torch.zeros(3, device=state.k1.device))
+        softadapt = SoftAdaptState(**{
+            f: _from_flax(sa[f], ("softadapt", f), getattr(like, f))
+            for f in SoftAdaptState._fields})
+    elif state.softadapt is not None:
+        raise ValueError("the tree has no SoftAdapt state and the "
+                         "configuration uses one")
     counts = {int(np.asarray(c)) for c in (
         tree["step"], *(tree[o][i]["count"] for o in ("opt_g", "opt_d")
-                        for i in ("0", "1")))}
+                        for i in ("0", "1") if "count" in tree[o][i]))}
     if len(counts) != 1:
         raise ValueError(f"step and optimizer counts differ: {counts}")
     (count,) = counts
@@ -312,3 +436,6 @@ def load_train_state(tree: Mapping, state: "TrainState") -> None:
     for opt, sd in adam:
         opt.load_state_dict(sd)
     state.step = count
+    state.k1, state.k2 = ks
+    if softadapt is not None:
+        state.softadapt = softadapt

@@ -368,8 +368,9 @@ def test_adam_step_restored_as_torch_creates_it(tmp_path, jax_side):
 
 
 def test_missing_fields_keep_their_values_and_bad_trees_raise():
-    """The JAX forward-compatibility rule, and nothing written before a
-    fault is found."""
+    """The JAX forward-compatibility rule, BEGAN's k1/k2 and a SoftAdapt
+    state carried both ways, and nothing written before a fault is
+    found."""
     src = _trained_port_state()
     dst = _port_state(seed=3)
     before = train_state_to_flax(dst)
@@ -392,10 +393,19 @@ def test_missing_fields_keep_their_values_and_bad_trees_raise():
             load_train_state(bad, fresh)
         _assert_trees_equal(train_state_to_flax(fresh), snapshot)
 
-    refused(lambda t: t.update(k1=np.ones((), np.float32)),
-            NotImplementedError, "not ported")
+    # BEGAN's k1/k2 and a SoftAdapt state load as they are and come back
+    rich = train_state_to_flax(src)
+    rich.update(k1=np.asarray(0.25, np.float32),
+                k2=np.asarray(0.75, np.float32),
+                softadapt={"weights": np.array([.5, .3, .2], np.float32),
+                           "prev_loss": np.array([1., 2., 3.], np.float32)})
+    fresh = _port_state(seed=6)
+    load_train_state(rich, fresh)
+    assert float(fresh.k1) == 0.25 and float(fresh.k2) == 0.75
+    _assert_trees_equal(train_state_to_flax(fresh), rich)
+
     refused(lambda t: t.update(softadapt={"w": np.ones(3, np.float32)}),
-            NotImplementedError, "not ported")
+            ValueError, "softadapt")
     refused(lambda t: t["opt_d"]["1"].update(count=np.asarray(9, np.int32)),
             ValueError, "counts differ")
     refused(lambda t: t["opt_g"]["0"]["nu"]["g2"].pop("Upsample_0"),

@@ -141,6 +141,17 @@ class TestFlagSurface:
         assert new.lr_G == 0.001
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on few cores,
+    where torch's default pool (one thread a core, in every worker)
+    oversubscribes them many times over."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def istd_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("istd")
@@ -303,10 +314,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
     (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),
     (["--remat"], NotImplementedError, "remat"),
-    (["--softadapt"], NotImplementedError, "softadapt"),
-    (["--SELU", "yes"], NotImplementedError, "use_selu"),
-    (["--net-D", "began"], NotImplementedError, "began"),
-    (["--net-G", "unet"], NotImplementedError, "unet"),
 ])
 def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
     argv = _argv(istd_root, str(tmp_path), "--tasks", "train",
@@ -321,13 +328,17 @@ def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
 @pytest.mark.parametrize("extra,logged", [
     (["--eval-metrics"], "eval protocol @ epoch 1: RMSE shadow"),
     (["--aug-method", "gather"], "train epoch 1:"),
+    (["--net-G", "unet", "--net-D", "began", "--softadapt", "--SELU",
+      "yes"], "train epoch 1:"),
 ])
 def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
     """The in-training eval protocol (``Eval/*`` in the log, against the
-    directory's ``test_B`` masks) and the gather augmentation run; a run
-    resumed from the first epoch's checkpoint ends with the same files,
-    byte for byte, as the uninterrupted one (the gather path draws its
-    parameters from the same (seed, epoch, step) streams)."""
+    directory's ``test_B`` masks), the gather augmentation, and the zoo
+    with BEGAN, SoftAdapt and SELU run; a run resumed from the first
+    epoch's checkpoint ends with the same files, byte for byte, as the
+    uninterrupted one (the gather path draws its parameters from the
+    same (seed, epoch, step) streams; the checkpoint carries k1/k2 and
+    the SoftAdapt state)."""
     common = ("--tasks", "train", "--allow-missing-vgg", *extra)
     _run(*_argv(istd_root, f"{tmp_path}/a", *common, "--epochs", "2"))
     _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "1"))

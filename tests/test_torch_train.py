@@ -394,9 +394,7 @@ def test_trainer_vgg_rule():
     assert _tiny_trainer(tasks=("infer",)).state.vgg is None
 
 
-@pytest.mark.parametrize("field,value", [
-    ("net_d", "began"), ("softadapt", True), ("lr_schedule", "plateau"),
-    ("remat", True), ("dcgan_init", True)])
+@pytest.mark.parametrize("field,value", [("remat", True)])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TrainConfig(**{field: value})

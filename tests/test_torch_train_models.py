@@ -158,9 +158,3 @@ def test_convert_round_trip_is_exact(kind):
     for k in want:
         assert back[k].dtype == np.float32
         np.testing.assert_array_equal(back[k], want[k], err_msg=str(k))
-
-
-@pytest.mark.parametrize("key", ["began", "stcgan", "dummy"])
-def test_registry_other_discriminators_not_ported(key):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_discriminator(key, in_channels=4)
