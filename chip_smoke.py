@@ -11,8 +11,10 @@ Phases; any failure exits non-zero before the result line is printed:
 1. build: compiles ``csrc/decoder_upsample.cu``,
    ``csrc/decoder_upsample_tc.cu``, ``csrc/decoder_upsample_narrow.cu``
    and ``csrc/hshear.cu`` for ``sm_90a`` (one ``nvcc`` each, started
-   together), prints the card, its power limit and the compiler's
-   register, spill and shared-memory report;
+   together, beside ``g++`` building the native PNG loader from
+   ``native/png_decoder.cpp``), prints the card, its power limit, the
+   compiler's register, spill and shared-memory report, and the host's
+   Python packages, ``zlib.h`` and ``g++`` (``[env]``);
 2. decoder kernel vs plain: the decoder kernels against their plain
    PyTorch version on the card at every MNet decoder step of a 256x256
    and a 480x640 input at ngf 64, batch 2, f32 and bf16, one-part and
@@ -48,10 +50,12 @@ Phases; any failure exits non-zero before the result line is printed:
    card; f32; visual loss through a seeded random VGG-19-BN) trains 2
    epochs of 4 steps, validating 16 full-resolution triplets after each:
    metrics finite, every network's parameters and BatchNorm statistics
-   moved, ``hshear`` launched exactly 3 times per step and the decoder
-   kernel 10 times per validation forward (8 CUDA-core and 2 narrow in
-   f32); then one bf16 epoch (validation: 8 tensor-core, 2 narrow);
-   the VGG weights reach the trainer as a converted ``.npz`` file;
+   moved, ``hshear`` launched exactly 3 times per step (and 3 times for
+   the epoch-0 image log's augmentation) and the decoder kernel 10 times
+   per stacked forward of the validations and the image logs (8
+   CUDA-core and 2 narrow in f32); then one bf16 epoch (8 tensor-core, 2
+   narrow); the VGG weights reach the trainer as a converted ``.npz``
+   file; these runs take the fused epoch (``device_cache=True``);
 6. cli: ``write_istd_layout`` writes an ISTD directory of 32 train and 8
    test 480x640 triplets (the port's PNG encoder, rows in all five filter
    types), whose decode is timed per stream (``[time] istd load``, with
@@ -60,8 +64,9 @@ Phases; any failure exits non-zero before the result line is printed:
    crops, f32, shear augmentation, that VGG file) runs 2 epochs,
    validating, saving the checkpoint and writing weight files after
    each, then infers the test split to PNGs: ``hshear`` launched 3 times
-   a step, the decoder 10 times per stacked forward (8 CUDA-core, 2
-   narrow) over 2 validations and the inference, the 8 weight files and
+   a step (+ 3 for the image log), the decoder 10 times per stacked
+   forward (8 CUDA-core, 2 narrow) over 2 validations, 3 image logs and
+   the inference, the 8 weight files and
    the checkpoint exist, 2 x 8 PNGs decode to 480x640, and they are
    within 2 gray levels of the same inference run on the plain decoder;
    then ``--tasks train --epochs 3 --load-checkpoint`` starts at epoch 2
@@ -69,7 +74,26 @@ Phases; any failure exits non-zero before the result line is printed:
    statistics, both Adam states with their steps' dtype and device,
    step) and trains its epoch (``[time] checkpoint``, ``[time] cli
    infer`` img/s with the PNG writes, the phase's wall time);
-7. eval: ``ops/resize.resize`` at 480x640 -> 256x256 and -> 300x400
+7. host: two host-pipeline epochs (``RunConfig(device_cache=False)``:
+   ``BatchPipeline`` order, ``prefetch_to_device`` uploads) at the CLI's
+   defaults on 64 + 16 synthetic 480x640 triplets with every writer on
+   (``log_every = vis_every = valid_every = 1``) and ``profile_dir``:
+   ``hshear`` 3 launches a step, the decoder 8 CUDA-core + 2 narrow per
+   stacked forward of the validations and of each image log; both event
+   files read back by the CRC-checking reader with every JAX tag at both
+   epochs; the trace names ``hshear`` 3 times a step; the host epoch's
+   img/s beside the fused epoch's on the same data, in turns, and each
+   one's idle share (the card's busy union over the profiled span), the
+   writers' cost and the host pipeline's parts per batch; a SIGTERM to
+   ``cli.main`` in a subprocess after its second epoch: exit 0, the
+   checkpoint and ``latest`` files, infer skipped, and the run resumed
+   from it for one more epoch byte-identical to an uninterrupted run
+   (cuDNN's deterministic algorithms in both); the native PNG loader
+   byte-equal to cv2 on the ``cli`` directory, used by ``load_all``,
+   timed beside cv2 and the stdlib codec; the serving daemon with
+   ``--use-selu --droprate`` (a SELU UNet, ngf 64, f32) answering as the
+   engine does in this process;
+8. eval: ``ops/resize.resize`` at 480x640 -> 256x256 and -> 300x400
    (area) and 256x256 -> 480x640 (linear), batch 16, within 1e-5 of
    float64 numpy applied with the same matrices; ``rgb_to_lab`` within
    1e-3 LAB units of float64 and ``aggregate_regions`` of
@@ -80,14 +104,14 @@ Phases; any failure exits non-zero before the result line is printed:
    on the CPU (rtol 1e-5), with images/s and the host decode apart;
    ``cli.main --tasks train infer --eval-metrics``: ``Eval/*`` of the
    validation within rtol 5e-4 of the offline ``all_metrics`` on the PNGs
-   ``infer`` wrote, 10 decoder launches per validation batch (8
-   CUDA-core, 2 narrow); the gather augmentation of a batch-16 480x640x7
+   ``infer`` wrote, 10 decoder launches per validation batch and image
+   log (8 CUDA-core, 2 narrow); the gather augmentation of a batch-16 480x640x7
    uint8 group to 256x256 within 1e-3 of a float64 numpy inverse-affine
    bilinear with the same parameters, the identity warp equal to the
    crop (flipped where drawn) exactly, no ``hshear`` launch, timed beside
    the shear path; 3 training steps on it (no ``hshear`` launch) beside
    3 on the shear path;
-8. zoo: the decoder kernels at UNet's four up-conv shapes (1024->512 at
+9. zoo: the decoder kernels at UNet's four up-conv shapes (1024->512 at
    16x16 .. 128->64 at 128x128 for a 256x256 input; no LeakyReLU, no
    BN), both pads, f32 and bf16, against the plain version (2e-5 / 3e-2)
    and at the K = 4096 step against float64, then timed at a 256x256
@@ -107,7 +131,7 @@ Phases; any failure exits non-zero before the result line is printed:
    64) on the ``cli`` phase's ISTD directory for 2 epochs: plateau state
    in the checkpoint, no decoder launch, 192x256 PNGs; its G1 -> G2 at
    480x640 through the engine; the train-step img/s of each;
-9. timings (CUDA events; torch.profiler): each decoder step's kernel
+10. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
    beside the CUDA-core variant's on the same inputs (the before/after
    of the wide bf16 steps and of the final ones), the plain version's, a
@@ -143,6 +167,9 @@ passes of one augmentation (in the path's layouts where its C entry
 takes ``transpose_out``, else in the normal layout, as the kernel's
 first version did), compared bit for bit with the checkout's kernel and
 timed beside it in turns, and the whole rotation through it.
+``python3 chip_smoke.py --compare-reflect-pad`` times the train step
+(f32 and bf16 compute) with the models' deterministic reflect-pad
+backward beside torch's atomic one, in turns (``[compare-pad]`` lines).
 """
 
 from __future__ import annotations
@@ -153,6 +180,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -212,6 +240,12 @@ ZOO_SERVE_BATCH = 32
 ZOO_TRAIN, ZOO_VALID = 32, 16
 LEGACY_NGF = 64
 LEGACY_ARGS: list = []
+# the host phase: the host-pipeline epoch on 64 train + 16 validation
+# triplets at DATA_HW (TRAIN_KW as above), timed beside the fused epoch;
+# the SIGTERM run of cli.main in a subprocess (HOST_CLI_ARGS adds flags:
+# a CPU rehearsal's devices and widths)
+HOST_TRAIN, HOST_VALID = 64, 16
+HOST_CLI_ARGS: list = []
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -350,25 +384,36 @@ def time_ms(fn, iters: int = 20) -> float:
 
 
 def phase_build():
+    from shadow_removal_istd_tpu_torch.data import native_loader
     from shadow_removal_istd_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+        native = pool.submit(native_loader.build)   # g++, beside the nvccs
         built = list(pool.map(_build.build, KERNELS))
+        native_lib = native.result()
     for name, (path, log) in zip(KERNELS, built):
         _build.load(name)
         print(f"[build] {path.name}")
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem")):
                 print(f"[ptxas] {name}: {line.strip()}")
-    print(f"[build] {len(KERNELS)} kernels in "
+    if not native_loader.is_available():
+        raise SystemExit("the native PNG loader did not load")
+    print(f"[build] {native_lib.name} (native PNG loader, g++)")
+    print(f"[build] {len(KERNELS)} kernels and the loader in "
           f"{time.perf_counter() - t0:.1f} s")
     libs = ", ".join(
         f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
-        for m in ("cv2", "PIL"))
+        for m in ("cv2", "PIL", "tensorboard", "tensorboardX", "h5py"))
+    zlib = Path("/usr/include/zlib.h").is_file()
+    gxx = (subprocess.run(["g++", "--version"], capture_output=True,
+                          text=True).stdout.splitlines() or ["?"])[0] \
+        if shutil.which("g++") else "absent"
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}"
           f", cuda {torch.version.cuda}, ninja "
-          f"{shutil.which('ninja') or 'absent'}, {libs}")
+          f"{shutil.which('ninja') or 'absent'}, {libs}, /usr/include/"
+          f"zlib.h {'present' if zlib else 'absent'}, g++ {gxx}")
     print(f"[card] {nvidia_smi()}")
 
 
@@ -984,7 +1029,8 @@ def phase_training(vgg_path: Path) -> dict:
         files = SMOKE_DIR / f"train_{dtype}"
         run = RunConfig(seed=0, valid_every=1, vgg_weights=str(vgg_path),
                         weights_dir=str(files), logs_dir=str(files),
-                        checkpoint_path=str(files / "checkpoint.msgpack"))
+                        checkpoint_path=str(files / "checkpoint.msgpack"),
+                        device_cache=True)
         t0 = time.perf_counter()
         trainer = Trainer(cfg, run, train_streams=train,
                           valid_streams=valid, device=DEVICE)
@@ -997,23 +1043,28 @@ def phase_training(vgg_path: Path) -> dict:
         by_variant = dict(decoder_upsample.launches_by_variant)
         wall = time.perf_counter() - t0
         steps = epochs * trainer.cfg.steps_per_epoch
+        # validation batches, one image log per validation and the
+        # epoch-0 training image log (vis_every 50), whose augmentation
+        # is 3 more hshear launches
         n_valid = epochs * -(-N_VALID // cfg.batch_size)
+        n_fwd = n_valid + epochs + 1
         print(f"[train] {dtype}: {epochs} epochs x "
               f"{trainer.cfg.steps_per_epoch} steps + {epochs} validations "
               f"in {wall:.1f} s (build, first calls and the epoch-0 weight "
               f"and checkpoint files included); hshear "
-              f"launches {n_shear} ({steps} steps), decoder launches "
-              f"{n_dec} {by_variant} ({n_valid} validation batches)")
+              f"launches {n_shear} ({steps} steps + the image log's "
+              f"augmentation), decoder launches {n_dec} {by_variant} "
+              f"({n_valid} validation batches + {epochs + 1} image logs)")
         _check_history(trainer, dtype)
-        if n_shear != 3 * steps:
-            raise SystemExit(f"expected {3 * steps} hshear launches, got "
-                             f"{n_shear}")
-        wide = 8 * n_valid
+        if n_shear != 3 * (steps + 1):
+            raise SystemExit(f"expected {3 * (steps + 1)} hshear launches, "
+                             f"got {n_shear}")
+        wide = 8 * n_fwd
         want = {"tensor_core": wide if dtype == "bfloat16" else 0,
                 "cuda_core": 0 if dtype == "bfloat16" else wide,
-                "narrow": 2 * n_valid}
-        if n_dec != 10 * n_valid or by_variant != want:
-            raise SystemExit(f"expected {10 * n_valid} decoder launches "
+                "narrow": 2 * n_fwd}
+        if n_dec != 10 * n_fwd or by_variant != want:
+            raise SystemExit(f"expected {10 * n_fwd} decoder launches "
                              f"{want}, got {n_dec} {by_variant}")
         after = _snapshot(trainer)
         for net in before:
@@ -1100,7 +1151,8 @@ def phase_cli(vgg_path: Path) -> dict:
         with mock.patch.object(image_io, "_library_decoder", lambda: dec):
             for stream in ("img", "matte", "target"):
                 t0 = time.perf_counter()
-                ISTDDataset(str(istd), "train", datas=(stream,)).load_all()
+                ISTDDataset(str(istd), "train", datas=(stream,)).load_all(
+                    native=False)
                 dt = time.perf_counter() - t0
                 threads = os.cpu_count() if dec is not None else 1
                 print(f"[time] istd load {stream:<6} {DATA_HW[0]}x"
@@ -1171,16 +1223,19 @@ def phase_cli(vgg_path: Path) -> dict:
     trainer = seen["trainers"][0]
     b = trainer.cfg.batch_size
     steps = 2 * trainer.cfg.steps_per_epoch
-    forwards = 3 * -(-CLI_TEST // b)       # 2 validations + infer
+    # 2 validations + infer, an image log per validation and the epoch-0
+    # training one (vis_every 50), whose augmentation is 3 hshear launches
+    forwards = 3 * -(-CLI_TEST // b) + 3
     print(f"[cli] --tasks train infer: 2 epochs x "
           f"{trainer.cfg.steps_per_epoch} steps + 2 validations + infer of "
           f"{CLI_TEST} in {wall:.1f} s (data load, first calls and files "
-          f"included); hshear launches {n_shear} ({steps} steps), decoder "
-          f"launches {n_dec} {by_variant} ({forwards} stacked forwards)")
+          f"included); hshear launches {n_shear} ({steps} steps + the image "
+          f"log's augmentation), decoder launches {n_dec} {by_variant} "
+          f"({forwards} stacked forwards with the 3 image logs)")
     _check_history(trainer, "cli")
-    if n_shear != 3 * steps:
-        raise SystemExit(f"cli: expected {3 * steps} hshear launches, got "
-                         f"{n_shear}")
+    if n_shear != 3 * (steps + 1):
+        raise SystemExit(f"cli: expected {3 * (steps + 1)} hshear "
+                         f"launches, got {n_shear}")
     want = {"tensor_core": 0, "cuda_core": 8 * forwards,
             "narrow": 2 * forwards}
     if n_dec != 10 * forwards or by_variant != want:
@@ -1277,12 +1332,490 @@ def phase_cli(vgg_path: Path) -> dict:
     _check_history(resumed, "cli resumed")
     if (start != 2 or bad or not step_ok or len(resumed.history) != 1
             or hshear.launches != 3 * n_steps
-            or decoder_upsample.launches != 10 * -(-CLI_TEST // b)):
+            or decoder_upsample.launches != 10 * (-(-CLI_TEST // b) + 1)):
         raise SystemExit("cli: the resumed run did not continue the saved "
                          "one")
     print(f"[time] cli phase: {time.perf_counter() - t_phase:.1f} s")
     seen.clear()
     return {"decoder": n_dec, "hshear": n_shear}
+
+
+def _device_busy(prof) -> tuple[float, float]:
+    """(device busy ms, span ms) of a profiled region: the union of the
+    card's kernel and copy intervals, and the region's span from its
+    first to its last event of either clock."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans, dev = [], []
+    for e in prof.events():
+        iv = (e.time_range.start, e.time_range.end)
+        spans.append(iv)
+        if getattr(e, "device_type", None) == cuda:
+            dev.append(iv)
+    if not spans:
+        return 0.0, 0.0
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(dev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    return busy / 1e3, span / 1e3
+
+
+def _host_tags() -> dict:
+    """Every tag the JAX trainer writes, by event file (its
+    ``_METRIC_KEYS`` and ``_log_*`` methods; ``--eval-metrics`` off)."""
+    from shadow_removal_istd_tpu_torch.engine.steps import METRIC_KEYS
+
+    common = ({f"Loss/{k}" for k in (*METRIC_KEYS[:10], "total")}
+              | {f"{d}_output/{k}" for d in ("D1", "D2")
+                 for k in ("real", "fake", "diff")}
+              | {"input", "matte", "output"})
+    return {"train": common | {"perf/images_per_sec"}, "valid": common}
+
+
+def _check_event_files(logs: Path, epochs: int) -> int:
+    """Reads both event files back (CRCs checked): every JAX tag at every
+    epoch, scalars finite, images PNG. Returns the record count."""
+    from shadow_removal_istd_tpu_torch.utils.tb_writer import read_events
+
+    n = 0
+    for which, tags in _host_tags().items():
+        files = sorted((logs / which).glob("events.out.tfevents.*"))
+        if len(files) != 1:
+            raise SystemExit(f"host: {len(files)} event files in "
+                             f"{logs / which}")
+        events = read_events(str(files[0]))
+        n += len(events)
+        if events[0].get("file_version") != "brain.Event:2":
+            raise SystemExit("host: the event file has no version record")
+        got: dict = {}
+        for e in events[1:]:
+            got.setdefault(e["tag"], []).append(e)
+        bad = [t for t, evs in got.items() for e in evs
+               if not (isinstance(e["value"], dict)
+                       and e["value"]["png"].startswith(b"\x89PNG")
+                       or isinstance(e["value"], float)
+                       and math.isfinite(e["value"]))]
+        steps = {t: sorted(e["step"] for e in evs) for t, evs in got.items()}
+        if (set(got) != tags or bad
+                or any(v != list(range(epochs)) for v in steps.values())):
+            raise SystemExit(f"host: {which} event file: tags "
+                             f"{sorted(set(got) ^ tags)} differ, bad "
+                             f"{bad}, steps {steps}")
+    return n
+
+
+def _cli_subprocess(argv: list, env: dict) -> subprocess.Popen:
+    """``cli.main`` in a new process with cuDNN's deterministic
+    algorithms (runs compared byte for byte), output merged."""
+    code = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+            "from shadow_removal_istd_tpu_torch.cli.main import "
+            "build_parser, main; main(build_parser().parse_args("
+            "sys.argv[1:]))")
+    return subprocess.Popen([sys.executable, "-c", code, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env)
+
+
+def _read_until(proc, text: str, timeout: float, seen: list) -> None:
+    deadline = time.monotonic() + timeout
+    for line in iter(proc.stdout.readline, ""):
+        seen.append(line)
+        if text in line:
+            return
+        if time.monotonic() > deadline:
+            break
+    proc.kill()
+    raise SystemExit(f"host: no {text!r} from the CLI process:\n"
+                     + "".join(seen[-30:]))
+
+
+def _host_sigterm(vgg_path: Path, istd: Path) -> dict:
+    """SIGTERM to ``cli.main --tasks train infer`` after its second
+    epoch: exit 0, the checkpoint and ``latest`` files, infer skipped;
+    the run resumed for one more epoch ends with the files of an
+    uninterrupted run, byte for byte."""
+    from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
+
+    root = SMOKE_DIR / "sigterm"
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.pathsep.join(
+               [str(Path(__file__).resolve().parent),
+                os.environ.get("PYTHONPATH", "")])}
+    common = ["--data-dir", str(istd), "--vgg-weights", str(vgg_path),
+              "--devices", DEVICE, "--log-every", "1", "--valid-every",
+              "1000", "--vis-every", "1000", *HOST_CLI_ARGS]
+
+    def files(name):
+        return ["--weights", str(root / name / "w"), "--logs",
+                str(root / name / "l"), "--infered", str(root / name / "o")]
+
+    seen: list = []
+    t0 = time.perf_counter()
+    proc = _cli_subprocess(["--tasks", "train", "infer", "--epochs", "1000",
+                            "--save-every", "1000", *common, *files("a")],
+                           env)
+    try:
+        _read_until(proc, "start training", 300, seen)
+        t_start = time.perf_counter() - t0
+        _read_until(proc, "train epoch 1:", 300, seen)
+        proc.send_signal(signal.SIGTERM)
+        t_sig = time.perf_counter()
+        out, _ = proc.communicate(timeout=300)
+        t_exit = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(seen) + out
+    suffix = "_lr0.00050_SGAN"
+    wa, wb = root / "a" / f"w{suffix}", root / "b" / f"w{suffix}"
+    ck = wa / "checkpoint.msgpack"
+    epochs = (int(from_bytes(ck.read_bytes())["epoch"]) if ck.is_file()
+              else -1)
+    names = sorted(p.name for p in wa.glob("*.msgpack"))
+    print(f"[host] SIGTERM: cli.main (a subprocess, {DEVICE}) logged "
+          f"'start training' {t_start:.1f} s after its start, took the "
+          f"signal after epoch 1's log line and exited {proc.returncode} "
+          f"{t_exit:.1f} s later; checkpoint epoch {epochs}, "
+          f"{len(names)} files; infer skipped: "
+          f"{'preempted: skipping remaining tasks' in out}")
+    if (proc.returncode != 0 or epochs < 2 or len(names) != 9
+            or "preemption checkpoint written" not in out
+            or "preempted: skipping remaining tasks" not in out
+            or (root / "a" / "o" / "shadowless").exists()):
+        raise SystemExit("host: the SIGTERM run did not checkpoint and "
+                         "exit cleanly:\n" + out[-3000:])
+
+    def run(name, *extra):
+        p = _cli_subprocess(["--tasks", "train", "--save-every", "1",
+                             *common, *files(name), *extra], env)
+        log, _ = p.communicate(timeout=600)
+        if p.returncode != 0:
+            raise SystemExit(f"host: cli run {name} failed:\n{log[-3000:]}")
+
+    t0 = time.perf_counter()
+    run("a", "--epochs", str(epochs + 1), "--load-checkpoint", str(ck))
+    run("b", "--epochs", str(epochs + 1))
+    differ = [n for n in names
+              if (wa / n).read_bytes() != (wb / n).read_bytes()]
+    print(f"[host] SIGTERM: resumed to epoch {epochs + 1} and an "
+          f"uninterrupted run of {epochs + 1} epochs in "
+          f"{time.perf_counter() - t0:.1f} s; of their {len(names)} weight "
+          f"and checkpoint files {len(differ)} differ {differ}")
+    if differ or sorted(p.name for p in wb.glob("*.msgpack")) != names:
+        raise SystemExit("host: the resumed run is not the uninterrupted "
+                         "one")
+    return {"epochs": epochs, "exit_s": t_exit}
+
+
+def _host_native(istd: Path) -> None:
+    """The native PNG loader on the ``cli`` phase's ISTD directory: each
+    stream's files equal cv2 byte for byte, ``load_all`` goes through it,
+    and its time per image beside cv2's and the stdlib codec's."""
+    from shadow_removal_istd_tpu_torch.data import native_loader
+    from shadow_removal_istd_tpu_torch.data.istd import (
+        GRAY_STREAMS,
+        STREAM_DIRS,
+        ISTDDataset,
+    )
+    from shadow_removal_istd_tpu_torch.utils import image_io
+
+    n_files = 0
+    for subset in ("train", "test"):
+        for stream in ("img", "mask", "matte", "target"):
+            d = istd / subset / STREAM_DIRS[stream].format(s=subset)
+            paths = sorted(str(p) for p in d.glob("*.png"))
+            gray = stream in GRAY_STREAMS
+            got = native_loader.decode_batch(paths, gray=gray)
+            read = image_io.imread_gray if gray else image_io.imread_color
+            want = np.stack([read(p) for p in paths])
+            if gray:
+                want = want[..., None]
+            if not np.array_equal(got, want):
+                raise SystemExit(f"host: native decode of {d} differs from "
+                                 f"the image library's")
+            n_files += len(paths)
+    lib = ("cv2" if importlib.util.find_spec("cv2") else "PIL"
+           if importlib.util.find_spec("PIL") else "the stdlib codec")
+    print(f"[host] native PNG loader: {n_files} files of the cli phase's "
+          f"directory equal {lib}'s decode byte for byte")
+    ds = ISTDDataset(str(istd), "train", datas=("img", "matte", "target"))
+    n = len(ds)
+    times = {}
+    t0 = time.perf_counter()
+    ds.load_all()
+    times["native"] = time.perf_counter() - t0
+    if set(ds.decoded_by.values()) != {"native"}:
+        raise SystemExit(f"host: load_all decoded by {ds.decoded_by}")
+    t0 = time.perf_counter()
+    ds.load_all(native=False)
+    times[lib] = time.perf_counter() - t0
+    one = ISTDDataset(str(istd), "train", datas=("img",))
+    k = min(n, 8)
+    with mock.patch.object(image_io, "_library_decoder", lambda: None):
+        t0 = time.perf_counter()
+        for i in range(k):
+            one._read("img", i)
+        stdlib = (time.perf_counter() - t0) / k
+    threads = {"native": min(os.cpu_count() or 1, 16), lib: os.cpu_count()}
+    for name, t in times.items():
+        print(f"[time] istd load native vs library: {name}, {threads[name]} "
+              f"threads: {t / (3 * n):.5f} s per image ({n} triplets, "
+              f"img + matte + target, {DATA_HW[0]}x{DATA_HW[1]})")
+    print(f"[time] istd load native vs library: the stdlib codec, one "
+          f"thread: {stdlib:.5f} s per RGB image ({k} images); native "
+          f"{stdlib * 3 * n / times['native']:.1f}x faster")
+
+
+def _host_selu_daemon() -> None:
+    """The serving daemon with ``--use-selu --droprate``: a SELU UNet at
+    ngf 64, f32, answers a 480x640 request as the engine in this process
+    does on the same weight files."""
+    import socket
+
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+    from shadow_removal_istd_tpu_torch.tools.convert import (
+        flatten_tree,
+        torch_to_flax_tree,
+    )
+    from shadow_removal_istd_tpu_torch.utils.image_io import (
+        imdecode_color,
+        imencode_png,
+    )
+
+    root = SMOKE_DIR / "selu"
+    root.mkdir(parents=True, exist_ok=True)
+    engine = InferenceEngine("unet", ngf=NGF, use_selu=True, droprate=0.05,
+                             dtype="float32", max_batch=1, seed=3,
+                             device=DEVICE)
+    for name, g in (("g1", engine.g1), ("g2", engine.g2)):
+        np.savez(root / f"{name}.npz", **{"/".join(k): v for k, v in
+                                          flatten_tree(torch_to_flax_tree(
+                                              g)).items()})
+    img = np.random.default_rng(9).integers(0, 256, (*DATA_HW, 3),
+                                            dtype=np.uint8)
+    (_, want), = engine.infer_group([img])
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
+         "--device", DEVICE, "--net-G", "unet", "--ngf", str(NGF),
+         "--use-selu", "--droprate", "0.05", "--dtype", "float32",
+         "--max-batch", "1", "--port", str(port), "--warmup", "",
+         "--load-weights-g1", str(root / "g1.npz"),
+         "--load-weights-g2", str(root / "g2.npz")],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline, up = time.monotonic() + 300, False
+        while not up:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit("host: the SELU daemon did not come up: "
+                                 + proc.communicate(timeout=30)[1][-2000:])
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=5)
+                conn.request("GET", "/healthz")
+                up = conn.getresponse().status == 200
+                conn.close()
+            except OSError:
+                time.sleep(0.2)
+        status, body = _post(("127.0.0.1", port), imencode_png(img))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    got = imdecode_color(body) if status == 200 else None
+    diff = (int(np.abs(got.astype(int) - want).max())
+            if got is not None and got.shape == want.shape else -1)
+    print(f"[host] serving daemon --net-G unet --use-selu --droprate 0.05 "
+          f"(ngf {NGF}, f32): HTTP {status}, exit {rc}, "
+          f"{time.perf_counter() - t0:.1f} s with start-up; max diff "
+          f"{diff} gray levels from this process's engine (limit 1)")
+    if status != 200 or rc != 0 or not 0 <= diff <= 1:
+        raise SystemExit("host: the SELU daemon's answer is wrong")
+
+
+def phase_host(vgg_path: Path) -> dict:
+    """The trainer's host side on the card (see the module docstring,
+    phase 7); returns the kernels' launch counts in its training run."""
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine import loop
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+    from shadow_removal_istd_tpu_torch.parallel.prefetch import (
+        prefetch_to_device,
+    )
+    from shadow_removal_istd_tpu_torch.utils.profiling import trace_path
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "host"
+    train = synthetic_triplets(HOST_TRAIN, *DATA_HW, seed=4)
+    valid = synthetic_triplets(HOST_VALID, *DATA_HW, seed=5)
+    cfg = TrainConfig(aug_method="shear", **TRAIN_KW)
+    prof_dir = root / "prof"
+
+    def make(name, device_cache, **run):
+        return Trainer(cfg, RunConfig(
+            seed=0, vgg_weights=str(vgg_path), device_cache=device_cache,
+            weights_dir=str(root / name / "w"), logs_dir=str(root / name /
+                                                             "l"),
+            checkpoint_path=str(root / name / "c.msgpack"), **run),
+            train_streams=train, valid_streams=valid, device=DEVICE)
+
+    # 1. two host-pipeline epochs, every writer on, the second traced
+    host = make("h", False, log_every=1, vis_every=1, valid_every=1,
+                profile_dir=str(prof_dir))
+    logs: list = []
+    orig = {k: getattr(loop.Trainer, k) for k in ("_log_images",
+                                                  "_log_scalars")}
+
+    def log_images(self, which, epoch, batch, n_images=8):
+        torch.cuda.synchronize()
+        before = dict(decoder_upsample.launches_by_variant)
+        t0 = time.perf_counter()
+        orig["_log_images"](self, which, epoch, batch, n_images)
+        torch.cuda.synchronize()
+        logs.append(("images", time.perf_counter() - t0, {
+            k: v - before[k]
+            for k, v in decoder_upsample.launches_by_variant.items()}))
+
+    def log_scalars(self, *a):
+        t0 = time.perf_counter()
+        orig["_log_scalars"](self, *a)
+        logs.append(("scalars", time.perf_counter() - t0, None))
+
+    hshear.launches = 0
+    reset_decoder_counts()
+    t0 = time.perf_counter()
+    with mock.patch.multiple(loop.Trainer, _log_images=log_images,
+                             _log_scalars=log_scalars):
+        host.train(2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_shear, n_dec = hshear.launches, decoder_upsample.launches
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    steps = 2 * host.cfg.steps_per_epoch
+    b = host.cfg.batch_size
+    n_valid = 2 * -(-HOST_VALID // b)
+    images = [c for k, _, c in logs if k == "images"]
+    n_fwd = n_valid + len(images)
+    print(f"[host] host-pipeline training ({HOST_TRAIN} + {HOST_VALID} "
+          f"{DATA_HW[0]}x{DATA_HW[1]} triplets, batch {b}, "
+          f"{cfg.image_size} crops, {cfg.compute_dtype}, {cfg.aug_method}): "
+          f"2 epochs x {host.cfg.steps_per_epoch} steps + 2 validations + "
+          f"{len(images)} image logs in {wall:.1f} s; hshear launches "
+          f"{n_shear} ({steps} steps), decoder launches {n_dec} "
+          f"{by_variant} ({n_fwd} stacked forwards); per image log "
+          f"{images}")
+    _check_history(host, "host")
+    per_fwd = {"tensor_core": 0, "cuda_core": 8, "narrow": 2}
+    want = {k: v * n_fwd for k, v in per_fwd.items()}
+    if (n_shear != 3 * steps or len(images) != 4
+            or any(c != per_fwd for c in images) or by_variant != want):
+        raise SystemExit(f"host: expected {3 * steps} hshear launches, 4 "
+                         f"image logs of {per_fwd} and {want} in all")
+    n_events = _check_event_files(root / "h" / "l", 2)
+    trace_file = Path(trace_path(str(prof_dir)))
+    if not trace_file.is_file():
+        raise SystemExit(f"host: no trace at {trace_file}")
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    shear_k = sum(1 for e in events if e.get("cat") == "kernel"
+                  and "hshear" in e.get("name", ""))
+    print(f"[host] event files: {n_events} records, every JAX tag at "
+          f"epochs 0 and 1, CRCs checked; trace {trace_file.name} "
+          f"({trace_file.stat().st_size / 1e6:.1f} MB, {len(events)} "
+          f"events): {shear_k} hshear kernel events (epoch 1, "
+          f"{host.cfg.steps_per_epoch} steps)")
+    if shear_k != 3 * host.cfg.steps_per_epoch:
+        raise SystemExit("host: the trace does not name the hshear kernel "
+                         "3 times a step")
+    t_img = [t for k, t, _ in logs if k == "images"]
+    t_sc = [t for k, t, _ in logs if k == "scalars"]
+
+    # 2. the host epoch against the fused epoch, on the same data
+    fused = make("f", True)
+    rows = {}
+    for turn in range(3):
+        for name, tr in (("host", host), ("fused", fused)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_train_epoch(10 + turn)
+            torch.cuda.synchronize()
+            rows.setdefault(name, []).append(time.perf_counter() - t0)
+    n_img = host.cfg.steps_per_epoch * b
+    idle = {}
+    for name, tr in (("host", host), ("fused", fused)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.run_train_epoch(20)
+            torch.cuda.synchronize()
+        idle[name] = _device_busy(prof)
+    for name, ts in rows.items():
+        busy, span = idle[name]
+        share = f"{1 - busy / span:.2%}" if span > 0 else "not measured"
+        for i, t in enumerate(ts):
+            print(f"[time] {name} epoch (turn {i}): {t * 1e3:.1f} ms, "
+                  f"{n_img / t:.2f} img/s ({host.cfg.steps_per_epoch} "
+                  f"steps of {b})")
+        print(f"[time] {name} epoch profiled: device busy {busy:.1f} ms of "
+              f"{span:.1f} ms, idle share {share}")
+    host_s, fused_s = _median(rows["host"]), _median(rows["fused"])
+    print(f"[time] host epoch vs fused epoch: {n_img / host_s:.2f} vs "
+          f"{n_img / fused_s:.2f} img/s (median of 3), host "
+          f"{100 * (fused_s / host_s - 1):+.2f} %")
+    epoch_ms = 1e3 * host_s
+    print(f"[time] tensorboard: scalars {_median(t_sc) * 1e3:.2f} ms per "
+          f"call ({len(t_sc)} calls), image grids {_median(t_img) * 1e3:.1f}"
+          f" ms per call (3 PNG grids + a stacked forward, {len(t_img)} "
+          f"calls); a log of both per epoch is "
+          f"{100 * (_median(t_sc) + _median(t_img)) * 1e3 / epoch_ms:.2f} %"
+          f" of a {epoch_ms:.0f} ms epoch")
+    # the host pipeline's parts for one batch: gather, pinned copy, H2D
+    pipe = host.train_pipe
+    t0 = time.perf_counter()
+    raws = list(pipe.epoch(0))
+    gather_ms = (time.perf_counter() - t0) * 1e3 / len(raws)
+    nbytes = sum(a.nbytes for a in raws[0])
+    pinned = [torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
+              for a in raws[0]]
+    t0 = time.perf_counter()
+    for a, p in zip(raws[1], pinned):
+        np.copyto(p.numpy(), a)
+    pin_ms = (time.perf_counter() - t0) * 1e3
+    h2d = time_ms(lambda: [p.to(DEVICE, non_blocking=True) for p in pinned],
+                  10)
+    t0 = time.perf_counter()
+    for _ in prefetch_to_device(iter(raws), 2, DEVICE):
+        pass
+    torch.cuda.synchronize()
+    walk_ms = (time.perf_counter() - t0) * 1e3 / len(raws)
+    print(f"[time] host pipeline per batch of {b} ({nbytes / 1e6:.1f} MB "
+          f"uint8): gather {gather_ms:.2f} ms, copy into pinned memory "
+          f"{pin_ms:.2f} ms, H2D {h2d:.3f} ms ({nbytes / h2d / 1e6:.1f} "
+          f"GB/s); prefetch_to_device alone {walk_ms:.2f} ms a batch")
+    del fused
+    torch.cuda.empty_cache()
+
+    # 3. SIGTERM, 4. the native loader, 5. the SELU daemon
+    istd = SMOKE_DIR / "cli" / "istd"
+    sig = _host_sigterm(vgg_path, istd)
+    _host_native(istd)
+    _host_selu_daemon()
+    print(f"[time] host phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"decoder": n_dec, "hshear": n_shear, "sigterm": sig,
+            "host_img_s": round(n_img / host_s, 2),
+            "fused_img_s": round(n_img / fused_s, 2)}
 
 
 def _resize_f64(x64: np.ndarray, size, method: str) -> np.ndarray:
@@ -1567,8 +2100,9 @@ def phase_eval(vgg_path: Path, trainer) -> dict:
     got = {k: tr.last_eval[f"Eval/{k}"] for k in loop.EVAL_KEYS}
     err = _same_metrics(got, {k: offline[k] for k in loop.EVAL_KEYS},
                         EVAL_CLI_RTOL)
-    want = {"tensor_core": 0, "cuda_core": 8 * per_batch,
-            "narrow": 2 * per_batch}
+    # each validation: its batches and its image log's stacked forward
+    want = {"tensor_core": 0, "cuda_core": 8 * (per_batch + 1),
+            "narrow": 2 * (per_batch + 1)}
     print(f"[eval] --tasks train infer --eval-metrics: {wall:.1f} s (data "
           f"load, 1 step, validation, infer of {EVAL_TEST}); Eval/* " +
           ", ".join(f"{k} {v:.4f}" for k, v in got.items()) +
@@ -1578,9 +2112,10 @@ def phase_eval(vgg_path: Path, trainer) -> dict:
           f"hshear {n_shear}")
     if not err <= EVAL_CLI_RTOL:
         raise SystemExit("Eval/* disagrees with the offline CLI")
-    if seen["valid"] != [want] or n_dec != 10 * 2 * per_batch:
+    # the run: the validation, infer and the epoch-0 training image log
+    if seen["valid"] != [want] or n_dec != 10 * (2 * per_batch + 2):
         raise SystemExit(f"expected {want} decoder launches per validation "
-                         f"and {20 * per_batch} in the run")
+                         f"and {10 * (2 * per_batch + 2)} in the run")
 
     # 5. the gather augmentation: against float64, flips and offsets
     # exact, timed beside the shear path
@@ -1645,6 +2180,17 @@ def _median(xs):
         xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
 
 
+def _cache_of(trainer):
+    """The trainer's device cache; for a host-pipeline trainer, a cache
+    of its training streams made for the timing."""
+    if trainer.cache is not None:
+        return trainer.cache
+    from shadow_removal_istd_tpu_torch.data.device_cache import (
+        DeviceDatasetCache,
+    )
+    return DeviceDatasetCache(trainer.train_pipe.streams, DEVICE)
+
+
 def time_train_steps(trainer, steps: int = 7) -> dict:
     """Per-step device time by phase (CUDA events), median over
     ``steps`` steps after one warm-up step: gather + augmentation, then
@@ -1654,8 +2200,9 @@ def time_train_steps(trainer, steps: int = 7) -> dict:
     from shadow_removal_istd_tpu_torch.ops.augment import augment_batch
 
     gen = RngStreams(1, 100, DEVICE)
-    idx = trainer.cache.epoch_indices(gen.generator("shuffle"),
-                                      trainer.cfg.batch_size)
+    cache = _cache_of(trainer)
+    idx = cache.epoch_indices(gen.generator("shuffle"),
+                              trainer.cfg.batch_size)
     rows = []
     for s in range(steps + 1):
         evs = [("start", torch.cuda.Event(enable_timing=True))]
@@ -1666,7 +2213,7 @@ def time_train_steps(trainer, steps: int = 7) -> dict:
             ev.record()
             evs.append((name, ev))
 
-        raw = trainer.cache.gather(idx[s % idx.shape[0]])
+        raw = cache.gather(idx[s % idx.shape[0]])
         batch = augment_batch(gen.generator("augment", s), raw,
                               trainer.aug_cfg)
         mark("augment")
@@ -1694,11 +2241,12 @@ def profile_train_step(trainer,
     from shadow_removal_istd_tpu_torch.ops.augment import augment_batch
 
     gen = RngStreams(2, 0, DEVICE)
-    idx = trainer.cache.epoch_indices(gen.generator("shuffle"),
-                                      trainer.cfg.batch_size)
+    cache = _cache_of(trainer)
+    idx = cache.epoch_indices(gen.generator("shuffle"),
+                              trainer.cfg.batch_size)
 
     def step():
-        raw = trainer.cache.gather(idx[0])
+        raw = cache.gather(idx[0])
         batch = augment_batch(gen.generator("augment"), raw,
                               trainer.aug_cfg)
         train_step(trainer.state, batch, (gen.generator("dropout_g1"),
@@ -1915,22 +2463,30 @@ def profile_rotation(label, fn, limit: int) -> tuple[float, int, list]:
     rows; returns (kernel ms, ``hshear`` launches, the aten ops whose
     input holds more than ``limit`` elements: the per-row shift arrays
     are smaller, an image-sized copy or transpose is not)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
+    # one warm-up step under the profiler first: a 0.25 ms region right
+    # after the profiler starts was seen to lose its first kernels
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        fn()
-        torch.cuda.synchronize()
+                 record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
+    # the schedule's ProfilerStep* row spans the step: not a kernel
     kern = [e for e in prof.key_averages() if dev_us(e) > 0
             and getattr(e, "device_type", torch.autograd.DeviceType.CUDA)
-            == torch.autograd.DeviceType.CUDA]
+            == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
     total = sum(dev_us(e) for e in kern)
     n_shear = sum(e.count for e in kern if "hshear" in e.key)
     print(f"[profile] shear_rotate_crop {label}: kernel time "
@@ -2252,7 +2808,8 @@ def _zoo_trainer(cfg_kw: dict, vgg_path, train, valid, name: str):
     files = SMOKE_DIR / f"zoo_{name}"
     run = RunConfig(seed=0, valid_every=1, vgg_weights=str(vgg_path),
                     weights_dir=str(files), logs_dir=str(files),
-                    checkpoint_path=str(files / "checkpoint.msgpack"))
+                    checkpoint_path=str(files / "checkpoint.msgpack"),
+                    device_cache=True)
     return Trainer(TrainConfig(**{**cfg_kw, **TRAIN_KW}), run,
                    train_streams=train, valid_streams=valid, device=DEVICE)
 
@@ -2288,7 +2845,8 @@ def _zoo_training(vgg_path) -> dict:
     tr.train(1)
     torch.cuda.synchronize()
     by_variant = dict(decoder_upsample.launches_by_variant)
-    forwards = -(-ZOO_VALID // tr.cfg.batch_size)
+    # the validation batches, its image log and the epoch-0 training one
+    forwards = -(-ZOO_VALID // tr.cfg.batch_size) + 2
     k = (float(tr.state.k1), float(tr.state.k2))
     print(f"[zoo] UNet + BEGAN f32: 1 epoch x {tr.cfg.steps_per_epoch} "
           f"steps + a {DATA_HW[0]}x{DATA_HW[1]} validation in "
@@ -2554,6 +3112,58 @@ def compare_cuda_core(sources: dict[str, str]) -> None:
             f"{k} {v:.4f} ms" for k, v in tot.items()), flush=True)
 
 
+def compare_reflect_pad() -> None:
+    """The train step at the CLI's defaults (f32, and bf16 compute) with
+    the models' reflect pad (its deterministic backward folds the
+    border's gradient) beside torch's ``F.pad(mode="reflect")``, whose
+    backward scatters by atomic adds: step and phase medians of 7 steps,
+    3 turns each, in one process (``[compare-pad]`` lines)."""
+    import torch.nn.functional as F
+
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
+    from shadow_removal_istd_tpu_torch.models import layers
+
+    fold = layers.reflect_pad
+
+    def torch_pad(x, p):
+        return F.pad(x, (p, p, p, p), mode="reflect") if p else x
+
+    SMOKE_DIR.mkdir(exist_ok=True)
+    try:
+        vgg = SMOKE_DIR / "vgg19_bn_random.npz"
+        write_vgg_npz(vgg)
+        train = synthetic_triplets(2 * AUG_BATCH, *DATA_HW, seed=0)
+        for dtype in ("bfloat16", "float32"):
+            t = Trainer(TrainConfig(aug_method="shear", compute_dtype=dtype,
+                                    **TRAIN_KW),
+                        RunConfig(seed=0, vgg_weights=str(vgg),
+                                  device_cache=True,
+                                  logs_dir=str(SMOKE_DIR / "l")),
+                        train_streams=train, device=DEVICE)
+            rows: dict = {}
+            for turn in range(3):
+                for name, fn in (("fold", fold), ("torch", torch_pad)):
+                    layers.reflect_pad = fn
+                    try:
+                        rows.setdefault(name, []).append(
+                            time_train_steps(t, steps=7))
+                    finally:
+                        layers.reflect_pad = fold
+            for name, phs in rows.items():
+                print(f"[compare-pad] {dtype} {name}: " + ", ".join(
+                    f"{k} {_median([p[k] for p in phs]):.3f}"
+                    for k in ("step", "d_phase", "g_forward", "g_adv",
+                              "g_backward")) + " ms (medians of 3 turns)")
+            del t
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2571,6 +3181,10 @@ def main() -> int:
         time_shear_passes({name: build_renamed(name, path, "srit_hshear")
                            for name, path in sources.items()})
         return 0
+    if sys.argv[1:2] == ["--compare-reflect-pad"]:
+        print(f"[card] {nvidia_smi()}")
+        compare_reflect_pad()
+        return 0
     # f32 comparisons hold full f32: no TF32 in cuDNN or cuBLAS
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2585,6 +3199,7 @@ def main() -> int:
         write_vgg_npz(vgg_path)
         runs = phase_training(vgg_path)
         cli = phase_cli(vgg_path)
+        host = phase_host(vgg_path)
         ev = phase_eval(vgg_path, runs["float32"]["trainer"])
         zoo = phase_zoo(vgg_path)
         kernel = phase_timings(worst, launches, by_variant)
@@ -2593,6 +3208,7 @@ def main() -> int:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     zk = zoo["kernels"]
     kernel.update(extra, launches_cli=cli["decoder"],
+                  launches_host=host["decoder"],
                   launches_eval=ev["decoder"], launches_zoo=zoo["decoder"],
                   max_abs_err=max(kernel["max_abs_err"],
                                   *zk["worst"].values()),
@@ -2608,6 +3224,9 @@ def main() -> int:
                   zoo_train_img_s={k: zoo[f"{k}_img_s"] for k in (
                       "unet_began", "denseunet_softadapt", "legacy")})
     shear_entry.update(launches_cli=cli["hshear"],
+                       launches_host=host["hshear"],
+                       host_epoch_img_s=host["host_img_s"],
+                       fused_epoch_img_s=host["fused_img_s"],
                        launches_eval=ev["hshear"],
                        launches_gather=ev["hshear_gather"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -15,8 +15,14 @@ Differences:
 - Flags whose feature is not ported raise ``NotImplementedError`` naming
   the flag when set away from their default; so does ``--remat``, which
   ``TrainConfig`` refuses. Every ``--net-G``/``--net-D`` choice,
-  ``--softadapt`` and ``--SELU`` run. TensorBoard is not ported: epoch metrics go to
-  the log file.
+  ``--softadapt`` and ``--SELU`` run.
+
+TensorBoard event files land in ``<logs>/{train,valid}``, a
+``--profile-dir`` trace of the second epoch in that directory
+(``<host>.<pid>.pt.trace.json``). With ``--preempt-save`` (the default)
+a SIGTERM during training checkpoints at the next epoch boundary and the
+remaining tasks are skipped; ``--device-cache no`` trains on the host
+pipeline (batches uploaded while the previous step computes).
 
 Weight and checkpoint files are the JAX package's flax msgpack files, so
 a run of either package resumes or serves from the other's.
@@ -63,10 +69,8 @@ _UNPORTED_FLAGS = {
     "--process-id": ("process_id", lambda v: v is not None),
     "--pipeline-infer": ("pipeline_infer", bool),
     "--export-stablehlo": ("export_stablehlo", lambda v: v is not None),
-    "--profile-dir": ("profile_dir", lambda v: v is not None),
     "--checkpoint-backend orbax": ("checkpoint_backend",
                                    lambda v: v == "orbax"),
-    "--device-cache false": ("device_cache", lambda v: not v),
 }
 
 
@@ -93,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--data-h5", default=None,
                         help="HDF5 dataset file (not ported yet)")
     parser.add_argument("--workers", default=4, type=int,
-                        help="kept for CLI parity; decoding uses a thread "
-                             "pool, training the device cache")
+                        help="kept for CLI parity; PNGs decode on the "
+                             "native loader's or a thread pool")
     parser.add_argument("--image-size", default=256, type=int)
     parser.add_argument("--aug-scale", default=0.05, type=float)
     parser.add_argument("--aug-angle", default=15, type=int)
@@ -160,14 +164,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "yet)")
     parser.add_argument("--device-cache", type=str2bool, default=True,
                         const=True, nargs="?",
-                        help="keep the dataset on the card (the only "
-                             "training path ported)")
+                        help="keep the dataset on the card and gather "
+                             "each batch there; no: the host pipeline "
+                             "uploads each batch")
     parser.add_argument("--aug-method", default="shear",
                         choices=["gather", "shear"],
                         help="augmentation path: exact bilinear gather "
                              "(cv2 geometry) or the 3-shear hshear kernel")
     parser.add_argument("--profile-dir", default=None,
-                        help="profiler trace directory (not ported yet)")
+                        help="write a torch.profiler trace of the "
+                             "second training epoch into this directory")
     parser.add_argument("--spatial-shard", type=int, default=1,
                         help="spatial partitioning (not ported yet)")
     parser.add_argument("--model-shard", type=int, default=1,
@@ -202,8 +208,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="score each validation by the ISTD protocol "
                              "(LAB RMSE/MAE, Eval/* in the log)")
     parser.add_argument("--preempt-save", type=str2bool, default=True,
-                        help="checkpoint on SIGTERM (not ported yet; "
-                             "kept for CLI parity)")
+                        help="on SIGTERM, write the full checkpoint at "
+                             "the next epoch boundary and exit cleanly")
     parser.add_argument("--export-stablehlo", default=None,
                         help="serving artifact export (not ported yet)")
     parser.add_argument("--export-shape", type=int, nargs=2,
@@ -290,8 +296,6 @@ def main(args) -> None:
     )
     setup_logging(os.path.join(args.logs, f"main-{time_str}.log"))
     logger.info("Arguments: %s", args)
-    logger.info("TensorBoard scalars and images and the preemption save "
-                "are not ported yet: epoch metrics go to this log")
 
     if (("infer" in args.tasks or "serve" in args.tasks)
             and "train" not in args.tasks):
@@ -348,6 +352,12 @@ def main(args) -> None:
 
     if "train" in args.tasks:
         trainer.train(args.epochs)
+        trainer.close()
+    if trainer.preempted:
+        # eviction is near: the checkpoint is the deliverable, and a
+        # SIGKILL during inference would leave truncated outputs
+        logger.warning("preempted: skipping remaining tasks")
+        return
     if "infer" in args.tasks:
         trainer.infer()
     if "serve" in args.tasks:
@@ -356,7 +366,9 @@ def main(args) -> None:
 
 def _serve(trainer, cfg, args) -> None:
     """``--tasks serve``: hand the trained or loaded generators to the
-    online daemon (no file round-trip). Blocks until SIGTERM/SIGINT."""
+    online daemon (no file round-trip). Blocks until SIGTERM/SIGINT,
+    which replace the trainer's preemption handler: while serving, the
+    graceful action is shutting the server down."""
     from shadow_removal_istd_tpu_torch.serving import (
         InferenceEngine,
         ShadowRemovalServer,

@@ -18,10 +18,12 @@ Fixed behaviour (reference STCGAN/stcgan.py), whatever the flags say:
 - DCGAN init at start (``--init-compat``: the reference's N(0, .02) BN
   scales).
 
-``--devices`` is ``cuda`` (the default) or ``cpu``. ``--no-batch-norm-G``
-and ``--no-batch-norm-D`` are parsed, as in the reference, and refuse to
-run when set, since the pipeline trains with BatchNorm whatever they
-say.
+Training runs the host-pipeline epoch (``RunConfig``'s default, as in
+the JAX package); a SIGTERM checkpoints at the next epoch boundary and
+skips inference. ``--devices`` is ``cuda`` (the default) or ``cpu``.
+``--no-batch-norm-G`` and ``--no-batch-norm-D`` are parsed, as in the
+reference, and refuse to run when set, since the pipeline trains with
+BatchNorm whatever they say.
 """
 
 from __future__ import annotations
@@ -154,6 +156,10 @@ def main(args) -> None:
                          d1=args.load_weights_d1, d2=args.load_weights_d2)
     if "train" in args.tasks:
         trainer.train(args.epochs)
+        trainer.close()
+    if trainer.preempted:
+        logger.warning("preempted: skipping remaining tasks")
+        return
     if "infer" in args.tasks:
         trainer.infer()
 

@@ -9,9 +9,13 @@ Layout (reference src/dataset.py:43-46):
 Files are aligned by sorting on the stem; sample tuples are ordered by
 *sorted stream name* (img, matte, target), the convention the engine
 unpacks. :meth:`ISTDDataset.load_all` stacks a split into one uint8
-array per stream for the device cache, decoding on a thread pool when
-cv2 or PIL decodes (in C, without the GIL) and on one thread with the
-stdlib codec. The JAX package's native C++ PNG loader is not ported.
+array per stream. An all-PNG stream goes through the native batch
+decoder (``data/native_loader.py``: one contiguous buffer, decoded on a
+C++ thread pool, byte-identical to cv2); a stream it refuses (a gray
+stream stored as RGB, whose cv2 gray conversion it does not reproduce)
+or a host where it cannot be built decodes through the image library,
+on a thread pool when cv2 or PIL decodes (in C, without the GIL) and on
+one thread with the stdlib codec.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from shadow_removal_istd_tpu_torch.data import native_loader
 from shadow_removal_istd_tpu_torch.utils.image_io import (
     decodes_in_c,
     imread_color,
@@ -88,13 +93,28 @@ class ISTDDataset:
         return (self.filename(idx),
                 *(self._read(s, idx) for s in self.streams))
 
-    def load_all(self) -> dict[str, np.ndarray]:
-        """Every stream stacked into one (N, H, W, C) uint8 array."""
+    def load_all(self, native: bool = True) -> dict[str, np.ndarray]:
+        """Every stream stacked into one (N, H, W, C) uint8 array; the
+        decoder each stream went through lands in ``self.decoded_by``
+        (``"native"`` or ``"library"``)."""
         out = {}
+        self.decoded_by = {}
+        native_ok = native and native_loader.is_available()
         workers = os.cpu_count() if decodes_in_c() else 1
         with ThreadPoolExecutor(max_workers=workers) as pool:
             for stream in self.streams:
+                files = self._files[stream]
+                if native_ok and all(f.lower().endswith(".png")
+                                     for f in files):
+                    try:
+                        out[stream] = native_loader.decode_batch(
+                            files, gray=stream in GRAY_STREAMS)
+                        self.decoded_by[stream] = "native"
+                        continue
+                    except IOError:
+                        pass    # e.g. a gray stream stored as RGB PNGs
                 items = list(pool.map(lambda i, s=stream: self._read(s, i),
                                       range(len(self))))
                 out[stream] = np.stack(items, axis=0)
+                self.decoded_by[stream] = "library"
         return out

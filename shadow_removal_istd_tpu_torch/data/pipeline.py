@@ -4,8 +4,8 @@
 The host's only per-step job is slicing preloaded uint8 arrays into
 batches (decode happens once up front). Shuffling is numpy-seeded per
 epoch for reproducibility. The trainer runs validation and inference
-through it, in order, keeping the ragged last batch; its training epochs
-run on the device cache.
+through it, in order, keeping the ragged last batch, and its
+host-pipeline training epochs in the seeded order, dropping it.
 """
 
 from __future__ import annotations
@@ -42,6 +42,15 @@ class BatchPipeline:
             return self.n // self.batch_size
         return -(-self.n // self.batch_size)
 
+    def order(self, epoch: int | None = None) -> np.ndarray:
+        """The sample order of one epoch (see :meth:`epoch`)."""
+        idx = np.arange(self.n)
+        if self.shuffle:
+            rng = (self._rng if epoch is None
+                   else np.random.default_rng((self.seed, epoch)))
+            rng.shuffle(idx)
+        return idx
+
     def epoch(self, epoch: int | None = None) \
             -> Iterator[tuple[np.ndarray, ...]]:
         """Pass ``epoch`` for RESUME-DETERMINISTIC shuffling: the
@@ -49,11 +58,7 @@ class BatchPipeline:
         resumed from a checkpoint at epoch N sees the same batch order
         the uninterrupted run saw. Without it the stateful stream is
         used (reproducible only from epoch 0)."""
-        idx = np.arange(self.n)
-        if self.shuffle:
-            rng = (self._rng if epoch is None
-                   else np.random.default_rng((self.seed, epoch)))
-            rng.shuffle(idx)
+        idx = self.order(epoch)
         stop = (self.n - self.batch_size + 1) if self.drop_last else self.n
         for start in range(0, max(stop, 0), self.batch_size):
             sel = idx[start:start + self.batch_size]

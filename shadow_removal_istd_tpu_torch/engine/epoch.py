@@ -7,7 +7,10 @@ Port of ``shadow_removal_istd_tpu/engine/epoch.py``. JAX compiles the
 epoch into one ``lax.scan``; PyTorch runs it eagerly, step by step, and
 only enqueues work on the card: metric sums stay on the device until the
 caller reads them. (Capturing the epoch as a CUDA graph is a later
-step.)
+step.) The trainer's host-pipeline epoch runs the same step loop,
+:func:`train_steps`, over batches uploaded from the host, so that a host
+epoch over a batch order equals the fused epoch over that index matrix,
+step for step.
 
 Randomness is a pure function of ``(seed, epoch, step)``, as JAX's
 ``fold_in`` makes it: :class:`RngStreams` derives each generator's seed
@@ -20,7 +23,7 @@ augmentation parameters into both.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -57,33 +60,54 @@ class RngStreams:
         return gen
 
 
+def train_steps(state: TrainState, raws: Iterable, aug_cfg: AugmentConfig,
+                gen: RngStreams,
+                param_source: Callable[[int], dict] | None = None):
+    """The step loop of both epochs. For each raw batch ``raws`` yields
+    (a tuple of (B, H, W, C) uint8 tensors on the card, sorted stream
+    order), step ``s`` augments it with the ``("augment", s)`` draw (or
+    ``param_source(s)``'s parameters) and runs ``train_step`` with the
+    step's dropout generators. Returns ``(sums, n, first)``: the 14
+    metrics summed over the ``n`` steps (device tensors, not read back)
+    and step 0's augmented batch."""
+    sums: dict[str, torch.Tensor] = {}
+    first = None
+    n = 0
+    for step, raw in enumerate(raws):
+        if param_source is not None:
+            batch = augment_batch(None, raw, aug_cfg,
+                                  params=param_source(step))
+        else:
+            batch = augment_batch(gen.generator("augment", step), raw,
+                                  aug_cfg)
+        if first is None:
+            first = batch
+        metrics = train_step(state, batch,
+                             (gen.generator("dropout_g1", step),
+                              gen.generator("dropout_g2", step)))
+        for k, v in metrics.items():
+            sums[k] = sums[k] + v if k in sums else v
+        n += 1
+    return sums, n, first
+
+
 def make_epoch(aug_cfg: AugmentConfig,
                param_source: Callable[[int], dict] | None = None):
     """Build ``epoch_fn(state, arrays, idx, gen) -> (state, sums)``.
 
     ``arrays``: the (N, H, W, C) uint8 streams on the card in sorted
     stream order; ``idx``: the (steps, batch) index matrix; ``gen``: the
-    epoch's :class:`RngStreams`. ``param_source(step)``, when given,
-    supplies each step's augmentation parameters in place of the draw
-    (the tests inject JAX's). ``sums`` are the 14 metrics summed over
-    the epoch, as device tensors."""
+    epoch's :class:`RngStreams`. Step ``s`` gathers ``idx[s]`` on the
+    card and runs :func:`train_steps`' step. ``param_source(step)``,
+    when given, supplies each step's augmentation parameters in place of
+    the draw (the tests inject JAX's). ``sums`` are the 14 metrics
+    summed over the epoch, as device tensors."""
 
     def epoch_fn(state: TrainState, arrays, idx: torch.Tensor,
                  gen: RngStreams):
-        sums: dict[str, torch.Tensor] = {}
-        for step in range(idx.shape[0]):
-            raw = tuple(a.index_select(0, idx[step]) for a in arrays)
-            if param_source is not None:
-                batch = augment_batch(None, raw, aug_cfg,
-                                      params=param_source(step))
-            else:
-                batch = augment_batch(gen.generator("augment", step), raw,
-                                      aug_cfg)
-            metrics = train_step(state, batch,
-                                 (gen.generator("dropout_g1", step),
-                                  gen.generator("dropout_g2", step)))
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v if k in sums else v
+        raws = (tuple(a.index_select(0, idx[step]) for a in arrays)
+                for step in range(idx.shape[0]))
+        sums, _, _ = train_steps(state, raws, aug_cfg, gen, param_source)
         return state, sums
 
     return epoch_fn

@@ -1,12 +1,22 @@
-"""Trainer: fused training epochs, validation, best-model tracking,
-per-network weight files, checkpoints and inference to PNG files.
+"""Trainer: training epochs, validation, best-model tracking,
+per-network weight files, checkpoints, TensorBoard event files and
+inference to PNG files.
 
-Port of ``shadow_removal_istd_tpu/engine/loop.py`` (its ``--device-cache``
-path). Data comes from ISTD directories (``run.data_dirs``) or injected
-streams. The uint8 training streams live on the card
-(``data/device_cache.py``) and every epoch runs ``engine/epoch.py``
-(gather -> ``hshear`` augmentation -> adversarial step); validation and
-inference walk the test split in order through the host
+Port of ``shadow_removal_istd_tpu/engine/loop.py``. Data comes from ISTD
+directories (``run.data_dirs``) or injected streams. An epoch takes one
+of two paths, both the step loop of ``engine/epoch.py`` (augmentation,
+with the ``hshear`` kernel on the shear path -> adversarial step):
+
+- ``run.device_cache`` (the CLI's default): the uint8 training streams
+  live on the card (``data/device_cache.py``); each step gathers its
+  batch there, the order drawn on the card (``engine/epoch.py``);
+- otherwise (``RunConfig``'s default, as in the JAX package) the host
+  ``BatchPipeline`` gathers each batch in its seeded order and
+  ``parallel/prefetch.py`` uploads it, the next batch in flight while
+  the current step computes.
+
+Metric sums stay on the card until the epoch's one read-back.
+Validation and inference walk the test split in order through the host
 ``BatchPipeline``, keeping the ragged last batch (resized to
 ``valid_resize`` when set). Every ``valid_every`` epochs
 :meth:`Trainer.run_valid_epoch` runs ``eval_step``, keeping the best
@@ -15,19 +25,28 @@ improvement; the ``latest`` ones are written on every ``log_every`` epoch
 and the full checkpoint every ``save_every``. Files are the JAX package's
 flax msgpack files (``engine/checkpoint.py``).
 
+TensorBoard (``utils/tb_writer.py``, event files under
+``logs_dir/{train,valid}``), with the JAX trainer's tags: ``Loss/*``,
+``Loss/total``, ``D{1,2}_output/{real,fake,diff}`` and
+``perf/images_per_sec`` every ``log_every`` epochs; the ``input``,
+``matte`` and ``output`` grids of a batch every ``vis_every`` epochs
+(and of the first validation batch on every validation), through the
+stacked eval forward.
+
+``run.preempt_save``: SIGTERM checkpoints at the next epoch boundary
+(``utils/preemption.py``) and ``train`` returns True. ``run.profile_dir``:
+the second epoch of ``train`` is traced there (``utils/profiling.py``).
+
 With ``run.eval_metrics`` each validation also scores ``eval_step``'s
 predictions by the ISTD protocol (LAB RMSE/MAE over shadow, non-shadow
 and all pixels, reference src/eval.py) against the binary ``test_B``
 masks, snapped to the PNG grids the offline ``metrics/eval_cli.py``
 reads, and passes ``Eval/*`` (``EvalProxy/*`` when the masks are
-missing and the matte stands in) to ``Trainer.eval_writer``.
+missing and the matte stands in) to the ``valid`` event file and to
+``Trainer.eval_writer``.
 
 Not ported yet (``RunConfig`` raises where one is asked for): the HDF5
-dataset, the orbax backend, the host-pipeline training epoch
-(``device_cache=False``), profiler traces, pipeline-parallel inference.
-TensorBoard scalars and images (``vis_every``) and the preemption save
-are not ported either: epoch metrics go to the log, ``Eval/*`` to the
-log and the writer hook.
+dataset, the orbax backend, pipeline-parallel inference.
 
 The legacy tree's options: ``dcgan_init`` re-initializes the four
 networks DCGAN-style at start, drawn from the ``init`` stream after the
@@ -46,6 +65,7 @@ the f32 parts (VGG, augmentation matmuls) stay exact.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -68,6 +88,7 @@ from shadow_removal_istd_tpu_torch.engine.epoch import (
     RngStreams,
     derive_seed,
     make_epoch,
+    train_steps,
 )
 from shadow_removal_istd_tpu_torch.engine.schedules import ReduceLROnPlateau
 from shadow_removal_istd_tpu_torch.engine.state import TrainState, init_state
@@ -84,13 +105,20 @@ from shadow_removal_istd_tpu_torch.models.layers import apply_dcgan_init_
 from shadow_removal_istd_tpu_torch.models.vgg import load_vgg_npz
 from shadow_removal_istd_tpu_torch.ops.augment import (
     AugmentConfig,
+    augment_batch,
     denormalize,
     float_to_uint8,
     normalize_batch,
 )
 from shadow_removal_istd_tpu_torch.ops.color import bgr_to_rgb, rgb_to_lab
 from shadow_removal_istd_tpu_torch.ops.resize import resize, resize_linear
+from shadow_removal_istd_tpu_torch.parallel.prefetch import (
+    prefetch_to_device,
+)
 from shadow_removal_istd_tpu_torch.utils.image_io import imwrite
+from shadow_removal_istd_tpu_torch.utils.preemption import PreemptionGuard
+from shadow_removal_istd_tpu_torch.utils.profiling import StepTimer, trace
+from shadow_removal_istd_tpu_torch.utils.tb_writer import SummaryWriter
 
 logger = logging.getLogger(__name__)
 
@@ -98,8 +126,7 @@ logger = logging.getLogger(__name__)
 @dataclass
 class RunConfig:
     """Run-level knobs (paths, intervals): the non-model CLI surface,
-    with the JAX package's fields and defaults, except ``device_cache``,
-    which is True: the port trains on the device cache only."""
+    with the JAX package's fields and defaults."""
 
     data_dirs: tuple[str, ...] = ()
     data_h5: str | None = None
@@ -117,8 +144,8 @@ class RunConfig:
     allow_missing_vgg: bool = False  # warn instead of failing when the
     # visual-loss lambdas are nonzero but no VGG weights are available
     tasks: tuple[str, ...] = ("train",)
-    device_cache: bool = True
-    profile_dir: str | None = None
+    device_cache: bool = False   # True: the fused epoch over the card's copy
+    profile_dir: str | None = None  # torch.profiler trace of the 2nd epoch
     preempt_save: bool = True
     eval_metrics: bool = False
     pipeline_infer: bool = False
@@ -127,9 +154,6 @@ class RunConfig:
         unported = {
             "data_h5": self.data_h5 is not None,
             "checkpoint_backend='orbax'": self.checkpoint_backend == "orbax",
-            "device_cache=False (the host-pipeline epoch)":
-                not self.device_cache,
-            "profile_dir": self.profile_dir is not None,
             "pipeline_infer": self.pipeline_infer,
         }
         for name, is_set in unported.items():
@@ -141,6 +165,9 @@ class RunConfig:
 
 
 EVAL_KEYS = ("rmse", "rmse_non", "rmse_all", "mae", "mae_non", "mae_all")
+# the fused epoch's visualization batch draws its augmentation from this
+# step index, which no real step uses (the JAX trainer's fold_in(1 << 20))
+VIS_STEP = 1 << 20
 
 
 class KeepLast:
@@ -189,15 +216,19 @@ class Trainer:
                 valid_streams, valid_names = loaded_valid, loaded_names
         self.valid_names = valid_names or []
 
-        self.cache = None
+        self.cache = self.train_pipe = None
         steps = 1
         if train_streams:
-            self.cache = DeviceDatasetCache(_select(train_streams, cfg),
-                                            self.device)
-            steps = self.cache.n // cfg.batch_size
+            picked = _select(train_streams, cfg)
+            self.train_pipe = BatchPipeline(picked, cfg.batch_size,
+                                            shuffle=True, drop_last=True,
+                                            seed=run.seed)
+            steps = len(self.train_pipe)
             if steps == 0:
-                raise ValueError(f"{self.cache.n} training samples make no "
-                                 f"batch of {cfg.batch_size}")
+                raise ValueError(f"{self.train_pipe.n} training samples "
+                                 f"make no batch of {cfg.batch_size}")
+            if run.device_cache:
+                self.cache = DeviceDatasetCache(picked, self.device)
         # the lr schedule decays once per epoch, like the reference's
         self.cfg = dataclasses.replace(cfg, steps_per_epoch=steps)
         self.aug_cfg = AugmentConfig(
@@ -247,10 +278,12 @@ class Trainer:
         self.epoch_fn = make_epoch(self.aug_cfg)
         self.start_epoch = 0
         self.best_loss = float("inf")
+        self.preempted = False
         self.history: list[dict[str, float]] = []
         self.last_valid: dict[str, float] = {}
         self.last_eval: dict[str, float] = {}
         self.eval_writer = KeepLast(self.last_eval)
+        self._writers: dict[str, SummaryWriter] = {}
         # the binary shadow masks of the validation split for the eval
         # protocol (reference src/eval.py:67-70 reads the mask directory,
         # not the matte), loaded apart when the streams lack them
@@ -306,66 +339,130 @@ class Trainer:
     def _save_weights(self, suffix: str) -> None:
         ckpt.save_model_weights(self.state, self.run.weights_dir, suffix)
 
+    def _writer(self, which: str) -> SummaryWriter:
+        """The event file writer of ``logs_dir/<which>``, opened on first
+        use."""
+        if which not in self._writers:
+            self._writers[which] = SummaryWriter(
+                os.path.join(self.run.logs_dir, which))
+        return self._writers[which]
+
+    def close(self) -> None:
+        """Write out and close the event files (a later log opens new
+        ones)."""
+        for w in self._writers.values():
+            w.close()
+        self._writers.clear()
+
     # ----------------------------------------------------------- train
-    def train(self, epochs: int) -> None:
-        """Epochs ``start_epoch .. epochs-1``. Reads the epoch's metric
-        sums back once per epoch (``history``)."""
-        if self.cache is None:
+    def train(self, epochs: int) -> bool:
+        """Epochs ``start_epoch .. epochs-1``. Reads each epoch's metric
+        sums back once (``history``). Returns True when a SIGTERM stopped
+        the run after checkpointing its last complete epoch."""
+        if self.train_pipe is None:
             raise ValueError("no training data")
         run = self.run
+        timer = StepTimer()
         t_start = time.time()
-        logger.info("start training: %d epochs, %d steps/epoch", epochs,
-                    self.cfg.steps_per_epoch)
-        for epoch in range(self.start_epoch, epochs):
-            sums, n = self.run_train_epoch(epoch)
-            sums = {k: float(v) for k, v in sums.items()}
-            self.history.append({k: v / n for k, v in sums.items()})
-            if self.plateau_g is not None:
-                # the legacy scheduler steps on the SUMMED epoch losses
-                # (reference STCGAN/stcgan.py:315-317)
-                self.plateau_g.step(sums["G"])
-                self.plateau_d.step(sums["D"])
-                self._apply_plateau()
-            if epoch % run.log_every == 0:
-                logger.info("train epoch %d: %s", epoch, ", ".join(
-                    f"{k} {self.history[-1][k]:.4f}"
-                    for k in METRIC_KEYS[:10]))
-                self._save_weights("latest")
-            if epoch % run.valid_every == 0 and self.valid_pipe:
-                total = self.run_valid_epoch(epoch)
-                if total < self.best_loss:
-                    self.best_loss = total
-                    self._save_weights("best")
-                    logger.info("improvement after epoch %d, error=%.4f",
-                                epoch, total)
-            if epoch % run.save_every == 0:
-                # the epoch is complete: resume continues with the next
-                self.save(epoch + 1)
+        guard = PreemptionGuard() if run.preempt_save else None
+        with guard or contextlib.nullcontext():
+            # the guard is live before this line prints: a SIGTERM any
+            # time after "start training" gets a clean checkpoint
+            logger.info("start training: %d epochs, %d steps/epoch",
+                        epochs, self.cfg.steps_per_epoch)
+            for epoch in range(self.start_epoch, epochs):
+                # profile the second epoch (the first pays for builds)
+                profile_now = epoch == self.start_epoch + 1
+                with trace(run.profile_dir if profile_now else None,
+                           self.device):
+                    self.run_train_epoch(
+                        epoch, log_scalars=epoch % run.log_every == 0,
+                        visualize=epoch % run.vis_every == 0)
+                timer.update(self.cfg.steps_per_epoch * self.cfg.batch_size)
+                if epoch % run.log_every == 0:
+                    self._writer("train").add_scalar(
+                        "perf/images_per_sec", timer.rate(), epoch)
+                    timer.reset()
+                if epoch % run.valid_every == 0 and self.valid_pipe:
+                    total = self.run_valid_epoch(epoch)
+                    if total < self.best_loss:
+                        self.best_loss = total
+                        self._save_weights("best")
+                        logger.info("improvement after epoch %d, "
+                                    "error=%.4f", epoch, total)
+                if guard is not None and guard.requested:
+                    # epoch + 1: this epoch is complete, a resume must
+                    # continue with the next one
+                    self.save(epoch + 1)
+                    self._save_weights("latest")
+                    logger.warning(
+                        "preemption checkpoint written after epoch %d "
+                        "(%s); resume with --load-checkpoint", epoch,
+                        run.checkpoint_path)
+                    self.preempted = True
+                    break
+                if epoch % run.save_every == 0:
+                    self.save(epoch + 1)
+        for w in self._writers.values():
+            w.flush()
         logger.info("training time %.1fs; best validation loss %.3f",
                     time.time() - t_start, self.best_loss)
+        return self.preempted
 
-    def run_train_epoch(self, epoch: int
-                        ) -> tuple[dict[str, torch.Tensor], int]:
-        """One fused epoch; returns the metric sums (device tensors, not
-        read back) and the step count."""
+    def run_train_epoch(self, epoch: int, log_scalars: bool = False,
+                        visualize: bool = False) -> dict[str, float]:
+        """One epoch on the device cache (``run.device_cache``) or the
+        host pipeline; reads the metric sums back once, appends their
+        means to ``history`` (and returns them), steps the plateau
+        controllers, and with ``log_scalars`` logs the epoch, writes its
+        ``Loss/*`` and ``D*_output/*`` scalars and the ``latest`` weight
+        files; with ``visualize`` writes the image grids of one augmented
+        batch."""
         gen = RngStreams(self.run.seed, epoch, self.device)
-        idx = self.cache.epoch_indices(gen.generator("shuffle"),
-                                       self.cfg.batch_size)
-        self.state, sums = self.epoch_fn(self.state, self.cache.arrays, idx,
-                                         gen)
-        return sums, idx.shape[0]
+        if self.cache is not None:
+            idx = self.cache.epoch_indices(gen.generator("shuffle"),
+                                           self.cfg.batch_size)
+            self.state, sums_dev = self.epoch_fn(self.state,
+                                                 self.cache.arrays, idx, gen)
+            n, vis = idx.shape[0], None
+            if visualize:
+                vis = augment_batch(gen.generator("augment", VIS_STEP),
+                                    self.cache.gather(idx[0]), self.aug_cfg)
+        else:
+            raws = prefetch_to_device(self.train_pipe.epoch(epoch), 2,
+                                      self.device)
+            sums_dev, n, vis = train_steps(self.state, raws, self.aug_cfg,
+                                           gen)
+        sums = _read_back(sums_dev)
+        self.history.append({k: v / n for k, v in sums.items()})
+        if self.plateau_g is not None:
+            # the legacy scheduler steps on the SUMMED epoch losses
+            # (reference STCGAN/stcgan.py:315-317)
+            self.plateau_g.step(sums["G"])
+            self.plateau_d.step(sums["D"])
+            self._apply_plateau()
+        if log_scalars:
+            logger.info("train epoch %d: %s", epoch, ", ".join(
+                f"{k} {self.history[-1][k]:.4f}" for k in METRIC_KEYS[:10]))
+            self._log_scalars("train", epoch, sums, n)
+            self._save_weights("latest")
+        if visualize and vis is not None:
+            self._log_images("train", epoch, vis)
+        return self.history[-1]
 
     def run_valid_epoch(self, epoch: int) -> float:
         """``eval_step`` over the validation split in order, keeping the
-        ragged last batch; returns the mean of the batches' ``total`` and
-        stores every metric's mean in ``last_valid``. The eval generators
-        use the current weights (no frozen decoder kernels:
+        ragged last batch; returns the mean of the batches' ``total``,
+        stores every metric's mean in ``last_valid`` and writes the
+        ``valid`` scalars and the first batch's image grids. The eval
+        generators use the current weights (no frozen decoder kernels:
         ``MNet.train`` drops them). With ``run.eval_metrics``, the
         protocol's sums of each batch's ``y_pred`` are aggregated and
-        passed to ``eval_writer`` as ``Eval/*`` or ``EvalProxy/*``."""
+        written as ``Eval/*`` or ``EvalProxy/*``."""
         sums: dict[str, torch.Tensor] = {}
         lab_parts = []
         n = ofs = 0
+        vis = None
         for batch in self.valid_batches():
             metrics, (_, y_pred) = eval_step(self.state, batch,
                                              return_preds=True)
@@ -377,23 +474,29 @@ class Trainer:
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
-        self.last_valid = {k: float(v) / n for k, v in sums.items()}
+            if vis is None:
+                vis = batch
+        sums = _read_back(sums)
+        self.last_valid = {k: v / n for k, v in sums.items()}
         logger.info("valid epoch %d: %s", epoch, ", ".join(
             f"{k} {self.last_valid[k]:.4f}" for k in (*METRIC_KEYS[:6],
                                                       "total")))
+        self._log_scalars("valid", epoch, sums, n)
         if lab_parts:
             agg = aggregate_regions(lab_parts)
             # the binary mask stream gives the paper's protocol (Eval/*);
             # the matte threshold is only a proxy for it
             tag = "Eval" if self._has_protocol_masks() else "EvalProxy"
-            for k in EVAL_KEYS:
-                self.eval_writer.add_scalar(f"{tag}/{k}", agg[k], epoch)
-            self.eval_writer.flush()
+            for w in (self._writer("valid"), self.eval_writer):
+                for k in EVAL_KEYS:
+                    w.add_scalar(f"{tag}/{k}", agg[k], epoch)
+                w.flush()
             logger.info(
                 "eval protocol%s @ epoch %d: RMSE shadow %.2f / "
                 "non-shadow %.2f / all %.2f",
                 "" if tag == "Eval" else " (matte proxy)", epoch,
                 agg["rmse"], agg["rmse_non"], agg["rmse_all"])
+        self._log_images("valid", epoch, vis)
         return self.last_valid["total"]
 
     def _has_protocol_masks(self) -> bool:
@@ -438,6 +541,47 @@ class Trainer:
             return rgb_to_lab(bgr_to_rgb(t.permute(0, 2, 3, 1)))
 
         return region_metrics(to_lab(q_pred), to_lab(q_tgt), mask)
+
+    # ------------------------------------------------------- reporting
+    def _log_scalars(self, which: str, epoch: int, sums: dict[str, float],
+                     n: int) -> None:
+        """``Loss/<k>`` (the mean of the 10 losses), ``Loss/total`` =
+        (0.8 G + 0.2 D) / n and ``D{1,2}_output/{real,fake,diff}`` from
+        the epoch's sums over ``n`` steps (or validation batches)."""
+        w = self._writer(which)
+        for k in METRIC_KEYS[:10]:
+            w.add_scalar(f"Loss/{k}", sums[k] / n, epoch)
+        w.add_scalar("Loss/total", (0.8 * sums["G"] + 0.2 * sums["D"]) / n,
+                     epoch)
+        for d in ("D1", "D2"):
+            real, fake = sums[f"{d}_real"] / n, sums[f"{d}_fake"] / n
+            w.add_scalar(f"{d}_output/real", real, epoch)
+            w.add_scalar(f"{d}_output/fake", fake, epoch)
+            w.add_scalar(f"{d}_output/diff", real - fake, epoch)
+        w.flush()
+
+    @torch.no_grad()
+    def _log_images(self, which: str, epoch: int, batch,
+                    n_images: int = 8) -> None:
+        """The ``input``, ``matte`` and ``output`` grids (4 a row) of the
+        first ``n_images`` of ``batch`` (NCHW, [-1, 1]): the input, and
+        G1's and G2's outputs of the stacked eval forward, BGR -> RGB for
+        display (reference src/cgan.py:373-396). The writer encodes them
+        on its thread; the next scalar log's flush (or the end of
+        ``train``) waits for them."""
+        x = batch[0][:n_images]
+        g1, g2 = self.state.models.g1, self.state.models.g2
+        g1.eval()
+        g2.eval()
+        m_pred, y_pred = infer_step(g1, g2, x)
+        w = self._writer(which)
+        for tag, img, bgr in (("input", x, True), ("matte", m_pred, False),
+                              ("output", y_pred, True)):
+            a = img.float().permute(0, 2, 3, 1).cpu().numpy()
+            if bgr:
+                a = a[..., ::-1]
+            a = np.clip(a * 0.5 + 0.5, 0, 1)
+            w.add_image(tag, make_grid(a, nrow=4), epoch, dataformats="HWC")
 
     # ------------------------------------------------------- inference
     @torch.no_grad()
@@ -519,3 +663,21 @@ class Trainer:
             if path:
                 ckpt.load_model_weights(self.state, net, path)
                 logger.info("loaded %s weights: %s", net, path)
+
+
+def _read_back(sums: dict[str, torch.Tensor]) -> dict[str, float]:
+    """Device metric sums as floats, in one transfer."""
+    keys = list(sums)
+    return dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
+
+
+def make_grid(images: np.ndarray, nrow: int = 4) -> np.ndarray:
+    """Tile (N, H, W, C) into a (rows*H, nrow*W, 3) grid, row-major, the
+    last row's empty tiles zero and gray repeated to 3 channels; the JAX
+    trainer's ``_make_grid`` as one reshape."""
+    n, h, w, c = images.shape
+    rows = -(-n // nrow)
+    tiles = np.zeros((rows * nrow, h, w, 3), images.dtype)
+    tiles[:n] = images                     # broadcasts a gray channel
+    return tiles.reshape(rows, nrow, h, w, 3).transpose(0, 2, 1, 3, 4) \
+        .reshape(rows * h, nrow * w, 3)

@@ -36,12 +36,67 @@ from shadow_removal_istd_tpu_torch.ops.decoder import (
 )
 
 
+class _ReflectPad(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` of H and W by ``p`` whose backward folds
+    the padded border's gradient back onto the rows and columns it
+    mirrors with plain slices and adds. Torch's own backward scatters
+    with atomic adds on the card, so two runs of one training step
+    differed in their last bits; this one is deterministic (a resumed
+    run replays the uninterrupted one byte for byte)."""
+
+    @staticmethod
+    def forward(ctx, x, p):
+        ctx.p = p
+        ctx.channels_last = (x.is_contiguous(memory_format=torch
+                                             .channels_last)
+                             and not x.is_contiguous())
+        return F.pad(x, (p, p, p, p), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.p
+        n, c, hp, wp = g.shape
+        fmt = (torch.channels_last if ctx.channels_last
+               else torch.contiguous_format)
+        gx = torch.empty((n, c, hp - 2 * p, wp - 2 * p), dtype=g.dtype,
+                         device=g.device, memory_format=fmt)
+        gx.copy_(g[..., p:-p, p:-p])
+        h, w = gx.shape[2:]
+        if p == 1 and h >= 4 and w >= 4:
+            # columns 1 and w-2 take padded columns 0 and w+1, rows 1 and
+            # h-2 padded rows 0 and h+1, and the four corners likewise:
+            # three strided adds (no element is written twice by one)
+            cols, rows = slice(1, w - 1, w - 3), slice(1, h - 1, h - 3)
+            gx[..., :, cols].add_(g[..., 1:-1, ::w + 1])
+            gx[..., rows, :].add_(g[..., ::h + 1, 1:-1])
+            gx[..., rows, cols].add_(g[..., ::h + 1, ::w + 1])
+            return gx, None
+        mid = slice(p, -p)
+        # border strips of width p (and the corners), each added onto
+        # the p rows or columns inside the edge it mirrors
+        lo, hi = slice(1, p + 1), slice(-p - 1, -1)
+        for (rows, cols), (src_r, src_c), dims in (
+                ((slice(None), lo), (mid, slice(None, p)), (-1,)),
+                ((slice(None), hi), (mid, slice(-p, None)), (-1,)),
+                ((lo, slice(None)), (slice(None, p), mid), (-2,)),
+                ((hi, slice(None)), (slice(-p, None), mid), (-2,)),
+                ((lo, lo), (slice(None, p), slice(None, p)), (-2, -1)),
+                ((lo, hi), (slice(None, p), slice(-p, None)), (-2, -1)),
+                ((hi, lo), (slice(-p, None), slice(None, p)), (-2, -1)),
+                ((hi, hi), (slice(-p, None), slice(-p, None)), (-2, -1))):
+            strip = g[..., src_r, src_c]
+            gx[..., rows, cols].add_(strip if p == 1 else strip.flip(dims))
+        return gx, None
+
+
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     """``jnp.pad(mode="reflect")`` of H and W by ``p``: a side of one
     pixel repeats it (numpy's rule; torch refuses to reflect it), as a
     DenseUNet bottleneck at a 32-pixel bucket has."""
     h, w = x.shape[2], x.shape[3]
     if h > p and w > p:
+        if p and torch.is_grad_enabled() and x.requires_grad:
+            return _ReflectPad.apply(x, p)
         return F.pad(x, (p, p, p, p), mode="reflect")
     if p != 1:
         raise ValueError(f"reflect pad {p} of a {h}x{w} input")

@@ -446,10 +446,16 @@ def main(argv=None) -> int:
     ap.add_argument("--net-G", default="mnet",
                     choices=["unet", "mnet", "denseunet", "stcgan"])
     ap.add_argument("--ngf", type=int, default=64)
+    ap.add_argument("--droprate", type=float, default=0.0,
+                    help="the generators' dropout rate (the identity in "
+                         "eval; part of the network's definition)")
     ap.add_argument("--activation", default="tanh")
     ap.add_argument("--no-nn-upconv", action="store_true",
                     help="use ConvTranspose upsampling instead of "
                          "NN-upsample+conv")
+    ap.add_argument("--use-selu", action="store_true",
+                    help="SELU generators (no BatchNorm leaves in their "
+                         "weight files)")
     ap.add_argument("--split-skip", action="store_true", default=True,
                     help="MNet split-skip decoder (eval-only exact "
                          "rewrite; the concat is never formed) — "
@@ -496,7 +502,8 @@ def main(argv=None) -> int:
         if not (args.load_weights_g1 and args.load_weights_g2):
             ap.error("--load-weights-g1/-g2 required")
         engine = InferenceEngine(
-            args.net_G, ngf=args.ngf, nn_upconv=not args.no_nn_upconv,
+            args.net_G, ngf=args.ngf, droprate=args.droprate,
+            nn_upconv=not args.no_nn_upconv, use_selu=args.use_selu,
             activation=args.activation, dtype=args.dtype,
             split_skip=args.split_skip, pad_multiple=args.pad_multiple,
             max_batch=args.max_batch, devices=args.devices,

@@ -4,8 +4,9 @@ serve`` end to end on a synthetic ISTD directory (64x64, 4 train and 2
 test triplets, MNet ngf 4, PatchGAN ndf 4, 32x32 crops, batch 2), a
 resumed run equal bit for bit to the uninterrupted one, inference PNGs
 against the JAX package's ``Trainer.infer`` from the same weight files,
-``--eval-metrics`` and ``--aug-method gather`` through a resumed run,
-and every flag whose feature is not ported refused.
+``--eval-metrics``, ``--aug-method gather``, ``--device-cache false`` and
+``--profile-dir`` through a resumed run, and every flag whose feature is
+not ported refused.
 """
 import http.client
 import json
@@ -307,9 +308,7 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
     (["--pipeline-infer"], NotImplementedError, "--pipeline-infer"),
     (["--export-stablehlo", "m.shlo"], NotImplementedError,
      "--export-stablehlo"),
-    (["--profile-dir", "p"], NotImplementedError, "--profile-dir"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "orbax"),
-    (["--device-cache", "false"], NotImplementedError, "--device-cache"),
     (["--devices", "2"], NotImplementedError, "--devices"),
     (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),
@@ -330,15 +329,19 @@ def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
     (["--aug-method", "gather"], "train epoch 1:"),
     (["--net-G", "unet", "--net-D", "began", "--softadapt", "--SELU",
       "yes"], "train epoch 1:"),
+    (["--device-cache", "false"], "train epoch 1:"),
+    (["--profile-dir", "{tmp}/prof"], "train epoch 1:"),
 ])
 def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
     """The in-training eval protocol (``Eval/*`` in the log, against the
-    directory's ``test_B`` masks), the gather augmentation, and the zoo
-    with BEGAN, SoftAdapt and SELU run; a run resumed from the first
-    epoch's checkpoint ends with the same files, byte for byte, as the
-    uninterrupted one (the gather path draws its parameters from the
-    same (seed, epoch, step) streams; the checkpoint carries k1/k2 and
-    the SoftAdapt state)."""
+    directory's ``test_B`` masks), the gather augmentation, the zoo with
+    BEGAN, SoftAdapt and SELU, the host-pipeline epoch and the profiler
+    trace run; a run resumed from the first epoch's checkpoint ends with
+    the same files, byte for byte, as the uninterrupted one (the gather
+    path draws its parameters from the same (seed, epoch, step) streams;
+    the host pipeline's order is a function of (seed, epoch); the
+    checkpoint carries k1/k2 and the SoftAdapt state)."""
+    extra = [a.format(tmp=tmp_path) for a in extra]
     common = ("--tasks", "train", "--allow-missing-vgg", *extra)
     _run(*_argv(istd_root, f"{tmp_path}/a", *common, "--epochs", "2"))
     _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "1"))
@@ -355,6 +358,9 @@ def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
     text = "".join(open(f"{logs}/{f}").read() for f in os.listdir(logs)
                    if f.endswith(".log"))
     assert logged in text
+    if "--profile-dir" in extra:        # the uninterrupted run's epoch 1
+        (trace,) = os.listdir(f"{tmp_path}/prof")
+        assert trace.endswith(".pt.trace.json")
 
 
 def test_without_card_the_cli_raises(istd_root, tmp_path, monkeypatch):

@@ -71,8 +71,8 @@ def setup(tmp_path_factory):
     write_istd_layout(istd, n_train=2, n_test=3, h=32, w=64)
     t = Trainer(TrainConfig(**CFG), RunConfig(
         data_dirs=(istd,), seed=0, weights_dir=str(root / "w"),
-        logs_dir=str(root / "l"), checkpoint_path=str(root / "ck.msgpack")),
-        device="cpu")
+        logs_dir=str(root / "l"), checkpoint_path=str(root / "ck.msgpack"),
+        device_cache=True), device="cpu")
     t.train(1)
     w = {k: str(root / "w" / f"{k.upper()}_{c}_latest.msgpack")
          for k, c in (("g1", "MNet"), ("g2", "MNet"), ("d1", "PatchGAN"),
@@ -184,10 +184,12 @@ def test_proxy_when_test_B_is_absent(setup, tmp_path, caplog):
     assert full.last_eval == t.last_eval
 
 
-def test_injected_streams_use_the_proxy(caplog):
+def test_injected_streams_use_the_proxy(caplog, tmp_path):
     streams = synthetic_triplets(2, 32, 64, seed=3)
+    logs = str(tmp_path / "l")            # the event files
     with caplog.at_level(logging.WARNING):
-        t = Trainer(TrainConfig(**CFG), RunConfig(eval_metrics=True),
+        t = Trainer(TrainConfig(**CFG), RunConfig(eval_metrics=True,
+                                                  logs_dir=logs),
                     train_streams=streams, valid_streams=streams,
                     device="cpu")
     assert "no aligned mask stream" in caplog.text
@@ -195,7 +197,8 @@ def test_injected_streams_use_the_proxy(caplog):
     assert set(t.last_eval) == {f"EvalProxy/{k}" for k in EVAL_KEYS}
     # the datas carry the binary mask itself: the protocol's masks
     t = Trainer(TrainConfig(**CFG, train_datas=("img", "mask", "target")),
-                RunConfig(eval_metrics=True), train_streams=streams,
+                RunConfig(eval_metrics=True, logs_dir=logs),
+                train_streams=streams,
                 valid_streams=streams, device="cpu")
     assert t._has_protocol_masks()
     t.run_valid_epoch(0)

@@ -4,7 +4,9 @@
 
 Directories are 64x64 with 4 train and 2 test triplets. Each decode path
 the port has is run: cv2, PIL (cv2 made unimportable) and the stdlib PNG
-codec (no library), by replacing ``image_io._library_decoder``.
+codec (no library), by replacing ``image_io._library_decoder``, with
+the native PNG loader off (``load_all(native=False)``; it has its own
+tests in tests/test_torch_host.py).
 """
 import sys
 
@@ -49,7 +51,7 @@ def test_load_all_equals_jax_loader(jax_dir, subset, decoder, monkeypatch):
     _use_decoder(monkeypatch, decoder)
     got = ISTDDataset(jax_dir, subset, datas=STREAMS, name="istd")
     want = JDataset(jax_dir, subset, datas=STREAMS, name="istd")
-    a, b = got.load_all(), want.load_all(native=False)
+    a, b = got.load_all(native=False), want.load_all(native=False)
     assert list(a) == list(b) == sorted(STREAMS)
     for k in b:
         assert a[k].dtype == b[k].dtype == np.uint8
@@ -75,7 +77,7 @@ def test_port_layout_has_the_jax_pixels(tmp_path, jax_dir, decoder,
         a = ISTDDataset(str(tmp_path), subset, datas=STREAMS)
         b = JDataset(jax_dir, subset, datas=STREAMS)
         assert a._files["img"][0].endswith(f"000-{subset}.png")
-        got, want = a.load_all(), b.load_all(native=False)
+        got, want = a.load_all(native=False), b.load_all(native=False)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     with open(a._files["img"][0], "rb") as f:

@@ -449,12 +449,71 @@ class TestPNG:
             imdecode_color(data[:40])
 
 
-@pytest.mark.parametrize("flag", [["--droprate", "0.5"], ["--use-selu"]])
-def test_server_cli_rejects_knobs_of_the_training_net(flag, capsys):
-    """Dropout (the identity in eval) and SELU (unused) are not options
-    of the eval-only port: the CLI refuses them instead of ignoring
-    them."""
-    with pytest.raises(SystemExit) as exc:
-        serve_main(["--device", "cpu", *flag])
-    assert exc.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+@pytest.mark.parametrize("flags,droprate", [
+    (["--use-selu"], 0.0),
+    (["--use-selu", "--droprate", "0.5"], 0.5),
+])
+def test_server_cli_serves_a_selu_unet(flags, droprate, tmp_path,
+                                       monkeypatch):
+    """``--use-selu`` (a SELU UNet: no BatchNorm leaves in its weight
+    files) and ``--droprate`` (the identity in eval) reach the engine:
+    ``serve_main``, run as ``python -m shadow_removal_istd_tpu_torch.
+    serving``, answers a 32x32 request within 1 gray level of the JAX
+    ``InferenceEngine`` given the same weights. The JAX engine's own
+    random init (op by op, slow here) is replaced by zeros shaped by
+    ``eval_shape``: ``set_variables`` replaces them before any use."""
+    import flax.linen as nn
+
+    from test_torch_train_models import random_variables
+
+    init = nn.Module.init
+    monkeypatch.setattr(nn.Module, "init", lambda self, *a, **k: jax.tree.map(
+        lambda s: np.zeros(s.shape, s.dtype),
+        jax.eval_shape(lambda *a: init(self, *a, **k), *a)))
+    je = JaxInferenceEngine("unet", ngf=4, use_selu=True, droprate=droprate,
+                            dtype="float32")
+    monkeypatch.undo()
+    v = [random_variables(g, c, seed=90 + c, size=32)
+         for g, c in ((je.g1, 3), (je.g2, 4))]
+    assert not any("batch_stats" in t and t["batch_stats"] for t in v)
+    je.set_variables(*v)
+    _save_npz(tmp_path / "g1.npz", v[0])
+    _save_npz(tmp_path / "g2.npz", v[1])
+    img = _img(32, 32, seed=5)
+    with jax.default_matmul_precision("highest"):
+        (_, want), = je.infer_group([img])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
+         "--device", "cpu", "--net-G", "unet", "--ngf", "4", *flags,
+         "--dtype", "float32", "--port", str(port), "--warmup", "",
+         "--load-weights-g1", str(tmp_path / "g1.npz"),
+         "--load-weights-g2", str(tmp_path / "g2.npz")], cwd=REPO)
+    try:
+        deadline, up = time.time() + 60, False
+        while time.time() < deadline and not up:
+            assert proc.poll() is None, "server process died"
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=5)
+                conn.request("GET", "/healthz")
+                up = conn.getresponse().status == 200
+                conn.close()
+            except OSError:
+                time.sleep(0.2)
+        assert up, "daemon never became healthy"
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/v1/unshadow", body=imencode_png(img))
+        resp = conn.getresponse()
+        assert resp.status == 200
+        got = imdecode_color(resp.read())
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert got.shape == want.shape == (32, 32, 3)
+    assert np.abs(got.astype(int) - want).max() <= 1

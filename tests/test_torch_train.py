@@ -362,7 +362,8 @@ def _tiny_trainer(tmp_path=None, run=None, **kw):
     dirs = {} if tmp_path is None else dict(
         weights_dir=str(tmp_path / "w"), logs_dir=str(tmp_path / "l"),
         checkpoint_path=str(tmp_path / "w" / "checkpoint.msgpack"))
-    return Trainer(cfg, RunConfig(seed=0, **dirs, **(run or {}), **kw),
+    run = {"device_cache": True, **(run or {})}      # the fused epoch
+    return Trainer(cfg, RunConfig(seed=0, **dirs, **run, **kw),
                    train_streams=synthetic_triplets(4, 48, 64, seed=0),
                    valid_streams=synthetic_triplets(3, 64, 64, seed=1),
                    device="cpu")
