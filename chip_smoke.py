@@ -9,8 +9,9 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 Phases; any failure exits non-zero before the result line is printed:
 
 1. build: compiles ``csrc/decoder_upsample.cu``,
-   ``csrc/decoder_upsample_tc.cu``, ``csrc/decoder_upsample_narrow.cu``
-   and ``csrc/hshear.cu`` for ``sm_90a`` (one ``nvcc`` each, started
+   ``csrc/decoder_upsample_tc.cu``, ``csrc/decoder_upsample_narrow.cu``,
+   ``csrc/hshear.cu`` and ``csrc/int8_conv.cu`` for ``sm_90a`` (one
+   ``nvcc`` each, started
    together, beside ``g++`` building the native PNG loader from
    ``native/png_decoder.cpp``), prints the card, its power limit, the
    compiler's register, spill and shared-memory report, and the host's
@@ -149,7 +150,27 @@ Phases; any failure exits non-zero before the result line is printed:
    decoder
    kernels' zero-pad (ConvTranspose) form at the validation shapes (wide
    and final steps apart; each wide step's TFLOP/s and share of the f32
-   FMA rate), and the validation img/s.
+   FMA rate), and the validation img/s;
+11. int8 (last, so that the earlier phases' profiler readings run in
+   the process they ran in before it): ``cli.main --tasks train
+   --NN-upconv yes`` for one epoch on the ``cli`` directory writes
+   nearest-upsample MNet weights;
+   ``InferenceEngine(dtype="int8")`` loads them, calibrated on the
+   directory's 8 test images; ``quantize_pad`` and ``int8_conv``
+   (``csrc/int8_conv.cu``) against their plain versions at every conv
+   site of the stacked pair (20 of each) at 256x256 and 480x640, batch
+   2, in f32 and bf16 compute: the int8 tensors, the s32 sums and the
+   dequantized outputs bit for bit; the engine's 480x640 batch-4 forward
+   launches each kernel 20 times, and its uint8 output is within 2 gray
+   levels of the same engine on the plain versions (the share of values
+   that differ printed); PSNR of int8 against the folded f32 forward and
+   the bf16 engine on the same inputs; stacked img/s at 256x256, batch
+   32, int8 and bf16 in turns, the int8 forward's device time by kernel
+   group (``[profile]``), and each kernel's time per launch and per
+   forward beside its plain version, its bound and, for ``int8_conv``,
+   ``torch._int_mm`` on ``Tensor.unfold`` patches; the serving daemon
+   with ``--dtype int8 --int8-calib`` answering one 480x640 request as
+   the engine in this process does.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
@@ -195,6 +216,7 @@ import torch
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
+PEAK_INT8 = 1979e12     # H100 SXM dense int8 tensor-core operations/s
 NGF = 64
 DEVICE = "cuda"
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -208,7 +230,16 @@ SHEAR_REPLACES = "shadow_removal_istd_tpu/ops/pallas_shear.py:47"
 SHEAR_TOL = 3e-5        # 0-255 data: one f32 ulp at 255
 AUG_TOL = 1e-5          # fused augmentation output in [-1, 1]
 KERNELS = ("decoder_upsample", "decoder_upsample_tc",
-           "decoder_upsample_narrow", "hshear")
+           "decoder_upsample_narrow", "hshear", "int8_conv")
+INT8_SOURCE = "shadow_removal_istd_tpu_torch/csrc/int8_conv.cu"
+# no Pallas kernel: the XLA s8 x s8 -> s32 convs of the JAX int8 graph
+# and the activation quantize before them
+INT8_REPLACES = {"int8_conv": "shadow_removal_istd_tpu/models/quant.py:139",
+                 "quantize_pad": "shadow_removal_istd_tpu/models/quant.py:93"}
+# the int8 phase: kernel checks at these sizes (batch 2), throughput and
+# the kernels' times at 256x256 and this batch
+INT8_CHECK_HW = ((256, 256), (480, 640))
+INT8_BATCH = 32
 # the training slice's data: 64 train + 16 validation triplets at ISTD's
 # 480x640, batch 16, 256 crops (TrainConfig's defaults); a CPU rehearsal
 # shrinks these and TRAIN_KW (TrainConfig overrides)
@@ -1569,21 +1600,61 @@ def _host_native(istd: Path) -> None:
           f"{stdlib * 3 * n / times['native']:.1f}x faster")
 
 
+def _daemon_answer(flags: list, img, what: str) -> tuple:
+    """Start ``python -m shadow_removal_istd_tpu_torch.serving`` with
+    ``flags`` on a free port, POST ``img`` as one PNG request once it is
+    healthy, read ``/stats``, SIGTERM it; returns (HTTP status, reply
+    body, exit code, /stats, seconds from start to exit)."""
+    import socket
+
+    from shadow_removal_istd_tpu_torch.utils.image_io import imencode_png
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
+         "--device", DEVICE, "--port", str(port), "--warmup", "", *flags],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline, up = time.monotonic() + 300, False
+        while not up:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit(f"{what}: the daemon did not come up: "
+                                 + proc.communicate(timeout=30)[1][-2000:])
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=5)
+                conn.request("GET", "/healthz")
+                up = conn.getresponse().status == 200
+                conn.close()
+            except OSError:
+                time.sleep(0.2)
+        status, body = _post(("127.0.0.1", port), imencode_png(img))
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return status, body, rc, stats, time.perf_counter() - t0
+
+
 def _host_selu_daemon() -> None:
     """The serving daemon with ``--use-selu --droprate``: a SELU UNet at
     ngf 64, f32, answers a 480x640 request as the engine in this process
     does on the same weight files."""
-    import socket
-
     from shadow_removal_istd_tpu_torch.serving import InferenceEngine
     from shadow_removal_istd_tpu_torch.tools.convert import (
         flatten_tree,
         torch_to_flax_tree,
     )
-    from shadow_removal_istd_tpu_torch.utils.image_io import (
-        imdecode_color,
-        imencode_png,
-    )
+    from shadow_removal_istd_tpu_torch.utils.image_io import imdecode_color
 
     root = SMOKE_DIR / "selu"
     root.mkdir(parents=True, exist_ok=True)
@@ -1597,45 +1668,17 @@ def _host_selu_daemon() -> None:
     img = np.random.default_rng(9).integers(0, 256, (*DATA_HW, 3),
                                             dtype=np.uint8)
     (_, want), = engine.infer_group([img])
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
-         "--device", DEVICE, "--net-G", "unet", "--ngf", str(NGF),
-         "--use-selu", "--droprate", "0.05", "--dtype", "float32",
-         "--max-batch", "1", "--port", str(port), "--warmup", "",
+    status, body, rc, _, secs = _daemon_answer(
+        ["--net-G", "unet", "--ngf", str(NGF), "--use-selu", "--droprate",
+         "0.05", "--dtype", "float32", "--max-batch", "1",
          "--load-weights-g1", str(root / "g1.npz"),
-         "--load-weights-g2", str(root / "g2.npz")],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    try:
-        deadline, up = time.monotonic() + 300, False
-        while not up:
-            if proc.poll() is not None or time.monotonic() > deadline:
-                raise SystemExit("host: the SELU daemon did not come up: "
-                                 + proc.communicate(timeout=30)[1][-2000:])
-            try:
-                conn = http.client.HTTPConnection("127.0.0.1", port,
-                                                  timeout=5)
-                conn.request("GET", "/healthz")
-                up = conn.getresponse().status == 200
-                conn.close()
-            except OSError:
-                time.sleep(0.2)
-        status, body = _post(("127.0.0.1", port), imencode_png(img))
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=60)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+         "--load-weights-g2", str(root / "g2.npz")], img, "host")
     got = imdecode_color(body) if status == 200 else None
     diff = (int(np.abs(got.astype(int) - want).max())
             if got is not None and got.shape == want.shape else -1)
     print(f"[host] serving daemon --net-G unet --use-selu --droprate 0.05 "
           f"(ngf {NGF}, f32): HTTP {status}, exit {rc}, "
-          f"{time.perf_counter() - t0:.1f} s with start-up; max diff "
+          f"{secs:.1f} s with start-up; max diff "
           f"{diff} gray levels from this process's engine (limit 1)")
     if status != 200 or rc != 0 or not 0 <= diff <= 1:
         raise SystemExit("host: the SELU daemon's answer is wrong")
@@ -3009,6 +3052,417 @@ def phase_zoo(vgg_path: Path) -> dict:
             + trained["began_decoder"]}
 
 
+# ---------------------------------------------------------------------------
+# int8 serving
+
+
+def _record_int8(fn):
+    """Run ``fn()`` with ``models.quant``'s ``quantize_pad`` and
+    ``int8_conv`` wrapped to record each call's arguments and output;
+    returns (fn's result, {"quantize_pad": [...], "int8_conv": [...]})."""
+    from shadow_removal_istd_tpu_torch.models import quant
+
+    calls: dict = {"quantize_pad": [], "int8_conv": []}
+    real_qp, real_cv = quant.quantize_pad, quant.int8_conv
+
+    def qp(parts, sx, **kw):
+        out = real_qp(parts, sx, **kw)
+        calls["quantize_pad"].append(((tuple(parts), sx), kw, out))
+        return out
+
+    def cv(xq, wk, scale=None, bias=None, **kw):
+        out = real_cv(xq, wk, scale, bias, **kw)
+        calls["int8_conv"].append(((xq, wk, scale, bias), kw, out))
+        return out
+
+    with mock.patch.multiple(quant, quantize_pad=qp, int8_conv=cv):
+        result = fn()
+    return result, calls
+
+
+def int8_conv_cost(args, kw) -> tuple[float, float]:
+    """(operations, bytes) one ``int8_conv`` call must do and move: the
+    products of the real channels at the outputs kept, the padded int8
+    input, the weight, scales and bias read once, the output written
+    once."""
+    xq, wk, _, _ = args
+    n, hp, wp, cp = xq.shape
+    rows, k, _, _ = wk.shape
+    phase = kw["phase"]
+    co = rows // 4 if phase else rows
+    # (N, 2H, 2W, Co) kept outputs, or (N, H/2, W/2, Co)
+    outputs = n * (hp - 2) * (wp - 2) * co * (4 if phase else 1)
+    if not phase:
+        outputs //= 4
+    # the channels that carry data: the weight's zero padding is no work
+    ci = int((wk.reshape(-1, cp) != 0).any(0).nonzero().max()) + 1
+    ops = 2.0 * outputs * k * k * ci
+    elt = torch.tensor([], dtype=kw.get("out_dtype", torch.float32)
+                       ).element_size()
+    nbytes = (xq.numel() + wk.numel() + 4 * rows + 4 * co
+              + outputs * elt)
+    return ops, nbytes
+
+
+def _int_mm_operands(xq, wk, phase: bool):
+    """``torch._int_mm``'s operands for the same conv: ``Tensor.unfold``
+    patches of the padded input (M x K) and the weight (K x N, N padded
+    to a multiple of 8); the phase form at every (H+1) x (W+1) position
+    and all 4*Co rows, as one matrix product computes it."""
+    k, step = (2, 1) if phase else (4, 2)
+    p = xq.unfold(1, k, step).unfold(2, k, step)      # (n, h, w, cp, k, k)
+    a = p.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * xq.shape[3])
+    b = wk.reshape(wk.shape[0], -1)
+    pad = -b.shape[0] % 8
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad, b.shape[1])])
+    return a.contiguous(), b.t().contiguous()
+
+
+def _int8_kernels_vs_plain(q1, q2, gen) -> dict:
+    """Both int8 kernels against their plain versions at every conv site
+    of the stacked pair (20 of each), at 256x256 and 480x640, batch 2,
+    in f32 and bf16 compute: the int8 tensors, the s32 sums and the
+    dequantized outputs bit for bit."""
+    from shadow_removal_istd_tpu_torch.models.quant import make_stacked_int8
+    from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_plain,
+        quantize_pad_plain,
+    )
+
+    worst = 0.0
+    for h, w in INT8_CHECK_HW:
+        x = torch.rand((2, 3, h, w), device=DEVICE, generator=gen) * 2 - 1
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = make_stacked_int8(q1, q2, compute_dtype=dtype)
+            _, calls = _record_int8(lambda: fn(x))
+            torch.cuda.synchronize()
+            bad = []
+            for (parts, sx), kw, got in calls["quantize_pad"]:
+                if not torch.equal(got, quantize_pad_plain(parts, sx,
+                                                           **kw)):
+                    bad.append(f"quantize_pad {tuple(parts[0].shape)} "
+                               f"{len(parts)} parts {kw}")
+            n_acc = 0
+            for args, kw, got in calls["int8_conv"]:
+                acc = int8_conv(args[0], args[1], phase=kw["phase"])
+                want_acc = int8_conv_plain(args[0], args[1],
+                                           phase=kw["phase"])
+                want = int8_conv_plain(*args, **kw)
+                n_acc += int((acc != want_acc).sum())
+                err = (got.float() - want.float()).abs().max().item()
+                worst = max(worst, err)
+                if not torch.equal(acc, want_acc) or not torch.equal(got,
+                                                                     want):
+                    bad.append(f"int8_conv {tuple(args[0].shape)} -> "
+                               f"{tuple(got.shape)} {kw} s32 differ "
+                               f"{int((acc != want_acc).sum())}, max abs "
+                               f"{err:.3e}")
+            print(f"[int8] {h}x{w} b2 {str(dtype)[6:]}: "
+                  f"{len(calls['quantize_pad'])} quantize_pad and "
+                  f"{len(calls['int8_conv'])} int8_conv sites vs plain: "
+                  f"{len(bad)} differ (int8 tensors, s32 sums: {n_acc} "
+                  f"differ, dequantized outputs: bit for bit)")
+            if (bad or len(calls["quantize_pad"]) != 20
+                    or len(calls["int8_conv"]) != 20):
+                raise SystemExit("int8 kernels disagree with their plain "
+                                 "versions: " + "; ".join(bad[:5]))
+            del calls
+            torch.cuda.empty_cache()
+    return {"max_abs_err": worst}
+
+
+def _int8_weights(vgg_path: Path) -> tuple[Path, Path, Path]:
+    """``cli.main --tasks train --NN-upconv yes`` for one epoch on the
+    ``cli`` phase's ISTD directory (the int8 path takes the nearest-
+    upsample MNet; the ``cli`` phase trains the CLI's default
+    ConvTranspose one); returns the G1 and G2 weight files and the test
+    images' directory."""
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        write_istd_layout,
+    )
+
+    istd = SMOKE_DIR / "cli" / "istd"
+    if not istd.is_dir():
+        write_istd_layout(str(istd), CLI_TRAIN, CLI_TEST, *DATA_HW)
+    root = SMOKE_DIR / "int8"
+    t0 = time.perf_counter()
+    _run_cli(["--tasks", "train", "--epochs", "1", "--NN-upconv", "yes",
+              "--data-dir", str(istd), "--vgg-weights", str(vgg_path),
+              "--weights", str(root / "w"), "--logs", str(root / "l"),
+              *CLI_ARGS])
+    g1, = root.glob("w*/G1_MNet_latest.msgpack")
+    g2, = root.glob("w*/G2_MNet_latest.msgpack")
+    print(f"[int8] cli.main --tasks train --NN-upconv yes, 1 epoch: "
+          f"{g1.name}, {g2.name} in {time.perf_counter() - t0:.1f} s")
+    return g1, g2, istd / "test" / "test_A"
+
+
+def _int8_daemon(g1: Path, g2: Path, calib_dir: Path, img, want) -> None:
+    """The serving daemon with ``--dtype int8 --int8-calib``: one 480x640
+    request, answered as this process's int8 engine answers it."""
+    from shadow_removal_istd_tpu_torch.utils.image_io import imdecode_color
+
+    status, body, rc, stats, secs = _daemon_answer(
+        ["--ngf", str(NGF), "--dtype", "int8", "--int8-calib",
+         str(calib_dir), "--max-batch", "1", "--load-weights-g1", str(g1),
+         "--load-weights-g2", str(g2)], img, "int8")
+    got = imdecode_color(body) if status == 200 else None
+    diff = (int(np.abs(got.astype(int) - want).max())
+            if got is not None and got.shape == want.shape else -1)
+    print(f"[int8] serving daemon --dtype int8 --int8-calib (ngf {NGF}): "
+          f"HTTP {status}, /stats dtype {stats.get('dtype')}, exit {rc}, "
+          f"{secs:.1f} s with start-up and calibration; max diff {diff} "
+          f"gray levels from this process's int8 engine (limit 2)")
+    if (status != 200 or rc != 0 or stats.get("dtype") != "int8"
+            or not 0 <= diff <= 2):
+        raise SystemExit("int8: the daemon's answer is wrong")
+
+
+def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    """PSNR of two [-1, 1] tensors (peak-to-peak 2)."""
+    rms = (a.double() - b.double()).square().mean().sqrt().item()
+    return 20 * math.log10(2.0 / max(rms, 1e-12))
+
+
+def _int8_profile(engine, x) -> dict:
+    """Device time of one int8 stacked forward by kernel group, with the
+    launches the profiler saw of each int8 kernel (20 each when none was
+    lost)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    engine._stacked(x)
+    torch.cuda.synchronize()
+    # a warm-up step under the profiler first, as profile_rotation does
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            engine._stacked(x)
+            torch.cuda.synchronize()
+            prof.step()
+    groups = dict.fromkeys(("int8_conv", "quantize_pad", "elementwise",
+                            "copies", "other"), 0.0)
+    seen = {"int8_conv": 0, "quantize_pad": 0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if (us <= 0 or e.key.startswith("ProfilerStep")
+                or getattr(e, "device_type", None)
+                != torch.autograd.DeviceType.CUDA):
+            continue
+        key = e.key.lower()
+        group = ("int8_conv" if "int8_conv_kernel" in key else
+                 "quantize_pad" if "quantize_pad_kernel" in key else
+                 "copies" if any(k in key for k in ("copy", "cat", "memcpy",
+                                                    "memset")) else
+                 "elementwise" if "elementwise" in key else "other")
+        groups[group] += us / 1e3
+        if group in seen:
+            seen[group] += e.count
+    total = sum(groups.values())
+    print(f"[profile] int8 stacked 256x256 b{x.shape[0]}: device time "
+          f"{total:.3f} ms: " + ", ".join(
+              f"{k} {v:.3f} ({100 * v / max(total, 1e-9):.1f} %)"
+              for k, v in groups.items())
+          + f"; launches seen {seen}")
+    return {**{k + "_ms": round(v, 4) for k, v in groups.items()},
+            "launches_seen": seen}
+
+
+def _int8_timings(engine, x) -> dict:
+    """Each kernel's time over the 20 launches of one 256x256 b32 int8
+    stacked forward, on that forward's inputs, beside its plain version,
+    ``torch._int_mm`` on unfold patches (``int8_conv``) and its bound."""
+    from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_plain,
+        quantize_pad,
+        quantize_pad_plain,
+    )
+
+    _, calls = _record_int8(lambda: engine._stacked(x))
+    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   ops_ms=0.0, bytes_ms=0.0)
+           for k in ("int8_conv", "quantize_pad")}
+    lib_ok = True
+    for (parts, sx), kw, out in calls["quantize_pad"]:
+        ms = time_ms(lambda: quantize_pad(parts, sx, **kw), 10)
+        plain = time_ms(lambda: quantize_pad_plain(parts, sx, **kw), 3)
+        nbytes = sum(p.numel() * p.element_size() for p in parts) \
+            + out.numel()
+        bound = nbytes / PEAK_BYTES * 1e3
+        print(f"[time] int8 quantize_pad {tuple(parts[0].shape)}"
+              f"{' + ' + str(parts[1].shape[1]) if len(parts) == 2 else ''}"
+              f" {str(parts[0].dtype)[6:]} -> {tuple(out.shape)}: "
+              f"{ms:.4f} ms | plain {plain:.4f} | bound {bound:.4f} "
+              f"(bytes)")
+        t = tot["quantize_pad"]
+        t["ms"] += ms
+        t["plain_ms"] += plain
+        t["bound_ms"] += bound
+        t["bytes_ms"] += bound
+    for args, kw, out in calls["int8_conv"]:
+        ms = time_ms(lambda: int8_conv(*args, **kw), 10)
+        plain = time_ms(lambda: int8_conv_plain(*args, **kw), 2)
+        ops, nbytes = int8_conv_cost(args, kw)
+        t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / PEAK_BYTES * 1e3
+        try:
+            a, b = _int_mm_operands(args[0], args[1], kw["phase"])
+            lib = time_ms(lambda: torch._int_mm(a, b), 10)
+            del a, b
+        except RuntimeError as exc:
+            lib, lib_ok = float("nan"), False
+            print(f"[time] int8 _int_mm n/a: {str(exc).splitlines()[0]}")
+        print(f"[time] int8 int8_conv {'phase' if kw['phase'] else 's2'} "
+              f"{tuple(args[0].shape)} x {tuple(args[1].shape)} -> "
+              f"{tuple(out.shape)}: {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+              f"TOPS) | plain {plain:.4f} | _int_mm {lib:.4f} | bound "
+              f"{max(t_ops, t_bytes):.4f} "
+              f"({'ops' if t_ops >= t_bytes else 'bytes'})")
+        t = tot["int8_conv"]
+        t["ms"] += ms
+        t["plain_ms"] += plain
+        t["library_ms"] += lib
+        t["bound_ms"] += max(t_ops, t_bytes)
+        t["ops_ms"] += t_ops
+        t["bytes_ms"] += t_bytes
+    del calls
+    torch.cuda.empty_cache()
+    for k, t in tot.items():
+        print(f"[time] int8 {k} per stacked forward 256x256 b{x.shape[0]} "
+              f"(20 launches): kernels {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f}"
+              + (f", _int_mm {t['library_ms']:.4f}" if k == "int8_conv"
+                 else ""))
+    if not lib_ok:
+        tot["int8_conv"]["library_ms"] = None
+    return tot
+
+
+def phase_int8(vgg_path: Path) -> dict:
+    """int8 serving on the card (see the module docstring, phase 11);
+    returns the two kernels' JSON entries."""
+    from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+    from shadow_removal_istd_tpu_torch.models import quant
+    from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_plain,
+        quantize_pad,
+        quantize_pad_plain,
+    )
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+    from shadow_removal_istd_tpu_torch.utils.image_io import imread_color
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    g1_path, g2_path, calib_dir = _int8_weights(vgg_path)
+    calib = [imread_color(str(p)) for p in sorted(calib_dir.glob("*.png"))]
+    t0 = time.perf_counter()
+    engine = InferenceEngine("mnet", ngf=NGF, dtype="int8", max_batch=8,
+                             calib_images=calib, device=DEVICE)
+    engine.load_weights(str(g1_path), str(g2_path))
+    torch.cuda.synchronize()
+    print(f"[int8] engine ngf {NGF}: weights loaded, folded, calibrated on "
+          f"{len(calib)} {calib[0].shape[0]}x{calib[0].shape[1]} images "
+          f"and quantized in {time.perf_counter() - t0:.1f} s")
+    f1, f2 = quant.fold_mnet(engine.g1), quant.fold_mnet(engine.g2)
+    batches = engine._calib_batches()
+    s1, m1 = quant.calibrate_mnet(f1, batches, return_outputs=True)
+    s2 = quant.calibrate_mnet(f2, [torch.cat([x, m], 1)
+                                   for x, m in zip(batches, m1)])
+    q1, q2 = quant.quantize_mnet(f1, s1), quant.quantize_mnet(f2, s2)
+    del batches, m1
+    check = _int8_kernels_vs_plain(q1, q2, gen)
+
+    # the main path: one stacked forward of a 480x640 batch of 4
+    imgs = calib[:4]
+    size = f"{imgs[0].shape[0]}x{imgs[0].shape[1]} b{len(imgs)}"
+    engine.infer_group(imgs)
+    torch.cuda.synchronize()
+    quantize_pad.launches = int8_conv.launches = 0
+    got = engine.infer_group(imgs)
+    torch.cuda.synchronize()
+    launches = {"int8_conv": int8_conv.launches,
+                "quantize_pad": quantize_pad.launches}
+    print(f"[int8] engine infer_group {size}: launches per stacked "
+          f"forward {launches}")
+    if launches != {"int8_conv": 20, "quantize_pad": 20}:
+        raise SystemExit(f"int8: expected 20 launches of each kernel per "
+                         f"stacked forward, got {launches}")
+    with mock.patch.multiple(quant, quantize_pad=quantize_pad_plain,
+                             int8_conv=int8_conv_plain):
+        want = engine.infer_group(imgs)
+    diffs = [np.abs(g.astype(np.int16) - p)
+             for gp, pp in zip(got, want) for g, p in zip(gp, pp)]
+    diff = max(int(d.max()) for d in diffs)
+    share = sum(int((d > 0).sum()) for d in diffs) / sum(d.size
+                                                          for d in diffs)
+    print(f"[int8] kernels vs plain path, {size} uint8: max diff "
+          f"{diff} gray levels (limit 2), {100 * share:.4f} % of values "
+          f"differ")
+    if diff > 2:
+        raise SystemExit("int8 kernel path disagrees with the plain path")
+
+    # accuracy on the same inputs: folded f32, bf16 engine, int8
+    x_u8 = torch.from_numpy(np.stack(imgs)).to(DEVICE)
+    x = x_u8.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
+    with torch.inference_mode():
+        m_ref = quant.mnet_apply_folded(f1, x)
+        y_ref = quant.mnet_apply_folded(f2, torch.cat([x, m_ref], 1))
+        m8, y8 = engine._int8_fn(x)
+    bf16 = InferenceEngine("mnet", ngf=NGF, dtype="bfloat16", max_batch=32,
+                           device=DEVICE)
+    bf16.load_weights(str(g1_path), str(g2_path))
+    with torch.inference_mode():
+        mb, yb = infer_step(bf16.g1, bf16.g2, x)
+    acc = {"psnr_int8_vs_f32": _psnr(y8, y_ref),
+           "psnr_int8_vs_bf16": _psnr(y8, yb.float()),
+           "psnr_bf16_vs_f32": _psnr(yb.float(), y_ref),
+           "psnr_matte_int8_vs_f32": _psnr(m8, m_ref)}
+    print(f"[int8] accuracy {size} (shadow-free output; matte apart): "
+          + ", ".join(f"{k} {v:.2f} dB" for k, v in acc.items()))
+    _int8_daemon(g1_path, g2_path, calib_dir, calib[0], got[0][1])
+    del m_ref, y_ref, m8, y8, mb, yb, x
+
+    # throughput, int8 and bf16 in turns
+    xs = torch.randint(0, 256, (INT8_BATCH, 256, 256, 3), dtype=torch.uint8,
+                       device=DEVICE, generator=gen)
+    runs: dict = {}
+    for name, eng in (("int8", engine), ("bf16", bf16), ("bf16", bf16),
+                      ("int8", engine)):
+        runs.setdefault(name, []).append(
+            time_ms(lambda: eng._stacked(xs), iters=10))
+    img_s = {k: INT8_BATCH * 1e3 * len(v) / sum(v) for k, v in runs.items()}
+    print(f"[time] stacked G1+G2 256x256 b{INT8_BATCH}, in turns: " + "; ".join(
+        f"{k} {img_s[k]:.1f} img/s (" + ", ".join(f"{t:.3f}" for t in v)
+        + " ms/batch)" for k, v in runs.items()))
+    split = _int8_profile(engine, xs)
+    tot = _int8_timings(engine, xs)
+    print(f"[time] int8 phase: {time.perf_counter() - t_phase:.1f} s")
+
+    def entry(name, t):
+        return {"name": name, "route": "cuda", "source": INT8_SOURCE,
+                "replaces": INT8_REPLACES[name], "launches": launches[name],
+                "max_abs_err": check["max_abs_err"],
+                "ms": round(t["ms"], 5), "plain_ms": round(t["plain_ms"], 5),
+                "bound_ms": round(t["bound_ms"], 5),
+                "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
+                             else "bytes"),
+                "library_ms": (round(t["library_ms"], 5)
+                               if name == "int8_conv"
+                               and t["library_ms"] is not None else None),
+                "shape": f"one int8 stacked G1+G2 forward, 256x256, batch "
+                         f"{INT8_BATCH}"}
+
+    conv = entry("int8_conv", tot["int8_conv"])
+    conv.update(stacked_img_s=round(img_s["int8"], 2),
+                bf16_stacked_img_s=round(img_s["bf16"], 2),
+                profile=split, **{k: round(v, 3) for k, v in acc.items()})
+    return {"kernels": [conv, entry("quantize_pad", tot["quantize_pad"])]}
+
+
 def build_renamed(name: str, path: str,
                   entry: str = "srit_decoder_upsample"):
     """A kernel source (e.g. an earlier commit's
@@ -3204,6 +3658,7 @@ def main() -> int:
         zoo = phase_zoo(vgg_path)
         kernel = phase_timings(worst, launches, by_variant)
         shear_entry, extra = phase_train_timings(runs, shear_err)
+        int8 = phase_int8(vgg_path)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     zk = zoo["kernels"]
@@ -3231,7 +3686,7 @@ def main() -> int:
                        launches_gather=ev["hshear_gather"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
-    print(json.dumps({"kernels": [kernel, shear_entry]}))
+    print(json.dumps({"kernels": [kernel, shear_entry, *int8["kernels"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

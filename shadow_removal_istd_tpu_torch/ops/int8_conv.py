@@ -1,0 +1,262 @@
+"""Int8 convolutions of the quantized MNet forward: two CUDA kernels and
+their plain versions.
+
+The JAX package's int8 post-training quantization
+(``shadow_removal_istd_tpu/models/quant.py``) runs every conv of the MNet
+forward as ``lax.conv_general_dilated`` on int8 operands with s32
+accumulation, after quantizing and padding its input, and dequantizes
+after it. PyTorch has no int8 convolution, so the port splits each conv
+site into two hand-written kernels (``csrc/int8_conv.cu``):
+
+- :func:`quantize_pad`: one or two channel parts standing for their
+  concat (the decoder's ``(u, link)``; never concatenated) -> optional
+  LeakyReLU(0.2) in the compute dtype -> ``clip(rint(x / sx), -127,
+  127)`` in f32 -> an int8 NHWC tensor padded by 1 (reflect for the
+  encoder's 4x4 stride-2 convs, edge for the decoder's 2x2 phase convs)
+  and by zero channels up to a multiple of 16 (:func:`channels_padded`);
+- :func:`int8_conv`: the conv of that tensor with int8 weights kept
+  ``(rows, kh, kw, Cp)`` (:func:`pad_weight`), s32 sums, and the
+  epilogue ``(float)acc * scale[row] (+ bias[co])`` cast to the output
+  dtype; the phase form (2x2, Ci -> 4Co) stores in depth-to-space order
+  and computes only what depth-to-space keeps. Without a scale it
+  returns the s32 sums.
+
+Activations are NCHW in ``channels_last`` memory, as in the rest of the
+port. A CPU tensor takes the plain version, which is the kernels' spec; a
+CUDA tensor launches the kernel (counted in ``quantize_pad.launches`` and
+``int8_conv.launches``) or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from shadow_removal_istd_tpu_torch.ops import _build
+from shadow_removal_istd_tpu_torch.ops.decoder import subpixel_depth_to_space
+
+_IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+CHANNEL_ALIGN = 16   # one 16-byte chunk of int8 channels
+
+
+def channels_padded(c: int) -> int:
+    """The int8 tensors' channel count for ``c`` channels: the next
+    multiple of 16 (the kernels move 16-byte chunks)."""
+    return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def pad_weight(w: torch.Tensor) -> torch.Tensor:
+    """An int8 ``(rows, kh, kw, Ci)`` weight with its input channels
+    zero-padded to :func:`channels_padded`; contiguous."""
+    extra = channels_padded(w.shape[-1]) - w.shape[-1]
+    return (F.pad(w, (0, extra)) if extra else w).contiguous()
+
+
+@functools.cache
+def _slope(dtype: torch.dtype) -> float:
+    return torch.tensor(0.2, dtype=dtype).item()
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(0.2) as JAX computes it in ``x``'s dtype: ``x * slope``
+    rounded to the dtype, the slope 0.2 itself rounded to the dtype first
+    (a weakly typed 0.2 times a bf16 array is bf16(0.2) = 0.2001953125
+    times it; torch's ``leaky_relu(x, 0.2)`` multiplies by 0.2f)."""
+    return F.leaky_relu(x, _slope(x.dtype))
+
+
+def quantize_pad_plain(parts: Sequence[torch.Tensor], sx: torch.Tensor, *,
+                       leaky: bool, reflect: bool) -> torch.Tensor:
+    """The kernel's spec: ``parts`` (N, C_p, H, W) in one dtype, their
+    concat -> leaky (optional, in that dtype) -> ``clip(round(x / sx),
+    -127, 127)`` in f32 (round half to even) -> pad 1 (reflect or edge)
+    -> (N, H + 2, W + 2, Cp) int8, channels past the concat zero."""
+    xs = [(leaky_relu(x) if leaky else x).float() for x in parts]
+    x = torch.cat(xs, 1) if len(xs) > 1 else xs[0]
+    q = torch.clamp(torch.round(x / sx), -127, 127)
+    q = F.pad(q, (1, 1, 1, 1), mode="reflect" if reflect else "replicate")
+    q = q.to(torch.int8).permute(0, 2, 3, 1)
+    extra = channels_padded(q.shape[-1]) - q.shape[-1]
+    return F.pad(q, (0, extra)).contiguous()
+
+
+def int8_conv_plain(xq: torch.Tensor, wk: torch.Tensor,
+                    scale: torch.Tensor | None = None,
+                    bias: torch.Tensor | None = None, *, phase: bool,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The kernel's spec: the conv of the padded int8 ``xq`` (N, Hp, Wp,
+    Cp) with ``wk`` (rows, kh, kw, Cp), exact: int8 products and their
+    sums (|sum| < 2^31) are integers that float64 holds exactly, in any
+    order. Encoder form (``phase=False``): 4x4 stride 2 -> (N, rows, Ho,
+    Wo). Phase form: 2x2 stride 1 -> (N, 4Co, H+1, W+1) -> depth-to-space
+    -> (N, Co, 2H, 2W). Then ``acc.float() * scale`` (+ ``bias``) and
+    the cast to ``out_dtype``; without ``scale`` the int32 sums. NCHW in
+    ``channels_last`` memory."""
+    x = xq.permute(0, 3, 1, 2).double()
+    k = wk.permute(0, 3, 1, 2).double()
+    acc = F.conv2d(x, k, stride=1 if phase else 2).to(torch.int32)
+    co = wk.shape[0] // 4 if phase else wk.shape[0]
+    h, w = xq.shape[1] - 2, xq.shape[2] - 2
+    if scale is None:
+        y = subpixel_depth_to_space(acc, h, w, co) if phase else acc
+        return y.contiguous(memory_format=torch.channels_last)
+    y = acc.float() * scale.view(1, -1, 1, 1)
+    if phase:
+        y = subpixel_depth_to_space(y, h, w, co)
+    if bias is not None:
+        y = y + bias.view(1, -1, 1, 1)
+    return y.to(out_dtype).contiguous(memory_format=torch.channels_last)
+
+
+@functools.cache
+def _fns():
+    """The two C entry points (built on first use), typed once."""
+    lib = _build.load("int8_conv")
+    qp = lib.srit_quantize_pad
+    qp.restype = ctypes.c_int
+    qp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    cv = lib.srit_int8_conv
+    cv.restype = ctypes.c_int
+    cv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    return qp, cv
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (N, C, H, W) as channels-last memory (a view when it is)."""
+    return x if x.permute(0, 2, 3, 1).is_contiguous() else x.contiguous(
+        memory_format=torch.channels_last)
+
+
+def _device_kind(t: torch.Tensor, op: str) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{op} runs on cuda or cpu, not {kind}")
+    return kind
+
+
+def quantize_pad(parts: Sequence[torch.Tensor], sx: torch.Tensor, *,
+                 leaky: bool, reflect: bool) -> torch.Tensor:
+    """Quantize 1 or 2 (N, C_p, H, W) parts, standing for their channel
+    concat, with the per-tensor scale ``sx`` (a 0-d f32 tensor on their
+    device) into a padded (N, H + 2, W + 2, Cp) int8 tensor (see
+    :func:`quantize_pad_plain`). CUDA tensors launch the kernel."""
+    parts = tuple(parts)
+    if not 1 <= len(parts) <= 2:
+        raise ValueError(f"expected 1 or 2 parts, got {len(parts)}")
+    x0 = parts[0]
+    n, _, h, w = x0.shape
+    for x in parts:
+        if x.dim() != 4 or (x.shape[0], x.shape[2], x.shape[3]) != (n, h, w):
+            raise ValueError("parts must share N, H and W: "
+                             f"{[tuple(x.shape) for x in parts]}")
+        if x.dtype != x0.dtype or x.device != x0.device:
+            raise ValueError("parts must share one dtype and device")
+    if x0.dtype not in _IN_DTYPES:
+        raise TypeError(f"quantize_pad takes float32 or bfloat16, got "
+                        f"{x0.dtype}")
+    if sx.numel() != 1 or sx.dtype != torch.float32:
+        raise ValueError("sx must be one float32 value")
+    if reflect and (h < 2 or w < 2):
+        raise ValueError(f"reflect pad 1 of a {h}x{w} input")
+    if _device_kind(x0, "quantize_pad") == "cpu":
+        return quantize_pad_plain(parts, sx, leaky=leaky, reflect=reflect)
+    if sx.device != x0.device:
+        raise ValueError(f"sx must be on {x0.device}")
+    xs = [_nhwc(x) for x in parts]
+    c0 = xs[0].shape[1]
+    c1 = xs[1].shape[1] if len(xs) == 2 else 0
+    cp = channels_padded(c0 + c1)
+    out = torch.empty((n, h + 2, w + 2, cp), dtype=torch.int8,
+                      device=x0.device)
+    qp, _ = _fns()
+    with torch.cuda.device(x0.device):
+        rc = qp(_IN_DTYPES[x0.dtype], xs[0].data_ptr(),
+                xs[1].data_ptr() if c1 else None, c0, c1,
+                sx.contiguous().data_ptr(), out.data_ptr(), n, h, w, cp,
+                int(leaky), int(reflect),
+                torch.cuda.current_stream(x0.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"quantize_pad kernel launch failed "
+                           f"(cudaError {rc})")
+    quantize_pad.launches += 1
+    return out
+
+
+quantize_pad.launches = 0
+
+
+def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
+              scale: torch.Tensor | None = None,
+              bias: torch.Tensor | None = None, *, phase: bool,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The conv of a :func:`quantize_pad` output ``xq`` with the int8
+    weight ``wk`` (rows, kh, kw, Cp) (``kh = kw = 4`` for the encoder
+    form, 2 with ``phase``, rows = 4Co), dequantized by ``scale`` (rows,)
+    and ``bias`` (Co,) into ``out_dtype``, or the int32 sums without
+    ``scale``. Returns NCHW in ``channels_last`` memory (see
+    :func:`int8_conv_plain`). CUDA tensors launch the kernel."""
+    if xq.dtype != torch.int8 or wk.dtype != torch.int8:
+        raise TypeError("xq and wk must be int8")
+    k = 2 if phase else 4
+    if (xq.dim() != 4 or wk.dim() != 4 or wk.shape[1:3] != (k, k)
+            or wk.shape[3] != xq.shape[3] or xq.shape[3] % CHANNEL_ALIGN):
+        raise ValueError(f"xq (N, Hp, Wp, Cp) with Cp a multiple of 16 and "
+                         f"wk (rows, {k}, {k}, Cp); got {tuple(xq.shape)} "
+                         f"and {tuple(wk.shape)}")
+    rows = wk.shape[0]
+    if phase and rows % 4:
+        raise ValueError(f"the phase form needs 4*Co weight rows, got {rows}")
+    co = rows // 4 if phase else rows
+    n, hp, wp, cp = xq.shape
+    ho, wo = (hp - 2, wp - 2) if phase else ((hp - 2) // 2, (wp - 2) // 2)
+    if not phase and (hp % 2 or wp % 2):
+        raise ValueError(f"the 4x4 stride-2 form needs an even padded "
+                         f"size, got {hp}x{wp}")
+    if scale is None:
+        if bias is not None:
+            raise ValueError("a bias needs a scale")
+        out_dtype = torch.int32
+    elif scale.shape != (rows,) or (bias is not None
+                                    and bias.shape != (co,)):
+        raise ValueError(f"scale must be ({rows},) and bias ({co},)")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32, bfloat16 or int32, "
+                        f"got {out_dtype}")
+    if _device_kind(xq, "int8_conv") == "cpu":
+        return int8_conv_plain(xq, wk, scale, bias, phase=phase,
+                               out_dtype=out_dtype)
+    dev = xq.device
+    for t in (wk, scale, bias):
+        if t is not None and t.device != dev:
+            raise ValueError(f"int8_conv operands must be on {dev}")
+    for t in (scale, bias):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError("scale and bias must be float32")
+    xq, wk = xq.contiguous(), wk.contiguous()
+    scale = scale.contiguous() if scale is not None else None
+    bias = bias.contiguous() if bias is not None else None
+    oh, ow = (2 * ho, 2 * wo) if phase else (ho, wo)
+    out = torch.empty((n, co, oh, ow), dtype=out_dtype, device=dev,
+                      memory_format=torch.channels_last)
+    _, cv = _fns()
+    with torch.cuda.device(dev):
+        rc = cv(xq.data_ptr(), wk.data_ptr(),
+                scale.data_ptr() if scale is not None else None,
+                bias.data_ptr() if bias is not None else None,
+                out.data_ptr(), _OUT_DTYPES[out_dtype], n, hp, wp, cp, ho,
+                wo, co, int(phase), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed (cudaError {rc})")
+    int8_conv.launches += 1
+    return out
+
+
+int8_conv.launches = 0

@@ -14,14 +14,23 @@ Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
 - **bf16 by default.** Every float parameter and buffer is cast to
   bfloat16 (BatchNorm statistics included), as the JAX engine casts
   every leaf; ``dtype="float32"`` keeps exact-eval numerics.
+- **int8** (``dtype="int8"``, the MNet nearest-upsample configuration):
+  f32 master modules, BatchNorm folded, activation scales calibrated on
+  ``calib_images`` (else seeded noise, with a warning), int8 packs
+  (``models/quant.py``) whose convs run on the int8 kernels
+  (``ops/int8_conv.py``) with bf16 elementwise work between them. The
+  packs are built once the weights land (``set_variables``,
+  ``load_weights``: a hot reload re-quantizes), or at the first
+  ``infer_group`` of an engine that serves its random weights.
 
 Weights load from the JAX package's per-network flax msgpack files or
 from ``.npz`` files of the same tree. Not ported yet (they raise):
-``dtype="int8"``, ``devices > 1`` and the StableHLO ``ArtifactEngine``.
+``devices > 1`` and the StableHLO ``ArtifactEngine``.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -31,6 +40,12 @@ from shadow_removal_istd_tpu_torch import resolve_device
 from shadow_removal_istd_tpu_torch.engine.steps import infer_step
 from shadow_removal_istd_tpu_torch.models import get_generator
 from shadow_removal_istd_tpu_torch.models.layers import init_weights_
+from shadow_removal_istd_tpu_torch.models.quant import (
+    calibrate_mnet,
+    fold_mnet,
+    make_stacked_int8,
+    quantize_mnet,
+)
 from shadow_removal_istd_tpu_torch.ops.augment import (
     denormalize,
     float_to_uint8,
@@ -45,7 +60,8 @@ from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
 # UNet and DenseUNet raise on indivisible sizes; the pix2pix 'stcgan' G
 # pads internally but is bucketed anyway to bound the shapes it sees)
 _DEFAULT_PAD = {"mnet": 32, "unet": 16, "denseunet": 32, "stcgan": 32}
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.float32}   # int8 keeps f32 master weights
 
 
 def _next_pow2(n: int) -> int:
@@ -71,11 +87,19 @@ class InferenceEngine:
                  dtype: str = "bfloat16", split_skip: bool = True,
                  pad_multiple: int | None = None, max_batch: int = 8,
                  devices: int | None = None, seed: int = 0,
+                 calib_images: list[np.ndarray] | None = None,
                  device: str | torch.device = "cuda"):
-        if dtype == "int8":
-            raise NotImplementedError("dtype=int8 serving is not ported yet")
         if dtype not in _DTYPES:
-            raise ValueError(f"dtype must be float32|bfloat16, got {dtype}")
+            raise ValueError(
+                f"dtype must be float32|bfloat16|int8, got {dtype}")
+        if dtype == "int8" and (net_g.lower() != "mnet" or not nn_upconv
+                                or use_selu):
+            # the PTQ fold supports the MNet nearest-upsample family
+            # (models/quant.py)
+            raise ValueError(
+                "dtype=int8 supports the MNet nearest-upsample "
+                "configuration (net_g=mnet, nn_upconv, no SELU); "
+                "serve other configurations in bfloat16")
         if devices is not None and devices > 1:
             raise NotImplementedError(
                 "multi-device serving (devices > 1) is not ported yet")
@@ -86,6 +110,9 @@ class InferenceEngine:
                           use_selu=use_selu, activation=activation)
         if self.net_g == "mnet":
             self._g_kw["split_skip"] = split_skip
+        self.activation = activation
+        self._calib_u8 = calib_images
+        self._int8_fn = None    # built from the weights that land
         # G1: shadow image -> matte; G2: image ++ matte -> shadow-free
         g1, g2 = self._new_pair()
         gen = torch.Generator().manual_seed(seed)
@@ -120,6 +147,7 @@ class InferenceEngine:
         flax_tree_to_torch(v1, g1)
         flax_tree_to_torch(v2, g2)
         self._adopt(g1, g2)
+        self._maybe_quantize()
 
     @staticmethod
     def _read_tree(path: str) -> dict:
@@ -139,6 +167,49 @@ class InferenceEngine:
         self.set_variables(self._read_tree(g1_path),
                            self._read_tree(g2_path))
 
+    # -- int8 serving -------------------------------------------------
+
+    def _calib_batches(self) -> list[torch.Tensor]:
+        """[-1, 1] f32 calibration batches for the activation scales.
+
+        Real images (``calib_images``) give representative ranges, each
+        padded into its bucket with 128 as served; without them seeded
+        noise is used, loudly, because underestimated scales clip real
+        activations."""
+        if self._calib_u8:
+            out = []
+            for im in self._calib_u8:
+                bh, bw = self.bucket_of(im.shape[0], im.shape[1])
+                pad = np.full((1, bh, bw, 3), 128, np.uint8)
+                pad[0, :im.shape[0], :im.shape[1]] = im
+                x = pad.astype(np.float32) * (2.0 / 255.0) - 1.0
+                out.append(torch.from_numpy(x).permute(0, 3, 1, 2)
+                           .to(self.device))
+            return out
+        logging.getLogger(__name__).warning(
+            "int8 serving calibrated on synthetic noise — pass real "
+            "images (calib_images / --int8-calib) for representative "
+            "activation scales")
+        gen = torch.Generator().manual_seed(11)
+        return [(torch.rand((2, 3, 256, 256), generator=gen) * 2 - 1)
+                .to(self.device)]
+
+    @torch.inference_mode()
+    def _maybe_quantize(self) -> None:
+        """(Re)build the int8 stacked fn from the CURRENT f32 weights:
+        called after every weight swap, so a hot reload re-quantizes."""
+        if self.dtype != "int8":
+            return
+        f1, f2 = fold_mnet(self.g1), fold_mnet(self.g2)
+        batches = self._calib_batches()
+        s1, m1 = calibrate_mnet(f1, batches, activation=self.activation,
+                                return_outputs=True)
+        g2_in = [torch.cat([x, m], 1) for x, m in zip(batches, m1)]
+        s2 = calibrate_mnet(f2, g2_in, activation=self.activation)
+        self._int8_fn = make_stacked_int8(
+            quantize_mnet(f1, s1), quantize_mnet(f2, s2),
+            activation=self.activation)
+
     # -- inference ----------------------------------------------------
 
     @torch.inference_mode()
@@ -146,7 +217,12 @@ class InferenceEngine:
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         # reference normalization: uint8/255 in [0,1], then (x-.5)*2
         x = x_u8.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
-        m, y = infer_step(self.g1, self.g2, x)
+        if self.dtype == "int8":
+            if self._int8_fn is None:   # serving its random weights
+                self._maybe_quantize()
+            m, y = self._int8_fn(x)
+        else:
+            m, y = infer_step(self.g1, self.g2, x)
         return _to_u8(m), _to_u8(y)
 
     def bucket_of(self, h: int, w: int) -> tuple[int, int]:

@@ -24,7 +24,8 @@ Run: ``python -m shadow_removal_istd_tpu_torch.serving
 --load-weights-g1 G1_MNet_best.msgpack --load-weights-g2
 G2_MNet_best.msgpack`` (flax msgpack weight files, as either package's
 trainer writes them, or ``.npz``; ``--device cpu`` to run without a
-card).
+card). ``--dtype int8 --int8-calib DIR`` serves the int8-quantized MNet
+pair, its activation scales calibrated on DIR's images.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import argparse
 import collections
 import json
 import logging
+import os
 import queue
 import signal
 import threading
@@ -51,6 +53,7 @@ from shadow_removal_istd_tpu_torch.serving.engine import (
 from shadow_removal_istd_tpu_torch.utils.image_io import (
     imdecode_color,
     imencode_png,
+    imread_color,
 )
 
 logger = logging.getLogger(__name__)
@@ -300,6 +303,7 @@ def _make_handler(batcher: MicroBatcher, stats: ServerStats,
                 snap = stats.snapshot()
                 snap["queue_depth"] = batcher.depth
                 snap["max_queue"] = batcher.max_queue
+                snap["dtype"] = batcher.engine.dtype
                 self._reply(200, json.dumps(snap).encode())
             else:
                 self._err(404, f"no such endpoint: {path}")
@@ -466,7 +470,14 @@ def main(argv=None) -> int:
                          "concat-materializing form)")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32", "int8"],
-                    help="int8 serving is not ported yet")
+                    help="int8 = post-training-quantized serving (MNet "
+                         "nearest-upsample only; its convs on the int8 "
+                         "kernels); pass --int8-calib for representative "
+                         "scales")
+    ap.add_argument("--int8-calib", default=None,
+                    help="directory of representative images (PNG/JPG) "
+                         "for int8 activation calibration; without it "
+                         "synthetic noise is used (warned)")
     ap.add_argument("--load-weights-g1", default=None,
                     help="G1 weight file: flax .msgpack, or .npz with "
                          "the flax variable paths joined by '/'")
@@ -501,13 +512,20 @@ def main(argv=None) -> int:
     else:
         if not (args.load_weights_g1 and args.load_weights_g2):
             ap.error("--load-weights-g1/-g2 required")
+        calib = None
+        if args.int8_calib:
+            calib = [imread_color(os.path.join(args.int8_calib, f))
+                     for f in sorted(os.listdir(args.int8_calib))
+                     if f.lower().endswith((".png", ".jpg", ".jpeg"))]
+            if not calib:
+                ap.error(f"--int8-calib {args.int8_calib}: no images")
         engine = InferenceEngine(
             args.net_G, ngf=args.ngf, droprate=args.droprate,
             nn_upconv=not args.no_nn_upconv, use_selu=args.use_selu,
             activation=args.activation, dtype=args.dtype,
             split_skip=args.split_skip, pad_multiple=args.pad_multiple,
             max_batch=args.max_batch, devices=args.devices,
-            device=args.device)
+            calib_images=calib, device=args.device)
         engine.load_weights(args.load_weights_g1, args.load_weights_g2)
     sizes = _parse_sizes(args.warmup)
     if sizes:

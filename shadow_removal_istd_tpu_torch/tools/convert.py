@@ -28,6 +28,9 @@ identity through the same leaf map as the weights (so kernels go through
 the same HWIO <-> OIHW transpose), and ``count`` is every parameter's
 Adam ``step`` and ``TrainState.step``. BEGAN's ``k1``/``k2`` and the SoftAdapt
 state (``{"weights", "prev_loss"}``, or None) cross as they are.
+
+:func:`jax_int8_pack_to_torch` carries an int8 pack of the JAX package's
+``models/quant.py`` into the port's ``models/quant.py`` layout.
 """
 
 from __future__ import annotations
@@ -303,6 +306,62 @@ def flax_tree_to_torch(tree: Mapping, module: nn.Module) -> nn.Module:
         for dst, src in staged:
             dst.copy_(src)
     return module
+
+
+# ------------------------------------------------------------- int8 packs
+
+
+def _int8_pack_shapes(module: MNet) -> dict[str, tuple[int, ...]]:
+    """Every key of the JAX int8 pack of ``module`` with its JAX shape:
+    ``{site}_w`` HWIO int8 (decoder sites: the (2, 2, Ci, 4Co) phase
+    kernel), ``{site}_s`` (rows,), ``{site}_sx`` (), ``{site}_b`` (Co,)
+    for the down and up sites."""
+    sites = ([("stem", module.stem.weight, False, False)]
+             + [(f"down{i}", d.conv.weight, False, True)
+                for i, d in enumerate(module.downs)]
+             + [(f"up{i}", u.up.weight, True, True)
+                for i, u in enumerate(module.ups)]
+             + [("final", module.final.weight, True, False)])
+    shapes = {}
+    for name, w, phase, has_bias in sites:
+        co, ci = w.shape[:2]
+        rows, k = (4 * co, 2) if phase else (co, 4)
+        shapes[name + "_w"] = (k, k, ci, rows)
+        shapes[name + "_s"] = (rows,)
+        shapes[name + "_sx"] = ()
+        if has_bias:
+            shapes[name + "_b"] = (co,)
+    return shapes
+
+
+def jax_int8_pack_to_torch(pack: Mapping, module: MNet) -> dict:
+    """The JAX package's int8 pack of an MNet (``models/quant.py::
+    quantize_mnet``, numpy leaves) -> the port's pack for ``module``'s
+    configuration, on its device: ``{site}_w`` HWIO -> ``(rows, kh, kw,
+    Ci)`` int8, the scales and biases as f32 tensors. Raises on a missing
+    or extra key, a shape mismatch or non-int8 weights, before anything
+    is converted."""
+    if not module.final.no_conv_t:
+        raise ValueError("int8 packs exist for the nearest-upsample MNet "
+                         "only")
+    want = _int8_pack_shapes(module)
+    missing = sorted(want.keys() - pack.keys())
+    extra = sorted(pack.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"int8 pack does not match MNet: missing "
+                         f"{missing}, extra {extra}")
+    arrays = {k: np.asarray(pack[k]) for k in want}
+    for key, shape in want.items():
+        if arrays[key].shape != shape:
+            raise ValueError(f"int8 pack {key}: shape "
+                             f"{arrays[key].shape}, expected {shape}")
+        if key.endswith("_w") and arrays[key].dtype != np.int8:
+            raise ValueError(f"int8 pack {key}: dtype {arrays[key].dtype}")
+    dev = module.stem.weight.device
+    return {key: torch.from_numpy(np.ascontiguousarray(
+                a.transpose(3, 0, 1, 2) if key.endswith("_w")
+                else a.astype(np.float32))).to(dev)
+            for key, a in arrays.items()}
 
 
 # ----------------------------------------------------------- train state

@@ -1,0 +1,127 @@
+"""The int8 kernels (``csrc/int8_conv.cu``: ``quantize_pad`` and
+``int8_conv``) against their plain versions, on the card, at shapes the
+MNet path at ngf 64 never gives them.
+
+``chip_smoke.py`` holds the kernels to their plain versions at every conv
+site of the stacked pair. These cases cut the tiles instead: pixel counts
+that are no multiple of the 128-row tile, thin inputs (Ci 3, padded to 16
+channels), channel counts that are no multiple of the 64-byte K tile,
+narrow outputs (Co 1 and 3 in the phase form: 4*Co = 4 and 12) and odd
+ones, unequal two-part inputs with one part below 16 channels, odd H and
+W, both pads and both compute dtypes. Everything is integer or one
+rounding per step, so every comparison is exact: the int8 tensors, the
+s32 sums and the dequantized outputs bit for bit.
+
+Marked ``cuda``; skips without a card. On a machine with one (the tests'
+conftest imports JAX, which that machine need not have)::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_int8_cuda.py
+"""
+import pytest
+import torch
+
+from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+    channels_padded,
+    int8_conv,
+    int8_conv_plain,
+    pad_weight,
+    quantize_pad,
+    quantize_pad_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _parts(n, h, w, chans, dtype, gen, dev):
+    return [(torch.randn(n, c, h, w, generator=gen) * 2).to(dtype).to(dev)
+            .contiguous(memory_format=torch.channels_last) for c in chans]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans,h,w,leaky,reflect", [
+    ((3,), 17, 23, False, True),       # the stem: scalar loads
+    ((4,), 6, 5, False, True),
+    ((64,), 9, 13, True, True),        # 16-channel vector loads
+    ((48, 16), 7, 11, True, False),    # two parts, vector loads
+    ((40, 5), 8, 3, True, False),      # two ragged parts
+    ((1, 3), 10, 12, False, False),    # the final step's width at ngf 1
+])
+def test_quantize_pad_matches_plain(cuda, dtype, chans, h, w, leaky,
+                                    reflect):
+    gen = torch.Generator().manual_seed(sum(chans) + h)
+    parts = _parts(2, h, w, chans, dtype, gen, cuda)
+    sx = torch.tensor(0.037, device=cuda)
+    before = quantize_pad.launches
+    got = quantize_pad(parts, sx, leaky=leaky, reflect=reflect)
+    want = quantize_pad_plain(parts, sx, leaky=leaky, reflect=reflect)
+    torch.cuda.synchronize()
+    assert quantize_pad.launches == before + 1
+    assert got.shape == (2, h + 2, w + 2, channels_padded(sum(chans)))
+    assert torch.equal(got, want)
+    # values beyond +-127 * sx saturate in both
+    assert int(got.abs().max()) == 127
+
+
+def _conv_inputs(n, h, w, ci, rows, k, gen, dev):
+    xq = torch.randint(-127, 128, (n, h + 2, w + 2, channels_padded(ci)),
+                       generator=gen, dtype=torch.int8)
+    xq[..., ci:] = 0
+    wk = torch.randint(-127, 128, (rows, k, k, ci), generator=gen,
+                       dtype=torch.int8)
+    scale = torch.rand(rows, generator=gen) * 1e-4
+    return xq.to(dev), pad_weight(wk).to(dev), scale.to(dev)
+
+
+@pytest.mark.parametrize("phase,n,h,w,ci,co", [
+    (False, 2, 30, 46, 3, 64),     # stem: Ci 3, M = 690 (ragged tile)
+    (False, 1, 18, 10, 4, 5),      # Ci 4, odd Co on the narrow tile
+    (False, 3, 14, 22, 80, 96),    # K tile cut (80 channels), Co % 64
+    (False, 1, 4, 6, 512, 512),    # K = 8192, the innermost site's
+    (True, 2, 9, 13, 128, 1),      # final G1: 4*Co = 4
+    (True, 1, 11, 7, 128, 3),      # final G2: 4*Co = 12
+    (True, 2, 5, 6, 1024, 64),     # two 512 parts' width, Co 64
+    (True, 1, 7, 9, 40, 17),       # ragged Ci and Co
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_matches_plain(cuda, phase, n, h, w, ci, co, out_dtype):
+    gen = torch.Generator().manual_seed(ci * 7 + co)
+    if not phase:
+        h, w = 2 * h, 2 * w        # the encoder form halves an even input
+    rows = 4 * co if phase else co
+    xq, wk, scale = _conv_inputs(n, h, w, ci, rows, 2 if phase else 4, gen,
+                                 cuda)
+    bias = (torch.randn(co, generator=gen) * 0.1).to(cuda)
+    before = int8_conv.launches
+    acc = int8_conv(xq, wk, phase=phase)
+    got = int8_conv(xq, wk, scale, bias, phase=phase, out_dtype=out_dtype)
+    plain_acc = int8_conv_plain(xq, wk, phase=phase)
+    want = int8_conv_plain(xq, wk, scale, bias, phase=phase,
+                           out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 2
+    oh, ow = (2 * h, 2 * w) if phase else (h // 2, w // 2)
+    assert acc.dtype == torch.int32 and acc.shape == (n, co, oh, ow)
+    assert torch.equal(acc, plain_acc)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    nobias = int8_conv(xq, wk, scale, phase=phase, out_dtype=out_dtype)
+    assert torch.equal(nobias, int8_conv_plain(xq, wk, scale, phase=phase,
+                                               out_dtype=out_dtype))
+
+
+def test_wrappers_refuse_bad_operands(cuda):
+    xq = torch.zeros(1, 6, 6, 16, dtype=torch.int8, device=cuda)
+    wk = torch.zeros(8, 4, 4, 16, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):        # a 2x2 weight for the s2 form
+        int8_conv(xq, wk[:, :2, :2], phase=False)
+    with pytest.raises(ValueError):        # channels differ
+        int8_conv(xq, wk[..., :8].contiguous(), phase=False)
+    with pytest.raises(ValueError):        # sx on the host
+        quantize_pad([torch.zeros(1, 3, 4, 4, device=cuda)],
+                     torch.tensor(1.0), leaky=False, reflect=True)

@@ -172,15 +172,24 @@ class TestEngine:
                              str(tmp_path / "g2.npz"))
         assert eng.g1 is g1 and eng.g2 is g2
 
-    @pytest.mark.parametrize("what", ["int8", "devices", "artifact"])
+    @pytest.mark.parametrize("what", ["devices", "artifact"])
     def test_not_ported_yet(self, what):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            if what == "int8":
-                InferenceEngine(ngf=4, dtype="int8", device="cpu")
-            elif what == "devices":
+            if what == "devices":
                 InferenceEngine(ngf=4, devices=2, device="cpu")
             else:
                 ArtifactEngine("model.shlo")
+
+    @pytest.mark.parametrize("kw", [dict(net_g="unet"),
+                                    dict(nn_upconv=False),
+                                    dict(use_selu=True)])
+    def test_int8_refuses_other_configurations(self, kw):
+        """int8 serving takes the MNet nearest-upsample configuration
+        only, with the JAX engine's message."""
+        with pytest.raises(ValueError, match="MNet nearest-upsample"):
+            InferenceEngine(ngf=4, dtype="int8", device="cpu", **kw)
+        with pytest.raises(ValueError, match="MNet nearest-upsample"):
+            JaxInferenceEngine(ngf=4, dtype="int8", **kw)
 
 
 class TestMicroBatcher:
@@ -340,20 +349,18 @@ def test_full_queue_answers_503_with_retry_after():
         srv.shutdown()
 
 
-def test_serving_module_entry_point(tmp_path, jax_engine):
-    """``python -m shadow_removal_istd_tpu_torch.serving --device cpu``
-    starts, answers on loaded .npz weights, exits 0 on SIGTERM."""
-    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
-    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+def _serve_once(flags, img):
+    """``python -m shadow_removal_istd_tpu_torch.serving --device cpu
+    --warmup '' *flags`` on a free port: once /healthz answers, POST
+    ``img`` as a PNG (HTTP 200 asserted) and read /stats, then SIGTERM
+    (exit 0 asserted). Returns the reply image and the /stats JSON."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
     proc = subprocess.Popen(
         [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
-         "--device", "cpu", "--ngf", "4", "--dtype", "float32",
-         "--port", str(port), "--warmup", "",
-         "--load-weights-g1", str(tmp_path / "g1.npz"),
-         "--load-weights-g2", str(tmp_path / "g2.npz")], cwd=REPO)
+         "--device", "cpu", "--port", str(port), "--warmup", "", *flags],
+        cwd=REPO)
     try:
         deadline, up = time.time() + 60, False
         while time.time() < deadline and not up:
@@ -368,16 +375,61 @@ def test_serving_module_entry_point(tmp_path, jax_engine):
                 time.sleep(0.2)
         assert up, "daemon never became healthy"
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("POST", "/v1/unshadow", body=imencode_png(_img(32, 32)))
+        conn.request("POST", "/v1/unshadow", body=imencode_png(img))
         resp = conn.getresponse()
         assert resp.status == 200
-        assert imdecode_color(resp.read()).shape == (32, 32, 3)
+        got = imdecode_color(resp.read())
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
         conn.close()
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:
         if proc.poll() is None:
             proc.kill()
+    return got, stats
+
+
+def test_serving_module_entry_point(tmp_path, jax_engine):
+    """``python -m shadow_removal_istd_tpu_torch.serving --device cpu``
+    starts, answers on loaded .npz weights, exits 0 on SIGTERM."""
+    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+    got, _ = _serve_once(
+        ["--ngf", "4", "--dtype", "float32",
+         "--load-weights-g1", str(tmp_path / "g1.npz"),
+         "--load-weights-g2", str(tmp_path / "g2.npz")], _img(32, 32))
+    assert got.shape == (32, 32, 3)
+
+
+def test_daemon_serves_int8_with_calibration(tmp_path, jax_engine):
+    """``--dtype int8 --int8-calib DIR``: the daemon calibrates on DIR's
+    images, answers a request as an int8 engine calibrated on the same
+    images does, and reports ``dtype: int8``; an image-less DIR is a usage
+    error."""
+    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+    calib_dir = tmp_path / "calib"
+    calib_dir.mkdir()
+    calib = [_img(32, 32, seed=s) for s in (50, 51)]
+    for i, im in enumerate(calib):
+        image_io.imwrite(str(calib_dir / f"{i}.png"), im)
+    (tmp_path / "empty").mkdir()
+    weights = ["--load-weights-g1", str(tmp_path / "g1.npz"),
+               "--load-weights-g2", str(tmp_path / "g2.npz")]
+    with pytest.raises(SystemExit) as exc:
+        serve_main(["--device", "cpu", "--ngf", "4", "--dtype", "int8",
+                    "--int8-calib", str(tmp_path / "empty"), *weights])
+    assert exc.value.code == 2
+    want = InferenceEngine(ngf=4, dtype="int8", max_batch=1, device="cpu",
+                           calib_images=calib)
+    want.load_weights(str(tmp_path / "g1.npz"), str(tmp_path / "g2.npz"))
+    img = _img(32, 32, seed=52)
+    got, stats = _serve_once(
+        ["--ngf", "4", "--dtype", "int8", "--int8-calib", str(calib_dir),
+         "--max-batch", "1", *weights], img)
+    np.testing.assert_array_equal(got, want.infer_group([img])[0][1])
+    assert stats["dtype"] == "int8"
 
 
 def _smooth(h, w, c):
@@ -482,38 +534,9 @@ def test_server_cli_serves_a_selu_unet(flags, droprate, tmp_path,
     img = _img(32, 32, seed=5)
     with jax.default_matmul_precision("highest"):
         (_, want), = je.infer_group([img])
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
-         "--device", "cpu", "--net-G", "unet", "--ngf", "4", *flags,
-         "--dtype", "float32", "--port", str(port), "--warmup", "",
+    got, _ = _serve_once(
+        ["--net-G", "unet", "--ngf", "4", *flags, "--dtype", "float32",
          "--load-weights-g1", str(tmp_path / "g1.npz"),
-         "--load-weights-g2", str(tmp_path / "g2.npz")], cwd=REPO)
-    try:
-        deadline, up = time.time() + 60, False
-        while time.time() < deadline and not up:
-            assert proc.poll() is None, "server process died"
-            try:
-                conn = http.client.HTTPConnection("127.0.0.1", port,
-                                                  timeout=5)
-                conn.request("GET", "/healthz")
-                up = conn.getresponse().status == 200
-                conn.close()
-            except OSError:
-                time.sleep(0.2)
-        assert up, "daemon never became healthy"
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("POST", "/v1/unshadow", body=imencode_png(img))
-        resp = conn.getresponse()
-        assert resp.status == 200
-        got = imdecode_color(resp.read())
-        conn.close()
-        proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=30) == 0
-    finally:
-        if proc.poll() is None:
-            proc.kill()
+         "--load-weights-g2", str(tmp_path / "g2.npz")], img)
     assert got.shape == want.shape == (32, 32, 3)
     assert np.abs(got.astype(int) - want).max() <= 1
