@@ -151,7 +151,35 @@ Phases; any failure exits non-zero before the result line is printed:
    kernels' zero-pad (ConvTranspose) form at the validation shapes (wide
    and final steps apart; each wide step's TFLOP/s and share of the f32
    FMA rate), and the validation img/s;
-11. int8 (last, so that the earlier phases' profiler readings run in
+11. remat: ``Trainer`` at the CLI's defaults (as in phase 5, on 32
+   synthetic 480x640 triplets on the card) takes 2 steps plain and,
+   from a copy of the same state with ``remat=True``, 2 steps
+   rematerialized on the same batches and dropout generators under
+   cuDNN's deterministic algorithms: the largest difference of the 14
+   metrics, the parameters, the BN statistics and both Adam states is
+   printed (bit-identical expected; the phase fails above 1e-6 on a
+   parameter, rtol 1e-5 on a metric, or on different generator states);
+   then plain and remat in turns at 256x256 b16 (median of 5 after a
+   warm-up, CUDA events): step ms, img/s, the split by the step's
+   marks, the peak (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``) and the step's own part of it above what
+   was allocated before it, with ``hshear`` 3 launches a remat step;
+   480x480 crops of the 480x640 triplets, plain and remat at b8 and
+   remat at b24 (median of 2 after a warm-up; peak GiB and img/s;
+   ``hshear`` 3 launches a step), and plain b24's peak reckoned from b8
+   (what was held before the step, plus 3x the step's own part; not
+   run); one remat step each of UNet + BEGAN (k1, k2 in [0, 1]) and
+   DenseUNet + dummy + SoftAdapt (weights sum to 1), metrics finite;
+12. h5: ``data/h5.py::build_h5`` (the port's HDF5 writer) over the
+   ``cli`` phase's ISTD directory: build seconds and file MB;
+   ``load_streams`` of each split (img, mask, matte, target) equal byte
+   for byte to ``ISTDDataset.load_all`` of the directory, with the names,
+   and its load seconds per image; ``cli.main --data-h5 FILE --tasks
+   train --epochs 1`` at the CLI's defaults: ``hshear`` 3 launches a step
+   (+ 3 for the image log), the decoder 8 CUDA-core + 2 narrow per
+   stacked forward of the validation and the 2 image logs, validation
+   names from the file; ``h5py`` never imported;
+13. int8 (last, so that the earlier phases' profiler readings run in
    the process they ran in before it): ``cli.main --tasks train
    --NN-upconv yes`` for one epoch on the ``cli`` directory writes
    nearest-upsample MNet weights;
@@ -277,6 +305,14 @@ LEGACY_ARGS: list = []
 # a CPU rehearsal's devices and widths)
 HOST_TRAIN, HOST_VALID = 64, 16
 HOST_CLI_ARGS: list = []
+# the remat phase: 32 synthetic triplets at DATA_HW; plain and remat
+# steps at AUG_BATCH and CROP (TRAIN_KW as above), timed over REMAT_STEPS
+# after a warm-up, then full-resolution crops at two batches; the plain
+# step's parameters and metrics bound the remat step's
+REMAT_TRAIN, REMAT_STEPS = 32, 5
+REMAT_CROP, REMAT_BATCHES = 480, (8, 24)
+REMAT_PARAM_TOL = 1e-6      # abs, parameters after 2 steps
+REMAT_METRIC_RTOL = 1e-5    # the 14 metrics of 2 steps
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -3053,6 +3089,355 @@ def phase_zoo(vgg_path: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# rematerialized training and the HDF5 dataset
+
+
+def _state_leaves(state) -> dict[str, torch.Tensor]:
+    """Every tensor a train step updates, keyed ``kind name``: kind is
+    ``param``, ``bn`` (running statistics), ``adam_g`` or ``adam_d``."""
+    out = {}
+    for name, net in zip(("G1", "G2", "D1", "D2"), state.models.all()):
+        out.update({f"param {name}.{k}": v
+                    for k, v in net.named_parameters()})
+        out.update({f"bn {name}.{k}": v for k, v in net.named_buffers()})
+    for which, opt in (("adam_g", state.opt_g), ("adam_d", state.opt_d)):
+        for i, p in enumerate(opt.param_groups[0]["params"]):
+            out.update({f"{which} {i}.{k}": v
+                        for k, v in opt.state[p].items()})
+    return out
+
+
+def _gib(nbytes: float) -> float:
+    return nbytes / 2 ** 30
+
+
+def phase_remat(vgg_path: Path) -> dict:
+    """Rematerialized training on the card (see the module docstring,
+    phase 11); returns the ``hshear`` launches of its remat steps."""
+    import copy
+    import dataclasses
+
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.epoch import RngStreams
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
+    from shadow_removal_istd_tpu_torch.engine.steps import (
+        METRIC_KEYS,
+        train_step,
+    )
+    from shadow_removal_istd_tpu_torch.ops.augment import augment_batch
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "remat"
+    train = synthetic_triplets(REMAT_TRAIN, *DATA_HW, seed=6)
+
+    def make(**kw):
+        files = root / "_".join(f"{v}" for v in kw.values())
+        return Trainer(TrainConfig(aug_method="shear", **{**TRAIN_KW, **kw}),
+                       RunConfig(seed=0, vgg_weights=str(vgg_path),
+                                 device_cache=True, weights_dir=str(files),
+                                 logs_dir=str(files),
+                                 checkpoint_path=str(files / "c.msgpack")),
+                       train_streams=train, device=DEVICE)
+
+    trainer = make()
+    plain = trainer.state
+    remat = copy.deepcopy(plain)
+    remat.cfg = dataclasses.replace(plain.cfg, remat=True)
+    arrays = trainer.cache.arrays
+    gen = RngStreams(3, 0, DEVICE)
+    b16, aug256 = trainer.cfg.batch_size, trainer.aug_cfg
+
+    def raw(s, b):
+        idx = torch.arange(s * b, (s + 1) * b, device=DEVICE) % len(arrays[0])
+        return tuple(a.index_select(0, idx) for a in arrays)
+
+    def gens(s):
+        return (gen.generator("dropout_g1", s),
+                gen.generator("dropout_g2", s))
+
+    # 1. two steps each from one state on the same batches and
+    # generators, cuDNN's deterministic algorithms
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = [augment_batch(gen.generator("augment", s), raw(s, b16),
+                                 aug256) for s in range(2)]
+        used = {name: [gens(s) for s in range(2)]
+                for name in ("plain", "remat")}
+        mets = {name: [train_step(st, batches[s], used[name][s])
+                       for s in range(2)]
+                for name, st in (("plain", plain), ("remat", remat))}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    worst = {"metrics": 0.0, "metrics_rel": 0.0}
+    for a, b in zip(mets["plain"], mets["remat"]):
+        for k in METRIC_KEYS:
+            d = float((a[k] - b[k]).abs())
+            worst["metrics"] = max(worst["metrics"], d)
+            worst["metrics_rel"] = max(worst["metrics_rel"],
+                                       d / max(abs(float(a[k])), 1e-30))
+            if not math.isfinite(float(b[k])):
+                raise SystemExit(f"remat: non-finite {k}")
+    la, lb = _state_leaves(plain), _state_leaves(remat)
+    for key in la:
+        kind = key.split()[0]
+        worst[kind] = max(worst.get(kind, 0.0), float(
+            (la[key].detach().float() - lb[key].detach().float()).abs()
+            .max()))
+    gens_equal = all(torch.equal(x.get_state(), y.get_state())
+                     for px, py in zip(used["plain"], used["remat"])
+                     for x, y in zip(px, py))
+    print(f"[remat] 2 plain and 2 remat steps from one state ({CROP}x{CROP} "
+          f"b{b16}, droprate {plain.cfg.droprate}, deterministic cuDNN), "
+          "max abs difference: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; bit-identical: {all(v == 0 for v in worst.values())}; "
+          f"dropout generators' states equal: {gens_equal}")
+    if worst["param"] > REMAT_PARAM_TOL or worst["metrics_rel"] > \
+            REMAT_METRIC_RTOL or not gens_equal:
+        raise SystemExit(f"remat: steps differ from the plain steps "
+                         f"{worst}")
+
+    def timed(state, aug, b, s):
+        """One step (gather, augmentation, train_step): its phases in ms
+        (CUDA events), the bytes allocated before it and its peak."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        evs = [("start", torch.cuda.Event(enable_timing=True))]
+        evs[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append((name, ev))
+
+        batch = augment_batch(gen.generator("augment", s), raw(s, b), aug)
+        mark("augment")
+        train_step(state, batch, gens(s), mark=mark)
+        torch.cuda.synchronize()
+        ph = {n: a.elapsed_time(e) for (_, a), (n, e) in zip(evs, evs[1:])}
+        ph["step"] = evs[0][1].elapsed_time(evs[-1][1])
+        return ph, base, torch.cuda.max_memory_allocated()
+
+    def summary(rows):
+        """Median phases and the largest peak of rows after the first
+        (the warm-up)."""
+        rows = rows[1:]
+        ph = {k: _median([r[0][k] for r in rows]) for k in rows[0][0]}
+        base = max(r[1] for r in rows)
+        peak = max(r[2] for r in rows)
+        return ph, base, peak
+
+    # 2. 256x256 b16: plain and remat in turns, 1 warm-up + REMAT_STEPS
+    rows = {"plain": [], "remat": []}
+    n_shear = 0
+    for r in range(REMAT_STEPS + 1):
+        for name in (("plain", "remat") if r % 2 == 0 else ("remat",
+                                                             "plain")):
+            before = hshear.launches
+            rows[name].append(timed(plain if name == "plain" else remat,
+                                    aug256, b16, 2 + r))
+            if name == "remat":
+                n_shear += hshear.launches - before
+    res = {name: summary(v) for name, v in rows.items()}
+    for name, (ph, base, peak) in res.items():
+        print(f"[remat] {CROP}x{CROP} b{b16} f32 {name}: {ph['step']:.3f} "
+              f"ms = {b16 * 1e3 / ph['step']:.1f} img/s (median of "
+              f"{REMAT_STEPS}, CUDA events); peak {_gib(peak):.2f} GiB, "
+              f"{_gib(peak - base):.2f} GiB above the {_gib(base):.2f} GiB "
+              "held before the step")
+    (pp, pb, pk), (rp, rb, rk) = res["plain"], res["remat"]
+    print(f"[remat] remat / plain: step time {rp['step'] / pp['step']:.3f}x, "
+          f"peak {rk / pk:.3f}x, step's own peak "
+          f"{(rk - rb) / (pk - pb):.3f}x")
+    for k in ("augment", "g_forward", "d_phase", "g_adv", "g_visual",
+              "g_backward", "adam_g"):
+        print(f"[remat]   {k:<10} plain {pp[k]:9.3f} ms  remat "
+              f"{rp[k]:9.3f} ms")
+    if n_shear != 3 * (REMAT_STEPS + 1):
+        raise SystemExit(f"remat: expected {3 * (REMAT_STEPS + 1)} hshear "
+                         f"launches over the remat steps, got {n_shear}")
+
+    # 3. full-resolution crops: plain and remat at the small batch, remat
+    # alone at three times it; plain's peak there is reckoned, not run
+    aug_full = dataclasses.replace(aug256, crop_size=REMAT_CROP)
+    small, large = REMAT_BATCHES
+    total = torch.cuda.get_device_properties(0).total_memory
+    full = {}
+    for name, state, b in (("plain", plain, small), ("remat", remat, small),
+                           ("remat", remat, large)):
+        if b == large:
+            _, base, peak = full[("remat", small)]
+            reckoned = base + large / small * (peak - base)
+            if reckoned > 0.97 * total:
+                raise SystemExit(f"remat: b{large} at {REMAT_CROP}^2 "
+                                 f"reckoned {_gib(reckoned):.1f} GiB of "
+                                 f"the card's {_gib(total):.1f} GiB")
+        torch.cuda.empty_cache()
+        before = hshear.launches
+        full[(name, b)] = summary([timed(state, aug_full, b, 10 + s)
+                                   for s in range(3)])
+        if hshear.launches - before != 9:
+            raise SystemExit(f"remat: {REMAT_CROP}^2 crops took "
+                             f"{hshear.launches - before} hshear launches "
+                             "in 3 steps, not 9 (the shear path)")
+        ph, base, peak = full[(name, b)]
+        print(f"[remat] {REMAT_CROP}x{REMAT_CROP} crops of {DATA_HW[0]}x"
+              f"{DATA_HW[1]} b{b} {name}: {ph['step']:.3f} ms = "
+              f"{b * 1e3 / ph['step']:.1f} img/s (median of 2); peak "
+              f"{_gib(peak):.2f} GiB ({_gib(peak - base):.2f} GiB above "
+              f"the {_gib(base):.2f} GiB held before the step)")
+    _, base, peak = full[("plain", small)]
+    print(f"[remat] {REMAT_CROP}x{REMAT_CROP} b{large} plain, reckoned from "
+          f"b{small} (not run): {_gib(base):.2f} GiB held + {large // small} "
+          f"x {_gib(peak - base):.2f} GiB = "
+          f"{_gib(base + large / small * (peak - base)):.2f} GiB of the "
+          f"card's {_gib(total):.2f} GiB")
+
+    # 4. one remat step each of the zoo's other pairs
+    del trainer, plain, remat, batches
+    torch.cuda.empty_cache()
+    for kw in (dict(net_g="unet", net_d="began"),
+               dict(net_g="denseunet", net_d="dummy", softadapt=True)):
+        t = make(remat=True, **kw)
+        batch = augment_batch(gen.generator("augment", 0), raw(0, b16),
+                              aug256)
+        m = {k: float(v) for k, v in train_step(t.state, batch,
+                                                gens(0)).items()}
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        extra = ""
+        if t.cfg.began:
+            k1, k2 = float(t.state.k1), float(t.state.k2)
+            extra = f", k1 {k1:.5f}, k2 {k2:.5f}"
+            if not (0 <= k1 <= 1 and 0 <= k2 <= 1):
+                bad.append("k1/k2 outside [0, 1]")
+        if t.cfg.softadapt:
+            w = t.state.softadapt.weights
+            extra = f", SoftAdapt weights {w.tolist()}"
+            if abs(float(w.sum()) - 1) > 1e-5:
+                bad.append("SoftAdapt weights do not sum to 1")
+        print(f"[remat] one remat step {kw['net_g']} + {kw['net_d']}"
+              f"{' + softadapt' if t.cfg.softadapt else ''}: G "
+              f"{m['G']:.4f}, D {m['D']:.4f}{extra}")
+        if bad:
+            raise SystemExit(f"remat {kw}: {bad}")
+        del t
+        torch.cuda.empty_cache()
+    print(f"[time] remat phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"hshear": n_shear}
+
+
+def phase_h5(vgg_path: Path) -> dict:
+    """The HDF5 dataset on the card's host (see the module docstring,
+    phase 12); returns the kernels' launch counts of its CLI run."""
+    import logging
+
+    from shadow_removal_istd_tpu_torch.cli.main import build_parser
+    from shadow_removal_istd_tpu_torch.cli.main import main as cli_main
+    from shadow_removal_istd_tpu_torch.data.h5 import (
+        ISTDH5Dataset,
+        build_h5,
+    )
+    from shadow_removal_istd_tpu_torch.data.istd import ISTDDataset
+    from shadow_removal_istd_tpu_torch.engine import loop
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+
+    t_phase = time.perf_counter()
+    istd = SMOKE_DIR / "cli" / "istd"
+    root = SMOKE_DIR / "h5"
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "istd.h5"
+    t0 = time.perf_counter()
+    build_h5(str(path), str(istd))
+    build_s = time.perf_counter() - t0
+    print(f"[h5] build_h5 of the cli phase's ISTD directory ({CLI_TRAIN} + "
+          f"{CLI_TEST} {DATA_HW[0]}x{DATA_HW[1]} triplets, the port's "
+          f"writer): {build_s:.2f} s, {path.stat().st_size / 1e6:.1f} MB")
+    streams = ("img", "mask", "matte", "target")
+    names = {}
+    for subset, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+        ds = ISTDH5Dataset(str(path), subset)
+        t0 = time.perf_counter()
+        got = ds.load_streams(streams)
+        dt = time.perf_counter() - t0
+        names[subset] = ds.filenames()
+        ds.close()
+        d = ISTDDataset(str(istd), subset, datas=streams)
+        want = d.load_all()
+        same = all(got[k].dtype == want[k].dtype
+                   and got[k].shape == want[k].shape
+                   and got[k].tobytes() == want[k].tobytes()
+                   for k in streams)
+        same_names = names[subset] == [d.filename(i) for i in range(len(d))]
+        print(f"[h5] {subset}: load_streams {dt / n:.4f} s per image "
+              f"({n} images, {len(streams)} streams); equal to "
+              f"ISTDDataset.load_all byte for byte: {same}; names equal: "
+              f"{same_names}")
+        if not (same and same_names):
+            raise SystemExit(f"h5: the {subset} split differs from the "
+                             "directory's")
+
+    seen = []
+    orig_train = loop.Trainer.train
+
+    def train(self, epochs):
+        seen.append(self)
+        return orig_train(self, epochs)
+
+    handlers = list(logging.getLogger().handlers)
+    hshear.launches = 0
+    reset_decoder_counts()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(loop.Trainer, "train", train):
+            cli_main(build_parser().parse_args([
+                "--data-h5", str(path), "--tasks", "train", "--epochs",
+                "1", "--vgg-weights", str(vgg_path), "--weights",
+                str(root / "w"), "--logs", str(root / "l"), *CLI_ARGS]))
+    finally:   # each run adds its log handlers to the root logger
+        for h in logging.getLogger().handlers[len(handlers):]:
+            h.close()
+        logging.getLogger().handlers[:] = handlers
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_shear, n_dec = hshear.launches, decoder_upsample.launches
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    (trainer,) = seen
+    steps = trainer.cfg.steps_per_epoch
+    # one validation, its image log and the epoch-0 training image log,
+    # whose augmentation is 3 more hshear launches
+    forwards = -(-CLI_TEST // trainer.cfg.batch_size) + 2
+    print(f"[h5] cli.main --data-h5 --tasks train --epochs 1: {steps} steps "
+          f"+ a validation in {wall:.1f} s; hshear launches {n_shear}, "
+          f"decoder launches {n_dec} {by_variant} ({forwards} stacked "
+          f"forwards); validation names from the file: "
+          f"{trainer.valid_names == names['test']}")
+    _check_history(trainer, "h5")
+    if n_shear != 3 * (steps + 1):
+        raise SystemExit(f"h5: expected {3 * (steps + 1)} hshear launches, "
+                         f"got {n_shear}")
+    want = {"tensor_core": 0, "cuda_core": 8 * forwards,
+            "narrow": 2 * forwards}
+    if n_dec != 10 * forwards or by_variant != want:
+        raise SystemExit(f"h5: expected {10 * forwards} decoder launches "
+                         f"{want}, got {n_dec} {by_variant}")
+    if trainer.valid_names != names["test"]:
+        raise SystemExit("h5: validation names are not the file's")
+    print(f"[h5] h5py imported in this process: {'h5py' in sys.modules}")
+    if "h5py" in sys.modules:
+        raise SystemExit("h5: the port imported h5py")
+    print(f"[time] h5 phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"hshear": n_shear, "decoder": n_dec}
+
+
+# ---------------------------------------------------------------------------
 # int8 serving
 
 
@@ -3342,7 +3727,7 @@ def _int8_timings(engine, x) -> dict:
 
 
 def phase_int8(vgg_path: Path) -> dict:
-    """int8 serving on the card (see the module docstring, phase 11);
+    """int8 serving on the card (see the module docstring, phase 13);
     returns the two kernels' JSON entries."""
     from shadow_removal_istd_tpu_torch.engine.steps import infer_step
     from shadow_removal_istd_tpu_torch.models import quant
@@ -3658,6 +4043,10 @@ def main() -> int:
         zoo = phase_zoo(vgg_path)
         kernel = phase_timings(worst, launches, by_variant)
         shear_entry, extra = phase_train_timings(runs, shear_err)
+        runs.clear()        # the training phase's trainers: card memory
+        torch.cuda.empty_cache()
+        remat = phase_remat(vgg_path)
+        h5 = phase_h5(vgg_path)
         int8 = phase_int8(vgg_path)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -3665,6 +4054,7 @@ def main() -> int:
     kernel.update(extra, launches_cli=cli["decoder"],
                   launches_host=host["decoder"],
                   launches_eval=ev["decoder"], launches_zoo=zoo["decoder"],
+                  launches_h5=h5["decoder"],
                   max_abs_err=max(kernel["max_abs_err"],
                                   *zk["worst"].values()),
                   **{f"zoo_unet_upconv_{key}": {
@@ -3683,7 +4073,9 @@ def main() -> int:
                        host_epoch_img_s=host["host_img_s"],
                        fused_epoch_img_s=host["fused_img_s"],
                        launches_eval=ev["hshear"],
-                       launches_gather=ev["hshear_gather"])
+                       launches_gather=ev["hshear_gather"],
+                       launches_remat=remat["hshear"],
+                       launches_h5=h5["hshear"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": [kernel, shear_entry, *int8["kernels"]]}))

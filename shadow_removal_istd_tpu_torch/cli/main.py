@@ -13,9 +13,10 @@ Differences:
   list or another platform raises. Without a card ``cuda`` raises: the
   CPU runs only when asked for.
 - Flags whose feature is not ported raise ``NotImplementedError`` naming
-  the flag when set away from their default; so does ``--remat``, which
-  ``TrainConfig`` refuses. Every ``--net-G``/``--net-D`` choice,
-  ``--softadapt`` and ``--SELU`` run.
+  the flag when set away from their default. Every ``--net-G``/``--net-D``
+  choice, ``--softadapt``, ``--SELU``, ``--remat`` (the rematerialized
+  train step) and ``--data-h5`` (the HDF5 dataset, read by the port's
+  own HDF5 codec; it takes precedence over ``--data-dir``) run.
 
 TensorBoard event files land in ``<logs>/{train,valid}``, a
 ``--profile-dir`` trace of the second epoch in that directory
@@ -61,7 +62,6 @@ PRESERVED_ARGS = [
 
 # flag -> (args attribute, is it set away from its default?)
 _UNPORTED_FLAGS = {
-    "--data-h5": ("data_h5", lambda v: v is not None),
     "--spatial-shard": ("spatial_shard", lambda v: v > 1),
     "--model-shard": ("model_shard", lambda v: v > 1),
     "--coordinator": ("coordinator", lambda v: v is not None),
@@ -95,7 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
                         type=lambda s: re.split(", *| +", s),
                         help="root folder(s) with images")
     parser.add_argument("--data-h5", default=None,
-                        help="HDF5 dataset file (not ported yet)")
+                        help="HDF5 dataset file (build with "
+                             "shadow_removal_istd_tpu_torch.data.h5."
+                             "build_h5); takes precedence over --data-dir")
     parser.add_argument("--workers", default=4, type=int,
                         help="kept for CLI parity; PNGs decode on the "
                              "native loader's or a thread pool")
@@ -160,8 +162,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="bfloat16 = mixed-precision training "
                              "(f32 params/BN/losses)")
     parser.add_argument("--remat", action="store_true",
-                        help="rematerialize the train step (not ported "
-                             "yet)")
+                        help="rematerialize the train step: its backward "
+                             "replays the forwards, for far less "
+                             "activation memory (full-resolution "
+                             "batches)")
     parser.add_argument("--device-cache", type=str2bool, default=True,
                         const=True, nargs="?",
                         help="keep the dataset on the card and gather "

@@ -1,9 +1,7 @@
 """Training configuration; port of
 ``shadow_removal_istd_tpu/engine/config.py`` with the same fields and
-defaults. ``remat`` is not ported yet and raises when set: re-running a
-forward inside the backward (``torch.utils.checkpoint``) would move the
-BatchNorm running statistics twice and redraw the Dropout2d masks from
-generators whose state it does not restore."""
+defaults. ``remat`` rematerializes the train step's three regions
+(``engine/steps.py``): activation memory for recomputed forwards."""
 
 from __future__ import annotations
 
@@ -71,8 +69,6 @@ class TrainConfig:
             # the reference zeroes the adversarial terms for the dummy D
             object.__setattr__(self, "lambda2", 0.0)
             object.__setattr__(self, "lambda3", 0.0)
-        if self.remat:
-            raise NotImplementedError("remat is not ported yet")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError("compute_dtype must be float32 or bfloat16, "
                              f"got {self.compute_dtype!r}")

@@ -2,8 +2,9 @@
 per-network weight files, checkpoints, TensorBoard event files and
 inference to PNG files.
 
-Port of ``shadow_removal_istd_tpu/engine/loop.py``. Data comes from ISTD
-directories (``run.data_dirs``) or injected streams. An epoch takes one
+Port of ``shadow_removal_istd_tpu/engine/loop.py``. Data comes from the
+HDF5 dataset (``run.data_h5``, ``data/h5.py``; it takes precedence),
+ISTD directories (``run.data_dirs``) or injected streams. An epoch takes one
 of two paths, both the step loop of ``engine/epoch.py`` (augmentation,
 with the ``hshear`` kernel on the shear path -> adversarial step):
 
@@ -45,8 +46,8 @@ reads, and passes ``Eval/*`` (``EvalProxy/*`` when the masks are
 missing and the matte stands in) to the ``valid`` event file and to
 ``Trainer.eval_writer``.
 
-Not ported yet (``RunConfig`` raises where one is asked for): the HDF5
-dataset, the orbax backend, pipeline-parallel inference.
+Not ported yet (``RunConfig`` raises where one is asked for): the orbax
+backend, pipeline-parallel inference.
 
 The legacy tree's options: ``dcgan_init`` re-initializes the four
 networks DCGAN-style at start, drawn from the ``init`` stream after the
@@ -80,6 +81,7 @@ from shadow_removal_istd_tpu_torch import resolve_device
 from shadow_removal_istd_tpu_torch.data.device_cache import (
     DeviceDatasetCache,
 )
+from shadow_removal_istd_tpu_torch.data.h5 import ISTDH5Dataset
 from shadow_removal_istd_tpu_torch.data.istd import ISTDDataset
 from shadow_removal_istd_tpu_torch.data.pipeline import BatchPipeline
 from shadow_removal_istd_tpu_torch.engine import checkpoint as ckpt
@@ -152,7 +154,6 @@ class RunConfig:
 
     def __post_init__(self):
         unported = {
-            "data_h5": self.data_h5 is not None,
             "checkpoint_backend='orbax'": self.checkpoint_backend == "orbax",
             "pipeline_infer": self.pipeline_infer,
         }
@@ -202,16 +203,17 @@ class Trainer:
                  device: str | torch.device = "cuda"):
         """``train_streams``/``valid_streams``: dicts of (N, H, W, C)
         uint8 numpy arrays (``cfg.train_datas`` picks three of them),
-        injected directly; otherwise ISTD directories from
-        ``run.data_dirs`` are loaded (reference src/cgan.py:98-121).
-        Injected validation streams take precedence over the
-        directories' test split."""
+        injected directly; otherwise the HDF5 file ``run.data_h5`` or
+        else the ISTD directories of ``run.data_dirs`` are loaded
+        (reference src/cgan.py:98-121). Injected validation streams take
+        precedence over the loaded test split."""
         self.device = resolve_device(device)
         self.run = run
         streams_injected = (train_streams is not None
                             or valid_streams is not None)
-        if train_streams is None and run.data_dirs:
-            train_streams, loaded_valid, loaded_names = self._load_dirs(cfg)
+        if train_streams is None and (run.data_h5 or run.data_dirs):
+            loader = self._load_h5 if run.data_h5 else self._load_dirs
+            train_streams, loaded_valid, loaded_names = loader(cfg)
             if valid_streams is None:
                 valid_streams, valid_names = loaded_valid, loaded_names
         self.valid_names = valid_names or []
@@ -296,6 +298,18 @@ class Trainer:
                 "--eval-metrics with injected validation streams: no "
                 "aligned mask stream; Eval scalars use the matte proxy "
                 "(tagged EvalProxy/*)")
+        elif (run.eval_metrics and "mask" not in cfg.train_datas
+              and run.data_h5):
+            ds = ISTDH5Dataset(run.data_h5, "test")
+            try:
+                self._valid_masks = ds.load_streams(("mask",))["mask"]
+            except KeyError:
+                logger.warning(
+                    "--eval-metrics: HDF5 file carries no mask stream; "
+                    "Eval scalars fall back to the matte proxy (tagged "
+                    "EvalProxy/*)")
+            finally:
+                ds.close()
         elif run.eval_metrics and "mask" not in cfg.train_datas:
             try:
                 self._valid_masks = np.concatenate([
@@ -308,6 +322,23 @@ class Trainer:
                     "proxy (tagged EvalProxy/*)", run.data_dirs)
 
     # ------------------------------------------------------------ data
+    def _load_h5(self, cfg: TrainConfig):
+        """The train and test streams of ``run.data_h5``, one read per
+        stream, and the test split's file names."""
+        t0 = time.perf_counter()
+        out = []
+        for subset in ("train", "test"):
+            ds = ISTDH5Dataset(self.run.data_h5, subset)
+            try:
+                out.append(ds.load_streams(tuple(cfg.train_datas)))
+                names = ds.filenames()
+            finally:
+                ds.close()
+        logger.info("loaded %s: %d train + %d test samples in %.1f s",
+                    self.run.data_h5, len(next(iter(out[0].values()))),
+                    len(names), time.perf_counter() - t0)
+        return out[0], out[1], names
+
     def _load_dirs(self, cfg: TrainConfig):
         train_parts, valid_parts, names = [], [], []
         for d in self.run.data_dirs:

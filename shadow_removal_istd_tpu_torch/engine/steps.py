@@ -27,6 +27,19 @@ then updates the weights from the groups.
 The visual terms are gated per lambda: a zero lambda costs no VGG pass.
 Metrics are detached 0-d tensors on the step's device; nothing here
 waits for the device (k1, k2 and the SoftAdapt state stay there too).
+
+``cfg.remat`` rematerializes the JAX step's three ``jax.checkpoint``
+regions: the G forward (step 1), the D phase's forwards and loss (step
+2) and the G phase's forwards and loss (step 4) keep only their inputs
+across the backward, which replays them (``torch.utils.checkpoint``,
+non-reentrant). A replay leaves the BatchNorm running statistics alone
+(``models.layers.replaying_forward``) and draws the first call's dropout
+masks from generators set back for it, so the step computes the plain
+step's numbers, bit for bit on deterministic kernels. Unlike JAX, the
+targets' VGG features are computed once, before the G phase, and kept
+across the backward (2 x (B, 512, H/16, W/16) f32) rather than
+recomputed. BEGAN's k and SoftAdapt's state update from the first
+calls' values, once.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from shadow_removal_istd_tpu_torch.engine.state import (
     TrainState,
@@ -48,6 +62,14 @@ from shadow_removal_istd_tpu_torch.losses import (
     softadapt_combine,
     softadapt_update,
     visual_loss,
+)
+from shadow_removal_istd_tpu_torch.losses.visual import (
+    target_features,
+    visual_loss_to,
+)
+from shadow_removal_istd_tpu_torch.models.layers import (
+    replaying,
+    replaying_forward,
 )
 
 METRIC_KEYS = ("G", "G1", "G2", "D", "D1", "D2", "data1", "data2",
@@ -73,17 +95,24 @@ def _cat(*tensors: torch.Tensor) -> torch.Tensor:
     return torch.cat([t.to(dt) for t in tensors], dim=1)
 
 
-def _vis_fns(state: TrainState):
+def _vis_fns(state: TrainState, targets=None):
     """(vis1, vis2): the visual loss where its lambda is nonzero and a
-    VGG is present, else a zero."""
+    VGG is present, else a zero. With ``targets`` (m, y), each target's
+    VGG features are computed here, once, and the loss runs against
+    them: the remat step keeps them across its backward instead of
+    recomputing them."""
     cfg = state.cfg
 
-    def make(lam):
-        if cfg.use_visual_loss and state.vgg is not None and lam != 0:
+    def make(lam, target):
+        if not (cfg.use_visual_loss and state.vgg is not None and lam != 0):
+            return lambda pred, target: torch.zeros((), device=pred.device)
+        if target is None:
             return lambda pred, target: visual_loss(state.vgg, pred, target)
-        return lambda pred, target: torch.zeros((), device=pred.device)
+        f_target = target_features(state.vgg, target)
+        return lambda pred, _: visual_loss_to(state.vgg, pred, f_target)
 
-    return make(cfg.lambda4), make(cfg.lambda5)
+    m, y = targets if targets is not None else (None, None)
+    return make(cfg.lambda4, m), make(cfg.lambda5, y)
 
 
 @contextlib.contextmanager
@@ -99,6 +128,38 @@ def _no_param_grads(*nets: nn.Module):
             p.requires_grad_(f)
 
 
+def _direct(fn: Callable, *args, gens=()):
+    return fn(*args)
+
+
+def _rematerialized(fn: Callable, *args, gens=()):
+    """``fn(*args)`` keeping only its inputs for the backward, which
+    replays ``fn`` (``torch.utils.checkpoint``, non-reentrant) where it
+    needs the activations. The replay runs inside
+    :func:`replaying_forward`, so BatchNorm statistics move once, and
+    with each dropout generator in ``gens`` set back to its state before
+    the first call, so it draws the first call's masks; each generator
+    leaves the replay in the state it entered it."""
+    gens = [g for g in gens if g is not None]
+    before = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def replay():
+        after = [g.get_state() for g in gens]
+        for g, st in zip(gens, before):
+            g.set_state(st)
+        try:
+            with replaying_forward():
+                yield
+        finally:
+            for g, st in zip(gens, after):
+                g.set_state(st)
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          replay()))
+
+
 def _no_mark(name: str) -> None:
     pass
 
@@ -111,42 +172,61 @@ def train_step(state: TrainState, batch, gens=(None, None),
     place and returns the 14 metrics. ``mark(phase)`` is called as each
     phase's work has been enqueued ("g_forward", "d_phase", "g_adv",
     "g_visual", "g_backward", "adam_g"): a profiler records a CUDA event
-    there to split the step's device time."""
+    there to split the step's device time. Under ``cfg.remat`` the
+    backward replays the G forward, the D phase's loss and the G phase's
+    loss (the JAX step's three ``jax.checkpoint`` regions), so the
+    D-phase and G-backward marks also hold those replays, and "g_adv"
+    the targets' VGG forwards."""
     cfg, nets, adv = state.cfg, state.models, state.adv
     g1, g2, d1, d2 = nets.all()
     x, m, y = batch
     for net in nets.all():
         net.train()
     set_learning_rates(state)
-    vis1_fn, vis2_fn = _vis_fns(state)
+    region = _rematerialized if cfg.remat else _direct
 
     # ---- G forward, once
-    m_pred = g1(x, generator=gens[0])
-    y_pred = g2(_cat(x, m_pred), generator=gens[1])
+    def g_forward(x):
+        m_pred = g1(x, generator=gens[0])
+        y_pred = g2(_cat(x, m_pred), generator=gens[1])
+        return m_pred, y_pred
+
+    m_pred, y_pred = region(g_forward, x, gens=gens)
     m_sg, y_sg = m_pred.detach(), y_pred.detach()
     mark("g_forward")
 
     # ---- D phase on the detached predictions
-    c1_real = d1(_cat(x, m))
-    c1_fake = d1(_cat(x, m_sg))
-    c2_real = d2(_cat(x, m, y))
-    c2_fake = d2(_cat(x, m_sg, y_sg))
-    if cfg.began:
-        began = (l1_loss(c1_real, m), l1_loss(c1_fake, m_sg),
-                 l1_loss(c2_real, y), l1_loss(c2_fake, y_sg))
-        d1_l = began_d_loss(state.k1, began[0], began[1])
-        d2_l = began_d_loss(state.k2, began[2], began[3])
-    else:
-        d1_l = adv.d_loss(c1_real, c1_fake)
-        d2_l = adv.d_loss(c2_real, c2_fake)
-    d_total = cfg.lambda2 * d1_l + cfg.lambda3 * d2_l
+    k1, k2, softadapt = state.k1, state.k2, state.softadapt
+
+    def d_phase(x, m, y, m_sg, y_sg):
+        c1_real = d1(_cat(x, m))
+        c1_fake = d1(_cat(x, m_sg))
+        c2_real = d2(_cat(x, m, y))
+        c2_fake = d2(_cat(x, m_sg, y_sg))
+        began = None
+        if cfg.began:
+            began = (l1_loss(c1_real, m), l1_loss(c1_fake, m_sg),
+                     l1_loss(c2_real, y), l1_loss(c2_fake, y_sg))
+            d1_l = began_d_loss(k1, began[0], began[1])
+            d2_l = began_d_loss(k2, began[2], began[3])
+        else:
+            d1_l = adv.d_loss(c1_real, c1_fake)
+            d2_l = adv.d_loss(c2_real, c2_fake)
+        d_total = cfg.lambda2 * d1_l + cfg.lambda3 * d2_l
+        return d_total, d1_l, d2_l, (c1_real, c1_fake, c2_real,
+                                     c2_fake), began
+
+    d_total, d1_l, d2_l, critics, began = region(d_phase, x, m, y, m_sg,
+                                                 y_sg)
     state.opt_d.zero_grad(set_to_none=True)
     d_total.backward()
     state.opt_d.step()
     mark("d_phase")
 
     # ---- G phase against the updated D
-    with _no_param_grads(d1, d2):
+    vis1_fn, vis2_fn = _vis_fns(state, (m, y) if cfg.remat else None)
+
+    def g_phase(m_pred, y_pred):
         g_c1_real = d1(_cat(x, m))
         g_c1_fake = d1(_cat(x, m_pred))
         g_c2_real = d2(_cat(x, m, y))
@@ -159,21 +239,30 @@ def train_step(state: TrainState, batch, gens=(None, None),
             g2_l = adv.g_loss(g_c2_real, g_c2_fake)
         data1 = l1_loss(m_pred, m)
         data2 = l1_loss(y_pred, y)
-        mark("g_adv")
+        if not replaying():
+            mark("g_adv")
         vis1 = vis1_fn(m_pred, m)
         vis2 = vis2_fn(y_pred, y)
-        mark("g_visual")
+        if not replaying():
+            mark("g_visual")
+        groups = None
         if cfg.softadapt:
             # the lambdas live in the weights ([1, l1, l2] at init), not
             # in the groups, so they are not applied twice
             groups = torch.stack([(g1_l + g2_l).float(),
                                   (data1 + data2).float(),
                                   (vis1 + vis2).float()])
-            g_total = softadapt_combine(state.softadapt, groups)
+            g_total = softadapt_combine(softadapt, groups)
         else:
             g_total = (data1 + cfg.lambda1 * data2
                        + cfg.lambda2 * g1_l + cfg.lambda3 * g2_l
                        + cfg.lambda4 * vis1 + cfg.lambda5 * vis2)
+        return g_total, (g1_l, g2_l, data1, data2, vis1, vis2), groups
+
+    # the replays of g_phase and g_forward run inside g_total.backward(),
+    # so under the same frozen D as the first calls
+    with _no_param_grads(d1, d2):
+        g_total, terms, groups = region(g_phase, m_pred, y_pred)
         state.opt_g.zero_grad(set_to_none=True)
         g_total.backward()
         mark("g_backward")
@@ -187,6 +276,8 @@ def train_step(state: TrainState, batch, gens=(None, None),
         if cfg.softadapt:
             state.softadapt = softadapt_update(state.softadapt, groups)
 
+    g1_l, g2_l, data1, data2, vis1, vis2 = terms
+    c1_real, c1_fake, c2_real, c2_fake = critics
     out = {"G": g_total, "G1": g1_l, "G2": g2_l, "D": d_total, "D1": d1_l,
            "D2": d2_l, "data1": data1, "data2": data2, "vis1": vis1,
            "vis2": vis2, "D1_real": c1_real.mean(), "D1_fake": c1_fake.mean(),

@@ -26,10 +26,22 @@ def _features(vgg: VGG19Features, img_pm1: torch.Tensor) -> torch.Tensor:
     return vgg(imagenet_normalize(img))
 
 
+def target_features(vgg: VGG19Features,
+                    target_pm1: torch.Tensor) -> torch.Tensor:
+    """The target branch's VGG features, under ``no_grad``."""
+    with torch.no_grad():
+        return _features(vgg, target_pm1)
+
+
+def visual_loss_to(vgg: VGG19Features, pred_pm1: torch.Tensor,
+                   f_target: torch.Tensor) -> torch.Tensor:
+    """Feature-space MSE against precomputed :func:`target_features`."""
+    return (_features(vgg, pred_pm1) - f_target).square().mean()
+
+
 def visual_loss(vgg: VGG19Features, pred_pm1: torch.Tensor,
                 target_pm1: torch.Tensor) -> torch.Tensor:
     """Feature-space MSE; gradient flows through the pred branch only."""
     f_pred = _features(vgg, pred_pm1)
-    with torch.no_grad():
-        f_target = _features(vgg, target_pm1)
+    f_target = target_features(vgg, target_pm1)
     return (f_pred - f_target).square().mean()

@@ -19,12 +19,21 @@ Train and eval follow ``module.training``: BatchNorm takes batch
 statistics and updates its running ones, Dropout2d draws a mask, and
 ``Upsample`` runs the differentiable unfused form (plain cuDNN, as the
 JAX package's training runs plain XLA) in place of the decoder op.
+
+A forward replayed by activation checkpointing (``engine/steps.py``
+under ``remat``) runs inside :func:`replaying_forward`: BatchNorm then
+normalizes by the batch statistics as always but leaves its running
+statistics where the first forward moved them. BatchNorm is the only
+layer that changes state in a train forward; a new stateful layer must
+read :func:`replaying` the same way.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable
+import threading
+from typing import Callable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -163,13 +172,36 @@ class ConvTranspose(nn.Module):
                                   padding=self.padding)
 
 
+_REPLAY = threading.local()
+
+
+@contextlib.contextmanager
+def replaying_forward() -> Iterator[None]:
+    """Mark the forwards run inside, on this thread, as replays of a
+    forward that already ran (activation checkpointing's recompute):
+    train-mode BatchNorm leaves its running statistics as they are.
+    Thread-local, since autograd recomputes on its device thread."""
+    prev = getattr(_REPLAY, "on", False)
+    _REPLAY.on = True
+    try:
+        yield
+    finally:
+        _REPLAY.on = prev
+
+
+def replaying() -> bool:
+    """True inside :func:`replaying_forward` on this thread."""
+    return getattr(_REPLAY, "on", False)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with the JAX package's arithmetic (eps 1e-5).
 
     Train: batch mean and biased variance ``max(E[x^2] - E[x]^2, 0)`` in
     ``promote(x, f32)`` normalise the output; the running statistics
     move by momentum 0.1 toward the mean and the UNBIASED variance
-    (``n/(n-1)``), as torch's BatchNorm2d (and the JAX package) do.
+    (``n/(n-1)``), as torch's BatchNorm2d (and the JAX package) do,
+    except in a replayed forward (:func:`replaying_forward`).
 
     Eval: the per-channel factor ``weight * rsqrt(running_var + eps)`` is
     formed in the parameter dtype (bf16 in the bf16 engine, as in JAX,
@@ -203,12 +235,15 @@ class BatchNorm(nn.Module):
         mean = x32.mean(dim=(0, 2, 3))
         var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
                           min=0.0)
-        with torch.no_grad():
-            n = x.numel() / x.shape[1]
-            unbiased = var * (n / max(n - 1, 1))
-            m = self.momentum
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        if not replaying():
+            with torch.no_grad():
+                n = x.numel() / x.shape[1]
+                unbiased = var * (n / max(n - 1, 1))
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
         s = self.weight * torch.rsqrt(var + self.eps)
         y = ((x32 - mean.view(1, -1, 1, 1)) * s.view(1, -1, 1, 1)
              + self.bias.view(1, -1, 1, 1))

@@ -34,6 +34,7 @@ from shadow_removal_istd_tpu_torch.cli.main import (
     snapshotargs,
     str2bool,
 )
+from shadow_removal_istd_tpu_torch.data.h5 import build_h5
 from shadow_removal_istd_tpu_torch.data.synthetic import write_istd_layout
 from shadow_removal_istd_tpu_torch.serving import InferenceEngine
 from shadow_removal_istd_tpu_torch.utils.image_io import (
@@ -299,7 +300,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--data-h5", "x.h5"], NotImplementedError, "--data-h5"),
     (["--spatial-shard", "2"], NotImplementedError, "--spatial-shard"),
     (["--model-shard", "2"], NotImplementedError, "--model-shard"),
     (["--coordinator", "h:1"], NotImplementedError, "--coordinator"),
@@ -312,7 +312,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
     (["--devices", "2"], NotImplementedError, "--devices"),
     (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),
-    (["--remat"], NotImplementedError, "remat"),
 ])
 def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
     argv = _argv(istd_root, str(tmp_path), "--tasks", "train",
@@ -331,6 +330,8 @@ def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
       "yes"], "train epoch 1:"),
     (["--device-cache", "false"], "train epoch 1:"),
     (["--profile-dir", "{tmp}/prof"], "train epoch 1:"),
+    (["--remat"], "train epoch 1:"),
+    (["--data-h5", "{tmp}/istd.h5"], "istd.h5: 4 train + 2 test samples"),
 ])
 def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
     """The in-training eval protocol (``Eval/*`` in the log, against the
@@ -340,8 +341,13 @@ def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
     the same files, byte for byte, as the uninterrupted one (the gather
     path draws its parameters from the same (seed, epoch, step) streams;
     the host pipeline's order is a function of (seed, epoch); the
-    checkpoint carries k1/k2 and the SoftAdapt state)."""
+    checkpoint carries k1/k2 and the SoftAdapt state). ``--remat`` (at
+    the CLI's droprate 0.05) and ``--data-h5`` (a file the port's
+    ``build_h5`` wrote from the same directory, which it takes in place
+    of ``--data-dir``) resume the same way."""
     extra = [a.format(tmp=tmp_path) for a in extra]
+    if "--data-h5" in extra:
+        build_h5(extra[1], istd_root)
     common = ("--tasks", "train", "--allow-missing-vgg", *extra)
     _run(*_argv(istd_root, f"{tmp_path}/a", *common, "--epochs", "2"))
     _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "1"))

@@ -2,8 +2,9 @@
 
 Walks the AST of every module of ``shadow_removal_istd_tpu_torch`` and
 of ``chip_smoke.py``: none may import ``jax``, ``flax``, ``optax``,
-``msgpack`` (absent on a CUDA host; the port has its own codec) or
-anything of ``shadow_removal_istd_tpu`` (modules without JAX included).
+``msgpack`` or ``h5py`` (absent on a CUDA host; the port has its own
+codecs) or anything of ``shadow_removal_istd_tpu`` (modules without JAX
+included).
 """
 import ast
 import os
@@ -17,7 +18,8 @@ import torch
 from shadow_removal_istd_tpu_torch.serving import InferenceEngine
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "optax", "msgpack", "shadow_removal_istd_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "msgpack", "h5py",
+             "shadow_removal_istd_tpu"}
 FILES = sorted(p.relative_to(REPO).as_posix() for p in
                [*(REPO / "shadow_removal_istd_tpu_torch").rglob("*.py"),
                 REPO / "chip_smoke.py"])
@@ -42,7 +44,8 @@ def test_port_files_found():
                 "engine/checkpoint.py", "utils/msgpack_codec.py",
                 "cli/main.py", "models/patchgan.py", "models/vgg.py",
                 "ops/color.py", "ops/resize.py", "ops/warp.py",
-                "metrics/metrics.py", "metrics/eval_cli.py"):
+                "metrics/metrics.py", "metrics/eval_cli.py",
+                "data/h5.py", "data/hdf5_codec.py", "tools/preprocess.py"):
         assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 
