@@ -198,7 +198,40 @@ Phases; any failure exits non-zero before the result line is printed:
    forward beside its plain version, its bound and, for ``int8_conv``,
    ``torch._int_mm`` on ``Tensor.unfold`` patches; the serving daemon
    with ``--dtype int8 --int8-calib`` answering one 480x640 request as
-   the engine in this process does.
+   the engine in this process does;
+14. parallel (after every earlier phase): ``W = torch.cuda.device_count()``
+   data-parallel ranks over NCCL where there are two cards or more, else
+   2 ranks sharing ``cuda:0`` over gloo (printed, with ``nvidia-smi``'s
+   name and power limit). The training configuration (ngf 64, f32, shear,
+   256 crops of 16 + 16 synthetic 480x640 triplets, global batch 16,
+   Adam eps 1, deterministic cuDNN) trains 2 epochs of one step, each
+   validated, in one process and in W spawned ranks
+   (``torch.multiprocessing``, a ``file://`` rendezvous): every rank's
+   state identical and started from the single run's. Each leaf of the
+   state (parameters, BN statistics, Adam moments) is read as its
+   largest difference from the single run over its own change from the
+   start (at least 1e-3 of its kind's largest change); after both steps
+   every kind of DP's reading, and its metrics, lie within the larger
+   of 1e-4 and 4x the largest reading of the single run again on its
+   batch in 6 other orders (the same shapes and deterministic
+   algorithms: what the reduction order alone moves). Each rank then
+   replays step 1 with a planted fault (BatchNorm statistics of the
+   rank's slice alone; their gradient not summed; the last rank's
+   gradients dropped), each of which must exceed that limit. Launches
+   per rank (``hshear`` 3 a step, K1 8 CUDA-core + 2 narrow per
+   validation forward, rank 0 also its image logs); both runs' img/s
+   over 2 more steps. Two ``cli.main``
+   processes on the card joined by ``--coordinator`` train one epoch on
+   the ``cli`` directory (batch 8): identical validation lines, the
+   checkpoint and weight files from rank 0 only, event files only under
+   its logs. ``StackedPipeline`` at 480x640 b4 bf16 (stages on
+   ``cuda:0``/``cuda:1``, or both on ``cuda:0`` on two streams): 8
+   tensor-core + 2 narrow launches a batch, bit-identical to the fused
+   ``infer_step`` for one batch and a stream of 8 in order, timed beside
+   it in turns. ``InferenceEngine`` over two devices (two replicas on
+   one card where there is one) answers 4 480x640 images as the
+   one-device engine does, each replica's forward launching K1 8
+   tensor-core + 2 narrow.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
@@ -223,6 +256,7 @@ backward beside torch's atomic one, in turns (``[compare-pad]`` lines).
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import importlib.util
 import json
@@ -313,6 +347,30 @@ REMAT_TRAIN, REMAT_STEPS = 32, 5
 REMAT_CROP, REMAT_BATCHES = 480, (8, 24)
 REMAT_PARAM_TOL = 1e-6      # abs, parameters after 2 steps
 REMAT_METRIC_RTOL = 1e-5    # the 14 metrics of 2 steps
+# the parallel phase: data-parallel training at TRAIN_KW on PAR_TRAIN +
+# PAR_VALID triplets at DATA_HW, against one process's run of the same
+# steps, with Adam eps PAR_ADAM_EPS: Adam's update lr * g / (|g| + eps)
+# moves a parameter by up to lr / eps times its gradient's change, so at
+# the default 1e-8 the f32 rounding of a near-zero gradient becomes a
+# +-lr move whatever the ranks agree on; at eps 1 the bound is lr. Each
+# leaf of the state is read as its largest difference from the single
+# run over its own change from the common start (at least PAR_FLOOR of
+# the largest change of its kind) and held within PAR_SPREAD_K times the
+# largest such reading of the single run again on its batch in each
+# order of PAR_ORDERS (the reduction order's spread), and at least
+# PAR_REL_TOL; each planted fault of PAR_FAULTS must exceed that limit
+# (see _par_planted). Then two CLI
+# processes on the cli phase's directory, and the pipeline at DATA_HW,
+# PIPE_BATCH a batch, PIPE_STREAM batches
+PAR_TRAIN, PAR_VALID = 16, 16
+PAR_ADAM_EPS = 1.0
+PAR_FLOOR = 1e-3
+PAR_REL_TOL = 1e-4
+PAR_SPREAD_K = 4
+PAR_ORDERS = ("rolled by 1", "rolled by -1", "rolled by half", "reversed",
+              "halves reversed", "odd rows first")
+PAR_FAULTS = ("bn_local", "bn_backward_local", "rank_grad_dropped")
+PIPE_BATCH, PIPE_STREAM = 4, 8
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -3848,6 +3906,555 @@ def phase_int8(vgg_path: Path) -> dict:
     return {"kernels": [conv, entry("quantize_pad", tot["quantize_pad"])]}
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _par_trainer(spec: dict, mesh=None):
+    """The parallel phase's trainer (``spec``: its sizes, configuration
+    and devices), on ``mesh`` or, without one, on one device."""
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.loop import RunConfig, Trainer
+
+    files = Path(spec["dir"]) / ("single" if mesh is None
+                                 else f"rank{mesh.rank}")
+    h, w = spec["hw"]
+    run = RunConfig(seed=0, valid_every=1, vgg_weights=spec["vgg"],
+                    device_cache=True, weights_dir=str(files),
+                    logs_dir=str(files),
+                    checkpoint_path=str(files / "checkpoint.msgpack"))
+    return Trainer(TrainConfig(**spec["cfg"]), run,
+                   train_streams=synthetic_triplets(spec["n_train"], h, w,
+                                                    seed=7),
+                   valid_streams=synthetic_triplets(spec["n_valid"], h, w,
+                                                    seed=8),
+                   device=spec["devices"][0], mesh=mesh)
+
+
+def _par_state(trainer) -> dict:
+    return {k: v.detach().float().cpu().clone()
+            for k, v in _state_leaves(trainer.state).items()}
+
+
+def _par_copy(state):
+    """A deep copy of a train state sharing its mesh (a process group
+    does not copy)."""
+    import copy
+
+    mesh, state.mesh = state.mesh, None
+    try:
+        out = copy.deepcopy(state)
+    finally:
+        state.mesh = mesh
+    out.mesh = mesh
+    return out
+
+
+def _par_epochs(trainer, epochs=(0, 1), loop: bool = True) -> dict:
+    """``epochs`` (one step each, each validated), through
+    ``Trainer.train`` (``loop``) or its epochs alone (no image logs or
+    saves): the state before the first, after each step, and every
+    metric."""
+    out = {"metrics": {}, "state0": _par_state(trainer)}
+    for epoch in epochs:
+        if loop:
+            trainer.start_epoch = epoch
+            trainer.train(epoch + 1)
+        else:
+            trainer.run_train_epoch(epoch)
+            trainer.run_valid_epoch(epoch)
+        _sync(trainer.device)
+        out[f"state{epoch + 1}"] = _par_state(trainer)
+        out["metrics"].update(
+            {f"train{epoch + 1} {k}": v
+             for k, v in trainer.history[-1].items()})
+        out["metrics"].update({f"valid{epoch + 1} {k}": v
+                               for k, v in trainer.last_valid.items()})
+    return out
+
+
+@contextlib.contextmanager
+def _par_planted(name: str):
+    """The enclosed steps with ``name`` planted: an order of PAR_ORDERS,
+    no fault: the batch and its dropout masks in that order (the same
+    function, every batch reduction in another order); the data-parallel
+    faults ``bn_local`` (BatchNorm on the rank's slice alone),
+    ``bn_backward_local`` (the global statistics, their gradient not
+    summed over the ranks) and ``rank_grad_dropped`` (the last rank's
+    parameter gradients zeroed before the sum)."""
+    from unittest import mock
+
+    from shadow_removal_istd_tpu_torch.engine import epoch, steps
+    from shadow_removal_istd_tpu_torch.models import layers
+    from shadow_removal_istd_tpu_torch.parallel.mesh import sum_across
+
+    order = {"rolled by 1": lambda t: t.roll(1, 0),
+             "rolled by -1": lambda t: t.roll(-1, 0),
+             "rolled by half": lambda t: t.roll(t.shape[0] // 2, 0),
+             "reversed": lambda t: t.flip(0),
+             "halves reversed": lambda t: t.flip(0).roll(t.shape[0] // 2,
+                                                         0),
+             "odd rows first": lambda t: torch.cat([t[1::2], t[0::2]]),
+             }.get(name)
+    step, rand, reduce = (epoch.train_step, layers.global_rand,
+                          steps.all_reduce_grads)
+
+    def dropped(params, mesh):
+        if mesh is not None and mesh.rank == mesh.world - 1:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.zero_()
+        reduce(params, mesh)
+
+    if order is not None:
+        patches = [(epoch, "train_step", lambda state, batch, gens: step(
+                        state, tuple(order(t) for t in batch), gens)),
+                   (layers, "global_rand", lambda *a: order(rand(*a)))]
+    else:
+        patches = {
+            "bn_local": [(layers, "active_mesh", lambda: None)],
+            "bn_backward_local": [(layers, "all_reduce_sum",
+                                   lambda t, mesh: t + (sum_across(
+                                       t.detach(), mesh) - t.detach()))],
+            "rank_grad_dropped": [(steps, "all_reduce_grads", dropped)],
+        }[name]
+    with contextlib.ExitStack() as stack:
+        for module, attr, fn in patches:
+            stack.enter_context(mock.patch.object(module, attr, fn))
+        yield
+
+
+def _par_run(trainer, mesh=None) -> dict:
+    """Epochs 0 and 1 with the launches counted from 0, then 2 more
+    steps timed; then from the starting state again: in one process
+    (``mesh`` None) both epochs in each order of PAR_ORDERS, on a rank
+    epoch 0's step with each fault of PAR_FAULTS planted (see
+    :func:`_par_planted`)."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+    from shadow_removal_istd_tpu_torch.parallel.mesh import barrier
+
+    start = _par_copy(trainer.state)
+    hshear.launches = 0
+    reset_decoder_counts()
+    out = _par_epochs(trainer)
+    out["hshear"] = hshear.launches
+    out["decoder"] = dict(decoder_upsample.launches_by_variant)
+    barrier(mesh)
+    t0 = time.perf_counter()
+    for epoch in (2, 3):
+        trainer.run_train_epoch(epoch)
+    _sync(trainer.device)
+    barrier(mesh)
+    out["steps_s"] = time.perf_counter() - t0
+    for name in PAR_ORDERS if mesh is None else PAR_FAULTS:
+        trainer.state, trainer.best_loss = _par_copy(start), float("inf")
+        with _par_planted(name):
+            if mesh is None:
+                out[name] = _par_epochs(trainer, loop=False)
+            else:
+                trainer.run_train_epoch(0)
+                out[name] = {"state1": _par_state(trainer)}
+    return out
+
+
+def _par_rank(local: int, world: int, init: str, spec: dict) -> None:
+    """One rank of the parallel phase's data-parallel run (a spawned
+    process): joins the group, runs :func:`_par_run`, saves its result."""
+    import datetime
+
+    from shadow_removal_istd_tpu_torch.parallel.mesh import (
+        barrier,
+        distributed_init,
+        make_mesh,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    timeout = datetime.timedelta(seconds=300)
+    distributed_init(init, world, local, timeout=timeout)
+    mesh = make_mesh(spec["devices"][local], timeout=timeout)
+    try:
+        out = _par_run(_par_trainer(spec, mesh), mesh)
+        out["backend"] = mesh.backend
+        torch.save(out, Path(spec["dir"]) / f"rank{local}.pt")
+    finally:
+        barrier(mesh)
+        torch.distributed.destroy_process_group()
+
+
+def _par_read(ref: dict, other: dict, after: str) -> tuple[dict, dict]:
+    """Each leaf of ``other``'s state ``after`` a step against ``ref``'s:
+    its largest difference over the leaf's own change from ``ref``'s
+    start (at least PAR_FLOOR of the largest change of its kind; Adam's
+    moments start at 0). Returns the largest reading of each kind
+    (``adam_g m``: G's first moments) and the leaf it was read on."""
+    change: dict = {}
+    diff: dict = {}
+    for key, r in ref[after].items():
+        kind = key.split()[0]
+        if kind.startswith("adam"):
+            if key.endswith(".step"):
+                if not torch.equal(r, other[after][key]):
+                    raise SystemExit(f"parallel: Adam step {key} differs")
+                continue
+            kind += " m" if key.endswith("exp_avg") else " v"
+        r0 = ref["state0"].get(key, torch.zeros_like(r))
+        change[key] = (kind, float((r - r0).abs().max()))
+        diff[key] = float((other[after][key] - r).abs().max())
+    largest: dict = {}
+    for kind, c in change.values():
+        largest[kind] = max(largest.get(kind, 0.0), c)
+    worst: dict = {}
+    where: dict = {}
+    for key, (kind, c) in change.items():
+        v = diff[key] / max(c, PAR_FLOOR * largest[kind], 1e-30)
+        if v >= worst.get(kind, 0.0):
+            worst[kind], where[kind] = v, key
+    return worst, where
+
+
+def _par_metrics(ref: dict, other: dict) -> float:
+    """The largest difference of ``other``'s metrics from ``ref``'s,
+    relative to the larger of the value and 1."""
+    return max(abs(v - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1.0)
+               for k, v in other["metrics"].items())
+
+
+def _par_hold(single: dict, ranks: list) -> dict:
+    """DP against the single run, within the limit that the single run's
+    own reduction-order spread (PAR_ORDERS) sets; every planted fault
+    beyond it. Returns the readings."""
+    def line(w):
+        return ", ".join(f"{k} {v:.3e}" for k, v in w.items())
+
+    steps = ("state1", "state2")
+    orders = {o: {s: _par_read(single, single[o], s)[0] for s in steps}
+              for o in PAR_ORDERS}
+    spread = {s: {k: max(orders[o][s][k] for o in PAR_ORDERS)
+                  for k in orders[PAR_ORDERS[0]][s]} for s in steps}
+    m_spread = max(_par_metrics(single, single[o]) for o in PAR_ORDERS)
+    limit = {s: {k: max(PAR_REL_TOL, PAR_SPREAD_K * v)
+                 for k, v in spread[s].items()} for s in steps}
+    m_limit = max(PAR_REL_TOL, PAR_SPREAD_K * m_spread)
+    dp = {s: _par_read(single, ranks[0], s) for s in steps}
+    m_dp = _par_metrics(single, ranks[0])
+    print(f"[parallel] reading: each state leaf's largest |difference| "
+          f"from the single run over the leaf's own change from the "
+          f"start (at least {PAR_FLOOR} of its kind's largest change), the "
+          f"largest per kind; metrics relative to max(|value|, 1)")
+    for o in PAR_ORDERS:
+        print(f"[parallel] reduction order: the single run again on its "
+              f"batch and dropout masks {o} (the same shapes and "
+              f"deterministic cuDNN algorithms): after step 1: "
+              f"{line(orders[o]['state1'])}; after step 2: "
+              f"{line(orders[o]['state2'])}; metrics "
+              f"{_par_metrics(single, single[o]):.3e}")
+    for s in steps:
+        print(f"[parallel] DP - single after {s}: {line(dp[s][0])} "
+              f"(largest at {dp[s][1]})")
+    print(f"[parallel] DP - single metrics (both steps and validations) "
+          f"{m_dp:.3e}")
+    print(f"[parallel] held: each kind within max({PAR_REL_TOL}, "
+          f"{PAR_SPREAD_K} x its largest reading in the {len(PAR_ORDERS)} "
+          f"orders): after step 1 "
+          f"{line(limit['state1'])}; after step 2 {line(limit['state2'])}; "
+          f"metrics {m_limit:.3e}")
+    bad = [f"{k} after {s}" for s in steps for k, v in dp[s][0].items()
+           if v > limit[s][k]]
+    bad += ["metrics"] if m_dp > m_limit else []
+    faults = {}
+    for name in PAR_FAULTS:
+        read, where = _par_read(single, ranks[0][name], "state1")
+        over = {k: v / limit["state1"][k] for k, v in read.items()}
+        faults[name] = max(over.values())
+        print(f"[parallel] planted fault {name}, after step 1: "
+              f"{line(read)}; the largest {faults[name]:.1f} x its limit "
+              f"(at {where[max(over, key=over.get)]}; seen: "
+              f"{faults[name] > 1})")
+    if bad:
+        raise SystemExit(f"parallel: DP differs from single beyond the "
+                         f"limit in {bad}")
+    unseen = [n for n, v in faults.items() if v <= 1]
+    if unseen:
+        raise SystemExit(f"parallel: the DP check does not see the planted "
+                         f"faults {unseen}")
+    return {"dp": {s: dp[s][0] for s in steps}, "metrics": m_dp,
+            "spread": spread, "faults_x_limit": faults}
+
+
+def _par_cli(vgg_path: Path, root: Path) -> dict:
+    """Two ``cli.main`` processes joined by ``--coordinator``: identical
+    validation lines, rank 0's files only."""
+    import re
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    istd = SMOKE_DIR / "cli" / "istd"
+    batch = min(8, TRAIN_KW.get("batch_size", 8))
+    # the card's CLI defaults but the batch; a CPU rehearsal's widths
+    flags = ["--batch-size", str(batch), "--image-size", str(CROP),
+             "--ngf", str(NGF), "--ndf", str(TRAIN_KW.get("ndf", NGF))]
+    flags += [] if DEVICE == "cuda" else ["--devices", DEVICE]
+    t0 = time.perf_counter()
+    procs = [_cli_subprocess(
+        ["--tasks", "train", "--data-dir", str(istd), "--epochs", "1",
+         "--vgg-weights", str(vgg_path),
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(i), "--weights", str(root / f"cli_w{i}"),
+         "--logs", str(root / f"cli_l{i}"),
+         "--infered", str(root / f"cli_out{i}"), *flags], env)
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"parallel: CLI process {i} exited "
+                             f"{p.returncode}:\n{out[-3000:]}")
+    lines = [re.findall(r"valid epoch \d+: .*", out) for out in outs]
+    suffix = "_lr0.00050_SGAN"
+    files = [sorted(str(f.relative_to(root / f"cli_w{i}{suffix}"))
+                    for f in (root / f"cli_w{i}{suffix}").rglob("*")
+                    if f.is_file()) for i in range(2)]
+    events = [sorted(str(f) for f in (root / f"cli_l{i}{suffix}").rglob(
+        "events.out.tfevents.*")) for i in range(2)]
+    print(f"[parallel] cli: 2 processes (--coordinator 127.0.0.1:{port} "
+          f"--num-processes 2, --devices {DEVICE} each) trained 1 epoch "
+          f"({CLI_TRAIN} + {CLI_TEST} triplets, batch {batch}) in "
+          f"{wall:.1f} s "
+          f"wall; validation lines {lines[0]} and {lines[1]}; rank 0 "
+          f"wrote {len(files[0])} files (checkpoint "
+          f"{'checkpoint.msgpack' in files[0]}), rank 1 {len(files[1])}; "
+          f"event files {len(events[0])} and {len(events[1])}")
+    if not lines[0] or lines[0] != lines[1]:
+        raise SystemExit("parallel: the two CLI processes logged different "
+                         "validation lines")
+    if "checkpoint.msgpack" not in files[0] or files[1] or not events[0] \
+            or events[1]:
+        raise SystemExit("parallel: files not written by rank 0 alone: "
+                         f"{files}, {events}")
+    return {"wall_s": wall}
+
+
+def _par_pipeline(n_cards: int) -> dict:
+    """``StackedPipeline`` at DATA_HW, batch PIPE_BATCH, bf16 beside the
+    fused forward: bit-identical outputs, K1's launches, a stream of
+    PIPE_STREAM batches in order, the times in turns."""
+    from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.parallel.pipeline import (
+        StackedPipeline,
+    )
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device("cpu")
+    eng = InferenceEngine(ngf=NGF, dtype="bfloat16", device=dev, seed=3)
+    g1, g2 = eng.g1, eng.g2
+    stages = ([dev, torch.device("cuda", 1)] if n_cards >= 2
+              else [dev, dev])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xs = [torch.rand((PIPE_BATCH, 3, *DATA_HW), generator=gen, device=dev)
+          * 2 - 1 for _ in range(PIPE_STREAM)]
+    pipe = StackedPipeline(g1, g2, stages)
+    with torch.inference_mode():
+        refs = [infer_step(g1, g2, x) for x in xs]
+        _sync(dev)
+        reset_decoder_counts()
+        m, y = pipe(xs[0])
+        for d in stages:
+            _sync(d)
+        by_variant = dict(decoder_upsample.launches_by_variant)
+        same = [torch.equal(m.to(dev), refs[0][0])
+                and torch.equal(y.to(dev), refs[0][1])]
+        outs = list(pipe.stream(iter(xs)))
+        same += [torch.equal(a.to(dev), ra) and torch.equal(b.to(dev), rb)
+                 for (a, b), (ra, rb) in zip(outs, refs)]
+
+        def fused():
+            for x in xs:
+                infer_step(g1, g2, x)
+            _sync(dev)
+
+        def piped():
+            for _ in pipe.stream(iter(xs)):
+                pass
+            for d in stages:
+                _sync(d)
+
+        times = {"fused": [], "pipeline": []}
+        for name, fn in (("fused", fused), ("pipeline", piped),
+                         ("pipeline", piped), ("fused", fused)):
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3
+                               / PIPE_STREAM)
+    want = {"tensor_core": 8, "narrow": 2, "cuda_core": 0}
+    where = (f"stage A {stages[0]}, stage B {stages[1]}"
+             + ("" if n_cards >= 2 else " (one card: two streams)"))
+    print(f"[parallel] pipeline {where}, {DATA_HW[0]}x{DATA_HW[1]} "
+          f"b{PIPE_BATCH} bf16 ngf {NGF}: one batch launched K1 "
+          f"{by_variant} (want {want}); bit-identical to the fused "
+          f"infer_step: {all(same)} (1 call + a stream of {len(outs)} "
+          f"batches, in order)")
+    print(f"[time] pipeline vs fused, {PIPE_STREAM} batches in turns "
+          f"(fused, pipeline, pipeline, fused; host clock around "
+          f"synchronize): fused {times['fused'][0]:.3f} / "
+          f"{times['fused'][1]:.3f} ms a batch, pipeline "
+          f"{times['pipeline'][0]:.3f} / {times['pipeline'][1]:.3f}")
+    if DEVICE == "cuda" and by_variant != want:
+        raise SystemExit(f"parallel: pipeline launched {by_variant}")
+    if not all(same) or len(outs) != PIPE_STREAM:
+        raise SystemExit("parallel: the pipeline differs from the fused "
+                         "forward")
+    return {"by_variant": by_variant, "ms": times}
+
+
+def _par_serving(n_cards: int) -> dict:
+    """``InferenceEngine(devices=2)`` (two replicas on one card where
+    there is one) answers as the one-device engine does, each replica's
+    forward through K1 (8 tensor-core + 2 narrow launches). Returns the
+    launches of the two replicas' forwards."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device("cpu")
+    devices = 2 if n_cards >= 2 else [dev, dev]
+    one = InferenceEngine(ngf=NGF, dtype="bfloat16", device=dev, seed=3)
+    many = InferenceEngine(ngf=NGF, dtype="bfloat16", device=dev, seed=3,
+                           devices=devices)
+    rng = np.random.default_rng(9)
+    imgs = [rng.integers(0, 256, (*DATA_HW, 3), dtype=np.uint8)
+            for _ in range(4)]
+    reset_decoder_counts()
+    got = many.infer_group(imgs)
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    want_out = one.infer_group(imgs)
+    same = all(np.array_equal(a, b) for ga, wa in zip(got, want_out)
+               for a, b in zip(ga, wa))
+    r = len(many.devices)
+    want = {"tensor_core": 8 * r, "narrow": 2 * r, "cuda_core": 0}
+    print(f"[parallel] serving: InferenceEngine(devices="
+          f"{[str(d) for d in many.devices]}) on 4 {DATA_HW[0]}x"
+          f"{DATA_HW[1]} images equals the one-device engine: {same}; "
+          f"its {r} replicas' forwards launched K1 {by_variant} (want "
+          f"{want})")
+    if not same:
+        raise SystemExit("parallel: multi-device serving differs")
+    if DEVICE == "cuda" and by_variant != want:
+        raise SystemExit(f"parallel: the serving replicas launched "
+                         f"{by_variant}")
+    return by_variant
+
+
+def phase_parallel(vgg_path: Path) -> dict:
+    """Data parallelism, the two-process CLI, pipeline inference and
+    multi-device serving (see the module docstring, phase 14). Returns
+    each rank's launches and the pipeline's."""
+    import torch.multiprocessing as mp
+
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    root = (SMOKE_DIR / "parallel").resolve()
+    root.mkdir(parents=True, exist_ok=True)
+    n_cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    world = max(n_cards, 2)
+    if n_cards >= 2:
+        devices = [f"cuda:{i}" for i in range(world)]
+        how = f"NCCL, one card each of {n_cards}"
+    else:
+        devices = ["cuda:0" if DEVICE == "cuda" else "cpu"] * 2
+        how = ("gloo, 2 ranks sharing the one card: this shows "
+               "correctness and overhead, no scaling")
+    print(f"[parallel] {world} data-parallel ranks on {devices} ({how}); "
+          f"card: {nvidia_smi() if DEVICE == 'cuda' else 'none'}")
+    spec = {"dir": str(root), "hw": tuple(DATA_HW), "n_train": PAR_TRAIN,
+            "n_valid": PAR_VALID, "vgg": str(vgg_path.resolve()),
+            "devices": devices,
+            "cfg": dict(aug_method="shear", adam_eps=PAR_ADAM_EPS,
+                        **TRAIN_KW)}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        single = _par_run(_par_trainer(spec))
+        t_single = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    t0 = time.perf_counter()
+    mp.start_processes(_par_rank, args=(world, f"file://{root}/rendezvous",
+                                        spec),
+                       nprocs=world, start_method="spawn")
+    t_dp = time.perf_counter() - t0
+    ranks = [torch.load(root / f"rank{r}.pt") for r in range(world)]
+    # every rank the same state, from the single run's starting state
+    identical = all(torch.equal(r[s][k], ranks[0][s][k])
+                    for r in ranks[1:] for s in ("state0", "state1", "state2")
+                    for k in ranks[0][s])
+    identical &= all(torch.equal(ranks[0]["state0"][k], v)
+                     for k, v in single["state0"].items())
+    identical &= all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    batch = TrainConfig(**spec["cfg"]).batch_size
+    n_fwd_valid = -(-PAR_VALID // batch)
+    print(f"[parallel] DP train: {world} ranks x {batch // world} of a "
+          f"global batch {batch}, 2 epochs of 1 step, each validated at "
+          f"{DATA_HW[0]}x{DATA_HW[1]} ({world} x {PAR_VALID // world}), "
+          f"backend {ranks[0]['backend']}, deterministic cuDNN, Adam eps "
+          f"{PAR_ADAM_EPS}; single process {t_single:.1f} s, {world} "
+          f"ranks {t_dp:.1f} s wall (process start, kernel loads, data "
+          f"and the planted runs included); every rank's state identical "
+          f"and started from the single run's: {identical}")
+    for r, out in enumerate(ranks):
+        print(f"[parallel] rank {r}: hshear {out['hshear']}, K1 "
+              f"{out['decoder']}")
+    img_s = {"single": 2 * batch / single["steps_s"],
+             "dp": 2 * batch / max(r["steps_s"] for r in ranks)}
+    print(f"[time] parallel train, 2 steps of {batch} ({CROP}x{CROP} f32, "
+          f"host clock around synchronize and a barrier): single "
+          f"{img_s['single']:.1f} img/s, {world} ranks "
+          f"{img_s['dp']:.1f} img/s"
+          + ("" if n_cards >= 2 else " (one card shared: no scaling)"))
+    if not identical:
+        raise SystemExit("parallel: the ranks' states differ")
+    held = _par_hold(single, ranks)
+    if DEVICE == "cuda":
+        for r, out in enumerate(ranks):
+            # 2 validations; rank 0 also logs the images of epoch 0's
+            # training batch (3 hshear) and of each validation
+            fwd = 2 * n_fwd_valid + (3 if r == 0 else 0)
+            want = {"cuda_core": 8 * fwd, "narrow": 2 * fwd,
+                    "tensor_core": 0}
+            if out["hshear"] != 3 * 2 + (3 if r == 0 else 0) or \
+                    out["decoder"] != want:
+                raise SystemExit(f"parallel: rank {r} launched hshear "
+                                 f"{out['hshear']}, K1 {out['decoder']}")
+    cli = _par_cli(vgg_path.resolve(), root)
+    pipe = _par_pipeline(n_cards)
+    serving = _par_serving(n_cards)
+    print(f"[time] parallel phase {time.perf_counter() - t_phase:.1f} s")
+    return {"hshear": [r["hshear"] for r in ranks],
+            "decoder": [r["decoder"] for r in ranks],
+            "pipeline": pipe["by_variant"], "serving": serving,
+            "img_s": img_s, "cli_s": cli["wall_s"],
+            "pipeline_ms": pipe["ms"], "faults_x_limit":
+            held["faults_x_limit"]}
+
+
 def build_renamed(name: str, path: str,
                   entry: str = "srit_decoder_upsample"):
     """A kernel source (e.g. an earlier commit's
@@ -4048,6 +4655,7 @@ def main() -> int:
         remat = phase_remat(vgg_path)
         h5 = phase_h5(vgg_path)
         int8 = phase_int8(vgg_path)
+        par = phase_parallel(vgg_path)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     zk = zoo["kernels"]
@@ -4055,6 +4663,9 @@ def main() -> int:
                   launches_host=host["decoder"],
                   launches_eval=ev["decoder"], launches_zoo=zoo["decoder"],
                   launches_h5=h5["decoder"],
+                  launches_parallel={"dp_ranks": par["decoder"],
+                                     "pipeline": par["pipeline"],
+                                     "serving": par["serving"]},
                   max_abs_err=max(kernel["max_abs_err"],
                                   *zk["worst"].values()),
                   **{f"zoo_unet_upconv_{key}": {
@@ -4075,7 +4686,9 @@ def main() -> int:
                        launches_eval=ev["hshear"],
                        launches_gather=ev["hshear_gather"],
                        launches_remat=remat["hshear"],
-                       launches_h5=h5["hshear"])
+                       launches_h5=h5["hshear"],
+                       launches_parallel=par["hshear"],
+                       parallel_train_img_s=par["img_s"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": [kernel, shear_entry, *int8["kernels"]]}))

@@ -8,15 +8,33 @@ run-dir naming that encodes lr / D-type / D-loss, and seeding::
     python -m shadow_removal_istd_tpu_torch.cli.main --tasks train infer \\
         --data-dir <ISTD root> [--devices cpu]
 
-Differences:
-- ``--devices`` is ``cuda`` (the default) or ``cpu``; a device count, a
-  list or another platform raises. Without a card ``cuda`` raises: the
-  CPU runs only when asked for.
+Devices and ranks:
+- ``--devices`` is ``cuda`` (the default, one card), ``cpu`` or a count
+  N of cards. Without a card ``cuda`` and N raise: the CPU runs only
+  when asked for. N is capped to the cards present and to the largest
+  divisor of the batch size (with the other processes' ranks counted),
+  as the JAX CLI caps its data mesh.
+- Training on N > 1 cards starts N ranks, one process per card
+  (``torch.multiprocessing``, spawn), each training data-parallel on its
+  slice of every global batch (``parallel/mesh.py``); rank 0 alone
+  writes files. The collectives run over NCCL when every rank has a card
+  of its own, else over gloo (ranks sharing a card, CPU ranks).
+- ``--coordinator host:port --num-processes P --process-id i`` joins P
+  such processes (one per host), each with its own ``--devices`` ranks:
+  P x N ranks in all, rank ``i * N + local``; ``--devices cpu`` (or
+  ``cuda``) makes the process itself one rank. The three flags go
+  together, with the JAX CLI's messages. ``--tasks serve`` refuses them;
+  ``infer`` raises in such a run, as in JAX.
+- ``--pipeline-infer`` runs ``infer`` as the two-stage pipeline over the
+  selected cards (``parallel/pipeline.py``); with fewer than two it
+  warns and runs fused.
 - Flags whose feature is not ported raise ``NotImplementedError`` naming
-  the flag when set away from their default. Every ``--net-G``/``--net-D``
-  choice, ``--softadapt``, ``--SELU``, ``--remat`` (the rematerialized
-  train step) and ``--data-h5`` (the HDF5 dataset, read by the port's
-  own HDF5 codec; it takes precedence over ``--data-dir``) run.
+  the flag when set away from their default (``--spatial-shard``,
+  ``--model-shard``, ``--export-stablehlo``, ``--checkpoint-backend
+  orbax``). Every ``--net-G``/``--net-D`` choice, ``--softadapt``,
+  ``--SELU``, ``--remat`` (the rematerialized train step) and
+  ``--data-h5`` (the HDF5 dataset, read by the port's own HDF5 codec; it
+  takes precedence over ``--data-dir``) run.
 
 TensorBoard event files land in ``<logs>/{train,valid}``, a
 ``--profile-dir`` trace of the second epoch in that directory
@@ -32,19 +50,29 @@ a run of either package resumes or serves from the other's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
 import random
 import re
 import signal
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from shadow_removal_istd_tpu_torch import resolve_device
+from shadow_removal_istd_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    distributed_init,
+    make_mesh,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -64,10 +92,6 @@ PRESERVED_ARGS = [
 _UNPORTED_FLAGS = {
     "--spatial-shard": ("spatial_shard", lambda v: v > 1),
     "--model-shard": ("model_shard", lambda v: v > 1),
-    "--coordinator": ("coordinator", lambda v: v is not None),
-    "--num-processes": ("num_processes", lambda v: v is not None),
-    "--process-id": ("process_id", lambda v: v is not None),
-    "--pipeline-infer": ("pipeline_infer", bool),
     "--export-stablehlo": ("export_stablehlo", lambda v: v is not None),
     "--checkpoint-backend orbax": ("checkpoint_backend",
                                    lambda v: v == "orbax"),
@@ -88,7 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "HTTP daemon on the loaded/trained weights")
     parser.add_argument("--devices", default=["cuda"],
                         type=lambda s: re.split(", *| +", s),
-                        help="cuda (default) or cpu")
+                        help="cuda (default, one card), cpu, or a count "
+                             "N of cards: training on N > 1 starts one "
+                             "data-parallel rank per card")
     parser.add_argument("--batch-size", default=16, type=int)
     parser.add_argument("--epochs", default=100000, type=int)
     parser.add_argument("--data-dir", default=[],
@@ -187,11 +213,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="full-state checkpoint format: msgpack = one "
                              "file (orbax is not ported yet)")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-host training (not ported yet)")
+                        help="multi-host training: rank 0's rendezvous "
+                             "address host:port (process 0's host); with "
+                             "--num-processes and --process-id")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help="multi-host training (not ported yet)")
+                        help="multi-host training: total process count "
+                             "(one per host)")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="multi-host training (not ported yet)")
+                        help="multi-host training: this process's index "
+                             "(0..num-processes-1)")
     parser.add_argument("--serve-host", default="127.0.0.1",
                         help="--tasks serve: bind address")
     parser.add_argument("--serve-port", default=8650, type=int,
@@ -206,8 +236,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--serve-timeout-s", default=600.0, type=float,
                         help="--tasks serve: per-request deadline")
     parser.add_argument("--pipeline-infer", action="store_true",
-                        help="pipeline-parallel inference (not ported "
-                             "yet)")
+                        help="pipeline parallelism for inference: G1 on "
+                             "one device group, G2 on the other, matte "
+                             "handed over between stages (halves "
+                             "per-device weight memory; throughput set "
+                             "by the slower stage)")
     parser.add_argument("--eval-metrics", action="store_true",
                         help="score each validation by the ISTD protocol "
                              "(LAB RMSE/MAE, Eval/* in the log)")
@@ -279,26 +312,146 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet")
 
 
-def select_device(devices: list[str]) -> torch.device:
-    """``--devices``: one entry, ``cuda`` or ``cpu``."""
-    if len(devices) != 1 or devices[0].isdigit():
+def check_multihost_flags(args) -> None:
+    """``--coordinator``/``--num-processes``/``--process-id`` go together
+    (the JAX CLI's rule and messages); none given is one process."""
+    if args.num_processes is not None:
+        if args.coordinator is None or args.process_id is None:
+            raise SystemExit("--num-processes needs --coordinator "
+                             "host:port and --process-id")
+    elif args.coordinator is not None:
+        raise SystemExit("--coordinator needs --num-processes and "
+                         "--process-id")
+
+
+def select_devices(devices: list[str], batch_size: int,
+                   processes: int = 1) -> list[torch.device]:
+    """``--devices``: ``cuda`` or ``cpu`` (one device), or a count N of
+    cards, capped to the cards present and to the largest n with
+    ``batch_size % (processes * n) == 0`` (every rank an equal slice)."""
+    if len(devices) != 1:
         raise NotImplementedError(
-            f"--devices {' '.join(devices)}: several devices (data "
-            "parallelism) are not ported yet; pass cuda or cpu")
-    return resolve_device(devices[0])
+            f"--devices {' '.join(devices)}: a list of devices is not "
+            "ported; pass cuda, cpu or a count of cards")
+    if not devices[0].isdigit():
+        return [resolve_device(devices[0])]
+    resolve_device("cuda")
+    want, avail = int(devices[0]), torch.cuda.device_count()
+    n = min(want, avail)
+    if n < want:
+        logger.warning("--devices %d: the host has %d cards; using %d",
+                       want, avail, n)
+    while n > 1 and batch_size % (processes * n):
+        n -= 1
+    if batch_size % (processes * n):
+        raise SystemExit(f"--batch-size {batch_size} does not split over "
+                         f"{processes} processes")
+    if n < min(want, avail):
+        logger.warning("--devices %d capped to %d, the largest count "
+                       "whose ranks split --batch-size %d equally", want,
+                       n, batch_size)
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def join_ranks(local_rank: int, devices: list[torch.device],
+               init: str | None, processes: int = 1,
+               process_id: int = 0) -> Mesh:
+    """This rank's mesh: without ``init`` one rank over ``devices`` (the
+    selected devices, for pipeline inference); else rank ``process_id *
+    len(devices) + local_rank`` of ``processes * len(devices)``, on its
+    own device, joined at ``init``."""
+    if init is None:
+        return make_mesh(devices[0], devices=devices)
+    local = len(devices)
+    distributed_init(init, processes * local, process_id * local + local_rank)
+    return make_mesh(devices[local_rank], devices=devices,
+                     processes=processes)
+
+
+def start_ranks(target, args: tuple, devices: list[torch.device],
+                multi: bool, coordinator: str | None = None) -> None:
+    """Run ``target(local_rank, *args, devices, init)`` for this process's
+    ranks: in this process when it is one rank (``init`` None unless
+    ``multi``), else one spawned process per device, rendezvousing at
+    ``coordinator`` or at a file in a temporary directory. A rank that
+    fails fails the launch (the others are stopped). A SIGTERM to this
+    process goes on to every rank, as it reaches the one process of the
+    JAX package's run: each rank's preemption guard sees it."""
+    if not multi or len(devices) == 1:
+        target(0, *args, devices, coordinator if multi else None)
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        init = coordinator or f"file://{tmp}/rendezvous"
+        ranks = mp.start_processes(target, args=(*args, devices, init),
+                                   nprocs=len(devices), join=False,
+                                   start_method="spawn")
+
+        def forward(signum, frame):
+            for p in ranks.processes:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(p.pid, signum)
+
+        old = signal.signal(signal.SIGTERM, forward)
+        try:
+            while not ranks.join():
+                pass
+        finally:
+            signal.signal(signal.SIGTERM, old)
 
 
 def main(args) -> None:
+    check_multihost_flags(args)
     time_str = time.strftime("%Y%m%d-%H%M%S")
     prepare_run_dirs(args)
     refuse_unported(args)
-    device = select_device(args.devices)
-    if args.manual_seed != -1:
-        set_manual_seed(args.manual_seed)
+    processes = args.num_processes or 1
+    if processes > 1 and "serve" in args.tasks:
+        raise SystemExit("--tasks serve is single-process; serve from "
+                         "the saved weights on one host (data-parallel "
+                         "serving uses --devices N within a host)")
+    devices = select_devices(args.devices, args.batch_size, processes)
+    multi = processes > 1 or ("train" in args.tasks and len(devices) > 1)
+    start_ranks(_rank_main, (args, time_str), devices, multi,
+                args.coordinator)
+
+
+def rank_logging(log_dir: str, stem: str, local_rank: int,
+                 devices: list[torch.device], init: str | None,
+                 process_id: int = 0) -> None:
+    """Logging of one rank, set up before it joins the group: rank N of
+    a run of several logs to ``<stem>-p<N>.log`` with ``[rank N]`` lines,
+    as the JAX CLI names process N's file; one rank to ``<stem>.log``."""
     from shadow_removal_istd_tpu_torch.utils.logging_utils import (
         setup_logging,
     )
-    setup_logging(os.path.join(args.logs, f"main-{time_str}.log"))
+    rank = None if init is None else process_id * len(devices) + local_rank
+    tail = "" if rank is None else f"-p{rank}"
+    setup_logging(os.path.join(log_dir, f"{stem}{tail}.log"), rank=rank)
+
+
+def leave_ranks(mesh: Mesh) -> None:
+    """Wait for every rank, then leave the process group."""
+    if mesh.world > 1:
+        barrier(mesh)
+        dist.destroy_process_group()
+
+
+def _rank_main(local_rank: int, args, time_str: str,
+               devices: list[torch.device], init: str | None) -> None:
+    """One rank of ``main``: join the group, run the tasks, leave it."""
+    rank_logging(args.logs, f"main-{time_str}", local_rank, devices, init,
+                 args.process_id or 0)
+    mesh = join_ranks(local_rank, devices, init, args.num_processes or 1,
+                      args.process_id or 0)
+    try:
+        _run_tasks(args, mesh)
+    finally:
+        leave_ranks(mesh)
+
+
+def _run_tasks(args, mesh: Mesh) -> None:
+    if args.manual_seed != -1:
+        set_manual_seed(args.manual_seed)
     logger.info("Arguments: %s", args)
 
     if (("infer" in args.tasks or "serve" in args.tasks)
@@ -345,7 +498,7 @@ def main(args) -> None:
         eval_metrics=args.eval_metrics,
         pipeline_infer=args.pipeline_infer,
     )
-    trainer = Trainer(cfg, run, device=device)
+    trainer = Trainer(cfg, run, mesh=mesh)
     trainer.load_weights(g1=args.load_weights_g1, g2=args.load_weights_g2,
                          d1=args.load_weights_d1, d2=args.load_weights_d2)
     if args.load_checkpoint is not None:
@@ -364,7 +517,7 @@ def main(args) -> None:
         return
     if "infer" in args.tasks:
         trainer.infer()
-    if "serve" in args.tasks:
+    if "serve" in args.tasks and mesh.rank == 0:
         _serve(trainer, cfg, args)
 
 

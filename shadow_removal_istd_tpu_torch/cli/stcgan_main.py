@@ -20,7 +20,10 @@ Fixed behaviour (reference STCGAN/stcgan.py), whatever the flags say:
 
 Training runs the host-pipeline epoch (``RunConfig``'s default, as in
 the JAX package); a SIGTERM checkpoints at the next epoch boundary and
-skips inference. ``--devices`` is ``cuda`` (the default) or ``cpu``.
+skips inference. ``--devices`` is ``cuda`` (the default), ``cpu`` or a
+count N of cards: training on N > 1 starts one data-parallel rank per
+card, as ``cli/main.py`` does (the JAX legacy CLI maps it onto its data
+mesh).
 ``--no-batch-norm-G`` and ``--no-batch-norm-D`` are parsed, as in the
 reference, and refuse to run when set, since the pipeline trains with
 BatchNorm whatever they say.
@@ -34,7 +37,14 @@ import logging
 import os
 import time
 
-from shadow_removal_istd_tpu_torch.cli.main import select_device, str2bool
+from shadow_removal_istd_tpu_torch.cli.main import (
+    join_ranks,
+    leave_ranks,
+    rank_logging,
+    select_devices,
+    start_ranks,
+    str2bool,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -46,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tasks", required=True, nargs="+",
                         choices=["train", "infer"], type=str)
     parser.add_argument("--devices", default=["cuda"], nargs="+", type=str,
-                        help="cuda (default) or cpu")
+                        help="cuda (default), cpu or a count N of cards "
+                             "(training on N > 1: one rank per card)")
     parser.add_argument("--batch-size", default=16, type=int)
     parser.add_argument("--epochs", default=100000, type=int)
     parser.add_argument("--lr-D", default=0.00002, type=float)
@@ -101,7 +112,7 @@ def main(args) -> None:
             "implemented (the reference also parses and ignores them, "
             "STCGAN/main.py:236-239); refusing to train with BatchNorm "
             "silently enabled — drop the flag")
-    device = select_device(list(args.devices))
+    devices = select_devices(list(args.devices), args.batch_size)
     time_str = time.strftime("%Y%m%d-%H%M%S")
     os.makedirs(args.logs, exist_ok=True)
     if "train" in args.tasks:
@@ -110,10 +121,22 @@ def main(args) -> None:
         os.makedirs(args.infered, exist_ok=True)
     with open(os.path.join(args.logs, "args.json"), "w") as fp:
         json.dump(vars(args), fp, indent=4, sort_keys=True)
-    from shadow_removal_istd_tpu_torch.utils.logging_utils import (
-        setup_logging,
-    )
-    setup_logging(os.path.join(args.logs, f"stcgan-{time_str}.log"))
+    start_ranks(_rank_main, (args, time_str), devices,
+                "train" in args.tasks and len(devices) > 1)
+
+
+def _rank_main(local_rank: int, args, time_str: str, devices,
+               init: str | None) -> None:
+    """One rank: join the group, train and infer, leave it."""
+    rank_logging(args.logs, f"stcgan-{time_str}", local_rank, devices, init)
+    mesh = join_ranks(local_rank, devices, init)
+    try:
+        _run_tasks(args, mesh)
+    finally:
+        leave_ranks(mesh)
+
+
+def _run_tasks(args, mesh) -> None:
     logger.info("Arguments: %s", args)
 
     from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
@@ -151,7 +174,7 @@ def main(args) -> None:
         seed=args.manual_seed if args.manual_seed != -1 else 0,
         tasks=tuple(args.tasks),
     )
-    trainer = Trainer(cfg, run, device=device)
+    trainer = Trainer(cfg, run, mesh=mesh)
     trainer.load_weights(g1=args.load_weights_g1, g2=args.load_weights_g2,
                          d1=args.load_weights_d1, d2=args.load_weights_d2)
     if "train" in args.tasks:

@@ -67,19 +67,22 @@ def train_steps(state: TrainState, raws: Iterable, aug_cfg: AugmentConfig,
     (a tuple of (B, H, W, C) uint8 tensors on the card, sorted stream
     order), step ``s`` augments it with the ``("augment", s)`` draw (or
     ``param_source(s)``'s parameters) and runs ``train_step`` with the
-    step's dropout generators. Returns ``(sums, n, first)``: the 14
-    metrics summed over the ``n`` steps (device tensors, not read back)
-    and step 0's augmented batch."""
+    step's dropout generators. Over ``state.mesh`` a raw batch is this
+    rank's slice of the global batch, and the draws (or the given
+    parameters) are the global batch's. Returns ``(sums, n, first)``:
+    the 14 metrics summed over the ``n`` steps (device tensors, not read
+    back) and step 0's augmented batch."""
     sums: dict[str, torch.Tensor] = {}
     first = None
     n = 0
     for step, raw in enumerate(raws):
+        shard = {} if state.mesh is None else {"mesh": state.mesh}
         if param_source is not None:
             batch = augment_batch(None, raw, aug_cfg,
-                                  params=param_source(step))
+                                  params=param_source(step), **shard)
         else:
             batch = augment_batch(gen.generator("augment", step), raw,
-                                  aug_cfg)
+                                  aug_cfg, **shard)
         if first is None:
             first = batch
         metrics = train_step(state, batch,
@@ -96,7 +99,8 @@ def make_epoch(aug_cfg: AugmentConfig,
     """Build ``epoch_fn(state, arrays, idx, gen) -> (state, sums)``.
 
     ``arrays``: the (N, H, W, C) uint8 streams on the card in sorted
-    stream order; ``idx``: the (steps, batch) index matrix; ``gen``: the
+    stream order; ``idx``: the (steps, batch) index matrix (over a mesh,
+    this rank's columns of the global one); ``gen``: the
     epoch's :class:`RngStreams`. Step ``s`` gathers ``idx[s]`` on the
     card and runs :func:`train_steps`' step. ``param_source(step)``,
     when given, supplies each step's augmentation parameters in place of

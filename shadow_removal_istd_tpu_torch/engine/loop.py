@@ -46,8 +46,24 @@ reads, and passes ``Eval/*`` (``EvalProxy/*`` when the masks are
 missing and the matte stands in) to the ``valid`` event file and to
 ``Trainer.eval_writer``.
 
+Data parallelism (``mesh=``, a ``parallel.mesh.Mesh`` of several
+ranks, one process each): every rank holds the whole dataset, draws the
+same global batch order and augmentation parameters from the shared
+seed and trains on its contiguous slice (``engine/steps.py`` makes the
+step the global batch's: BatchNorm statistics, gradients, metrics). A
+validation batch that splits evenly over the ranks is sharded and its
+metrics averaged; a ragged one runs whole on every rank, as the JAX
+trainer runs it on one device, except in a multi-process run
+(``mesh.processes > 1``), which drops it, as JAX does. Rank 0 alone
+writes the weight files, the checkpoint, the event files and the
+``infer`` PNGs; every rank loads. ``infer`` raises in a multi-process
+run, as in JAX. ``run.pipeline_infer`` runs ``infer`` on the two-stage
+``parallel.pipeline.StackedPipeline`` over the selected devices (the
+mesh's, else every card), and warns and takes the fused path with fewer
+than two.
+
 Not ported yet (``RunConfig`` raises where one is asked for): the orbax
-backend, pipeline-parallel inference.
+backend.
 
 The legacy tree's options: ``dcgan_init`` re-initializes the four
 networks DCGAN-style at start, drawn from the ``init`` stream after the
@@ -68,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -114,13 +131,27 @@ from shadow_removal_istd_tpu_torch.ops.augment import (
 )
 from shadow_removal_istd_tpu_torch.ops.color import bgr_to_rgb, rgb_to_lab
 from shadow_removal_istd_tpu_torch.ops.resize import resize, resize_linear
+from shadow_removal_istd_tpu_torch.parallel.mesh import (
+    Mesh,
+    is_primary,
+    shard_batch,
+    shard_state,
+    sum_across,
+)
+from shadow_removal_istd_tpu_torch.parallel.pipeline import (
+    StackedPipeline,
+    overlap,
+)
 from shadow_removal_istd_tpu_torch.parallel.prefetch import (
     prefetch_to_device,
 )
 from shadow_removal_istd_tpu_torch.utils.image_io import imwrite
 from shadow_removal_istd_tpu_torch.utils.preemption import PreemptionGuard
 from shadow_removal_istd_tpu_torch.utils.profiling import StepTimer, trace
-from shadow_removal_istd_tpu_torch.utils.tb_writer import SummaryWriter
+from shadow_removal_istd_tpu_torch.utils.tb_writer import (
+    NullWriter,
+    SummaryWriter,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -153,13 +184,9 @@ class RunConfig:
     pipeline_infer: bool = False
 
     def __post_init__(self):
-        unported = {
-            "checkpoint_backend='orbax'": self.checkpoint_backend == "orbax",
-            "pipeline_infer": self.pipeline_infer,
-        }
-        for name, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(f"{name} is not ported yet")
+        if self.checkpoint_backend == "orbax":
+            raise NotImplementedError(
+                "checkpoint_backend='orbax' is not ported yet")
         if self.checkpoint_backend != "msgpack":
             raise ValueError(f"unknown checkpoint backend "
                              f"{self.checkpoint_backend!r}")
@@ -200,14 +227,27 @@ class Trainer:
                  train_streams: dict | None = None,
                  valid_streams: dict | None = None,
                  valid_names: list[str] | None = None, *,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         """``train_streams``/``valid_streams``: dicts of (N, H, W, C)
         uint8 numpy arrays (``cfg.train_datas`` picks three of them),
         injected directly; otherwise the HDF5 file ``run.data_h5`` or
         else the ISTD directories of ``run.data_dirs`` are loaded
         (reference src/cgan.py:98-121). Injected validation streams take
-        precedence over the loaded test split."""
-        self.device = resolve_device(device)
+        precedence over the loaded test split. ``mesh``: this rank's
+        ``parallel.mesh.Mesh`` (its device replaces ``device``); a mesh
+        of several ranks trains data-parallel on global batches of
+        ``cfg.batch_size``."""
+        self.mesh = mesh
+        self._dp = mesh if mesh is not None and mesh.world > 1 else None
+        # host-side side effects belong to rank 0 (the JAX trainer's
+        # process 0); every rank computes the same global step
+        self._primary = mesh is None or is_primary(mesh)
+        if self._dp is not None and cfg.batch_size % self._dp.world:
+            raise ValueError(f"batch size {cfg.batch_size} does not split "
+                             f"over {self._dp.world} ranks")
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.run = run
         streams_injected = (train_streams is not None
                             or valid_streams is not None)
@@ -237,10 +277,21 @@ class Trainer:
             scale=cfg.aug_scale, angle=cfg.aug_angle, flip_prob=0.5,
             crop_size=cfg.image_size, resize=cfg.aug_resize,
             method=cfg.aug_method)
-        self.valid_pipe = (
-            BatchPipeline(_select(valid_streams, cfg), cfg.batch_size,
-                          shuffle=False, drop_last=False, seed=run.seed)
-            if valid_streams else None)
+        self.valid_pipe = None
+        if valid_streams:
+            # a multi-process run drops the ragged final validation
+            # batch, as the JAX trainer does; one process keeps it
+            drop_ragged = mesh is not None and mesh.processes > 1
+            picked = _select(valid_streams, cfg)
+            n_valid = next(iter(picked.values())).shape[0]
+            if drop_ragged and n_valid % cfg.batch_size:
+                logger.warning(
+                    "multi-host validation drops the ragged final "
+                    "batch (%d of %d samples)",
+                    n_valid % cfg.batch_size, n_valid)
+            self.valid_pipe = BatchPipeline(
+                picked, cfg.batch_size, shuffle=False,
+                drop_last=drop_ragged, seed=run.seed)
 
         vgg = None
         if run.vgg_weights:
@@ -273,6 +324,9 @@ class Trainer:
             bn_mean = 0.0 if self.cfg.dcgan_bn_compat else 1.0
             for net in self.state.models.all():
                 apply_dcgan_init_(net, init_gen, bn_mean)
+        if self._dp is not None:
+            self.state.mesh = self._dp
+            shard_state(self._dp, self.state)
         self.plateau_g = self.plateau_d = None
         if self.cfg.lr_schedule == "plateau":
             self.plateau_g = ReduceLROnPlateau(self.cfg.lr_g)
@@ -356,26 +410,33 @@ class Trainer:
         valid = {k: np.concatenate([p[k] for p in valid_parts]) for k in keys}
         return train, valid, names
 
+    def _upload(self, raw) -> tuple[torch.Tensor, ...]:
+        """uint8 NHWC host arrays -> normalized NCHW on the card, resized
+        first (NHWC, ``resize(method="auto")``) when ``valid_resize`` is
+        set."""
+        streams = tuple(torch.from_numpy(a).to(self.device) for a in raw)
+        if self.cfg.valid_resize is not None:
+            streams = tuple(resize(s.float(), self.cfg.valid_resize)
+                            for s in streams)
+        return normalize_batch(streams)
+
     def valid_batches(self):
-        """The validation split in order, normalized NCHW on the card,
-        resized first (NHWC, ``resize(method="auto")``) when
-        ``valid_resize`` is set."""
-        size = self.cfg.valid_resize
+        """The validation split in order, whole batches, normalized NCHW
+        on the card (see :meth:`_upload`)."""
         for raw in self.valid_pipe.epoch():
-            streams = tuple(torch.from_numpy(a).to(self.device) for a in raw)
-            if size is not None:
-                streams = tuple(resize(s.float(), size) for s in streams)
-            yield normalize_batch(streams)
+            yield self._upload(raw)
 
     def _save_weights(self, suffix: str) -> None:
-        ckpt.save_model_weights(self.state, self.run.weights_dir, suffix)
+        if self._primary:
+            ckpt.save_model_weights(self.state, self.run.weights_dir, suffix)
 
-    def _writer(self, which: str) -> SummaryWriter:
+    def _writer(self, which: str) -> SummaryWriter | NullWriter:
         """The event file writer of ``logs_dir/<which>``, opened on first
-        use."""
+        use (a :class:`NullWriter` on the ranks other than 0)."""
         if which not in self._writers:
-            self._writers[which] = SummaryWriter(
-                os.path.join(self.run.logs_dir, which))
+            self._writers[which] = (
+                SummaryWriter(os.path.join(self.run.logs_dir, which))
+                if self._primary else NullWriter())
         return self._writers[which]
 
     def close(self) -> None:
@@ -426,10 +487,17 @@ class Trainer:
                     # continue with the next one
                     self.save(epoch + 1)
                     self._save_weights("latest")
-                    logger.warning(
-                        "preemption checkpoint written after epoch %d "
-                        "(%s); resume with --load-checkpoint", epoch,
-                        run.checkpoint_path)
+                    if self._primary:
+                        logger.warning(
+                            "preemption checkpoint written after epoch %d "
+                            "(%s); resume with --load-checkpoint", epoch,
+                            run.checkpoint_path)
+                    else:
+                        # the check is local, as in the JAX package:
+                        # rank 0 writes only on a SIGTERM of its own
+                        logger.warning(
+                            "preempted: stopping after epoch %d; rank 0 "
+                            "writes the checkpoint", epoch)
                     self.preempted = True
                     break
                 if epoch % run.save_every == 0:
@@ -451,17 +519,21 @@ class Trainer:
         batch."""
         gen = RngStreams(self.run.seed, epoch, self.device)
         if self.cache is not None:
-            idx = self.cache.epoch_indices(gen.generator("shuffle"),
-                                           self.cfg.batch_size)
+            # every rank draws the global order; each trains on its
+            # columns of it
+            idx = shard_batch(self._dp, self.cache.epoch_indices(
+                gen.generator("shuffle"), self.cfg.batch_size), dim=1)
             self.state, sums_dev = self.epoch_fn(self.state,
                                                  self.cache.arrays, idx, gen)
             n, vis = idx.shape[0], None
-            if visualize:
+            if visualize and self._primary:
                 vis = augment_batch(gen.generator("augment", VIS_STEP),
-                                    self.cache.gather(idx[0]), self.aug_cfg)
+                                    self.cache.gather(idx[0]), self.aug_cfg,
+                                    mesh=self._dp)
         else:
-            raws = prefetch_to_device(self.train_pipe.epoch(epoch), 2,
-                                      self.device)
+            raws = prefetch_to_device(
+                (shard_batch(self._dp, raw)
+                 for raw in self.train_pipe.epoch(epoch)), 2, self.device)
             sums_dev, n, vis = train_steps(self.state, raws, self.aug_cfg,
                                            gen)
         sums = _read_back(sums_dev)
@@ -477,7 +549,7 @@ class Trainer:
                 f"{k} {self.history[-1][k]:.4f}" for k in METRIC_KEYS[:10]))
             self._log_scalars("train", epoch, sums, n)
             self._save_weights("latest")
-        if visualize and vis is not None:
+        if visualize and vis is not None and self._primary:
             self._log_images("train", epoch, vis)
         return self.history[-1]
 
@@ -489,18 +561,33 @@ class Trainer:
         generators use the current weights (no frozen decoder kernels:
         ``MNet.train`` drops them). With ``run.eval_metrics``, the
         protocol's sums of each batch's ``y_pred`` are aggregated and
-        written as ``Eval/*`` or ``EvalProxy/*``."""
+        written as ``Eval/*`` or ``EvalProxy/*``. Over a mesh a batch
+        that splits evenly is sharded (its metrics and protocol sums
+        reduced over the ranks); a ragged one runs whole on every rank."""
         sums: dict[str, torch.Tensor] = {}
         lab_parts = []
         n = ofs = 0
         vis = None
-        for batch in self.valid_batches():
+        for raw in self.valid_pipe.epoch():
+            n_b = raw[0].shape[0]
+            mesh = (self._dp if self._dp is not None
+                    and n_b % self._dp.world == 0 else None)
+            start = 0
+            if mesh is not None:
+                start = mesh.rows(n_b).start
+                raw = shard_batch(mesh, raw)
+            batch = self._upload(raw)
             metrics, (_, y_pred) = eval_step(self.state, batch,
-                                             return_preds=True)
-            n_b = batch[0].shape[0]
+                                             return_preds=True, mesh=mesh)
             if self.run.eval_metrics:
-                mask = self._protocol_mask(batch[1], ofs, n_b)
-                lab_parts.append(self._lab_parts(y_pred, batch[2], mask))
+                mask = self._protocol_mask(batch[1], ofs + start,
+                                           batch[0].shape[0])
+                parts = self._lab_parts(y_pred, batch[2], mask)
+                if mesh is not None:
+                    keys = list(parts)
+                    parts = dict(zip(keys, sum_across(torch.stack(
+                        [parts[k] for k in keys]), mesh)))
+                lab_parts.append(parts)
             ofs += n_b
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
@@ -527,7 +614,8 @@ class Trainer:
                 "non-shadow %.2f / all %.2f",
                 "" if tag == "Eval" else " (matte proxy)", epoch,
                 agg["rmse"], agg["rmse_non"], agg["rmse_all"])
-        self._log_images("valid", epoch, vis)
+        if self._primary:
+            self._log_images("valid", epoch, vis)
         return self.last_valid["total"]
 
     def _has_protocol_masks(self) -> bool:
@@ -623,27 +711,55 @@ class Trainer:
         resized bilinearly to ``infer_resize`` first when it is set (the
         legacy tree's outputs, reference STCGAN/stcgan.py:366-373).
         PNG encoding runs on a small thread pool (zlib releases the GIL)
-        while the next batch computes. Returns the image count."""
+        while the next batch computes, and the read-back of each batch
+        waits until the next one is enqueued (``parallel.pipeline
+        .overlap``). Under ``run.pipeline_infer`` G1 and G2 run as the
+        two stages of a :class:`StackedPipeline` over the selected
+        devices (the mesh's, else every card of the host); with fewer
+        than two it warns and runs fused. Rank 0 alone writes (the
+        other ranks return 0); a multi-process run raises, as the JAX
+        trainer does. Returns the image count."""
         if self.valid_pipe is None:
             raise ValueError("no validation data")
+        if self.mesh is not None and self.mesh.processes > 1:
+            # PNG output needs full batches on one host
+            raise NotImplementedError(
+                "--tasks infer is single-process; rerun inference on "
+                "one host with --load-weights-g1/-g2 or "
+                "--load-checkpoint")
+        if not self._primary:
+            return 0
         g1, g2 = self.state.models.g1, self.state.models.g2
         g1.eval()
         g2.eval()
+        run_infer = functools.partial(infer_step, g1, g2)
+        if self.run.pipeline_infer:
+            devs = (list(self.mesh.devices) if self.mesh is not None
+                    else self._host_devices())
+            if len(devs) >= 2:
+                run_infer = StackedPipeline(g1, g2, devs)
+            else:
+                logger.warning("--pipeline-infer needs >= 2 selected "
+                               "devices; using the fused path")
+
+        def compute(x):
+            m, y = run_infer(x)
+            m = denormalize(m).permute(0, 2, 3, 1)
+            y = denormalize(y).permute(0, 2, 3, 1)
+            if self.cfg.infer_resize is not None:
+                m = resize_linear(m, self.cfg.infer_resize)
+                y = resize_linear(y, self.cfg.infer_resize)
+            return float_to_uint8(m)[..., 0], float_to_uint8(y)
+
         for sub in ("shadowless", "matte"):
             os.makedirs(os.path.join(self.run.infered_dir, sub),
                         exist_ok=True)
         idx = 0
         futures = []
         with ThreadPoolExecutor(max_workers=4) as pool:
-            for x, _, _ in self.valid_batches():
-                m, y = infer_step(g1, g2, x)
-                m = denormalize(m).permute(0, 2, 3, 1)
-                y = denormalize(y).permute(0, 2, 3, 1)
-                if self.cfg.infer_resize is not None:
-                    m = resize_linear(m, self.cfg.infer_resize)
-                    y = resize_linear(y, self.cfg.infer_resize)
-                m_np = float_to_uint8(m)[..., 0].cpu().numpy()
-                y_np = float_to_uint8(y).cpu().numpy()
+            for m_u8, y_u8 in overlap(compute, (x for x, _, _ in
+                                                self.valid_batches())):
+                m_np, y_np = m_u8.cpu().numpy(), y_u8.cpu().numpy()
                 for i in range(m_np.shape[0]):
                     name = (self.valid_names[idx]
                             if idx < len(self.valid_names)
@@ -662,6 +778,14 @@ class Trainer:
                 f.result()  # surface any write error
         return idx
 
+    def _host_devices(self) -> list[torch.device]:
+        """Every card of the host (a trainer without a mesh selected
+        none), or its one CPU."""
+        if self.device.type != "cuda":
+            return [self.device]
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+
     # ------------------------------------------------------ checkpoint
     def _apply_plateau(self) -> None:
         """The controllers' scales onto the state's learning rates."""
@@ -669,6 +793,8 @@ class Trainer:
         self.state.lr_scale_d = self.plateau_d.scale
 
     def save(self, epoch: int) -> None:
+        if not self._primary:
+            return
         host = {"best_loss": self.best_loss}
         if self.plateau_g is not None:
             host["plateau_g"] = self.plateau_g.state_dict()

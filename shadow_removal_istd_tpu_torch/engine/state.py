@@ -65,6 +65,9 @@ class TrainState:
     # the plateau controllers' scales of the base rates (host floats)
     lr_scale_g: float = 1.0
     lr_scale_d: float = 1.0
+    # the data-parallel group (parallel.mesh.Mesh of > 1 rank) whose
+    # global batch each step trains on; None: the local batch is global
+    mesh: object = None
 
     def __post_init__(self):
         dev = next(self.models.g1.parameters()).device

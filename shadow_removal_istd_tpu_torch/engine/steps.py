@@ -40,6 +40,17 @@ targets' VGG features are computed once, before the G phase, and kept
 across the backward (2 x (B, 512, H/16, W/16) f32) rather than
 recomputed. BEGAN's k and SoftAdapt's state update from the first
 calls' values, once.
+
+With ``state.mesh`` (a ``parallel.mesh.Mesh`` of more than one rank)
+the batch is this rank's slice of the global batch, and the step
+computes what one device computes on the global batch: it runs inside
+``parallel.mesh.data_parallel`` (global BatchNorm statistics, dropout
+masks and relativistic means), backpropagates each loss divided by the
+world size and sums the gradients over the ranks before each Adam
+update. The metrics, and BEGAN's and SoftAdapt's loss statistics, are
+averaged over the ranks, so every rank returns the same metrics and
+holds the same k1/k2 and SoftAdapt state. ``eval_step(mesh=...)`` does
+the same for a sharded validation batch.
 """
 
 from __future__ import annotations
@@ -70,6 +81,13 @@ from shadow_removal_istd_tpu_torch.losses.visual import (
 from shadow_removal_istd_tpu_torch.models.layers import (
     replaying,
     replaying_forward,
+)
+from shadow_removal_istd_tpu_torch.parallel.mesh import (
+    Mesh,
+    active_mesh,
+    all_reduce_grads,
+    data_parallel,
+    mean_across,
 )
 
 METRIC_KEYS = ("G", "G1", "G2", "D", "D1", "D2", "data1", "data2",
@@ -164,6 +182,31 @@ def _no_mark(name: str) -> None:
     pass
 
 
+def _backward(loss: torch.Tensor, nets, mesh: Mesh | None) -> None:
+    """``loss.backward()``; over a mesh, of this rank's share of the
+    global loss (``loss / world``), then the gradients of ``nets``'
+    parameters summed over the ranks."""
+    if mesh is None:
+        loss.backward()
+        return
+    (loss / mesh.world).backward()
+    all_reduce_grads([p for n in nets for p in n.parameters()], mesh)
+
+
+def _across(mesh: Mesh | None, tensors: list) -> list:
+    """Each tensor's mean over the ranks, in one all-reduce; as they are
+    for one rank."""
+    if mesh is None or not tensors:
+        return tensors
+    flat = mean_across(torch.cat([t.detach().float().reshape(-1)
+                                  for t in tensors]), mesh)
+    out, ofs = [], 0
+    for t in tensors:
+        out.append(flat[ofs:ofs + t.numel()].reshape(t.shape).to(t.dtype))
+        ofs += t.numel()
+    return out
+
+
 def train_step(state: TrainState, batch, gens=(None, None),
                mark: Callable[[str], None] = _no_mark
                ) -> dict[str, torch.Tensor]:
@@ -176,8 +219,16 @@ def train_step(state: TrainState, batch, gens=(None, None),
     backward replays the G forward, the D phase's loss and the G phase's
     loss (the JAX step's three ``jax.checkpoint`` regions), so the
     D-phase and G-backward marks also hold those replays, and "g_adv"
-    the targets' VGG forwards."""
+    the targets' VGG forwards. Over ``state.mesh``, ``batch`` is this
+    rank's slice of the global batch and the metrics are the global
+    batch's."""
+    with data_parallel(state.mesh):
+        return _train_step(state, batch, gens, mark)
+
+
+def _train_step(state: TrainState, batch, gens, mark):
     cfg, nets, adv = state.cfg, state.models, state.adv
+    mesh = active_mesh()        # None for one rank
     g1, g2, d1, d2 = nets.all()
     x, m, y = batch
     for net in nets.all():
@@ -219,7 +270,7 @@ def train_step(state: TrainState, batch, gens=(None, None),
     d_total, d1_l, d2_l, critics, began = region(d_phase, x, m, y, m_sg,
                                                  y_sg)
     state.opt_d.zero_grad(set_to_none=True)
-    d_total.backward()
+    _backward(d_total, (d1, d2), mesh)
     state.opt_d.step()
     mark("d_phase")
 
@@ -264,35 +315,49 @@ def train_step(state: TrainState, batch, gens=(None, None),
     with _no_param_grads(d1, d2):
         g_total, terms, groups = region(g_phase, m_pred, y_pred)
         state.opt_g.zero_grad(set_to_none=True)
-        g_total.backward()
+        _backward(g_total, (g1, g2), mesh)
         mark("g_backward")
     state.opt_g.step()
     mark("adam_g")
     state.step += 1
-    with torch.no_grad():
-        if cfg.began:
-            state.k1 = began_k_update(state.k1, began[0], began[1])
-            state.k2 = began_k_update(state.k2, began[2], began[3])
-        if cfg.softadapt:
-            state.softadapt = softadapt_update(state.softadapt, groups)
-
     g1_l, g2_l, data1, data2, vis1, vis2 = terms
     c1_real, c1_fake, c2_real, c2_fake = critics
     out = {"G": g_total, "G1": g1_l, "G2": g2_l, "D": d_total, "D1": d1_l,
            "D2": d2_l, "data1": data1, "data2": data2, "vis1": vis1,
            "vis2": vis2, "D1_real": c1_real.mean(), "D1_fake": c1_fake.mean(),
            "D2_real": c2_real.mean(), "D2_fake": c2_fake.mean()}
-    return {k: v.detach().float() for k, v in out.items()}
+    metrics = [v.detach().float() for v in out.values()]
+    extra = [*(began or ()), *(() if groups is None else (groups,))]
+    reduced = _across(mesh, metrics + list(extra))
+    metrics, extra = reduced[:len(metrics)], reduced[len(metrics):]
+    with torch.no_grad():
+        if cfg.began:
+            state.k1 = began_k_update(state.k1, extra[0], extra[1])
+            state.k2 = began_k_update(state.k2, extra[2], extra[3])
+        if cfg.softadapt:
+            state.softadapt = softadapt_update(state.softadapt, extra[-1])
+    return dict(zip(out, metrics))
 
 
 @torch.no_grad()
-def eval_step(state: TrainState, batch, return_preds: bool = False):
+def eval_step(state: TrainState, batch, return_preds: bool = False,
+              mesh: Mesh | None = None):
     """Validation: eval-mode forwards (the generators' decoder steps go
     through the decoder op), no updates, the train step's losses plus
     the model-selection proxy ``total = 0.8*G + 0.2*D``; the fixed
     lambdas weigh G even under SoftAdapt, as in the JAX package. With
     ``return_preds``, returns ``(metrics, (m_pred, y_pred))``: the
-    evaluation protocol scores these without a second G forward."""
+    evaluation protocol scores these without a second G forward. With
+    ``mesh``, ``batch`` is this rank's slice of a global batch and the
+    metrics (relativistic means included) are the global batch's."""
+    with data_parallel(mesh):
+        metrics, preds = _eval_step(state, batch)
+        metrics = dict(zip(metrics, _across(active_mesh(),
+                                            list(metrics.values()))))
+    return (metrics, preds) if return_preds else metrics
+
+
+def _eval_step(state: TrainState, batch):
     cfg, nets, adv = state.cfg, state.models, state.adv
     g1, g2, d1, d2 = nets.all()
     x, m, y = batch
@@ -328,5 +393,4 @@ def eval_step(state: TrainState, batch, return_preds: bool = False):
            "vis2": vis2, "total": 0.8 * g_total + 0.2 * d_total,
            "D1_real": c1_real.mean(), "D1_fake": c1_fake.mean(),
            "D2_real": c2_real.mean(), "D2_fake": c2_fake.mean()}
-    metrics = {k: v.float() for k, v in out.items()}
-    return (metrics, (m_pred, y_pred)) if return_preds else metrics
+    return {k: v.float() for k, v in out.items()}, (m_pred, y_pred)

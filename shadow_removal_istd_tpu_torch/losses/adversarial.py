@@ -9,6 +9,10 @@ comparing ``d_loss_fn`` with the misspelling ``"leastsqure"``, so it is
 False for every real flag value: the reference always runs MSE with
 labels real=1 / fake=0. ``mode="corrected"`` gives what the flags name
 (standard -> BCE, leastsquare -> MSE, fake label 0).
+
+The relativistic average is over the global batch: inside
+``parallel.mesh.data_parallel`` every rank's batch sums are summed over
+the ranks, with their gradient (``parallel.mesh.batch_mean``).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from shadow_removal_istd_tpu_torch.parallel.mesh import batch_mean
 
 
 def _acc(x: torch.Tensor) -> torch.Tensor:
@@ -55,8 +61,8 @@ class AdversarialLoss:
         real_l, fake_l = self._labels()
         if self.rel:
             if self.avg:  # RaGAN
-                lr = self._cal(c_real - c_fake.mean(dim=0), real_l)
-                lf = self._cal(c_fake - c_real.mean(dim=0), fake_l)
+                lr = self._cal(c_real - batch_mean(c_fake), real_l)
+                lf = self._cal(c_fake - batch_mean(c_real), fake_l)
                 return (lr + lf) * 0.5
             return self._cal(c_real - c_fake, real_l)  # RpGAN
         lr = self._cal(c_real, real_l)  # SGAN
@@ -70,8 +76,8 @@ class AdversarialLoss:
         real_l, fake_l = self._labels()
         if self.rel:
             if self.avg:  # RaGAN
-                lf = self._cal(c_fake - c_real.mean(dim=0), real_l)
-                lr = self._cal(c_real - c_fake.mean(dim=0), fake_l)
+                lf = self._cal(c_fake - batch_mean(c_real), real_l)
+                lr = self._cal(c_real - batch_mean(c_fake), fake_l)
                 return (lr + lf) * 0.5
             return self._cal(c_fake - c_real, real_l)  # RpGAN
         return self._cal(c_fake, real_l)  # SGAN

@@ -43,6 +43,11 @@ from shadow_removal_istd_tpu_torch.ops.decoder import (
     decoder_upsample,
     subpixel_depth_to_space,
 )
+from shadow_removal_istd_tpu_torch.parallel.mesh import (
+    active_mesh,
+    all_reduce_sum,
+    global_rand,
+)
 
 
 class _ReflectPad(torch.autograd.Function):
@@ -201,7 +206,12 @@ class BatchNorm(nn.Module):
     ``promote(x, f32)`` normalise the output; the running statistics
     move by momentum 0.1 toward the mean and the UNBIASED variance
     (``n/(n-1)``), as torch's BatchNorm2d (and the JAX package) do,
-    except in a replayed forward (:func:`replaying_forward`).
+    except in a replayed forward (:func:`replaying_forward`). Inside
+    ``parallel.mesh.data_parallel`` the statistics are the global
+    batch's: every rank's per-channel ``[sum x, sum x^2]`` summed over
+    the ranks, with the gradient of those sums summed back in the
+    backward, and ``n`` the global count (in the unbiased factor too); a
+    replay runs the same collectives.
 
     Eval: the per-channel factor ``weight * rsqrt(running_var + eps)`` is
     formed in the parameter dtype (bf16 in the bf16 engine, as in JAX,
@@ -232,12 +242,20 @@ class BatchNorm(nn.Module):
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
-                          min=0.0)
+        c = x.shape[1]
+        sums = torch.cat([x32.sum(dim=(0, 2, 3)),
+                          x32.square().sum(dim=(0, 2, 3))])
+        n = x.numel() / c
+        mesh = active_mesh()
+        if mesh is not None:
+            # the global batch's sums, whose backward sums their
+            # gradients; every rank holds an equal slice (Mesh.rows)
+            sums = all_reduce_sum(sums, mesh)
+            n *= mesh.world
+        mean, ex2 = sums[:c] / n, sums[c:] / n
+        var = torch.clamp(ex2 - mean.square(), min=0.0)
         if not replaying():
             with torch.no_grad():
-                n = x.numel() / x.shape[1]
                 unbiased = var * (n / max(n - 1, 1))
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean
@@ -278,7 +296,8 @@ class Dropout2d(nn.Module):
     feature maps, one keep/drop draw per sample and channel, and scales
     the kept ones by ``1/(1-p)``; the identity in eval. The mask comes
     from the ``generator`` passed to ``forward``, which training with
-    ``p > 0`` requires."""
+    ``p > 0`` requires; under ``parallel.mesh.data_parallel`` it is this
+    rank's rows of the global batch's mask."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -291,8 +310,8 @@ class Dropout2d(nn.Module):
         if generator is None:
             raise ValueError("Dropout2d in training needs a generator")
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape[0], x.shape[1], 1, 1, device=x.device,
-                          generator=generator) < keep
+        mask = global_rand((x.shape[0], x.shape[1], 1, 1), generator,
+                           x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -300,7 +319,9 @@ class AlphaDropout(nn.Module):
     """SELU-compatible alpha dropout (torch nn.AlphaDropout): dropped
     values go to ``alpha' = -selu_alpha * selu_scale``, then the affine
     ``a*x + b`` keeps mean and variance; one draw per value from the
-    ``generator`` passed to ``forward``; the identity in eval."""
+    ``generator`` passed to ``forward`` (this rank's rows of the global
+    batch's draw under ``parallel.mesh.data_parallel``); the identity in
+    eval."""
 
     alpha_prime = -1.7580993408473766
 
@@ -316,8 +337,7 @@ class AlphaDropout(nn.Module):
             raise ValueError("AlphaDropout in training needs a generator")
         keep = 1.0 - self.p
         ap = self.alpha_prime
-        mask = torch.rand(x.shape, device=x.device,
-                          generator=generator) < keep
+        mask = global_rand(x.shape, generator, x.device) < keep
         a = (keep + ap ** 2 * keep * (1 - keep)) ** -0.5
         b = -a * ap * (1 - keep)
         return a * torch.where(mask, x, ap) + b

@@ -126,20 +126,30 @@ def sample_augment_params(generator: torch.Generator, batch: int,
 
 def augment_batch(generator: torch.Generator | None,
                   streams: tuple[torch.Tensor, ...], cfg: AugmentConfig,
-                  params: dict | None = None) -> tuple[torch.Tensor, ...]:
+                  params: dict | None = None,
+                  mesh=None) -> tuple[torch.Tensor, ...]:
     """Augment a group of (N, H, W, C) uint8 streams with synchronized
     draws (from ``generator``, unless ``params`` are given; their offsets
     are drawn for the resized shape). Returns float32 (N, C, crop, crop)
-    crops in [-1, 1], in the same order."""
+    crops in [-1, 1], in the same order.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``) the streams are this rank's
+    slice of the global batch: the parameters are drawn (or given) for
+    the global batch, and the rank's slice of them is applied, so the
+    crops equal one device's over the global batch."""
     batch = streams[0].shape[0]
+    world = mesh.world if mesh is not None else 1
     splits = [s.shape[-1] for s in streams]
     stacked = torch.cat(list(streams), dim=-1)
     if cfg.resize is not None:
         stacked = resize(stacked.float(), cfg.resize, method="auto")
     h, w = stacked.shape[1:3]
     if params is None:
-        params = sample_augment_params(generator, batch, (h, w), cfg,
-                                       device=stacked.device)
+        params = sample_augment_params(generator, batch * world, (h, w),
+                                       cfg, device=stacked.device)
+    if world > 1:
+        rows = mesh.rows(batch * world)
+        params = {k: v[rows] for k, v in params.items()}
     if uses_shear(cfg, h, w):
         warped = fused_augment_shear(stacked, params, cfg.crop_size,
                                      max_angle_deg=cfg.angle)

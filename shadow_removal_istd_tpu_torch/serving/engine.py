@@ -23,9 +23,16 @@ Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
   ``load_weights``: a hot reload re-quantizes), or at the first
   ``infer_group`` of an engine that serves its random weights.
 
+- **Several devices** (``devices``): a replica of the stacked pair on
+  each device (a count: the first N cards, or N CPU replicas with
+  ``device="cpu"``; a list may name one card twice). A coalesced batch
+  is padded to a multiple of the replicas, each replica takes an equal
+  slice on its device, and the answers are joined in order. The JAX
+  engine shards the batch over a data mesh the same way.
+
 Weights load from the JAX package's per-network flax msgpack files or
-from ``.npz`` files of the same tree. Not ported yet (they raise):
-``devices > 1`` and the StableHLO ``ArtifactEngine``.
+from ``.npz`` files of the same tree. Not ported yet (it raises): the
+StableHLO ``ArtifactEngine``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from shadow_removal_istd_tpu_torch.ops.augment import (
     denormalize,
     float_to_uint8,
 )
+from shadow_removal_istd_tpu_torch.parallel.pipeline import place
 from shadow_removal_istd_tpu_torch.tools.convert import (
     flax_tree_to_torch,
     unflatten_tree,
@@ -73,6 +81,24 @@ def _to_u8(t: torch.Tensor) -> torch.Tensor:
     return float_to_uint8(denormalize(t.float())).permute(0, 2, 3, 1)
 
 
+def serving_devices(devices, device: torch.device) -> list[torch.device]:
+    """The replicas' devices: ``[device]`` for None or 1; a count N: the
+    first N cards (``device`` on the card) or N times the CPU; a list:
+    its devices."""
+    if devices is None:
+        return [device]
+    if isinstance(devices, int):
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if device.type != "cuda":
+            return [device] * devices
+        if devices > torch.cuda.device_count():
+            raise ValueError(f"devices={devices}: the host has "
+                             f"{torch.cuda.device_count()} cards")
+        return [torch.device("cuda", i) for i in range(devices)]
+    return [resolve_device(d) for d in devices]
+
+
 class InferenceEngine:
     """Stacked shadow-removal inference over shape buckets.
 
@@ -86,7 +112,7 @@ class InferenceEngine:
                  use_selu: bool = False, activation: str = "tanh",
                  dtype: str = "bfloat16", split_skip: bool = True,
                  pad_multiple: int | None = None, max_batch: int = 8,
-                 devices: int | None = None, seed: int = 0,
+                 devices=None, seed: int = 0,
                  calib_images: list[np.ndarray] | None = None,
                  device: str | torch.device = "cuda"):
         if dtype not in _DTYPES:
@@ -100,10 +126,12 @@ class InferenceEngine:
                 "dtype=int8 supports the MNet nearest-upsample "
                 "configuration (net_g=mnet, nn_upconv, no SELU); "
                 "serve other configurations in bfloat16")
-        if devices is not None and devices > 1:
-            raise NotImplementedError(
-                "multi-device serving (devices > 1) is not ported yet")
         self.device = resolve_device(device)
+        self.devices = serving_devices(devices, self.device)
+        if dtype == "int8" and len(self.devices) > 1:
+            raise ValueError("dtype=int8 is single-device; combine with "
+                             "--devices via bfloat16 instead")
+        self.device = self.devices[0]
         self.dtype = dtype
         self.net_g = net_g.lower()
         self._g_kw = dict(ngf=ngf, drop_rate=droprate, no_conv_t=nn_upconv,
@@ -137,6 +165,8 @@ class InferenceEngine:
             if hasattr(g, "freeze"):   # MNet: the weights are fixed now
                 g.freeze()
         self.g1, self.g2 = g1, g2
+        # one replica of the pair per device (the first is g1, g2)
+        self.replicas = [(place(g1, d), place(g2, d)) for d in self.devices]
 
     def set_variables(self, v1: dict, v2: dict) -> None:
         """Adopt JAX variable trees ``{"params", "batch_stats"}`` per net
@@ -213,7 +243,7 @@ class InferenceEngine:
     # -- inference ----------------------------------------------------
 
     @torch.inference_mode()
-    def _stacked(self, x_u8: torch.Tensor
+    def _stacked(self, x_u8: torch.Tensor, replica: int = 0
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         # reference normalization: uint8/255 in [0,1], then (x-.5)*2
         x = x_u8.permute(0, 3, 1, 2).float() * (2.0 / 255.0) - 1.0
@@ -222,7 +252,7 @@ class InferenceEngine:
                 self._maybe_quantize()
             m, y = self._int8_fn(x)
         else:
-            m, y = infer_step(self.g1, self.g2, x)
+            m, y = infer_step(*self.replicas[replica], x)
         return _to_u8(m), _to_u8(y)
 
     def bucket_of(self, h: int, w: int) -> tuple[int, int]:
@@ -243,12 +273,18 @@ class InferenceEngine:
             raise ValueError(f"mixed buckets in one group: {buckets}")
         bh, bw = buckets.pop()
         n = len(imgs)
+        nd = len(self.devices)
         bp = min(_next_pow2(n), max(self.max_batch, n))
+        bp = math.ceil(bp / nd) * nd      # equal per-replica slices
         batch = np.full((bp, bh, bw, 3), 128, np.uint8)
         for i, im in enumerate(imgs):
             batch[i, :im.shape[0], :im.shape[1]] = im
-        m_u8, y_u8 = self._stacked(torch.from_numpy(batch).to(self.device))
-        m_np, y_np = m_u8.cpu().numpy(), y_u8.cpu().numpy()
+        b = bp // nd
+        # every replica's work is enqueued before any answer is read
+        outs = [self._stacked(torch.from_numpy(batch[j * b:(j + 1) * b])
+                              .to(d), j) for j, d in enumerate(self.devices)]
+        m_np = np.concatenate([m.cpu().numpy() for m, _ in outs])
+        y_np = np.concatenate([y.cpu().numpy() for _, y in outs])
         return [(m_np[i, :im.shape[0], :im.shape[1], 0],
                  y_np[i, :im.shape[0], :im.shape[1]])
                 for i, im in enumerate(imgs)]

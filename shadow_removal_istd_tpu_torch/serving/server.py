@@ -298,6 +298,7 @@ def _make_handler(batcher: MicroBatcher, stats: ServerStats,
                     "device": (torch.cuda.get_device_name(dev)
                                if dev.type == "cuda" else "cpu"),
                     "dtype": batcher.engine.dtype,
+                    "devices": len(batcher.engine.devices),
                 }).encode())
             elif path == "/stats":
                 snap = stats.snapshot()
@@ -486,7 +487,10 @@ def main(argv=None) -> int:
                     help="StableHLO artifact serving is not ported yet")
     ap.add_argument("--pad-multiple", type=int, default=None)
     ap.add_argument("--devices", type=int, default=None,
-                    help="multi-device serving is not ported yet")
+                    help="data-parallel serving over the first N "
+                         "devices: a replica of the stacked pair on "
+                         "each, every coalesced batch split equally "
+                         "(with --device cpu: N CPU replicas)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     ap.add_argument("--max-batch", type=int, default=8)

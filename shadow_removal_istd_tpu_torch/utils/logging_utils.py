@@ -9,11 +9,15 @@ import os
 
 
 def setup_logging(log_file: str | None = None,
-                  level: int = logging.INFO) -> None:
-    """File + console logging with the reference's format."""
+                  level: int = logging.INFO, rank: int | None = None) -> None:
+    """File + console logging with the reference's format; with
+    ``rank`` (a data-parallel run) each line starts ``[rank N]``. Each
+    rank of such a run logs to a file of its own: the CLI names rank N's
+    ``main-<time>-p<N>.log``, as the JAX CLI names process N's."""
+    tag = "" if rank is None else f"[rank {rank}] "
     fmt = logging.Formatter(
-        "%(asctime)s [%(module)s::%(funcName)s] %(levelname)s: %(message)s",
-        datefmt="%H:%M:%S")
+        tag + "%(asctime)s [%(module)s::%(funcName)s] %(levelname)s: "
+        "%(message)s", datefmt="%H:%M:%S")
     root = logging.getLogger()
     root.setLevel(level)
     if log_file:

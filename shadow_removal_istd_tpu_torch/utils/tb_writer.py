@@ -16,7 +16,8 @@ Images are encoded as tensorboardX encodes them: a float image in
 copy; PNG, CRCs and file writes run in call order on the writer's own
 thread (zlib and numpy release the GIL), so a training loop goes on
 while an image is encoded. :meth:`SummaryWriter.flush` waits for them,
-as tensorboardX's does.
+as tensorboardX's does. :class:`NullWriter` stands in on the ranks other
+than 0 of a data-parallel run.
 
 :func:`read_events` decodes such a file back, checking every CRC: the
 same framing read without TensorBoard.
@@ -167,6 +168,25 @@ def to_uint8_hwc(img, dataformats: str = "HWC") -> np.ndarray:
         img = np.clip(img.astype(np.float32) * np.float32(255.0), 0.0,
                       255.0).astype(np.uint8)
     return np.ascontiguousarray(img)
+
+
+class NullWriter:
+    """The writer of a data-parallel run's other ranks: the surface of
+    :class:`SummaryWriter`, writing nothing (rank 0 writes the event
+    files, as the JAX trainer's process 0 does)."""
+
+    def add_scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def add_image(self, tag: str, img, step: int,
+                  dataformats: str = "HWC") -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class SummaryWriter:

@@ -11,6 +11,7 @@ not ported refused.
 import http.client
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -31,6 +32,7 @@ from shadow_removal_istd_tpu_torch.cli.main import (
     main,
     makedirs,
     prepare_run_dirs,
+    select_devices,
     snapshotargs,
     str2bool,
 )
@@ -302,16 +304,12 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
 @pytest.mark.parametrize("extra,exc,match", [
     (["--spatial-shard", "2"], NotImplementedError, "--spatial-shard"),
     (["--model-shard", "2"], NotImplementedError, "--model-shard"),
-    (["--coordinator", "h:1"], NotImplementedError, "--coordinator"),
-    (["--num-processes", "2"], NotImplementedError, "--num-processes"),
-    (["--process-id", "0"], NotImplementedError, "--process-id"),
-    (["--pipeline-infer"], NotImplementedError, "--pipeline-infer"),
     (["--export-stablehlo", "m.shlo"], NotImplementedError,
      "--export-stablehlo"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "orbax"),
-    (["--devices", "2"], NotImplementedError, "--devices"),
     (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),
+    (["--devices", "2"], RuntimeError, "no CUDA device"),
 ])
 def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
     argv = _argv(istd_root, str(tmp_path), "--tasks", "train",
@@ -367,6 +365,56 @@ def test_formerly_unported_flags_run(istd_root, tmp_path, extra, logged):
     if "--profile-dir" in extra:        # the uninterrupted run's epoch 1
         (trace,) = os.listdir(f"{tmp_path}/prof")
         assert trace.endswith(".pt.trace.json")
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--coordinator", "h:1"],
+     "--coordinator needs --num-processes and --process-id"),
+    (["--num-processes", "2"],
+     "--num-processes needs --coordinator host:port and --process-id"),
+    (["--coordinator", "h:1", "--process-id", "0"],
+     "--coordinator needs --num-processes and --process-id"),
+])
+def test_multihost_flags_go_together(istd_root, tmp_path, extra, message):
+    """Some of ``--coordinator``/``--num-processes``/``--process-id``
+    without the others: exit with the JAX CLI's message."""
+    argv = _argv(istd_root, str(tmp_path), "--tasks", "train",
+                 "--epochs", "1", "--allow-missing-vgg", *extra)
+    with pytest.raises(SystemExit, match=re.escape(message)):
+        _run(*argv)
+
+
+@pytest.mark.parametrize("want,cards,batch,got", [
+    (2, 4, 16, 2), (8, 4, 16, 4), (4, 4, 6, 3), (3, 4, 4, 2)])
+def test_devices_count_caps_to_cards_and_batch(monkeypatch, want, cards,
+                                               batch, got):
+    """``--devices N``: the first N cards, capped to the cards present
+    and to the largest count whose ranks split the batch equally (JAX's
+    ``_select_mesh``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    devices = select_devices([str(want)], batch)
+    assert devices == [torch.device("cuda", i) for i in range(got)]
+
+
+def test_pipeline_infer_on_one_device_runs_fused(trained, istd_root,
+                                                  tmp_path):
+    """``--pipeline-infer`` with one selected device warns and writes the
+    fused path's PNGs (the trained run's, byte for byte)."""
+    g1, g2 = (f"{trained}/w{SUFFIX}/{n}_MNet_latest.msgpack"
+              for n in ("G1", "G2"))
+    base = f"{tmp_path}/pipe"
+    _run(*_argv(istd_root, base, "--tasks", "infer", "--pipeline-infer",
+                "--load-weights-g1", g1, "--load-weights-g2", g2))
+    text = "".join(open(f"{base}/l{SUFFIX}/{f}").read()
+                   for f in os.listdir(f"{base}/l{SUFFIX}")
+                   if f.endswith(".log"))
+    assert "--pipeline-infer needs >= 2 selected devices" in text
+    for sub in ("shadowless", "matte"):
+        for f in ("000-test.png", "001-test.png"):
+            with open(f"{base}/out/{sub}/istd/{f}", "rb") as a, \
+                    open(f"{trained}/out/{sub}/istd/{f}", "rb") as b:
+                assert a.read() == b.read(), (sub, f)
 
 
 def test_without_card_the_cli_raises(istd_root, tmp_path, monkeypatch):

@@ -172,13 +172,34 @@ class TestEngine:
                              str(tmp_path / "g2.npz"))
         assert eng.g1 is g1 and eng.g2 is g2
 
-    @pytest.mark.parametrize("what", ["devices", "artifact"])
+    @pytest.mark.parametrize("what", ["artifact"])
     def test_not_ported_yet(self, what):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            if what == "devices":
-                InferenceEngine(ngf=4, devices=2, device="cpu")
-            else:
-                ArtifactEngine("model.shlo")
+            ArtifactEngine("model.shlo")
+
+    @pytest.mark.parametrize("devices", [2, ["cpu", "cpu", "cpu"]])
+    def test_devices_replicas_answer_as_one_device(self, tmp_path,
+                                                   jax_engine, devices):
+        """``devices``: a replica per device, each taking an equal slice
+        of the coalesced batch (3 images pad to 4 over 2 replicas, to 6
+        over 3): the answers equal the one-device engine's, in order;
+        int8 stays single-device, as in JAX."""
+        _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+        _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+        one = InferenceEngine(**ENGINE_KW)
+        many = InferenceEngine(**ENGINE_KW, devices=devices)
+        for e in (one, many):
+            e.load_weights(str(tmp_path / "g1.npz"),
+                           str(tmp_path / "g2.npz"))
+        assert len(many.replicas) == len(many.devices) == (
+            devices if isinstance(devices, int) else len(devices))
+        imgs = [_img(40, 56, seed=s) for s in range(3)]
+        for (m, y), (wm, wy) in zip(many.infer_group(imgs),
+                                    one.infer_group(imgs)):
+            np.testing.assert_array_equal(m, wm)
+            np.testing.assert_array_equal(y, wy)
+        with pytest.raises(ValueError, match="single-device"):
+            InferenceEngine(ngf=4, dtype="int8", devices=2, device="cpu")
 
     @pytest.mark.parametrize("kw", [dict(net_g="unet"),
                                     dict(nn_upconv=False),
@@ -400,6 +421,22 @@ def test_serving_module_entry_point(tmp_path, jax_engine):
          "--load-weights-g1", str(tmp_path / "g1.npz"),
          "--load-weights-g2", str(tmp_path / "g2.npz")], _img(32, 32))
     assert got.shape == (32, 32, 3)
+
+
+def test_daemon_serves_on_two_devices(tmp_path, jax_engine):
+    """``--devices 2`` (two CPU replicas with ``--device cpu``): the
+    daemon answers as the one-device engine does."""
+    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+    img = _img(32, 48, seed=5)
+    got, stats = _serve_once(
+        ["--ngf", "4", "--dtype", "float32", "--devices", "2",
+         "--load-weights-g1", str(tmp_path / "g1.npz"),
+         "--load-weights-g2", str(tmp_path / "g2.npz")], img)
+    engine = InferenceEngine(**ENGINE_KW)
+    engine.load_weights(str(tmp_path / "g1.npz"), str(tmp_path / "g2.npz"))
+    np.testing.assert_array_equal(got, engine.infer_group([img])[0][1])
+    assert stats["requests"] >= 1
 
 
 def test_daemon_serves_int8_with_calibration(tmp_path, jax_engine):
