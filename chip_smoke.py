@@ -231,7 +231,29 @@ Phases; any failure exits non-zero before the result line is printed:
    it in turns. ``InferenceEngine`` over two devices (two replicas on
    one card where there is one) answers 4 480x640 images as the
    one-device engine does, each replica's forward launching K1 8
-   tensor-core + 2 narrow.
+   tensor-core + 2 narrow;
+15. shard (after ``parallel``): spatial row sharding, tensor parallelism
+   and the composed mesh, on ranks spawned as in phase 14 (NCCL with a
+   card a rank where there are cards enough, else gloo ranks sharing
+   ``cuda:0``: correctness and overhead, no scaling; printed with
+   ``nvidia-smi``'s name and power limit). Spatial: the serving engine's
+   split-skip MNet pair (ngf 64, seeded) at 480x640 b1 in bf16 and f32
+   over 2 spatial ranks, each rank's row slab against the one-process
+   forward's rows (3e-2 bf16, 2e-5 f32), its K1 launches by variant (8
+   tensor-core + 2 narrow in bf16, 8 CUDA-core + 2 narrow in f32, the
+   gathered deep level's step included) and the row gathers (1 a
+   generator: 15 rows a rank do not take the innermost stride-2 conv),
+   its latency beside the one-process forward's. TP: one training step
+   of phase 14's configuration (ngf 64, 256 crops, batch 16, f32, Adam
+   eps 1) on a 1x2 (data x model) mesh, each state leaf read against
+   phase 14's single run by its per-leaf rule and limit; a planted "no
+   all-reduce before a split conv" and a planted "gather backward sums"
+   each exceed the limit; ``hshear`` 3 launches a step a rank, K1 none;
+   each rank's parameter + BN + Adam bytes beside one process's; img/s
+   of 2 more steps. 3-D: the engine pair's state (ngf 64, f32) split
+   over a 1x2x2 (data x spatial x model) mesh of 4 ranks, its forward at
+   256x256 b2 (weights gathered at use, row slabs) against one process
+   within 2e-5, 8 CUDA-core + 2 narrow K1 launches a rank.
 
 The second-to-last line is the kernels' JSON summary, the line before it
 ``nvidia-smi``'s name and power limit, and the last line
@@ -371,6 +393,14 @@ PAR_ORDERS = ("rolled by 1", "rolled by -1", "rolled by half", "reversed",
               "halves reversed", "odd rows first")
 PAR_FAULTS = ("bn_local", "bn_backward_local", "rank_grad_dropped")
 PIPE_BATCH, PIPE_STREAM = 4, 8
+# the shard phase: the stacked forward over 2 spatial ranks at SHARD_HW,
+# batch 1, timed over SHARD_ITERS after a warm-up; the 1x2x2 forward at
+# SHARD_3D_HW, batch 2; the TP step at the parallel phase's configuration
+# with the faults of SHARD_FAULTS planted (see _shard_planted)
+SHARD_HW = DATA_HW
+SHARD_3D_HW = (256, 256)
+SHARD_ITERS = 10
+SHARD_FAULTS = ("no_reduce", "gather_sums")
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -4124,13 +4154,11 @@ def _par_metrics(ref: dict, other: dict) -> float:
                for k, v in other["metrics"].items())
 
 
-def _par_hold(single: dict, ranks: list) -> dict:
-    """DP against the single run, within the limit that the single run's
-    own reduction-order spread (PAR_ORDERS) sets; every planted fault
-    beyond it. Returns the readings."""
-    def line(w):
-        return ", ".join(f"{k} {v:.3e}" for k, v in w.items())
-
+def _par_limits(single: dict) -> tuple[dict, dict, dict, float]:
+    """The single run's readings in each order of PAR_ORDERS after each
+    step, their largest per kind (the spread), the limit each kind is
+    held to (the larger of PAR_REL_TOL and PAR_SPREAD_K x the spread),
+    and the metrics' limit."""
     steps = ("state1", "state2")
     orders = {o: {s: _par_read(single, single[o], s)[0] for s in steps}
               for o in PAR_ORDERS}
@@ -4139,7 +4167,18 @@ def _par_hold(single: dict, ranks: list) -> dict:
     m_spread = max(_par_metrics(single, single[o]) for o in PAR_ORDERS)
     limit = {s: {k: max(PAR_REL_TOL, PAR_SPREAD_K * v)
                  for k, v in spread[s].items()} for s in steps}
-    m_limit = max(PAR_REL_TOL, PAR_SPREAD_K * m_spread)
+    return orders, spread, limit, max(PAR_REL_TOL, PAR_SPREAD_K * m_spread)
+
+
+def _par_hold(single: dict, ranks: list) -> dict:
+    """DP against the single run, within the limit that the single run's
+    own reduction-order spread (PAR_ORDERS) sets; every planted fault
+    beyond it. Returns the readings."""
+    def line(w):
+        return ", ".join(f"{k} {v:.3e}" for k, v in w.items())
+
+    steps = ("state1", "state2")
+    orders, spread, limit, m_limit = _par_limits(single)
     dp = {s: _par_read(single, ranks[0], s) for s in steps}
     m_dp = _par_metrics(single, ranks[0])
     print(f"[parallel] reading: each state leaf's largest |difference| "
@@ -4448,11 +4487,411 @@ def phase_parallel(vgg_path: Path) -> dict:
     serving = _par_serving(n_cards)
     print(f"[time] parallel phase {time.perf_counter() - t_phase:.1f} s")
     return {"hshear": [r["hshear"] for r in ranks],
-            "decoder": [r["decoder"] for r in ranks],
+            "decoder": [r["decoder"] for r in ranks], "single": single,
+            "spec": spec,
             "pipeline": pipe["by_variant"], "serving": serving,
             "img_s": img_s, "cli_s": cli["wall_s"],
             "pipeline_ms": pipe["ms"], "faults_x_limit":
             held["faults_x_limit"]}
+
+
+@contextlib.contextmanager
+def _shard_planted(name: str | None):
+    """A backward fault of the column-parallel pair planted in the
+    enclosed steps: ``no_reduce``, the identity before a split conv
+    passes its partial input gradient on unsummed; ``gather_sums``, the
+    channel gather's backward sums the gradient over the model ranks
+    before keeping its slice."""
+    if name is None:
+        yield
+        return
+    from shadow_removal_istd_tpu_torch.parallel import tensor
+
+    cls = (tensor._CopyToModel if name == "no_reduce"
+           else tensor._GatherChannels)
+    old = cls.backward
+
+    def no_reduce(ctx, grad):
+        return grad, None
+
+    def gather_sums(ctx, grad):
+        grad = grad.contiguous()
+        torch.distributed.all_reduce(grad,
+                                     group=tensor._active.groups["model"])
+        return old(ctx, grad)
+
+    cls.backward = staticmethod(no_reduce if name == "no_reduce"
+                                else gather_sums)
+    try:
+        yield
+    finally:
+        cls.backward = staticmethod(old)
+
+
+def _shard_engine(dtype: str, device, ngf: int):
+    """The serving engine's split-skip MNet pair (seeded)."""
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(ngf=ngf, dtype=dtype, device=device, seed=3)
+    return eng.g1, eng.g2
+
+
+def _shard_input(hw, batch: int, device, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((batch, 3, *hw), generator=gen, device=device) * 2 - 1
+
+
+def _shard_3d_state(device, ngf: int):
+    """The composed mesh's state: the nearest-decoder MNet pair and
+    PatchGANs at ``ngf``, f32, seeded."""
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.state import init_state
+
+    cfg = TrainConfig(ngf=ngf, ndf=ngf, nn_upconv=True, droprate=0.0)
+    return init_state(cfg, torch.Generator().manual_seed(4), device)
+
+
+def _shard_time(fn, device, mesh, iters: int) -> float:
+    """ms a call of ``fn`` over ``iters`` calls after one, on the host
+    clock around synchronize (and a barrier over ``mesh``)."""
+    from shadow_removal_istd_tpu_torch.parallel.mesh import barrier
+
+    fn()
+    _sync(device)
+    barrier(mesh)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(device)
+    barrier(mesh)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _shard_counted(fn) -> tuple:
+    """``fn()`` with the decoder's and the row gathers' counts from 0:
+    its result, K1's launches by variant, the gathers."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.parallel import spatial
+
+    reset_decoder_counts()
+    spatial.gather_rows.count = 0
+    out = fn()
+    return (out, dict(decoder_upsample.launches_by_variant),
+            spatial.gather_rows.count)
+
+
+def _shard_state_bytes(state) -> int:
+    """Bytes of the networks' parameters and statistics and of Adam's
+    moments (not its step counts)."""
+    return sum(v.numel() * v.element_size()
+               for k, v in _state_leaves(state).items()
+               if not k.endswith(".step"))
+
+
+def _shard_full_state(trainer, mesh) -> dict:
+    """The trainer's state gathered to full over the model axis (every
+    rank takes part), as ``_par_state`` reads it; split again after."""
+    from shadow_removal_istd_tpu_torch.parallel.mesh import (
+        shard_state,
+        unshard_state,
+    )
+
+    unshard_state(mesh, trainer.state)
+    try:
+        return _par_state(trainer)
+    finally:
+        shard_state(mesh, trainer.state)
+
+
+def _shard_rank(local: int, world: int, init: str, spec: dict) -> None:
+    """One rank of the shard phase (a spawned process): on 2 ranks the
+    spatial forwards and the TP step, on 4 the composed mesh's forward;
+    saves what the phase reads."""
+    import datetime
+
+    from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+    from shadow_removal_istd_tpu_torch.parallel.mesh import (
+        barrier,
+        distributed_init,
+        make_mesh_2d,
+        make_mesh_3d,
+        make_mesh_tp,
+        shard_images,
+        shard_state,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timeout = datetime.timedelta(seconds=600)
+    distributed_init(init, world, local, timeout=timeout)
+    dev = torch.device(spec["devices"][local])
+    sh = spec["shard"]
+    out: dict = {}
+    mesh = None
+    try:
+        if world == 2:
+            mesh = make_mesh_2d(1, 2, dev, timeout=timeout)
+            out["backend"] = mesh.backend
+            for dtype in ("bfloat16", "float32"):
+                g1, g2 = _shard_engine(dtype, dev, sh["ngf"])
+                x = shard_images(mesh, _shard_input(sh["hw"], 1, dev, 11))
+                with torch.no_grad():
+                    (m, y), k1, gathers = _shard_counted(
+                        lambda: infer_step(g1, g2, x, mesh))
+                    ms = _shard_time(lambda: infer_step(g1, g2, x, mesh),
+                                     dev, mesh, sh["iters"])
+                out[dtype] = {"m": m.float().cpu(), "y": y.float().cpu(),
+                              "k1": k1, "gathers": gathers, "ms": ms}
+                del g1, g2
+            tp = make_mesh_tp(1, 2, dev, timeout=timeout)
+            trainer = _par_trainer(spec, tp)
+            start = _par_copy(trainer.state)
+            res = {"state0": _shard_full_state(trainer, tp)}
+            hshear.launches = 0
+            _, k1, _ = _shard_counted(lambda: trainer.run_train_epoch(0))
+            _sync(dev)
+            res.update(hshear=hshear.launches, decoder=k1,
+                       bytes=_shard_state_bytes(trainer.state),
+                       state1=_shard_full_state(trainer, tp),
+                       metrics={f"train1 {k}": v for k, v in
+                                trainer.history[-1].items()})
+            barrier(tp)
+            t0 = time.perf_counter()
+            for epoch in (2, 3):
+                trainer.run_train_epoch(epoch)
+            _sync(dev)
+            barrier(tp)
+            res["steps_s"] = time.perf_counter() - t0
+            for name in SHARD_FAULTS:
+                trainer.state = _par_copy(start)
+                with _shard_planted(name):
+                    trainer.run_train_epoch(0)
+                res[name] = {"state1": _shard_full_state(trainer, tp)}
+            out["tp"] = res
+            mesh = tp
+        else:
+            mesh = make_mesh_3d(1, 2, 2, dev, timeout=timeout)
+            out["backend"] = mesh.backend
+            state = _shard_3d_state(dev, sh["ngf"])
+            shard_state(mesh, state)
+            g1, g2 = state.models.g1, state.models.g2
+            g1.eval()
+            g2.eval()
+            x = shard_images(mesh, _shard_input(sh["hw3"], 2, dev, 12))
+            with torch.no_grad():
+                (m, y), k1, gathers = _shard_counted(
+                    lambda: infer_step(g1, g2, x, mesh))
+                ms = _shard_time(lambda: infer_step(g1, g2, x, mesh), dev,
+                                 mesh, 3)
+            out["3d"] = {"m": m.cpu(), "y": y.cpu(), "k1": k1,
+                         "gathers": gathers, "ms": ms,
+                         "coord": (mesh.coord("spatial"),
+                                   mesh.coord("model"))}
+        torch.save(out, Path(spec["dir"]) / f"shard{world}_{local}.pt")
+    finally:
+        barrier(mesh)
+        torch.distributed.destroy_process_group()
+
+
+def _shard_gathers(h: int, n: int, depth: int = 4) -> int:
+    """Row gathers of a stacked MNet forward on ``h`` rows over ``n``
+    spatial ranks: a generator gathers once, at the first of its
+    ``depth + 1`` stride-2 convs whose slab has an odd row count, and
+    runs whole below it."""
+    h //= n
+    for _ in range(depth + 1):
+        if h % 2:
+            return 2
+        h //= 2
+    return 0
+
+
+def _shard_rows(full: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    b = full.shape[2] // n
+    return full[:, :, r * b:(r + 1) * b]
+
+
+def phase_shard(par: dict) -> dict:
+    """Spatial row sharding, tensor parallelism and the composed mesh
+    (see the module docstring, phase 15), on ``par``, the parallel
+    phase's result (its single run and configuration). Returns each
+    rank's launches and the readings."""
+    import torch.multiprocessing as mp
+
+    from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+
+    t_phase = time.perf_counter()
+    root = Path(par["spec"]["dir"])
+    n_cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    dev = torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device("cpu")
+    print(f"[shard] card: {nvidia_smi() if DEVICE == 'cuda' else 'none'}")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ref, one_ms = {}, {}
+    try:
+        with torch.no_grad():
+            for dtype in ("bfloat16", "float32"):
+                g1, g2 = _shard_engine(dtype, dev, NGF)
+                x = _shard_input(SHARD_HW, 1, dev, 11)
+                ref[dtype] = [t.float().cpu() for t in infer_step(g1, g2, x)]
+                one_ms[dtype] = _shard_time(lambda: infer_step(g1, g2, x),
+                                            dev, None, SHARD_ITERS)
+                del g1, g2
+            state = _shard_3d_state(dev, NGF)
+            g1, g2 = state.models.g1, state.models.g2
+            g1.eval()
+            g2.eval()
+            ref["3d"] = [t.cpu() for t in infer_step(
+                g1, g2, _shard_input(SHARD_3D_HW, 2, dev, 12))]
+            del state, g1, g2
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    outs = {}
+    for world in (2, 4):
+        if n_cards >= world:
+            devices = [f"{DEVICE}:{i}" for i in range(world)]
+            how = f"NCCL, one card each of {n_cards}"
+        else:
+            devices = [str(dev)] * world
+            how = (f"gloo, {world} ranks sharing {dev}: correctness and "
+                   "overhead, no scaling")
+        print(f"[shard] {world} ranks on {devices} ({how})")
+        spec = {**par["spec"], "devices": devices,
+                "shard": {"ngf": NGF, "hw": SHARD_HW, "hw3": SHARD_3D_HW,
+                          "iters": SHARD_ITERS}}
+        t0 = time.perf_counter()
+        mp.start_processes(_shard_rank, args=(
+            world, f"file://{root}/shard_rendezvous{world}", spec),
+            nprocs=world, start_method="spawn")
+        print(f"[shard] {world} ranks took {time.perf_counter() - t0:.1f} "
+              "s wall (process start, kernel loads and the runs)")
+        outs[world] = [torch.load(root / f"shard{world}_{r}.pt")
+                       for r in range(world)]
+    tol = {"bfloat16": TOL[torch.bfloat16], "float32": TOL[torch.float32]}
+    bad = []
+    spatial = {}
+    n_gather = _shard_gathers(SHARD_HW[0], 2)
+    for dtype in ("bfloat16", "float32"):
+        err = max(float((o[dtype][k] - _shard_rows(full, r, 2)).abs()
+                        .max())
+                  for r, o in enumerate(outs[2])
+                  for k, full in zip(("m", "y"), ref[dtype]))
+        final = "cuda_core" if dtype == "float32" else "tensor_core"
+        want = {"tensor_core": 0, "cuda_core": 0, "narrow": 2}
+        want[final] = 8
+        for r, o in enumerate(outs[2]):
+            print(f"[shard] spatial {dtype} rank {r}: K1 {o[dtype]['k1']} "
+                  f"(want {want}), row gathers {o[dtype]['gathers']} "
+                  f"(want {n_gather}), {o[dtype]['ms']:.3f} ms a forward")
+            if DEVICE == "cuda" and o[dtype]["k1"] != want:
+                bad.append(f"spatial {dtype} rank {r} K1 {o[dtype]['k1']}")
+            if o[dtype]["gathers"] != n_gather:
+                bad.append(f"spatial {dtype} rank {r} gathers")
+        ms = max(o[dtype]["ms"] for o in outs[2])
+        print(f"[shard] spatial {dtype}: {SHARD_HW[0]}x{SHARD_HW[1]} b1 "
+              f"stacked ngf {NGF} over "
+              f"2 spatial ranks ({outs[2][0]['backend']}): max |slab - "
+              f"one-process rows| {err:.3e} (limit {tol[dtype]})")
+        print(f"[time] spatial {dtype} {SHARD_HW[0]}x{SHARD_HW[1]} b1: one "
+              f"process "
+              f"{one_ms[dtype]:.3f} ms a forward, 2 spatial ranks "
+              f"{ms:.3f} ms (host clock around synchronize and a barrier, "
+              f"{SHARD_ITERS} forwards after one"
+              + ("" if n_cards >= 2 else "; one card shared: no scaling")
+              + ")")
+        if err > tol[dtype]:
+            bad.append(f"spatial {dtype} error {err:.3e}")
+        spatial[dtype] = {"err": err, "ms": ms, "one_ms": one_ms[dtype],
+                          "k1": [o[dtype]["k1"] for o in outs[2]]}
+    single = par["single"]
+    _, _, limit, m_limit = _par_limits(single)
+    tps = [o["tp"] for o in outs[2]]
+
+    def line(w):
+        return ", ".join(f"{k} {v:.3e}" for k, v in w.items())
+
+    same = all(torch.equal(t["state1"][k], tps[0]["state1"][k])
+               for t in tps[1:] for k in tps[0]["state1"])
+    same &= all(torch.equal(tps[0]["state0"][k], v)
+                for k, v in single["state0"].items())
+    read, where = _par_read(single, tps[0], "state1")
+    m_tp = _par_metrics(single, tps[0])
+    print(f"[shard] TP step (1x2 data x model, {outs[2][0]['backend']}): "
+          f"gathered states of both ranks identical and started from the "
+          f"single run's: {same}; TP - single after step 1: {line(read)} "
+          f"(largest at {where}); metrics {m_tp:.3e}; held within "
+          f"{line(limit['state1'])}, metrics {m_limit:.3e}")
+    bad += [f"TP {k}" for k, v in read.items() if v > limit["state1"][k]]
+    bad += ["TP metrics"] if m_tp > m_limit else []
+    bad += [] if same else ["TP ranks' states"]
+    faults = {}
+    for name in SHARD_FAULTS:
+        f_read, f_where = _par_read(single, tps[0][name], "state1")
+        over = {k: v / limit["state1"][k] for k, v in f_read.items()}
+        faults[name] = max(over.values())
+        print(f"[shard] planted fault {name}, after step 1: "
+              f"{line(f_read)}; the largest {faults[name]:.1f} x its limit "
+              f"(at {f_where[max(over, key=over.get)]}; seen: "
+              f"{faults[name] > 1})")
+        if faults[name] <= 1:
+            bad.append(f"planted {name} unseen")
+    one_bytes = sum(v.numel() * v.element_size()
+                    for k, v in single["state1"].items()
+                    if not k.endswith(".step"))
+    batch = par["spec"]["cfg"].get("batch_size", 16)
+    tp_img_s = 2 * batch / max(t["steps_s"] for t in tps)
+    for r, t in enumerate(tps):
+        print(f"[shard] TP rank {r}: hshear {t['hshear']} (want 3), K1 "
+              f"{t['decoder']}; parameters + BN + Adam "
+              f"{t['bytes'] / 2 ** 20:.1f} MiB beside one process's "
+              f"{one_bytes / 2 ** 20:.1f} MiB ({t['bytes'] / one_bytes:.3f}"
+              f" x)")
+        if DEVICE == "cuda" and (t["hshear"] != 3
+                                 or sum(t["decoder"].values())):
+            bad.append(f"TP rank {r} launches")
+    print(f"[time] TP train, 2 steps of {batch} ({CROP}x{CROP} f32, host "
+          f"clock around synchronize and a barrier): 2 model ranks "
+          f"{tp_img_s:.1f} img/s beside the single run's "
+          f"{par['img_s']['single']:.1f} img/s")
+    err3 = 0.0
+    for o in outs[4]:
+        r_sp, _ = o["3d"]["coord"]
+        err3 = max(err3, *(float((got - _shard_rows(full, r_sp, 2)).abs()
+                                 .max())
+                           for got, full in zip((o["3d"]["m"], o["3d"]["y"]),
+                                                ref["3d"])))
+    want3 = {"tensor_core": 0, "cuda_core": 8, "narrow": 2}
+    for r, o in enumerate(outs[4]):
+        print(f"[shard] 3-D rank {r} (spatial, model) {o['3d']['coord']}: "
+              f"K1 {o['3d']['k1']} (want {want3}), row gathers "
+              f"{o['3d']['gathers']}, {o['3d']['ms']:.1f} ms a forward")
+        if DEVICE == "cuda" and o["3d"]["k1"] != want3:
+            bad.append(f"3-D rank {r} K1 {o['3d']['k1']}")
+    print(f"[shard] 3-D forward (1x2x2, {outs[4][0]['backend']}, weights "
+          f"gathered at use, {SHARD_3D_HW[0]}x{SHARD_3D_HW[1]} b2 f32): max "
+          f"|slab - one-process rows| {err3:.3e} (limit "
+          f"{TOL[torch.float32]})")
+    if err3 > TOL[torch.float32]:
+        bad.append(f"3-D error {err3:.3e}")
+    print(f"[time] shard phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise SystemExit(f"shard: {bad}")
+    return {"spatial": spatial, "tp": {"read": read, "metrics": m_tp,
+                                       "faults_x_limit": faults,
+                                       "img_s": tp_img_s,
+                                       "bytes": [t["bytes"] for t in tps],
+                                       "one_bytes": one_bytes},
+            "hshear": [t["hshear"] for t in tps],
+            "decoder": {"spatial_bf16": spatial["bfloat16"]["k1"],
+                        "spatial_f32": spatial["float32"]["k1"],
+                        "tp_step": [t["decoder"] for t in tps],
+                        "3d": [o["3d"]["k1"] for o in outs[4]]},
+            "err_3d": err3}
 
 
 def build_renamed(name: str, path: str,
@@ -4656,6 +5095,7 @@ def main() -> int:
         h5 = phase_h5(vgg_path)
         int8 = phase_int8(vgg_path)
         par = phase_parallel(vgg_path)
+        shard = phase_shard(par)
     finally:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     zk = zoo["kernels"]
@@ -4666,6 +5106,7 @@ def main() -> int:
                   launches_parallel={"dp_ranks": par["decoder"],
                                      "pipeline": par["pipeline"],
                                      "serving": par["serving"]},
+                  launches_shard=shard["decoder"],
                   max_abs_err=max(kernel["max_abs_err"],
                                   *zk["worst"].values()),
                   **{f"zoo_unet_upconv_{key}": {
@@ -4688,7 +5129,9 @@ def main() -> int:
                        launches_remat=remat["hshear"],
                        launches_h5=h5["hshear"],
                        launches_parallel=par["hshear"],
-                       parallel_train_img_s=par["img_s"])
+                       parallel_train_img_s=par["img_s"],
+                       launches_shard=shard["hshear"],
+                       shard_tp_train_img_s=shard["tp"]["img_s"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": [kernel, shear_entry, *int8["kernels"]]}))

@@ -25,16 +25,23 @@ Devices and ranks:
   ``cuda``) makes the process itself one rank. The three flags go
   together, with the JAX CLI's messages. ``--tasks serve`` refuses them;
   ``infer`` raises in such a run, as in JAX.
+- ``--spatial-shard S`` and ``--model-shard M`` make the ranks a
+  (data, spatial, model) mesh (``parallel/mesh.py``), sized by the JAX
+  CLI's ``_select_mesh`` capping (:func:`mesh_shape`): forward work
+  splits image rows over S ranks (``parallel/spatial.py``), weights,
+  BatchNorm statistics and Adam moments split their channels over M
+  (``parallel/tensor.py``); both together form JAX's composed mesh.
+  With one process, N cards give ``data * S * M`` ranks; with several,
+  every rank of the run must fit the mesh.
 - ``--pipeline-infer`` runs ``infer`` as the two-stage pipeline over the
   selected cards (``parallel/pipeline.py``); with fewer than two it
   warns and runs fused.
 - Flags whose feature is not ported raise ``NotImplementedError`` naming
-  the flag when set away from their default (``--spatial-shard``,
-  ``--model-shard``, ``--export-stablehlo``, ``--checkpoint-backend
-  orbax``). Every ``--net-G``/``--net-D`` choice, ``--softadapt``,
-  ``--SELU``, ``--remat`` (the rematerialized train step) and
-  ``--data-h5`` (the HDF5 dataset, read by the port's own HDF5 codec; it
-  takes precedence over ``--data-dir``) run.
+  the flag when set away from their default (``--export-stablehlo``,
+  ``--checkpoint-backend orbax``). Every ``--net-G``/``--net-D``
+  choice, ``--softadapt``, ``--SELU``, ``--remat`` (the rematerialized
+  train step) and ``--data-h5`` (the HDF5 dataset, read by the port's
+  own HDF5 codec; it takes precedence over ``--data-dir``) run.
 
 TensorBoard event files land in ``<logs>/{train,valid}``, a
 ``--profile-dir`` trace of the second epoch in that directory
@@ -53,6 +60,7 @@ import argparse
 import contextlib
 import json
 import logging
+import math
 import os
 import random
 import re
@@ -72,6 +80,7 @@ from shadow_removal_istd_tpu_torch.parallel.mesh import (
     barrier,
     distributed_init,
     make_mesh,
+    unshard_state,
 )
 
 logger = logging.getLogger(__name__)
@@ -90,8 +99,6 @@ PRESERVED_ARGS = [
 
 # flag -> (args attribute, is it set away from its default?)
 _UNPORTED_FLAGS = {
-    "--spatial-shard": ("spatial_shard", lambda v: v > 1),
-    "--model-shard": ("model_shard", lambda v: v > 1),
     "--export-stablehlo": ("export_stablehlo", lambda v: v is not None),
     "--checkpoint-backend orbax": ("checkpoint_backend",
                                    lambda v: v == "orbax"),
@@ -205,9 +212,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler trace of the "
                              "second training epoch into this directory")
     parser.add_argument("--spatial-shard", type=int, default=1,
-                        help="spatial partitioning (not ported yet)")
+                        help="shard image H rows over this many ranks "
+                             "(spatial partitioning with halo exchanges; "
+                             "forward-only work: validation/inference)")
     parser.add_argument("--model-shard", type=int, default=1,
-                        help="tensor parallelism (not ported yet)")
+                        help="shard conv feature channels over this many "
+                             "ranks (tensor parallelism: weights, BN "
+                             "stats and Adam moments split; composes "
+                             "with --spatial-shard)")
     parser.add_argument("--checkpoint-backend", default="msgpack",
                         choices=["msgpack", "orbax"],
                         help="full-state checkpoint format: msgpack = one "
@@ -353,19 +365,91 @@ def select_devices(devices: list[str], batch_size: int,
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def mesh_shape(want: int, avail: int, batch_size: int,
+               spatial_shard: int = 1, model_shard: int = 1
+               ) -> tuple[int, int, int]:
+    """The (data, spatial, model) sizes of a run that asks for ``want``
+    of ``avail`` ranks: the JAX CLI's ``_select_mesh`` capping, in its
+    order and with its warnings. The spatial and model sizes are capped
+    to the ranks, then spatial to what the model size leaves; the data
+    size takes the rest, capped to the largest divisor of the batch."""
+    want = min(want, avail)
+    sp = max(1, spatial_shard)
+    if sp > want:
+        logger.warning("--spatial-shard %d > %d available devices; "
+                       "capping", sp, want)
+        sp = want
+    mp = max(1, model_shard)
+    if mp > want:
+        logger.warning("--model-shard %d > %d available devices; "
+                       "capping", mp, want)
+        mp = want
+    if sp * mp > want:
+        new_sp = max(1, want // mp)
+        logger.warning(
+            "--spatial-shard %d x --model-shard %d needs %d devices "
+            "but only %d are available; capping spatial to %d",
+            sp, mp, sp * mp, want, new_sp)
+        sp = new_sp
+    n = min(want // (sp * mp), batch_size)
+    while n > 1 and batch_size % n != 0:
+        n -= 1
+    return max(n, 1), sp, mp
+
+
+def select_mesh(devices: list[str], batch_size: int, processes: int = 1,
+                spatial_shard: int = 1, model_shard: int = 1
+                ) -> tuple[list[torch.device], tuple[int, int, int]]:
+    """``--devices`` with ``--spatial-shard``/``--model-shard``: this
+    process's rank devices and the mesh shape (:func:`mesh_shape`). One
+    process: a count N of cards is asked of the cards present, a device
+    name (``cuda``, ``cpu``) is one device; the run takes the first
+    ``data * spatial * model`` of them. Several processes: each brings
+    its devices (:func:`select_devices` without the batch rule) and
+    the mesh must hold every rank of the run."""
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"--devices {' '.join(devices)}: a list of devices is not "
+            "ported; pass cuda, cpu or a count of cards")
+    if devices[0].isdigit():
+        resolve_device("cuda")
+        avail = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        want = int(devices[0])
+    else:
+        avail = [resolve_device(devices[0])]
+        want = 1
+    if processes == 1:
+        shape = mesh_shape(want, len(avail), batch_size, spatial_shard,
+                           model_shard)
+        return avail[:math.prod(shape)], shape
+    local = avail[:min(want, len(avail))]
+    world = processes * len(local)
+    shape = mesh_shape(world, world, batch_size, spatial_shard, model_shard)
+    if math.prod(shape) != world:
+        raise SystemExit(
+            f"{world} ranks do not form a mesh: --spatial-shard "
+            f"{spatial_shard} x --model-shard {model_shard} with "
+            f"--batch-size {batch_size} uses {math.prod(shape)} "
+            f"(data, spatial, model = {shape})")
+    return local, shape
+
+
 def join_ranks(local_rank: int, devices: list[torch.device],
                init: str | None, processes: int = 1,
-               process_id: int = 0) -> Mesh:
+               process_id: int = 0,
+               shape: tuple[int, int, int] | None = None) -> Mesh:
     """This rank's mesh: without ``init`` one rank over ``devices`` (the
     selected devices, for pipeline inference); else rank ``process_id *
     len(devices) + local_rank`` of ``processes * len(devices)``, on its
-    own device, joined at ``init``."""
+    own device, joined at ``init``, over a mesh of ``shape`` (data,
+    spatial, model; data-parallel by default)."""
     if init is None:
         return make_mesh(devices[0], devices=devices)
     local = len(devices)
     distributed_init(init, processes * local, process_id * local + local_rank)
     return make_mesh(devices[local_rank], devices=devices,
-                     processes=processes)
+                     processes=processes, shape=shape)
 
 
 def start_ranks(target, args: tuple, devices: list[torch.device],
@@ -409,9 +493,18 @@ def main(args) -> None:
         raise SystemExit("--tasks serve is single-process; serve from "
                          "the saved weights on one host (data-parallel "
                          "serving uses --devices N within a host)")
-    devices = select_devices(args.devices, args.batch_size, processes)
-    multi = processes > 1 or ("train" in args.tasks and len(devices) > 1)
-    start_ranks(_rank_main, (args, time_str), devices, multi,
+    shape = None
+    if args.spatial_shard > 1 or args.model_shard > 1:
+        devices, shape = select_mesh(args.devices, args.batch_size,
+                                     processes, args.spatial_shard,
+                                     args.model_shard)
+        # every task's forward is collective over these axes
+        multi = processes > 1 or len(devices) > 1
+    else:
+        devices = select_devices(args.devices, args.batch_size, processes)
+        multi = processes > 1 or ("train" in args.tasks
+                                  and len(devices) > 1)
+    start_ranks(_rank_main, (args, time_str, shape), devices, multi,
                 args.coordinator)
 
 
@@ -436,13 +529,13 @@ def leave_ranks(mesh: Mesh) -> None:
         dist.destroy_process_group()
 
 
-def _rank_main(local_rank: int, args, time_str: str,
+def _rank_main(local_rank: int, args, time_str: str, shape,
                devices: list[torch.device], init: str | None) -> None:
     """One rank of ``main``: join the group, run the tasks, leave it."""
     rank_logging(args.logs, f"main-{time_str}", local_rank, devices, init,
                  args.process_id or 0)
     mesh = join_ranks(local_rank, devices, init, args.num_processes or 1,
-                      args.process_id or 0)
+                      args.process_id or 0, shape)
     try:
         _run_tasks(args, mesh)
     finally:
@@ -498,6 +591,11 @@ def _run_tasks(args, mesh: Mesh) -> None:
         eval_metrics=args.eval_metrics,
         pipeline_infer=args.pipeline_infer,
     )
+    if args.spatial_shard > 1 and "train" in args.tasks:
+        logger.warning(
+            "--spatial-shard accelerates forward-only work (validation/"
+            "inference); training batches shard on the data axis only "
+            "(see parallel.mesh.train_batch_sharding)")
     trainer = Trainer(cfg, run, mesh=mesh)
     trainer.load_weights(g1=args.load_weights_g1, g2=args.load_weights_g2,
                          d1=args.load_weights_d1, d2=args.load_weights_d2)
@@ -517,8 +615,11 @@ def _run_tasks(args, mesh: Mesh) -> None:
         return
     if "infer" in args.tasks:
         trainer.infer()
-    if "serve" in args.tasks and mesh.rank == 0:
-        _serve(trainer, cfg, args)
+    if "serve" in args.tasks:
+        # the daemon serves the whole weights from rank 0
+        unshard_state(mesh, trainer.state)
+        if mesh.rank == 0:
+            _serve(trainer, cfg, args)
 
 
 def _serve(trainer, cfg, args) -> None:

@@ -132,11 +132,15 @@ from shadow_removal_istd_tpu_torch.ops.augment import (
 from shadow_removal_istd_tpu_torch.ops.color import bgr_to_rgb, rgb_to_lab
 from shadow_removal_istd_tpu_torch.ops.resize import resize, resize_linear
 from shadow_removal_istd_tpu_torch.parallel.mesh import (
+    SPATIAL_AXIS,
     Mesh,
+    all_gather,
     is_primary,
     shard_batch,
+    shard_images,
     shard_state,
     sum_across,
+    unshard_state,
 )
 from shadow_removal_istd_tpu_torch.parallel.pipeline import (
     StackedPipeline,
@@ -243,9 +247,14 @@ class Trainer:
         # host-side side effects belong to rank 0 (the JAX trainer's
         # process 0); every rank computes the same global step
         self._primary = mesh is None or is_primary(mesh)
-        if self._dp is not None and cfg.batch_size % self._dp.world:
+        # a spatial or model axis makes every forward collective: each
+        # rank takes part, rank 0 alone writes
+        self._collective = self._dp is not None and (
+            self._dp.n_spatial > 1 or self._dp.n_model > 1)
+        self._warned_spatial = False
+        if self._dp is not None and cfg.batch_size % self._dp.n_data:
             raise ValueError(f"batch size {cfg.batch_size} does not split "
-                             f"over {self._dp.world} ranks")
+                             f"over {self._dp.n_data} data ranks")
         self.device = resolve_device(mesh.device if mesh is not None
                                      else device)
         self.run = run
@@ -426,9 +435,25 @@ class Trainer:
         for raw in self.valid_pipe.epoch():
             yield self._upload(raw)
 
+    @contextlib.contextmanager
+    def _whole_state(self):
+        """The state gathered to full over a model axis (every rank takes
+        part) while files are written or read, split again after; the
+        files are the single-device flax layout."""
+        tp = self._dp is not None and self._dp.n_model > 1
+        if tp:
+            unshard_state(self._dp, self.state)
+        try:
+            yield
+        finally:
+            if tp:
+                shard_state(self._dp, self.state)
+
     def _save_weights(self, suffix: str) -> None:
-        if self._primary:
-            ckpt.save_model_weights(self.state, self.run.weights_dir, suffix)
+        with self._whole_state():
+            if self._primary:
+                ckpt.save_model_weights(self.state, self.run.weights_dir,
+                                        suffix)
 
     def _writer(self, which: str) -> SummaryWriter | NullWriter:
         """The event file writer of ``logs_dir/<which>``, opened on first
@@ -482,7 +507,7 @@ class Trainer:
                         self._save_weights("best")
                         logger.info("improvement after epoch %d, "
                                     "error=%.4f", epoch, total)
-                if guard is not None and guard.requested:
+                if guard is not None and self._preempt_requested(guard):
                     # epoch + 1: this epoch is complete, a resume must
                     # continue with the next one
                     self.save(epoch + 1)
@@ -508,6 +533,16 @@ class Trainer:
                     time.time() - t_start, self.best_loss)
         return self.preempted
 
+    def _preempt_requested(self, guard: PreemptionGuard) -> bool:
+        """The guard's flag; over a model axis any rank's, since the
+        checkpoint is written from the gathered state, with every rank
+        taking part (else each rank checks its own, as in JAX)."""
+        if self._dp is None or self._dp.n_model == 1:
+            return guard.requested
+        flag = torch.tensor([float(guard.requested)])
+        torch.distributed.all_reduce(flag)     # the default (gloo) group
+        return bool(flag.item())
+
     def run_train_epoch(self, epoch: int, log_scalars: bool = False,
                         visualize: bool = False) -> dict[str, float]:
         """One epoch on the device cache (``run.device_cache``) or the
@@ -526,7 +561,7 @@ class Trainer:
             self.state, sums_dev = self.epoch_fn(self.state,
                                                  self.cache.arrays, idx, gen)
             n, vis = idx.shape[0], None
-            if visualize and self._primary:
+            if visualize and (self._primary or self._collective):
                 vis = augment_batch(gen.generator("augment", VIS_STEP),
                                     self.cache.gather(idx[0]), self.aug_cfg,
                                     mesh=self._dp)
@@ -549,7 +584,8 @@ class Trainer:
                 f"{k} {self.history[-1][k]:.4f}" for k in METRIC_KEYS[:10]))
             self._log_scalars("train", epoch, sums, n)
             self._save_weights("latest")
-        if visualize and vis is not None and self._primary:
+        if visualize and vis is not None and (self._primary
+                                              or self._collective):
             self._log_images("train", epoch, vis)
         return self.history[-1]
 
@@ -571,29 +607,32 @@ class Trainer:
         for raw in self.valid_pipe.epoch():
             n_b = raw[0].shape[0]
             mesh = (self._dp if self._dp is not None
-                    and n_b % self._dp.world == 0 else None)
+                    and n_b % self._dp.n_data == 0 else None)
             start = 0
             if mesh is not None:
                 start = mesh.rows(n_b).start
                 raw = shard_batch(mesh, raw)
-            batch = self._upload(raw)
+            full = self._upload(raw)
+            batch, rows = self._place_rows(full, mesh)
             metrics, (_, y_pred) = eval_step(self.state, batch,
                                              return_preds=True, mesh=mesh)
             if self.run.eval_metrics:
-                mask = self._protocol_mask(batch[1], ofs + start,
-                                           batch[0].shape[0])
+                mask = self._protocol_mask(full[1], ofs + start,
+                                           full[0].shape[0])
+                if rows is not None:
+                    mask = mask[:, rows]
                 parts = self._lab_parts(y_pred, batch[2], mask)
                 if mesh is not None:
                     keys = list(parts)
                     parts = dict(zip(keys, sum_across(torch.stack(
-                        [parts[k] for k in keys]), mesh)))
+                        [parts[k] for k in keys]), mesh, "forward")))
                 lab_parts.append(parts)
             ofs += n_b
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
             if vis is None:
-                vis = batch
+                vis = full
         sums = _read_back(sums)
         self.last_valid = {k: v / n for k, v in sums.items()}
         logger.info("valid epoch %d: %s", epoch, ", ".join(
@@ -614,9 +653,50 @@ class Trainer:
                 "non-shadow %.2f / all %.2f",
                 "" if tag == "Eval" else " (matte proxy)", epoch,
                 agg["rmse"], agg["rmse_non"], agg["rmse_all"])
-        if self._primary:
+        if self._primary or self._collective:
             self._log_images("valid", epoch, vis)
         return self.last_valid["total"]
+
+    def _place_rows(self, batch, mesh: Mesh | None):
+        """A forward batch (NCHW tensors, this rank's data rows) split
+        into row slabs over the spatial axis, with this rank's row slice;
+        when the image height does not split over the spatial ranks,
+        warn once and keep the rows whole (data-only), as the JAX
+        trainer's ``_place`` does. ``(batch, None)`` without a spatial
+        axis or a data-split batch."""
+        if mesh is None or mesh.n_spatial == 1:
+            return batch, None
+        h = batch[0].shape[2]
+        if h % mesh.n_spatial:
+            if not self._warned_spatial:
+                self._warned_spatial = True
+                logger.warning(
+                    "--spatial-shard %d does not divide image height %d; "
+                    "falling back to data-only sharding (no spatial "
+                    "latency scaling)", mesh.n_spatial, h)
+            return batch, None
+        b = h // mesh.n_spatial
+        r = mesh.coord(SPATIAL_AXIS)
+        return (shard_images(mesh, tuple(batch), data=False),
+                slice(r * b, (r + 1) * b))
+
+    def _forward(self, x: torch.Tensor):
+        """``infer_step`` of this rank's batch ``x``. On a spatial or
+        model axis every rank of ``x``'s line takes part: each computes
+        its row slab (or its channels) and the rows are gathered back;
+        ranks of other data coordinates compute their own ``x``."""
+        g1, g2 = self.state.models.g1, self.state.models.g2
+        g1.eval()
+        g2.eval()
+        if not self._collective:
+            return infer_step(g1, g2, x)
+        (xb,), rows = self._place_rows((x,), self._dp)
+        outs = infer_step(g1, g2, xb, self._dp)
+        if rows is None:
+            return outs
+        return tuple(torch.cat(all_gather(t.contiguous(), self._dp,
+                                          SPATIAL_AXIS), dim=2)
+                     for t in outs)
 
     def _has_protocol_masks(self) -> bool:
         """True when the shadow mask behind ``Eval/*`` is the protocol's
@@ -689,10 +769,7 @@ class Trainer:
         on its thread; the next scalar log's flush (or the end of
         ``train``) waits for them."""
         x = batch[0][:n_images]
-        g1, g2 = self.state.models.g1, self.state.models.g2
-        g1.eval()
-        g2.eval()
-        m_pred, y_pred = infer_step(g1, g2, x)
+        m_pred, y_pred = self._forward(x)
         w = self._writer(which)
         for tag, img, bgr in (("input", x, True), ("matte", m_pred, False),
                               ("output", y_pred, True)):
@@ -718,7 +795,10 @@ class Trainer:
         devices (the mesh's, else every card of the host); with fewer
         than two it warns and runs fused. Rank 0 alone writes (the
         other ranks return 0); a multi-process run raises, as the JAX
-        trainer does. Returns the image count."""
+        trainer does. On a spatial or model axis every rank takes part in
+        each batch's forward (``_forward``); the pipeline then gathers
+        the weights to full on rank 0 and ignores both axes, with JAX's
+        warnings. Returns the image count."""
         if self.valid_pipe is None:
             raise ValueError("no validation data")
         if self.mesh is not None and self.mesh.processes > 1:
@@ -727,13 +807,30 @@ class Trainer:
                 "--tasks infer is single-process; rerun inference on "
                 "one host with --load-weights-g1/-g2 or "
                 "--load-checkpoint")
-        if not self._primary:
+        if self.run.pipeline_infer and self._collective:
+            if self._dp.n_spatial > 1:
+                logger.warning(
+                    "--pipeline-infer ignores --spatial-shard: each batch "
+                    "runs whole on the pipeline's stages")
+            if self._dp.n_model > 1:
+                logger.warning(
+                    "--pipeline-infer discards --model-shard: each "
+                    "stage's FULL weights are replicated onto its device "
+                    "— if the model was sharded because it exceeds one "
+                    "card's memory, this will OOM; use the fused "
+                    "(non-pipeline) infer path instead")
+            with self._whole_state():
+                return self._infer(pipeline=True) if self._primary else 0
+        if not (self._primary or self._collective):
             return 0
+        return self._infer(pipeline=self.run.pipeline_infer)
+
+    def _infer(self, pipeline: bool) -> int:
         g1, g2 = self.state.models.g1, self.state.models.g2
         g1.eval()
         g2.eval()
-        run_infer = functools.partial(infer_step, g1, g2)
-        if self.run.pipeline_infer:
+        run_infer = self._forward
+        if pipeline:
             devs = (list(self.mesh.devices) if self.mesh is not None
                     else self._host_devices())
             if len(devs) >= 2:
@@ -741,6 +838,7 @@ class Trainer:
             else:
                 logger.warning("--pipeline-infer needs >= 2 selected "
                                "devices; using the fused path")
+                run_infer = functools.partial(infer_step, g1, g2)
 
         def compute(x):
             m, y = run_infer(x)
@@ -751,6 +849,10 @@ class Trainer:
                 y = resize_linear(y, self.cfg.infer_resize)
             return float_to_uint8(m)[..., 0], float_to_uint8(y)
 
+        if not self._primary:      # a spatial or model rank: compute only
+            for x, _, _ in self.valid_batches():
+                compute(x)
+            return 0
         for sub in ("shadowless", "matte"):
             os.makedirs(os.path.join(self.run.infered_dir, sub),
                         exist_ok=True)
@@ -793,18 +895,19 @@ class Trainer:
         self.state.lr_scale_d = self.plateau_d.scale
 
     def save(self, epoch: int) -> None:
-        if not self._primary:
-            return
         host = {"best_loss": self.best_loss}
         if self.plateau_g is not None:
             host["plateau_g"] = self.plateau_g.state_dict()
             host["plateau_d"] = self.plateau_d.state_dict()
-        ckpt.save_checkpoint(self.state, self.run.checkpoint_path, epoch,
-                             host=host)
+        with self._whole_state():
+            if self._primary:
+                ckpt.save_checkpoint(self.state, self.run.checkpoint_path,
+                                     epoch, host=host)
 
     def load(self, path: str | None = None) -> None:
         path = path or self.run.checkpoint_path
-        epoch, host = ckpt.load_checkpoint(self.state, path)
+        with self._whole_state():
+            epoch, host = ckpt.load_checkpoint(self.state, path)
         self.start_epoch = epoch
         if "best_loss" in host:
             self.best_loss = float(host["best_loss"])
@@ -816,10 +919,14 @@ class Trainer:
 
     def load_weights(self, g1=None, g2=None, d1=None, d2=None) -> None:
         """Per-network weight loading (reference src/cgan.py:525-542)."""
-        for net, path in (("G1", g1), ("G2", g2), ("D1", d1), ("D2", d2)):
-            if path:
-                ckpt.load_model_weights(self.state, net, path)
-                logger.info("loaded %s weights: %s", net, path)
+        if not any((g1, g2, d1, d2)):
+            return
+        with self._whole_state():
+            for net, path in (("G1", g1), ("G2", g2), ("D1", d1),
+                              ("D2", d2)):
+                if path:
+                    ckpt.load_model_weights(self.state, net, path)
+                    logger.info("loaded %s weights: %s", net, path)
 
 
 def _read_back(sums: dict[str, torch.Tensor]) -> dict[str, float]:

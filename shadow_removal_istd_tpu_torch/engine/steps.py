@@ -51,6 +51,18 @@ update. The metrics, and BEGAN's and SoftAdapt's loss statistics, are
 averaged over the ranks, so every rank returns the same metrics and
 holds the same k1/k2 and SoftAdapt state. ``eval_step(mesh=...)`` does
 the same for a sharded validation batch.
+
+The mesh's other axes (``parallel.mesh``): on a model axis the train
+step runs inside ``parallel.tensor.tensor_parallel`` (the modules hold
+channel shards and compute column-parallel), backpropagates loss /
+``n_data``, sums gradients over the data axis and broadcasts the
+replicated layers' gradients over the model axis. Forward steps run
+through :func:`forward_parallel`: row slabs of a spatial axis inside
+``parallel.spatial.spatial_parallel``, column-parallel layers on a model
+axis, and on the composed mesh every weight gathered to full at use
+(``gather_model_leaves``, ZeRO-3) before the spatial forward, as the
+JAX package does there. Their metrics average over the data x spatial
+plane.
 """
 
 from __future__ import annotations
@@ -87,22 +99,64 @@ from shadow_removal_istd_tpu_torch.parallel.mesh import (
     active_mesh,
     all_reduce_grads,
     data_parallel,
+    gather_model_leaves,
     mean_across,
+)
+from shadow_removal_istd_tpu_torch.parallel.spatial import (
+    is_sharded,
+    spatial_parallel,
+    split_rows,
+)
+from shadow_removal_istd_tpu_torch.parallel.tensor import (
+    sync_replicated_grads,
+    tensor_parallel,
 )
 
 METRIC_KEYS = ("G", "G1", "G2", "D", "D1", "D2", "data1", "data2",
                "vis1", "vis2", "D1_real", "D1_fake", "D2_real", "D2_fake")
 
 
-def infer_step(g1: nn.Module, g2: nn.Module,
-               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+@contextlib.contextmanager
+def forward_parallel(mesh: Mesh | None, nets):
+    """The context of a forward step of ``nets`` over ``mesh``: on the
+    composed mesh (spatial and model axes) every weight gathered to full
+    then row slabs; else column-parallel layers on a model axis and row
+    slabs on a spatial one. Row slabs are the tensors
+    ``parallel.mesh.shard_images`` split; others run whole."""
+    if mesh is None or mesh.world == 1:
+        yield
+        return
+    with contextlib.ExitStack() as stack:
+        if mesh.n_model > 1 and mesh.n_spatial > 1:
+            stack.enter_context(gather_model_leaves(mesh, nets))
+        else:
+            stack.enter_context(tensor_parallel(mesh))
+        stack.enter_context(spatial_parallel(mesh))
+        yield
+
+
+def _slabs(like: torch.Tensor, *outs: torch.Tensor) -> tuple:
+    """``outs`` as row slabs when ``like`` is one (an output computed
+    whole is split), else as they are."""
+    if not is_sharded(like):
+        return outs
+    return tuple(t if is_sharded(t) else split_rows(t) for t in outs)
+
+
+def infer_step(g1: nn.Module, g2: nn.Module, x: torch.Tensor,
+               mesh: Mesh | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """``m = G1(x)``, then ``y = G2(cat(x, m))``, both in eval mode.
 
     ``x`` is an (N, 3, H, W) image in [-1, 1]; it is cast to the matte's
-    dtype before the concat, as the JAX serving engine does."""
-    m = g1(x)
-    y = g2(torch.cat([x.to(m.dtype), m], dim=1))
-    return m, y
+    dtype before the concat, as the JAX serving engine does. Over
+    ``mesh`` (the run's, see :func:`forward_parallel`) every rank calls
+    it with its block of the batch; a row slab of ``x`` returns row
+    slabs."""
+    with forward_parallel(mesh, (g1, g2)):
+        m = g1(x)
+        y = g2(torch.cat([x.to(m.dtype), m], dim=1))
+        return _slabs(x, m, y)
 
 
 def _cat(*tensors: torch.Tensor) -> torch.Tensor:
@@ -184,22 +238,25 @@ def _no_mark(name: str) -> None:
 
 def _backward(loss: torch.Tensor, nets, mesh: Mesh | None) -> None:
     """``loss.backward()``; over a mesh, of this rank's share of the
-    global loss (``loss / world``), then the gradients of ``nets``'
-    parameters summed over the ranks."""
+    global loss (``loss / n_data``), then the gradients of ``nets``'
+    parameters summed over the data ranks, and those of the layers no
+    model rank splits broadcast over the model ranks."""
     if mesh is None:
         loss.backward()
         return
-    (loss / mesh.world).backward()
+    (loss / mesh.n_data).backward()
     all_reduce_grads([p for n in nets for p in n.parameters()], mesh)
+    sync_replicated_grads(nets, mesh)
 
 
-def _across(mesh: Mesh | None, tensors: list) -> list:
-    """Each tensor's mean over the ranks, in one all-reduce; as they are
-    for one rank."""
+def _across(mesh: Mesh | None, tensors: list, key: str = "data") -> list:
+    """Each tensor's mean over the ranks of the group ``key`` (see
+    ``parallel.mesh.mean_across``), in one all-reduce; as they are for
+    one rank."""
     if mesh is None or not tensors:
         return tensors
     flat = mean_across(torch.cat([t.detach().float().reshape(-1)
-                                  for t in tensors]), mesh)
+                                  for t in tensors]), mesh, key)
     out, ofs = [], 0
     for t in tensors:
         out.append(flat[ofs:ofs + t.numel()].reshape(t.shape).to(t.dtype))
@@ -221,8 +278,8 @@ def train_step(state: TrainState, batch, gens=(None, None),
     D-phase and G-backward marks also hold those replays, and "g_adv"
     the targets' VGG forwards. Over ``state.mesh``, ``batch`` is this
     rank's slice of the global batch and the metrics are the global
-    batch's."""
-    with data_parallel(state.mesh):
+    batch's; on a model axis the layers compute column-parallel."""
+    with data_parallel(state.mesh), tensor_parallel(state.mesh):
         return _train_step(state, batch, gens, mark)
 
 
@@ -348,12 +405,19 @@ def eval_step(state: TrainState, batch, return_preds: bool = False,
     lambdas weigh G even under SoftAdapt, as in the JAX package. With
     ``return_preds``, returns ``(metrics, (m_pred, y_pred))``: the
     evaluation protocol scores these without a second G forward. With
-    ``mesh``, ``batch`` is this rank's slice of a global batch and the
-    metrics (relativistic means included) are the global batch's."""
-    with data_parallel(mesh):
+    ``mesh``, ``batch`` is this rank's block of a global batch (its data
+    rows, and its row slabs on a spatial axis, ``shard_images``) and the
+    metrics (relativistic means included) are the global batch's,
+    averaged over the data x spatial plane; the predictions are the
+    rank's block. The layers' parallel forms follow ``state.mesh``
+    (:func:`forward_parallel`)."""
+    nets = state.models.all()
+    with data_parallel(mesh), forward_parallel(state.mesh, nets):
         metrics, preds = _eval_step(state, batch)
+        preds = _slabs(batch[0], *preds)
         metrics = dict(zip(metrics, _across(active_mesh(),
-                                            list(metrics.values()))))
+                                            list(metrics.values()),
+                                            "forward")))
     return (metrics, preds) if return_preds else metrics
 
 

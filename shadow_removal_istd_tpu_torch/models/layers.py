@@ -26,6 +26,17 @@ normalizes by the batch statistics as always but leaves its running
 statistics where the first forward moved them. BatchNorm is the only
 layer that changes state in a train forward; a new stateful layer must
 read :func:`replaying` the same way.
+
+Parallel forms (``parallel/``), each inactive outside its context:
+
+- inside ``parallel.spatial.spatial_parallel`` (forward only) a
+  row-sharded input exchanges its halo rows before each windowed layer
+  (the convolutions, ``Upsample``'s decoder kernel on the slab plus one
+  row a side, the pools), or is gathered where its rows do not split;
+- a layer whose weight ``parallel.mesh.shard_state`` split over the
+  model axis computes its own output channels from the full input and
+  all-gathers them (``parallel/tensor.py``); BatchNorm normalizes its own
+  channels of the full input.
 """
 
 from __future__ import annotations
@@ -43,10 +54,17 @@ from shadow_removal_istd_tpu_torch.ops.decoder import (
     decoder_upsample,
     subpixel_depth_to_space,
 )
+from shadow_removal_istd_tpu_torch.parallel import spatial
 from shadow_removal_istd_tpu_torch.parallel.mesh import (
     active_mesh,
     all_reduce_sum,
     global_rand,
+)
+from shadow_removal_istd_tpu_torch.parallel.tensor import (
+    copy_to_model,
+    gather_channels,
+    is_split,
+    local_channels,
 )
 
 
@@ -129,10 +147,20 @@ class ConvReflect(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(cout, cin, kernel_size, kernel_size))
 
+    @spatial.native
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.padding > 0:
-            x = reflect_pad(x, self.padding)
-        return F.conv2d(x, self.weight.to(x.dtype), stride=self.stride)
+        split, p = is_split(self), self.padding
+        if split:
+            x = copy_to_model(x, self)
+        x, rows = spatial.conv_rows(x, self.weight.shape[2], self.stride,
+                                    p, p, "reflect")
+        if rows and p > 0:
+            x = F.pad(x, (p, p, 0, 0), mode="reflect")
+        elif p > 0:
+            x = reflect_pad(x, p)
+        y = F.conv2d(x, self.weight.to(x.dtype), stride=self.stride)
+        return spatial.mark_rows(gather_channels(y, self) if split else y,
+                                 rows)
 
 
 class Conv(nn.Module):
@@ -148,10 +176,29 @@ class Conv(nn.Module):
             torch.empty(cout, cin, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
+    @spatial.native
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = is_split(self)
+        if split:
+            x = copy_to_model(x, self)
         b = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.conv2d(x, self.weight.to(x.dtype), b,
-                        stride=self.stride, padding=self.padding)
+        y = conv2d_rows(x, self.weight.to(x.dtype), b, self.stride,
+                        self.padding)
+        return spatial.mark_rows(gather_channels(y, self) if split else y,
+                                 spatial.is_sharded(y))
+
+
+@spatial.native
+def conv2d_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                stride: int, padding: int) -> torch.Tensor:
+    """``F.conv2d`` with zero padding; a row slab of a spatial forward
+    takes its neighbours' rows in place of the padding (the image's
+    own top and bottom rows pad with zeros) and gives a slab."""
+    x, rows = spatial.conv_rows(x, w.shape[2], stride, padding, padding,
+                                "constant")
+    return spatial.mark_rows(
+        F.conv2d(x, w, b, stride=stride,
+                 padding=(0, padding) if rows else padding), rows)
 
 
 class ConvTranspose(nn.Module):
@@ -170,11 +217,27 @@ class ConvTranspose(nn.Module):
             torch.empty(cout, cin, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
+    @spatial.native
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = is_split(self)
+        if split:
+            x = copy_to_model(x, self)
         w = self.weight.to(x.dtype).transpose(0, 1).flip(2, 3)
         b = self.bias.to(x.dtype) if self.bias is not None else None
-        return F.conv_transpose2d(x, w, b, stride=self.stride,
-                                  padding=self.padding)
+        k, s, p = w.shape[2], self.stride, self.padding
+        pad_h = p
+        if spatial.is_sharded(x):
+            # output rows [s*r0, s*(r0+h)) read input rows r0-above ..
+            # r0+h-1+below; zero rows stand outside the image
+            above, below = (k - 1 - p) // s, 1 + (p - 1) // s
+            if k == s + 2 * p and x.shape[2] >= max(above, below):
+                x, pad_h = spatial.pad_rows(x, above, below,
+                                            "constant"), p + s * above
+            else:
+                x = spatial.gather_rows(x)
+        y = F.conv_transpose2d(x, w, b, stride=s, padding=(pad_h, p))
+        return spatial.mark_rows(gather_channels(y, self) if split else y,
+                                 spatial.is_sharded(x))
 
 
 _REPLAY = threading.local()
@@ -232,13 +295,24 @@ class BatchNorm(nn.Module):
         return (self.weight * torch.rsqrt(self.running_var + self.eps)
                 ).float()
 
+    @spatial.native
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split, slab = is_split(self), spatial.is_sharded(x)
+        if split:
+            # the input gradient of this rank's channels only: summed
+            # over the model ranks as a split convolution's is
+            x = local_channels(copy_to_model(x, self), self)
         if self.training:
-            return self._train_forward(x)
-        s = self._factor().view(1, -1, 1, 1)
-        y = ((x.float() - self.running_mean.float().view(1, -1, 1, 1)) * s
-             + self.bias.float().view(1, -1, 1, 1))
-        return y.to(x.dtype)
+            if slab:
+                raise RuntimeError("spatial sharding is forward only: "
+                                   "train-mode BatchNorm on row slabs")
+            y = self._train_forward(x)
+        else:
+            s = self._factor().view(1, -1, 1, 1)
+            y = ((x.float() - self.running_mean.float().view(1, -1, 1, 1))
+                 * s + self.bias.float().view(1, -1, 1, 1)).to(x.dtype)
+        return spatial.mark_rows(gather_channels(y, self) if split else y,
+                                 slab)
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -248,10 +322,11 @@ class BatchNorm(nn.Module):
         n = x.numel() / c
         mesh = active_mesh()
         if mesh is not None:
-            # the global batch's sums, whose backward sums their
-            # gradients; every rank holds an equal slice (Mesh.rows)
+            # the global batch's sums over the data axis, whose backward
+            # sums their gradients; every data rank holds an equal slice
+            # (Mesh.rows), and a model rank its own channels
             sums = all_reduce_sum(sums, mesh)
-            n *= mesh.world
+            n *= mesh.n_data
         mean, ex2 = sums[:c] / n, sums[c:] / n
         var = torch.clamp(ex2 - mean.square(), min=0.0)
         if not replaying():
@@ -351,14 +426,18 @@ def make_dropout(use_selu: bool, rate: float) -> nn.Module | None:
     return AlphaDropout(rate) if use_selu else Dropout2d(rate)
 
 
+@spatial.native
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Max pool, stride == window (torch F.max_pool2d(x, 2))."""
-    return F.max_pool2d(x, window)
+    x = spatial.fit_rows(x, window)
+    return spatial.mark_rows(F.max_pool2d(x, window), spatial.is_sharded(x))
 
 
+@spatial.native
 def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Average pool, stride == window (torch nn.AvgPool2d(2))."""
-    return F.avg_pool2d(x, window)
+    x = spatial.fit_rows(x, window)
+    return spatial.mark_rows(F.avg_pool2d(x, window), spatial.is_sharded(x))
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -434,29 +513,55 @@ class Upsample(nn.Module):
         scale4, bias4 = bn.affine(tile=4) if bn is not None else (None, None)
         self.frozen = (self.phase_kernel(dtype), scale4, bias4)
 
+    @spatial.native
     def forward(self, x, *, leaky: bool = False,
                 bn: BatchNorm | None = None) -> torch.Tensor:
         parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-        parts = tuple(p.contiguous(memory_format=torch.channels_last)
-                      for p in parts)
+        split = is_split(self)
         if self.frozen is not None:
             w4, scale4, bias4 = self.frozen
         else:
             w4 = self.phase_kernel(parts[0].dtype)
             scale4, bias4 = (bn.affine(tile=4) if bn is not None
                              else (None, None))
-        return decoder_upsample(parts, w4, scale4, bias4, leaky=leaky,
-                                zero_pad=not self.no_conv_t)
+        if bn is not None and is_split(bn) != split:
+            raise ValueError("an Upsample and its BatchNorm split alike")
+        crop = None
+        if any(spatial.is_sharded(p) for p in parts):
+            # K1 on the slab plus one neighbour row a side: output rows
+            # 2i, 2i+1 read input rows i-1 .. i+1; the image's own top
+            # and bottom keep the kernel's edge or zero pad
+            h = parts[0].shape[2] if spatial.is_sharded(parts[0]) else \
+                parts[1].shape[2]
+            halos = [spatial.exchange_halo(
+                p if spatial.is_sharded(p) else spatial.split_rows(p), 1, 1)
+                for p in parts]
+            parts = tuple(t for t, _, _ in halos)
+            crop = (2 * halos[0][1], 2 * halos[0][1] + 2 * h)
+        parts = tuple(p.contiguous(memory_format=torch.channels_last)
+                      for p in parts)
+        y = decoder_upsample(parts, w4, scale4, bias4, leaky=leaky,
+                             zero_pad=not self.no_conv_t)
+        y = gather_channels(y, self) if split else y
+        return y if crop is None else spatial.crop_rows(y, *crop)
 
     def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.is_sharded(x):
+            raise RuntimeError("spatial sharding is forward only: "
+                               "Upsample.train_forward on row slabs")
+        split = is_split(self)
+        if split:
+            x = copy_to_model(x, self)
         w = self.weight.to(x.dtype)
         if not self.no_conv_t:
-            return F.conv_transpose2d(x, w.transpose(0, 1).flip(2, 3),
-                                      stride=2, padding=1)
-        n, _, h, wd = x.shape
-        k = subpixel_phase_kernel(w).permute(3, 2, 0, 1)   # (4Co, Ci, 2, 2)
-        y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), k)
-        return subpixel_depth_to_space(y, h, wd, w.shape[0])
+            y = F.conv_transpose2d(x, w.transpose(0, 1).flip(2, 3),
+                                   stride=2, padding=1)
+        else:
+            n, _, h, wd = x.shape
+            k = subpixel_phase_kernel(w).permute(3, 2, 0, 1)  # (4Co,Ci,2,2)
+            y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), k)
+            y = subpixel_depth_to_space(y, h, wd, w.shape[0])
+        return gather_channels(y, self) if split else y
 
 
 def get_activation(key: str | None) -> Callable | None:

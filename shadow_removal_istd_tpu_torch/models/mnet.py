@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shadow_removal_istd_tpu_torch.models import layers as L
+from shadow_removal_istd_tpu_torch.parallel import spatial
 
 
 class _Down(nn.Module):
@@ -126,10 +127,11 @@ class MNet(nn.Module):
         """``generator`` draws the Dropout2d masks (training with
         ``drop_rate > 0`` only)."""
         div = 2 ** (self.depth + 1)
-        if x.shape[2] % div or x.shape[3] % div:
+        h = spatial.global_height(x)
+        if h % div or x.shape[3] % div:
             raise ValueError(
                 f"MNet(depth={self.depth}) needs H and W divisible by "
-                f"{div}; got {x.shape[2]}x{x.shape[3]}. Pad or resize "
+                f"{div}; got {h}x{x.shape[3]}. Pad or resize "
                 "the input (ISTD's 480x640 divides).")
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         y = self.stem(x)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shadow_removal_istd_tpu_torch.models import layers as L
+from shadow_removal_istd_tpu_torch.parallel import spatial
 
 
 class Pix2PixUNet(nn.Module):
@@ -73,6 +74,9 @@ class Pix2PixUNet(nn.Module):
 
     def _block(self, x: torch.Tensor, level: int) -> torch.Tensor:
         outermost, innermost = level == 0, level == self.num_downs - 1
+        # a row slab pads nothing: its rows split into stride pairs, or
+        # the level is gathered and runs whole
+        x = spatial.fit_rows(x, 2)
         h, w = x.shape[2], x.shape[3]
         ph, pw = h % 2, w % 2
         y = F.pad(x, (0, pw, 0, ph)) if ph or pw else x

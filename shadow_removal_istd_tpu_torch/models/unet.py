@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from shadow_removal_istd_tpu_torch.models import layers as L
+from shadow_removal_istd_tpu_torch.parallel import spatial
 
 
 class _DoubleConv(nn.Module):
@@ -72,10 +73,11 @@ class UNet(nn.Module):
         """``generator`` draws the Dropout2d masks (training with
         ``drop_rate > 0`` only)."""
         div = 2 ** self.depth
-        if x.shape[2] % div or x.shape[3] % div:
+        h = spatial.global_height(x)
+        if h % div or x.shape[3] % div:
             raise ValueError(
                 f"UNet(depth={self.depth}) needs H and W divisible by "
-                f"{div}; got {x.shape[2]}x{x.shape[3]}. Pad or resize "
+                f"{div}; got {h}x{x.shape[3]}. Pad or resize "
                 "the input (the pix2pix 'stcgan' generator handles odd "
                 "sizes natively).")
         y = x.to(self.dtype)

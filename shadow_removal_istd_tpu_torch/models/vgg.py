@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from shadow_removal_istd_tpu_torch.models.layers import conv2d_rows, max_pool
+from shadow_removal_istd_tpu_torch.parallel import spatial
+
 # torchvision vgg19 cfg "E" through pool4: features[:40]
 VGG19_CFG_THROUGH_POOL4 = (
     64, 64, "M",
@@ -44,13 +47,23 @@ class _ConvBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(cout))
         self.register_buffer("running_var", torch.ones(cout))
 
+    @spatial.native
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, self.bias, padding=1)
+        y = conv2d_rows(x, self.weight, self.bias, 1, 1)
+        slab = spatial.is_sharded(y)
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(self.running_var + self.eps) * self.bn_weight
         y = ((y - self.running_mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
              + self.bn_bias.view(1, -1, 1, 1))
-        return F.relu(y)
+        return spatial.mark_rows(F.relu(y), slab)
+
+
+class _MaxPool(nn.Module):
+    """2x2 max pool, stride 2 (``layers.max_pool``: a row slab whose
+    rows do not split into pairs is gathered)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool(x, 2)
 
 
 class VGG19Features(nn.Module):
@@ -61,7 +74,7 @@ class VGG19Features(nn.Module):
         layers, cin = [], 3
         for spec in VGG19_CFG_THROUGH_POOL4:
             if spec == "M":
-                layers.append(nn.MaxPool2d(2, 2))
+                layers.append(_MaxPool())
             else:
                 layers.append(_ConvBN(cin, spec))
                 cin = spec

@@ -134,11 +134,11 @@ def augment_batch(generator: torch.Generator | None,
     crops in [-1, 1], in the same order.
 
     With ``mesh`` (a ``parallel.mesh.Mesh``) the streams are this rank's
-    slice of the global batch: the parameters are drawn (or given) for
-    the global batch, and the rank's slice of them is applied, so the
-    crops equal one device's over the global batch."""
+    slice of the global batch (its data coordinate's): the parameters are
+    drawn (or given) for the global batch, and the rank's slice of them
+    is applied, so the crops equal one device's over the global batch."""
     batch = streams[0].shape[0]
-    world = mesh.world if mesh is not None else 1
+    world = mesh.n_data if mesh is not None else 1
     splits = [s.shape[-1] for s in streams]
     stacked = torch.cat(list(streams), dim=-1)
     if cfg.resize is not None:

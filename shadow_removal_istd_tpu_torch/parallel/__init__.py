@@ -1,18 +1,30 @@
-"""Data parallelism across ranks, two-stage pipeline inference and host
--> device prefetch; the data axis of the JAX package's ``parallel/``.
+"""Parallelism across ranks, two-stage pipeline inference and host ->
+device prefetch; the JAX package's ``parallel/``.
 
-Spatial row sharding (``make_mesh_2d``, ``image_sharding``) and tensor
-parallelism (``make_mesh_tp``, ``make_mesh_3d``, ``model_sharding``,
-``gather_model_leaves``) are not ported yet.
+``mesh.py``: the (data, spatial, model) mesh of ranks, the data axis's
+collectives and the state's placement; ``spatial.py``: row slabs and
+halo exchanges of the forward; ``tensor.py``: column-parallel layers
+over the model axis.
 """
 
 from shadow_removal_istd_tpu_torch.parallel.mesh import (  # noqa: F401
+    MODEL_AXIS,
+    SPATIAL_AXIS,
     Mesh,
     distributed_init,
+    gather_model_leaves,
+    image_sharding,
     is_primary,
     make_mesh,
+    make_mesh_2d,
+    make_mesh_3d,
+    make_mesh_tp,
+    model_sharding,
     shard_batch,
+    shard_images,
     shard_state,
+    train_batch_sharding,
+    unshard_state,
 )
 from shadow_removal_istd_tpu_torch.parallel.pipeline import (  # noqa: F401
     StackedPipeline,

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from shadow_removal_istd_tpu.cli.main import _select_mesh as j_select_mesh
 from shadow_removal_istd_tpu.cli.main import build_parser as j_build_parser
 from shadow_removal_istd_tpu.engine.config import TrainConfig as JConfig
 from shadow_removal_istd_tpu.engine.loop import RunConfig as JRunConfig
@@ -302,8 +303,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--spatial-shard", "2"], NotImplementedError, "--spatial-shard"),
-    (["--model-shard", "2"], NotImplementedError, "--model-shard"),
     (["--export-stablehlo", "m.shlo"], NotImplementedError,
      "--export-stablehlo"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "orbax"),
@@ -395,6 +394,38 @@ def test_devices_count_caps_to_cards_and_batch(monkeypatch, want, cards,
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     devices = select_devices([str(want)], batch)
     assert devices == [torch.device("cuda", i) for i in range(got)]
+
+
+# (--devices, --batch-size, --spatial-shard, --model-shard)
+MESH_CASES = [("8", 8, 1, 1), ("8", 8, 2, 1), ("8", 8, 4, 1),
+              ("8", 8, 1, 2), ("8", 8, 2, 2), ("8", 8, 3, 1),
+              ("8", 6, 2, 1), ("8", 4, 1, 4), ("4", 8, 2, 2),
+              ("2", 8, 2, 2), ("8", 8, 16, 1), ("8", 8, 1, 16),
+              ("8", 8, 4, 4), ("8", 3, 2, 1), ("5", 8, 2, 1),
+              ("cpu", 8, 2, 2), ("8", 1, 2, 2), ("3", 8, 1, 1)]
+
+
+@pytest.mark.parametrize("devices,batch,sp,mp", MESH_CASES)
+def test_mesh_shape_caps_as_jax(caplog, devices, batch, sp, mp):
+    """``--spatial-shard``/``--model-shard`` size the mesh as the JAX
+    CLI's ``_select_mesh`` does on the conftest's 8 host devices: the
+    same (data, spatial, model) shape and the same warnings."""
+    import jax
+
+    from shadow_removal_istd_tpu_torch.cli.main import mesh_shape
+
+    with caplog.at_level("WARNING"):
+        mesh = j_select_mesh([devices], batch, sp, mp)
+    j_logs = [r.getMessage() for r in caplog.records]
+    caplog.clear()
+    shape = (1, 1, 1) if mesh is None else tuple(
+        mesh.shape.get(a, 1) for a in ("data", "spatial", "model"))
+    avail = len(jax.devices())
+    want = int(devices) if devices.isdigit() else avail
+    with caplog.at_level("WARNING"):
+        got = mesh_shape(want, avail, batch, sp, mp)
+    assert got == shape
+    assert [r.getMessage() for r in caplog.records] == j_logs
 
 
 def test_pipeline_infer_on_one_device_runs_fused(trained, istd_root,

@@ -5,6 +5,9 @@ processes on the CPU with ``--devices cpu --coordinator 127.0.0.1:<port>
 checkpoint, the weight files and the event files (the JAX package's
 ``tests/test_multihost_cli.py`` check, run here in tier-1: ~15 s). A
 SIGTERM to the process that launched two ranks reaches both (~10 s).
+``--spatial-shard 2`` and ``--model-shard 2`` on two CPU ranks launched
+by one process train, validate and infer as one process does (~12 s
+each).
 """
 import contextlib
 import os
@@ -15,6 +18,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import pytest
 
 from shadow_removal_istd_tpu_torch.data.synthetic import write_istd_layout
 from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
@@ -95,6 +100,82 @@ def test_two_process_cli_trains_alike_and_rank0_writes(tmp_path):
     # each rank logs to its own file, as the JAX CLI's processes do
     assert any(re.fullmatch(r"main-.*-p1\.log", f)
                for f in os.listdir(tmp_path / f"logs1{SUFFIX}"))
+
+
+# the CLI's launch of a mesh's ranks from one process (``--devices N``
+# with --spatial-shard / --model-shard on the cards) with CPU ranks
+SPAWN_CPU_MESH = (
+    "import sys, torch\n"
+    "from shadow_removal_istd_tpu_torch.cli import main as m\n"
+    "pick = m.select_mesh\n"
+    "def cpu_mesh(devices, batch, processes, sp, mp):\n"
+    "    _, shape = pick(devices, batch, processes, sp, mp)\n"
+    "    n = shape[0] * shape[1] * shape[2]\n"
+    "    return [torch.device('cpu')] * n, shape\n"
+    "torch.cuda.device_count = lambda: 8\n"
+    "m.resolve_device = lambda d: torch.device('cpu')\n"
+    "m.select_mesh = cpu_mesh\n"
+    "m.main(m.build_parser().parse_args(sys.argv[1:]))\n")
+
+
+@pytest.mark.parametrize("flags,shape", [
+    (["--spatial-shard", "2"], "{'data': 1, 'spatial': 2, 'model': 1}"),
+    (["--model-shard", "2", "--pipeline-infer"],
+     "{'data': 1, 'spatial': 1, 'model': 2}")])
+def test_cli_shards_match_one_process(tmp_path, flags, shape):
+    """``--spatial-shard 2`` (validation and inference on row slabs) and
+    ``--model-shard 2`` (channel-split training; ``--pipeline-infer``
+    then gathers the weights and warns, as the JAX trainer does) on two
+    CPU ranks launched by one process: one epoch of ``train infer`` logs
+    the validation lines of a one-process run, rank 0 alone writes the
+    weight files and the PNGs, and the PNGs are the one-process run's,
+    byte for byte."""
+    root = str(tmp_path / "istd")
+    write_istd_layout(root, n_train=8, n_test=4, h=64, w=64)
+    common = ["--tasks", "train", "infer", "--data-dir", root,
+              "--ngf", "4", "--ndf", "4", "--image-size", "32",
+              "--batch-size", "4", "--epochs", "1", "--log-every", "1",
+              "--valid-every", "1", "--vis-every", "1",
+              "--allow-missing-vgg"]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    runs = {}
+    for name, head in (("one", ["-m", "shadow_removal_istd_tpu_torch.cli"
+                                ".main", "--devices", "cpu"]),
+                       ("mesh", ["-c", SPAWN_CPU_MESH, "--devices", "2",
+                                 *flags])):
+        d = tmp_path / name
+        d.mkdir()
+        runs[name] = (d, subprocess.Popen(
+            [sys.executable, *head, *common, "--weights", str(d / "w"),
+             "--logs", str(d / "logs"), "--infered", str(d / "out")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=str(d)))
+    outs = {}
+    try:
+        for name, (_, p) in runs.items():
+            outs[name] = p.communicate(timeout=300)[0]
+    finally:
+        for _, p in runs.values():
+            if p.poll() is None:
+                p.kill()
+    for name, (_, p) in runs.items():
+        assert p.returncode == 0, outs[name][-4000:]
+    one, mesh = tmp_path / "one", tmp_path / "mesh"
+    logs = {n: "".join(p.read_text() for p in sorted(
+        (d / f"logs{SUFFIX}").glob("main-*.log"))) for n, d in
+        (("one", one), ("mesh", mesh))}
+    assert f"mesh {shape}" in logs["mesh"]
+    if "--pipeline-infer" in flags:
+        assert "--pipeline-infer discards --model-shard" in logs["mesh"]
+    r0 = [ln for ln in logs["mesh"].splitlines() if "[rank 0]" in ln]
+    assert _metric_lines("\n".join(r0)) == _metric_lines(logs["one"])
+    assert _metric_lines(logs["one"])
+    assert _files(mesh / f"w{SUFFIX}") == _files(one / f"w{SUFFIX}")
+    pngs = _files(one / "out")
+    assert len(pngs) == 8 and _files(mesh / "out") == pngs
+    for f in pngs:
+        assert (mesh / "out" / f).read_bytes() == (
+            one / "out" / f).read_bytes(), f
 
 
 # the CLI's launch of several ranks from one process (``--devices N`` on
