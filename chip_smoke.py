@@ -15,7 +15,8 @@ Phases; any failure exits non-zero before the result line is printed:
    together, beside ``g++`` building the native PNG loader from
    ``native/png_decoder.cpp``), prints the card, its power limit, the
    compiler's register, spill and shared-memory report, and the host's
-   Python packages, ``zlib.h`` and ``g++`` (``[env]``);
+   Python packages (``tensorstore``, ``zstandard`` and ``yaml`` among
+   them), ``zlib.h`` and ``g++`` (``[env]``);
 2. decoder kernel vs plain: the decoder kernels against their plain
    PyTorch version on the card at every MNet decoder step of a 256x256
    and a 480x640 input at ngf 64, batch 2, f32 and bf16, one-part and
@@ -199,7 +200,27 @@ Phases; any failure exits non-zero before the result line is printed:
    ``torch._int_mm`` on ``Tensor.unfold`` patches; the serving daemon
    with ``--dtype int8 --int8-calib`` answering one 480x640 request as
    the engine in this process does;
-14. parallel (after every earlier phase): ``W = torch.cuda.device_count()``
+14. export (after ``int8``): ``tools/export.py`` writes the ngf 64
+   split-skip MNet pair (seeded random weights) as ``torch.export``
+   artifacts, each export's seconds and MB printed: bf16 256x256 with
+   the batch pinned at 32, bf16 256x256 with a symbolic batch, f32
+   256x256 pinned at 32, and bf16 480x640 symbolic. Each 256x256
+   artifact, loaded by ``ArtifactEngine`` on the card: its forward
+   launches K1 (the op ``srit::decoder_upsample`` in the graph) 8
+   tensor-core + 2 narrow times in bf16, 8 CUDA-core + 2 narrow in f32;
+   its outputs against the same modules' eager ``infer_step`` within
+   3e-2 (bf16) / 2e-5 (f32); its uint8 replies within 2 gray levels of
+   ``InferenceEngine``'s. The 480x640 artifact refuses a 512x640 image,
+   and the daemon with ``--artifact`` answers one 480x640 request as the
+   engine in this process does and a weight reload with 501. Timed:
+   the artifact's stacked img/s at 256x256 b32 bf16 beside
+   ``InferenceEngine``'s, in turns (``[time] artifact stacked``); the
+   eager forward through the op beside the same forward calling the
+   kernel's launcher directly, in turns, and the host time of one op
+   call beside one direct call (``[time] K1 op dispatch``);
+   ``tools/preprocess.compute_sp_polyfit`` on a 480x640 pair at ksize 5,
+   deg 1 and 2, on the host (``[time] compute_sp_polyfit``);
+15. parallel (after every earlier phase): ``W = torch.cuda.device_count()``
    data-parallel ranks over NCCL where there are two cards or more, else
    2 ranks sharing ``cuda:0`` over gloo (printed, with ``nvidia-smi``'s
    name and power limit). The training configuration (ngf 64, f32, shear,
@@ -232,8 +253,8 @@ Phases; any failure exits non-zero before the result line is printed:
    one card where there is one) answers 4 480x640 images as the
    one-device engine does, each replica's forward launching K1 8
    tensor-core + 2 narrow;
-15. shard (after ``parallel``): spatial row sharding, tensor parallelism
-   and the composed mesh, on ranks spawned as in phase 14 (NCCL with a
+16. shard (after ``parallel``): spatial row sharding, tensor parallelism
+   and the composed mesh, on ranks spawned as in phase 15 (NCCL with a
    card a rank where there are cards enough, else gloo ranks sharing
    ``cuda:0``: correctness and overhead, no scaling; printed with
    ``nvidia-smi``'s name and power limit). Spatial: the serving engine's
@@ -244,9 +265,9 @@ Phases; any failure exits non-zero before the result line is printed:
    gathered deep level's step included) and the row gathers (1 a
    generator: 15 rows a rank do not take the innermost stride-2 conv),
    its latency beside the one-process forward's. TP: one training step
-   of phase 14's configuration (ngf 64, 256 crops, batch 16, f32, Adam
+   of phase 15's configuration (ngf 64, 256 crops, batch 16, f32, Adam
    eps 1) on a 1x2 (data x model) mesh, each state leaf read against
-   phase 14's single run by its per-leaf rule and limit; a planted "no
+   phase 15's single run by its per-leaf rule and limit; a planted "no
    all-reduce before a split conv" and a planted "gather backward sums"
    each exceed the limit; ``hshear`` 3 launches a step a rank, K1 none;
    each rank's parameter + BN + Adam bytes beside one process's; img/s
@@ -401,6 +422,14 @@ SHARD_HW = DATA_HW
 SHARD_3D_HW = (256, 256)
 SHARD_ITERS = 10
 SHARD_FAULTS = ("no_reduce", "gather_sums")
+# the export phase: artifacts of the serving pair at EXPORT_HW (batch
+# EXPORT_BATCH pinned, and symbolic) and at EXPORT_SERVE_HW (symbolic,
+# for the daemon and the refusal of a larger image); polyfit sp timed at
+# DATA_HW for each (ksize, deg) of POLYFIT_CASES
+EXPORT_HW = (256, 256)
+EXPORT_BATCH = 32
+EXPORT_SERVE_HW = (480, 640)
+POLYFIT_CASES = ((5, 1), (5, 2))
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -560,7 +589,8 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s")
     libs = ", ".join(
         f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
-        for m in ("cv2", "PIL", "tensorboard", "tensorboardX", "h5py"))
+        for m in ("cv2", "PIL", "tensorboard", "tensorboardX", "h5py",
+                  "tensorstore", "zstandard", "yaml"))
     zlib = Path("/usr/include/zlib.h").is_file()
     gxx = (subprocess.run(["g++", "--version"], capture_output=True,
                           text=True).stdout.splitlines() or ["?"])[0] \
@@ -1724,11 +1754,14 @@ def _host_native(istd: Path) -> None:
           f"{stdlib * 3 * n / times['native']:.1f}x faster")
 
 
-def _daemon_answer(flags: list, img, what: str) -> tuple:
+def _daemon_answer(flags: list, img, what: str,
+                   reload: bool = False) -> tuple:
     """Start ``python -m shadow_removal_istd_tpu_torch.serving`` with
     ``flags`` on a free port, POST ``img`` as one PNG request once it is
     healthy, read ``/stats``, SIGTERM it; returns (HTTP status, reply
-    body, exit code, /stats, seconds from start to exit)."""
+    body, exit code, /stats, seconds from start to exit). ``reload``:
+    also POST a weight reload, its HTTP status in /stats'
+    ``reload_status``."""
     import socket
 
     from shadow_removal_istd_tpu_torch.utils.image_io import imencode_png
@@ -1760,6 +1793,11 @@ def _daemon_answer(flags: list, img, what: str) -> tuple:
         conn.request("GET", "/stats")
         stats = json.loads(conn.getresponse().read())
         conn.close()
+        if reload:
+            stats["reload_status"] = _post(
+                ("127.0.0.1", port), json.dumps({"g1": "g1.msgpack",
+                                                 "g2": "g2.msgpack"}),
+                "/admin/reload")[0]
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
     finally:
@@ -3936,6 +3974,231 @@ def phase_int8(vgg_path: Path) -> dict:
     return {"kernels": [conv, entry("quantize_pad", tot["quantize_pad"])]}
 
 
+def _direct_decoder(parts, w4, scale4=None, bias4=None, *, leaky,
+                    zero_pad=False):
+    """The decoder step through the kernels' launcher ``_launch``
+    directly, not through the op ``srit::decoder_upsample`` (the other
+    side of the op route's dispatch timing; not counted)."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import _check, _launch
+
+    parts = tuple(parts)
+    co = _check(parts, w4, scale4, bias4)
+    return _launch(parts, w4, scale4, bias4, co, leaky, zero_pad)[0]
+
+
+def _op_dispatch(engine, x_u8) -> dict:
+    """The eager stacked forward with K1 through the op (the port's one
+    route) beside the same forward calling ``_launch`` directly, in
+    turns; then the host time of one call of each on a small step."""
+    from shadow_removal_istd_tpu_torch.models import layers
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+
+    runs: dict = {}
+    for name, fn in (("op", decoder_upsample), ("direct", _direct_decoder),
+                     ("op", decoder_upsample), ("direct", _direct_decoder),
+                     ("op", decoder_upsample), ("direct", _direct_decoder)):
+        with mock.patch.object(layers, "decoder_upsample", fn):
+            runs.setdefault(name, []).append(
+                time_ms(lambda: engine._stacked(x_u8), iters=10))
+    ms = {k: sum(v) / len(v) for k, v in runs.items()}
+    n = x_u8.shape[0]
+    cost = 100 * (ms["op"] - ms["direct"]) / ms["direct"]
+    print(f"[time] K1 op dispatch, stacked G1+G2 {x_u8.shape[1]}x"
+          f"{x_u8.shape[2]} b{n} bf16 eager, in turns: " + "; ".join(
+              f"{k} {n * 1e3 / ms[k]:.1f} img/s (" + ", ".join(
+                  f"{t:.3f}" for t in v) + " ms/batch)"
+              for k, v in runs.items())
+          + f"; op route costs {cost:+.2f} % of the direct call's time")
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    xs, w4, s4, b4 = step_inputs(1, 4, 4, (64,), 64, False,
+                                 torch.bfloat16, gen)
+    host = {}
+    for name, fn in (("op", decoder_upsample), ("direct", _direct_decoder)):
+        for _ in range(20):
+            fn(xs, w4, s4, b4, leaky=True)
+        _sync(xs[0].device)
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn(xs, w4, s4, b4, leaky=True)
+        host[name] = (time.perf_counter() - t0) / 500 * 1e6
+        _sync(xs[0].device)
+    print(f"[time] K1 op dispatch, host time of one call (b1 4x4 64->64 "
+          f"bf16, 500 calls, enqueue only): op {host['op']:.1f} us, direct "
+          f"{host['direct']:.1f} us")
+    return {"op_img_s": round(n * 1e3 / ms["op"], 2),
+            "direct_img_s": round(n * 1e3 / ms["direct"], 2),
+            "op_cost_pct": round(cost, 3),
+            "op_call_us": round(host["op"], 2),
+            "direct_call_us": round(host["direct"], 2)}
+
+
+def _polyfit_timing() -> dict:
+    """``compute_sp_polyfit`` on one DATA_HW synthetic pair, seconds per
+    image, for each (ksize, deg) of POLYFIT_CASES (host numpy)."""
+    from shadow_removal_istd_tpu_torch.data.synthetic import (
+        synthetic_triplets,
+    )
+    from shadow_removal_istd_tpu_torch.tools.preprocess import (
+        apply_sp_poly,
+        compute_sp_polyfit,
+    )
+
+    data = synthetic_triplets(1, *DATA_HW, seed=3)
+    img, tgt = data["img"][0], data["target"][0]
+    out = {}
+    for ksize, deg in POLYFIT_CASES:
+        t0 = time.perf_counter()
+        sp = compute_sp_polyfit(img, tgt, ksize=ksize, deg=deg)
+        secs = time.perf_counter() - t0
+        err = np.abs(apply_sp_poly(img, sp).astype(float) - tgt).mean()
+        print(f"[time] compute_sp_polyfit {DATA_HW[0]}x{DATA_HW[1]} ksize "
+              f"{ksize} deg {deg}: {secs:.3f} s an image on the host "
+              f"({os.cpu_count()} cores); restored mean abs error "
+              f"{err:.2f} gray levels")
+        if not np.isfinite(sp).all() or sp.shape != (*DATA_HW, 3, deg + 1):
+            raise SystemExit("compute_sp_polyfit: wrong or non-finite sp")
+        out[f"k{ksize}_deg{deg}_s"] = round(secs, 3)
+    return out
+
+
+def phase_export() -> dict:
+    """Serving export on the card (see the module docstring, phase 14);
+    returns K1's launches over the artifacts' forwards and the
+    readings."""
+    from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.serving import (
+        ArtifactEngine,
+        InferenceEngine,
+    )
+    from shadow_removal_istd_tpu_torch.tools.export import (
+        export_stacked_inference,
+    )
+    from shadow_removal_istd_tpu_torch.utils.image_io import imdecode_color
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "export"
+    root.mkdir(exist_ok=True)
+    n, (h, w) = EXPORT_BATCH, EXPORT_HW
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    engines = {k: InferenceEngine("mnet", ngf=NGF, dtype=k, split_skip=True,
+                                  max_batch=n, seed=0, device=DEVICE)
+               for k in dtypes}
+    specs = ((f"bf16 b{n}", "bfloat16", EXPORT_HW, n),
+             ("bf16 symbolic", "bfloat16", EXPORT_HW, None),
+             (f"f32 b{n}", "float32", EXPORT_HW, n),
+             ("bf16 symbolic", "bfloat16", EXPORT_SERVE_HW, None))
+    paths = {}
+    for label, dt, hw, b in specs:
+        key = f"{label} {hw[0]}x{hw[1]}"
+        paths[key] = root / (key.replace(" ", "_") + ".pt2")
+        t0 = time.perf_counter()
+        nbytes = export_stacked_inference(
+            str(paths[key]), None, engines[dt], image_shape=hw,
+            batch_size=b, dtype=dtypes[dt])
+        print(f"[export] ngf {NGF} split-skip MNet pair {key}: exported "
+              f"in {time.perf_counter() - t0:.1f} s, {nbytes / 1e6:.1f} MB")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    x_u8 = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8,
+                         device=DEVICE, generator=gen)
+    rng = np.random.default_rng(15)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for _ in range(min(4, n))]
+    launches, arts, worst = 0, {}, {}
+    for label, dt, hw, _ in specs[:3]:
+        key = f"{label} {hw[0]}x{hw[1]}"
+        t0 = time.perf_counter()
+        art = arts[key] = ArtifactEngine(str(paths[key]), max_batch=n,
+                                         device=DEVICE)
+        art._stacked(x_u8)
+        _sync(DEVICE)
+        load_s = time.perf_counter() - t0
+        reset_decoder_counts()
+        art._stacked(x_u8)
+        _sync(DEVICE)
+        by_variant = dict(decoder_upsample.launches_by_variant)
+        launches += decoder_upsample.launches
+        want = ({"tensor_core": 8, "cuda_core": 0, "narrow": 2}
+                if dt == "bfloat16" else
+                {"tensor_core": 0, "cuda_core": 8, "narrow": 2})
+        eng = engines[dt]
+        x = x_u8.float() * (2.0 / 255.0) - 1.0
+        with torch.inference_mode():
+            m, y = art._fn(x.to(dtypes[dt]))
+            me, ye = infer_step(eng.g1, eng.g2, x.permute(0, 3, 1, 2))
+        err = max((m.float() - me.permute(0, 2, 3, 1).float()).abs().max()
+                  .item(), (y.float() - ye.permute(0, 2, 3, 1).float())
+                  .abs().max().item())
+        worst[dt] = max(worst.get(dt, 0.0), err)
+        got, ref = art.infer_group(imgs), eng.infer_group(imgs)
+        diff = max(int(np.abs(g.astype(np.int16) - r).max())
+                   for gp, rp in zip(got, ref) for g, r in zip(gp, rp))
+        tol = TOL[dtypes[dt]]
+        print(f"[export] artifact {key} (input {art.dtype}, batch "
+              f"{art.fixed_batch or 'symbolic'}): loaded and first forward "
+              f"{load_s:.1f} s; K1 launches a forward {by_variant}; max abs "
+              f"vs eager infer_step {err:.3e} (tol {tol:.0e}); uint8 vs "
+              f"InferenceEngine, {len(imgs)} images: max diff {diff} gray levels "
+              f"(limit 2)")
+        if by_variant != want:
+            raise SystemExit(f"export: artifact {key} launched K1 "
+                             f"{by_variant}, expected {want}")
+        if err > tol or diff > 2:
+            raise SystemExit(f"export: artifact {key} disagrees with the "
+                             f"eager engine")
+
+    # throughput, the pinned bf16 artifact and the eager engine in turns
+    art, eng = arts[f"bf16 b{n} {h}x{w}"], engines["bfloat16"]
+    runs: dict = {}
+    for name, e in (("artifact", art), ("engine", eng), ("artifact", art),
+                    ("engine", eng)):
+        runs.setdefault(name, []).append(
+            time_ms(lambda: e._stacked(x_u8), iters=10))
+    img_s = {k: n * 1e3 * len(v) / sum(v) for k, v in runs.items()}
+    print(f"[time] artifact stacked {h}x{w} b{n} bf16, in turns: "
+          + "; ".join(f"{k} {img_s[k]:.1f} img/s (" + ", ".join(
+              f"{t:.3f}" for t in v) + " ms/batch)" for k, v in runs.items()))
+    dispatch = _op_dispatch(eng, x_u8)
+    del arts, art, x_u8
+
+    # 480x640: a larger image refused; the daemon answers and refuses a
+    # reload
+    key = f"bf16 symbolic {EXPORT_SERVE_HW[0]}x{EXPORT_SERVE_HW[1]}"
+    big = ArtifactEngine(str(paths[key]), max_batch=4, device=DEVICE)
+    sh, sw = EXPORT_SERVE_HW
+    try:
+        big.bucket_of(sh + 32, sw)
+        raise SystemExit(f"export: a {sh + 32}x{sw} image was not refused")
+    except ValueError as exc:
+        print(f"[export] artifact {key}: a {sh + 32}x{sw} image refused "
+              f"({exc})")
+    img = rng.integers(0, 256, (sh, sw, 3), dtype=np.uint8)
+    (_, want), = big.infer_group([img])
+    status, body, rc, stats, secs = _daemon_answer(
+        ["--artifact", str(paths[key]), "--max-batch", "1"], img, "export",
+        reload=True)
+    got = imdecode_color(body) if status == 200 else None
+    diff = (int(np.abs(got.astype(int) - want).max())
+            if got is not None and got.shape == want.shape else -1)
+    print(f"[export] serving daemon --artifact ({key}): HTTP {status}, "
+          f"reload HTTP {stats.get('reload_status')}, exit {rc}, "
+          f"{secs:.1f} s with start-up; max diff {diff} gray levels from "
+          f"this process's ArtifactEngine (limit 2)")
+    if (status != 200 or rc != 0 or stats.get("reload_status") != 501
+            or not 0 <= diff <= 2):
+        raise SystemExit("export: the --artifact daemon's answer is wrong")
+    del big, engines
+    torch.cuda.empty_cache()
+    polyfit = _polyfit_timing()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[time] export phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"decoder": launches, "max_abs_err": worst,
+            "artifact_img_s": round(img_s["artifact"], 2),
+            "engine_img_s": round(img_s["engine"], 2),
+            "dispatch": dispatch, "polyfit": polyfit}
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -4402,7 +4665,7 @@ def _par_serving(n_cards: int) -> dict:
 
 def phase_parallel(vgg_path: Path) -> dict:
     """Data parallelism, the two-process CLI, pipeline inference and
-    multi-device serving (see the module docstring, phase 14). Returns
+    multi-device serving (see the module docstring, phase 15). Returns
     each rank's launches and the pipeline's."""
     import torch.multiprocessing as mp
 
@@ -4715,7 +4978,7 @@ def _shard_rows(full: torch.Tensor, r: int, n: int) -> torch.Tensor:
 
 def phase_shard(par: dict) -> dict:
     """Spatial row sharding, tensor parallelism and the composed mesh
-    (see the module docstring, phase 15), on ``par``, the parallel
+    (see the module docstring, phase 16), on ``par``, the parallel
     phase's result (its single run and configuration). Returns each
     rank's launches and the readings."""
     import torch.multiprocessing as mp
@@ -5094,6 +5357,7 @@ def main() -> int:
         remat = phase_remat(vgg_path)
         h5 = phase_h5(vgg_path)
         int8 = phase_int8(vgg_path)
+        exp = phase_export()
         par = phase_parallel(vgg_path)
         shard = phase_shard(par)
     finally:
@@ -5107,8 +5371,13 @@ def main() -> int:
                                      "pipeline": par["pipeline"],
                                      "serving": par["serving"]},
                   launches_shard=shard["decoder"],
+                  launches_export=exp["decoder"],
+                  export_artifact_img_s=exp["artifact_img_s"],
+                  export_engine_img_s=exp["engine_img_s"],
+                  op_dispatch=exp["dispatch"],
                   max_abs_err=max(kernel["max_abs_err"],
-                                  *zk["worst"].values()),
+                                  *zk["worst"].values(),
+                                  *exp["max_abs_err"].values()),
                   **{f"zoo_unet_upconv_{key}": {
                       "ms": t["ms"], "plain_ms": t["plain_ms"],
                       "library_ms": t["convt_ms"], "conv_ms": t["conv_ms"],

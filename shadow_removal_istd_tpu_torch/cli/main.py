@@ -37,8 +37,8 @@ Devices and ranks:
   selected cards (``parallel/pipeline.py``); with fewer than two it
   warns and runs fused.
 - Flags whose feature is not ported raise ``NotImplementedError`` naming
-  the flag when set away from their default (``--export-stablehlo``,
-  ``--checkpoint-backend orbax``). Every ``--net-G``/``--net-D``
+  the flag when set away from their default (``--checkpoint-backend
+  orbax``). Every ``--net-G``/``--net-D``
   choice, ``--softadapt``, ``--SELU``, ``--remat`` (the rematerialized
   train step) and ``--data-h5`` (the HDF5 dataset, read by the port's
   own HDF5 codec; it takes precedence over ``--data-dir``) run.
@@ -49,6 +49,9 @@ TensorBoard event files land in ``<logs>/{train,valid}``, a
 a SIGTERM during training checkpoints at the next epoch boundary and the
 remaining tasks are skipped; ``--device-cache no`` trains on the host
 pipeline (batches uploaded while the previous step computes).
+``--export-stablehlo PATH`` (the JAX flag's name) writes, after the
+tasks, the G pair as a ``torch.export`` serving artifact at
+``--export-shape H W`` (``tools/export.py``), not a StableHLO file.
 
 Weight and checkpoint files are the JAX package's flax msgpack files, so
 a run of either package resumes or serves from the other's.
@@ -99,7 +102,6 @@ PRESERVED_ARGS = [
 
 # flag -> (args attribute, is it set away from its default?)
 _UNPORTED_FLAGS = {
-    "--export-stablehlo": ("export_stablehlo", lambda v: v is not None),
     "--checkpoint-backend orbax": ("checkpoint_backend",
                                    lambda v: v == "orbax"),
 }
@@ -260,7 +262,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="on SIGTERM, write the full checkpoint at "
                              "the next epoch boundary and exit cleanly")
     parser.add_argument("--export-stablehlo", default=None,
-                        help="serving artifact export (not ported yet)")
+                        help="after the tasks, write the G pair as a "
+                             "serving artifact at --export-shape: a "
+                             "torch.export package (tools/export.py), not "
+                             "StableHLO; serve it with the daemon's "
+                             "--artifact")
     parser.add_argument("--export-shape", type=int, nargs=2,
                         default=[480, 640], metavar=("H", "W"),
                         help="image H W for --export-stablehlo")
@@ -620,6 +626,16 @@ def _run_tasks(args, mesh: Mesh) -> None:
         unshard_state(mesh, trainer.state)
         if mesh.rank == 0:
             _serve(trainer, cfg, args)
+    if args.export_stablehlo:
+        from shadow_removal_istd_tpu_torch.tools.export import (
+            export_stacked_inference,
+        )
+        nbytes = export_stacked_inference(
+            args.export_stablehlo, trainer.state, trainer.state.models,
+            image_shape=tuple(args.export_shape))
+        if mesh.rank == 0:
+            logger.info("serialized serving artifact: %s (%.1f MB, "
+                        "torch.export)", args.export_stablehlo, nbytes / 1e6)
 
 
 def _serve(trainer, cfg, args) -> None:

@@ -16,10 +16,13 @@ never formed. The final MNet layer runs without LeakyReLU and without the
 affine (``leaky=False``, no ``scale4``/``bias4``).
 
 Tensors are NCHW in ``channels_last`` memory. ``w4`` keeps the JAX
-package's ``(2, 2, Ci, 4*Co)`` layout. A CPU tensor goes to
-:func:`decoder_upsample_plain`, which is the kernels' spec. A CUDA tensor
-goes to one of three hand-written kernels, chosen by shape
-(:func:`decoder_variant`):
+package's ``(2, 2, Ci, 4*Co)`` layout. Every call goes through the
+registered op ``srit::decoder_upsample`` (``torch.library``), so a
+``torch.export`` graph holds the step as one node and serves it through
+the kernels (``tools/export.py``); a fake kernel gives the output's
+shape while tracing. A CPU tensor goes to :func:`decoder_upsample_plain`,
+which is the kernels' spec. A CUDA tensor goes to one of three
+hand-written kernels, chosen by shape (:func:`decoder_variant`):
 
 - ``narrow`` (``csrc/decoder_upsample_narrow.cu``): Co <= 4 in either
   dtype, i.e. the Co 1/3 final layer; one pass over a spatial tile that
@@ -208,6 +211,54 @@ def _launch(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
     return out, variant
 
 
+@torch.library.custom_op(
+    "srit::decoder_upsample", mutates_args=(),
+    schema="(Tensor[] parts, Tensor w4, Tensor? scale4, Tensor? bias4, "
+           "bool leaky, bool zero_pad) -> Tensor")
+def decoder_upsample_op(parts, w4, scale4, bias4, leaky, zero_pad):
+    """The decoder step as the registered op ``srit::decoder_upsample``:
+    what :func:`decoder_upsample` calls, and what a ``torch.export``
+    graph of the decoder holds (``tools/export.py``). Forward only: no
+    autograd formula is registered (training runs
+    ``layers.Upsample.train_forward``)."""
+    raise ValueError(f"decoder_upsample runs on cuda or cpu, not "
+                     f"{parts[0].device.type}")
+
+
+@decoder_upsample_op.register_kernel("cpu")
+def _cpu(parts, w4, scale4, bias4, leaky, zero_pad):
+    parts = tuple(parts)
+    _check(parts, w4, scale4, bias4)
+    return decoder_upsample_plain(parts, w4, scale4, bias4, leaky=leaky,
+                                  zero_pad=zero_pad)
+
+
+@decoder_upsample_op.register_kernel("cuda")
+def _cuda(parts, w4, scale4, bias4, leaky, zero_pad):
+    """Launch the kernel :func:`decoder_variant` picks, counted. The
+    inputs are made ``channels_last``-contiguous first, so an exported
+    graph cannot hand the kernel another layout (``_launch`` refuses
+    one)."""
+    parts = tuple(p.contiguous(memory_format=torch.channels_last)
+                  for p in parts)
+    co = _check(parts, w4, scale4, bias4)
+    out, variant = _launch(parts, w4.contiguous(), scale4, bias4, co, leaky,
+                           zero_pad)
+    decoder_upsample.launches += 1
+    decoder_upsample.launches_by_variant[variant] += 1
+    return out
+
+
+@decoder_upsample_op.register_fake
+def _fake(parts, w4, scale4, bias4, leaky, zero_pad):
+    """(N, Co, 2H, 2W) in the input dtype, ``channels_last``; N may be
+    symbolic."""
+    co = _check(tuple(parts), w4, scale4, bias4)
+    n, _, h, w = parts[0].shape
+    return parts[0].new_empty((n, co, 2 * h, 2 * w)).contiguous(
+        memory_format=torch.channels_last)
+
+
 def decoder_upsample(parts: Sequence[torch.Tensor], w4: torch.Tensor,
                      scale4: torch.Tensor | None = None,
                      bias4: torch.Tensor | None = None, *, leaky: bool,
@@ -216,22 +267,18 @@ def decoder_upsample(parts: Sequence[torch.Tensor], w4: torch.Tensor,
     standing for their channel concat. Returns (N, Co, 2H, 2W) in the
     input dtype, ``channels_last``.
 
-    CUDA tensors launch the kernel :func:`decoder_variant` picks (counted
-    in ``decoder_upsample.launches`` and, by variant, in
-    ``decoder_upsample.launches_by_variant``); CPU tensors take
-    :func:`decoder_upsample_plain`; any other device raises."""
-    parts = tuple(parts)
-    co = _check(parts, w4, scale4, bias4)
+    Every call goes through the op ``srit::decoder_upsample``
+    (:func:`decoder_upsample_op`): CUDA tensors launch the kernel
+    :func:`decoder_variant` picks (counted in
+    ``decoder_upsample.launches`` and, by variant, in
+    ``decoder_upsample.launches_by_variant``, an exported graph's
+    launches included); CPU tensors take :func:`decoder_upsample_plain`;
+    any other device raises."""
     kind = parts[0].device.type
-    if kind == "cpu":
-        return decoder_upsample_plain(parts, w4, scale4, bias4,
-                                      leaky=leaky, zero_pad=zero_pad)
-    if kind != "cuda":
+    if kind not in ("cuda", "cpu"):
         raise ValueError(f"decoder_upsample runs on cuda or cpu, not {kind}")
-    out, variant = _launch(parts, w4, scale4, bias4, co, leaky, zero_pad)
-    decoder_upsample.launches += 1
-    decoder_upsample.launches_by_variant[variant] += 1
-    return out
+    return decoder_upsample_op(list(parts), w4, scale4, bias4, leaky,
+                               zero_pad)
 
 
 decoder_upsample.launches = 0

@@ -31,8 +31,14 @@ Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
   engine shards the batch over a data mesh the same way.
 
 Weights load from the JAX package's per-network flax msgpack files or
-from ``.npz`` files of the same tree. Not ported yet (it raises): the
-StableHLO ``ArtifactEngine``.
+from ``.npz`` files of the same tree.
+
+:class:`ArtifactEngine` serves a ``torch.export`` artifact
+(``tools/export.py``) with the same bucket, batch and uint8 surface,
+running no model class: the graph carries the weights, and its decoder
+steps are the registered op ``srit::decoder_upsample`` (the K1 kernels
+on the card). Both engines share :class:`_EngineCore`, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -61,6 +67,10 @@ from shadow_removal_istd_tpu_torch.parallel.pipeline import place
 from shadow_removal_istd_tpu_torch.tools.convert import (
     flax_tree_to_torch,
     unflatten_tree,
+)
+from shadow_removal_istd_tpu_torch.tools.export import (
+    input_signature,
+    load_program,
 )
 from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
 
@@ -99,7 +109,65 @@ def serving_devices(devices, device: torch.device) -> list[torch.device]:
     return [resolve_device(d) for d in devices]
 
 
-class InferenceEngine:
+class _EngineCore:
+    """The bucketed dispatch both engines share: pad a same-bucket group
+    to a device batch, split it over the replicas, run the stacked
+    forward, crop each image's answer back.
+
+    Subclasses provide ``bucket_of(h, w)``, ``max_batch``, ``devices``
+    and ``_stacked(x_u8, replica) -> (matte_u8, shadow_free_u8)`` on
+    NHWC uint8; ``fixed_batch`` (a pinned-batch artifact) fixes the
+    device batch."""
+
+    fixed_batch: int | None = None
+
+    def infer_group(self, imgs: list[np.ndarray]
+                    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Run one batched dispatch over same-bucket images.
+
+        ``imgs``: HxWx3 uint8 BGR arrays whose sizes map to ONE bucket.
+        Returns per image ``(matte HxW uint8, shadow_free HxWx3 uint8
+        BGR)`` cropped back to the original size."""
+        if not imgs:
+            return []
+        buckets = {self.bucket_of(im.shape[0], im.shape[1]) for im in imgs}
+        if len(buckets) != 1:
+            raise ValueError(f"mixed buckets in one group: {buckets}")
+        bh, bw = buckets.pop()
+        n = len(imgs)
+        nd = len(self.devices)
+        if self.fixed_batch is not None:
+            if n > self.fixed_batch:
+                raise ValueError(f"group of {n} exceeds the artifact's "
+                                 f"pinned batch {self.fixed_batch}")
+            bp = self.fixed_batch
+        else:
+            bp = min(_next_pow2(n), max(self.max_batch, n))
+            bp = math.ceil(bp / nd) * nd      # equal per-replica slices
+        batch = np.full((bp, bh, bw, 3), 128, np.uint8)
+        for i, im in enumerate(imgs):
+            batch[i, :im.shape[0], :im.shape[1]] = im
+        b = bp // nd
+        # every replica's work is enqueued before any answer is read
+        outs = [self._stacked(torch.from_numpy(batch[j * b:(j + 1) * b])
+                              .to(d), j) for j, d in enumerate(self.devices)]
+        m_np = np.concatenate([m.cpu().numpy() for m, _ in outs])
+        y_np = np.concatenate([y.cpu().numpy() for _, y in outs])
+        return [(m_np[i, :im.shape[0], :im.shape[1], 0],
+                 y_np[i, :im.shape[0], :im.shape[1]])
+                for i, im in enumerate(imgs)]
+
+    def warmup(self, sizes: list[tuple[int, int]],
+               batch_sizes: list[int] | None = None) -> None:
+        """Run the (bucket, batch) grid once so first requests don't pay
+        the kernel build and cuDNN's algorithm search."""
+        for h, w in sizes:
+            for b in (batch_sizes or [1, self.max_batch]):
+                dummy = np.full((h, w, 3), 128, np.uint8)
+                self.infer_group([dummy] * b)
+
+
+class InferenceEngine(_EngineCore):
     """Stacked shadow-removal inference over shape buckets.
 
     Thread-safety: ``infer_group`` may be called from one thread at a
@@ -259,49 +327,49 @@ class InferenceEngine:
         m = self.pad_multiple
         return (math.ceil(h / m) * m, math.ceil(w / m) * m)
 
-    def infer_group(self, imgs: list[np.ndarray]
-                    ) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Run one batched dispatch over same-bucket images.
 
-        ``imgs``: HxWx3 uint8 BGR arrays whose sizes map to ONE bucket.
-        Returns per image ``(matte HxW uint8, shadow_free HxWx3 uint8
-        BGR)`` cropped back to the original size."""
-        if not imgs:
-            return []
-        buckets = {self.bucket_of(im.shape[0], im.shape[1]) for im in imgs}
-        if len(buckets) != 1:
-            raise ValueError(f"mixed buckets in one group: {buckets}")
-        bh, bw = buckets.pop()
-        n = len(imgs)
-        nd = len(self.devices)
-        bp = min(_next_pow2(n), max(self.max_batch, n))
-        bp = math.ceil(bp / nd) * nd      # equal per-replica slices
-        batch = np.full((bp, bh, bw, 3), 128, np.uint8)
-        for i, im in enumerate(imgs):
-            batch[i, :im.shape[0], :im.shape[1]] = im
-        b = bp // nd
-        # every replica's work is enqueued before any answer is read
-        outs = [self._stacked(torch.from_numpy(batch[j * b:(j + 1) * b])
-                              .to(d), j) for j, d in enumerate(self.devices)]
-        m_np = np.concatenate([m.cpu().numpy() for m, _ in outs])
-        y_np = np.concatenate([y.cpu().numpy() for _, y in outs])
-        return [(m_np[i, :im.shape[0], :im.shape[1], 0],
-                 y_np[i, :im.shape[0], :im.shape[1]])
-                for i, im in enumerate(imgs)]
+class ArtifactEngine(_EngineCore):
+    """Serve a ``torch.export`` artifact (``tools/export.py``) directly.
 
-    def warmup(self, sizes: list[tuple[int, int]],
-               batch_sizes: list[int] | None = None) -> None:
-        """Run the (bucket, batch) grid once so first requests don't pay
-        the kernel build and cuDNN's algorithm search."""
-        for h, w in sizes:
-            for b in (batch_sizes or [1, self.max_batch]):
-                dummy = np.full((h, w, 3), 128, np.uint8)
-                self.infer_group([dummy] * b)
+    No model class runs on this path: the artifact carries the stacked
+    graph with the trained weights inside; this engine wraps it with
+    :class:`InferenceEngine`'s uint8-in/uint8-out device pipeline
+    (normalize before the graph, quantize after) and its bucket/batcher
+    surface. The input signature ``(b, h, w, 3)`` and its dtype come
+    from the artifact: every request must fit inside the exported
+    (H, W) (smaller images are mid-gray padded and cropped back), and a
+    pinned batch fixes the device batch. Weights are part of the
+    artifact, so there is no ``load_weights``: serve a new artifact
+    instead. Raises without a card unless ``device="cpu"``."""
 
+    def __init__(self, path: str, *, max_batch: int = 8,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.devices = [self.device]
+        ep = load_program(path, self.device)
+        (b, h, w, c), self._in_dtype = input_signature(ep)
+        if c != 3:
+            raise ValueError(f"expected an NHWC/3 artifact, got "
+                             f"{(b, h, w, c)}")
+        self.height, self.width = int(h), int(w)
+        self.fixed_batch = b if isinstance(b, int) else None
+        self.max_batch = self.fixed_batch or int(max_batch)
+        self.dtype = str(self._in_dtype).removeprefix("torch.")
+        self._fn = ep.module()
 
-class ArtifactEngine:
-    """Serving a StableHLO export artifact is not ported yet."""
+    @torch.inference_mode()
+    def _stacked(self, x_u8: torch.Tensor, replica: int = 0
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        x = x_u8.float() * (2.0 / 255.0) - 1.0
+        m, y = self._fn(x.to(self._in_dtype))
+        # NHWC already: the artifact's outputs are the JAX interface
+        return (float_to_uint8(denormalize(m.float())),
+                float_to_uint8(denormalize(y.float())))
 
-    def __init__(self, path: str, *, max_batch: int = 8):
-        raise NotImplementedError(
-            "ArtifactEngine (StableHLO artifacts) is not ported yet")
+    def bucket_of(self, h: int, w: int) -> tuple[int, int]:
+        if h > self.height or w > self.width:
+            raise ValueError(
+                f"image {h}x{w} exceeds the artifact's exported "
+                f"{self.height}x{self.width}; re-export with a larger "
+                "--shape")
+        return (self.height, self.width)

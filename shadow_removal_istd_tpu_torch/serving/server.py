@@ -25,7 +25,10 @@ Run: ``python -m shadow_removal_istd_tpu_torch.serving
 G2_MNet_best.msgpack`` (flax msgpack weight files, as either package's
 trainer writes them, or ``.npz``; ``--device cpu`` to run without a
 card). ``--dtype int8 --int8-calib DIR`` serves the int8-quantized MNet
-pair, its activation scales calibrated on DIR's images.
+pair, its activation scales calibrated on DIR's images. ``--artifact
+model.pt2`` serves a ``torch.export`` artifact (``tools/export.py``) on
+``--device``; its weights are baked in, so ``/admin/reload`` answers
+501.
 """
 
 from __future__ import annotations
@@ -314,8 +317,13 @@ def _make_handler(batcher: MicroBatcher, stats: ServerStats,
             "g2": path} -> engine.load_weights on the batcher thread
             (in-flight batches finish on the old weights; later
             batches see the new ones atomically). Local-trust admin
-            surface, same as the CLI's filesystem access."""
+            surface, same as the CLI's filesystem access. An
+            artifact's weights are part of its graph: 501."""
             engine = batcher.engine
+            if not hasattr(engine, "load_weights"):
+                self._err(501, "engine serves a baked artifact; "
+                               "restart with a new --artifact instead")
+                return
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 spec = json.loads(self.rfile.read(length))
@@ -484,7 +492,9 @@ def main(argv=None) -> int:
                          "the flax variable paths joined by '/'")
     ap.add_argument("--load-weights-g2", default=None)
     ap.add_argument("--artifact", default=None,
-                    help="StableHLO artifact serving is not ported yet")
+                    help="serve a torch.export artifact (tools/export.py) "
+                         "instead of weight files: no model classes "
+                         "involved; fixed HxW")
     ap.add_argument("--pad-multiple", type=int, default=None)
     ap.add_argument("--devices", type=int, default=None,
                     help="data-parallel serving over the first N "
@@ -512,10 +522,11 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     if args.artifact:
-        engine = ArtifactEngine(args.artifact, max_batch=args.max_batch)
+        engine = ArtifactEngine(args.artifact, max_batch=args.max_batch,
+                                device=args.device)
     else:
         if not (args.load_weights_g1 and args.load_weights_g2):
-            ap.error("--load-weights-g1/-g2 required")
+            ap.error("--load-weights-g1/-g2 required (or --artifact)")
         calib = None
         if args.int8_calib:
             calib = [imread_color(os.path.join(args.int8_calib, f))

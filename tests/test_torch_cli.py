@@ -303,8 +303,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--export-stablehlo", "m.shlo"], NotImplementedError,
-     "--export-stablehlo"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "orbax"),
     (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),

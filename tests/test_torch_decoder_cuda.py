@@ -234,9 +234,14 @@ def test_narrow_entry_refuses_wide_outputs(cuda):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """The launcher refuses another layout; the op
+    ``srit::decoder_upsample`` makes its inputs ``channels_last`` before
+    it, so an NCHW input runs (as an exported graph may hand it one).
+    Another dtype or a w4 of another dtype is refused."""
     xs, w4, s4, b4 = _inputs(1, 4, 4, (8,), 8, True, torch.float32)
     with pytest.raises(ValueError, match="channels_last"):
-        decoder_upsample([xs[0].contiguous()], w4, s4, b4, leaky=True)
+        _launch((xs[0].contiguous(),), w4, s4, b4, 8, True, False)
+    _check([xs[0].contiguous()], w4, s4, b4, False, True, "cuda_core")
     with pytest.raises(ValueError, match="w4"):
         decoder_upsample(xs, w4.to(torch.bfloat16), s4, b4, leaky=True)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

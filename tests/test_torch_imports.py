@@ -45,7 +45,10 @@ def test_port_files_found():
                 "cli/main.py", "models/patchgan.py", "models/vgg.py",
                 "ops/color.py", "ops/resize.py", "ops/warp.py",
                 "metrics/metrics.py", "metrics/eval_cli.py",
-                "data/h5.py", "data/hdf5_codec.py", "tools/preprocess.py"):
+                "data/h5.py", "data/hdf5_codec.py", "tools/preprocess.py",
+                "tools/export.py", "tools/color_adjustment.py",
+                "tools/convert_vgg.py", "tools/experiments.py",
+                "serving/engine.py"):
         assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 

@@ -28,7 +28,6 @@ from shadow_removal_istd_tpu.serving import (
     InferenceEngine as JaxInferenceEngine,
 )
 from shadow_removal_istd_tpu_torch.serving import (
-    ArtifactEngine,
     InferenceEngine,
     MicroBatcher,
     ServerStats,
@@ -171,11 +170,6 @@ class TestEngine:
             eng.load_weights(str(tmp_path / "g1.npz"),
                              str(tmp_path / "g2.npz"))
         assert eng.g1 is g1 and eng.g2 is g2
-
-    @pytest.mark.parametrize("what", ["artifact"])
-    def test_not_ported_yet(self, what):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ArtifactEngine("model.shlo")
 
     @pytest.mark.parametrize("devices", [2, ["cpu", "cpu", "cpu"]])
     def test_devices_replicas_answer_as_one_device(self, tmp_path,
