@@ -13,7 +13,8 @@ Phases; any failure exits non-zero before the result line is printed:
    ``csrc/hshear.cu`` and ``csrc/int8_conv.cu`` for ``sm_90a`` (one
    ``nvcc`` each, started
    together, beside ``g++`` building the native PNG loader from
-   ``native/png_decoder.cpp``), prints the card, its power limit, the
+   ``native/png_decoder.cpp`` and the orbax reader's zstd decoder from
+   ``csrc/zstd_decode.cpp``), prints the card, its power limit, the
    compiler's register, spill and shared-memory report, and the host's
    Python packages (``tensorstore``, ``zstandard`` and ``yaml`` among
    them), ``zlib.h`` and ``g++`` (``[env]``);
@@ -76,7 +77,23 @@ Phases; any failure exits non-zero before the result line is printed:
    statistics, both Adam states with their steps' dtype and device,
    step) and trains its epoch (``[time] checkpoint``, ``[time] cli
    infer`` img/s with the PNG writes, the phase's wall time);
-7. host: two host-pipeline epochs (``RunConfig(device_cache=False)``:
+7. orbax (after ``cli``, on its ISTD directory): ``cli.main --tasks
+   train --checkpoint-backend orbax`` at the CLI's defaults for 2
+   epochs, saving after each: ``step_1``, ``step_2`` and their
+   ``meta_step_N.json`` in ``checkpoint_orbax``, the directory's MB, the
+   ms the loop is blocked by each save (the state copied to the host)
+   and each background commit's ms (``[time] orbax save``) beside the
+   msgpack saves of an uninterrupted 3-epoch run of the same
+   configuration; then ``--load-checkpoint`` of the orbax directory with
+   ``--epochs 3`` starts at epoch 2 (``[time] orbax load``), and its
+   state after epoch 2 differs from the msgpack run's in 0 leaves, in
+   memory and between ``checkpoint.msgpack`` and ``step_3`` (cuDNN's
+   deterministic algorithms for the phase); ``hshear`` and K1 must
+   launch; the JAX package's committed orbax checkpoint
+   (``tests/data/orbax_jax_tiny``) read by the port's reader, leaf for
+   leaf equal to its ``expected.npz``, and the decoder's MB/s over its
+   frames;
+8. host: two host-pipeline epochs (``RunConfig(device_cache=False)``:
    ``BatchPipeline`` order, ``prefetch_to_device`` uploads) at the CLI's
    defaults on 64 + 16 synthetic 480x640 triplets with every writer on
    (``log_every = vis_every = valid_every = 1``) and ``profile_dir``:
@@ -95,7 +112,7 @@ Phases; any failure exits non-zero before the result line is printed:
    timed beside cv2 and the stdlib codec; the serving daemon with
    ``--use-selu --droprate`` (a SELU UNet, ngf 64, f32) answering as the
    engine does in this process;
-8. eval: ``ops/resize.resize`` at 480x640 -> 256x256 and -> 300x400
+9. eval: ``ops/resize.resize`` at 480x640 -> 256x256 and -> 300x400
    (area) and 256x256 -> 480x640 (linear), batch 16, within 1e-5 of
    float64 numpy applied with the same matrices; ``rgb_to_lab`` within
    1e-3 LAB units of float64 and ``aggregate_regions`` of
@@ -113,7 +130,7 @@ Phases; any failure exits non-zero before the result line is printed:
    crop (flipped where drawn) exactly, no ``hshear`` launch, timed beside
    the shear path; 3 training steps on it (no ``hshear`` launch) beside
    3 on the shear path;
-9. zoo: the decoder kernels at UNet's four up-conv shapes (1024->512 at
+10. zoo: the decoder kernels at UNet's four up-conv shapes (1024->512 at
    16x16 .. 128->64 at 128x128 for a 256x256 input; no LeakyReLU, no
    BN), both pads, f32 and bf16, against the plain version (2e-5 / 3e-2)
    and at the K = 4096 step against float64, then timed at a 256x256
@@ -133,7 +150,7 @@ Phases; any failure exits non-zero before the result line is printed:
    64) on the ``cli`` phase's ISTD directory for 2 epochs: plateau state
    in the checkpoint, no decoder launch, 192x256 PNGs; its G1 -> G2 at
    480x640 through the engine; the train-step img/s of each;
-10. timings (CUDA events; torch.profiler): each decoder step's kernel
+11. timings (CUDA events; torch.profiler): each decoder step's kernel
    output on the timed inputs held to its plain version, then its time
    beside the CUDA-core variant's on the same inputs (the before/after
    of the wide bf16 steps and of the final ones), the plain version's, a
@@ -152,7 +169,7 @@ Phases; any failure exits non-zero before the result line is printed:
    kernels' zero-pad (ConvTranspose) form at the validation shapes (wide
    and final steps apart; each wide step's TFLOP/s and share of the f32
    FMA rate), and the validation img/s;
-11. remat: ``Trainer`` at the CLI's defaults (as in phase 5, on 32
+12. remat: ``Trainer`` at the CLI's defaults (as in phase 5, on 32
    synthetic 480x640 triplets on the card) takes 2 steps plain and,
    from a copy of the same state with ``remat=True``, 2 steps
    rematerialized on the same batches and dropout generators under
@@ -171,7 +188,7 @@ Phases; any failure exits non-zero before the result line is printed:
    (what was held before the step, plus 3x the step's own part; not
    run); one remat step each of UNet + BEGAN (k1, k2 in [0, 1]) and
    DenseUNet + dummy + SoftAdapt (weights sum to 1), metrics finite;
-12. h5: ``data/h5.py::build_h5`` (the port's HDF5 writer) over the
+13. h5: ``data/h5.py::build_h5`` (the port's HDF5 writer) over the
    ``cli`` phase's ISTD directory: build seconds and file MB;
    ``load_streams`` of each split (img, mask, matte, target) equal byte
    for byte to ``ISTDDataset.load_all`` of the directory, with the names,
@@ -180,7 +197,7 @@ Phases; any failure exits non-zero before the result line is printed:
    (+ 3 for the image log), the decoder 8 CUDA-core + 2 narrow per
    stacked forward of the validation and the 2 image logs, validation
    names from the file; ``h5py`` never imported;
-13. int8 (last, so that the earlier phases' profiler readings run in
+14. int8 (last, so that the earlier phases' profiler readings run in
    the process they ran in before it): ``cli.main --tasks train
    --NN-upconv yes`` for one epoch on the ``cli`` directory writes
    nearest-upsample MNet weights;
@@ -200,7 +217,7 @@ Phases; any failure exits non-zero before the result line is printed:
    ``torch._int_mm`` on ``Tensor.unfold`` patches; the serving daemon
    with ``--dtype int8 --int8-calib`` answering one 480x640 request as
    the engine in this process does;
-14. export (after ``int8``): ``tools/export.py`` writes the ngf 64
+15. export (after ``int8``): ``tools/export.py`` writes the ngf 64
    split-skip MNet pair (seeded random weights) as ``torch.export``
    artifacts, each export's seconds and MB printed: bf16 256x256 with
    the batch pinned at 32, bf16 256x256 with a symbolic batch, f32
@@ -220,7 +237,7 @@ Phases; any failure exits non-zero before the result line is printed:
    call beside one direct call (``[time] K1 op dispatch``);
    ``tools/preprocess.compute_sp_polyfit`` on a 480x640 pair at ksize 5,
    deg 1 and 2, on the host (``[time] compute_sp_polyfit``);
-15. parallel (after every earlier phase): ``W = torch.cuda.device_count()``
+16. parallel (after every earlier phase): ``W = torch.cuda.device_count()``
    data-parallel ranks over NCCL where there are two cards or more, else
    2 ranks sharing ``cuda:0`` over gloo (printed, with ``nvidia-smi``'s
    name and power limit). The training configuration (ngf 64, f32, shear,
@@ -253,8 +270,8 @@ Phases; any failure exits non-zero before the result line is printed:
    one card where there is one) answers 4 480x640 images as the
    one-device engine does, each replica's forward launching K1 8
    tensor-core + 2 narrow;
-16. shard (after ``parallel``): spatial row sharding, tensor parallelism
-   and the composed mesh, on ranks spawned as in phase 15 (NCCL with a
+17. shard (after ``parallel``): spatial row sharding, tensor parallelism
+   and the composed mesh, on ranks spawned as in phase 16 (NCCL with a
    card a rank where there are cards enough, else gloo ranks sharing
    ``cuda:0``: correctness and overhead, no scaling; printed with
    ``nvidia-smi``'s name and power limit). Spatial: the serving engine's
@@ -265,9 +282,9 @@ Phases; any failure exits non-zero before the result line is printed:
    gathered deep level's step included) and the row gathers (1 a
    generator: 15 rows a rank do not take the innermost stride-2 conv),
    its latency beside the one-process forward's. TP: one training step
-   of phase 15's configuration (ngf 64, 256 crops, batch 16, f32, Adam
+   of phase 16's configuration (ngf 64, 256 crops, batch 16, f32, Adam
    eps 1) on a 1x2 (data x model) mesh, each state leaf read against
-   phase 15's single run by its per-leaf rule and limit; a planted "no
+   phase 16's single run by its per-leaf rule and limit; a planted "no
    all-reduce before a split conv" and a planted "gather backward sums"
    each exceed the limit; ``hshear`` 3 launches a step a rank, K1 none;
    each rank's parameter + BN + Adam bytes beside one process's; img/s
@@ -433,6 +450,10 @@ POLYFIT_CASES = ((5, 1), (5, 2))
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
+# the orbax phase: the zstd decoder's source, and the JAX package's
+# committed orbax checkpoint (tests/orbax_fixture.py wrote it)
+ZSTD_SOURCE = Path("shadow_removal_istd_tpu_torch/csrc/zstd_decode.cpp")
+ORBAX_FIXTURE = Path("tests/data/orbax_jax_tiny")
 
 
 def nvidia_smi() -> str:
@@ -572,10 +593,12 @@ def phase_build():
     from shadow_removal_istd_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
         native = pool.submit(native_loader.build)   # g++, beside the nvccs
+        zstd_lib = pool.submit(_build.build_host, ZSTD_SOURCE, "srit_zstd")
         built = list(pool.map(_build.build, KERNELS))
         native_lib = native.result()
+        zstd_lib = zstd_lib.result()[0]
     for name, (path, log) in zip(KERNELS, built):
         _build.load(name)
         print(f"[build] {path.name}")
@@ -585,7 +608,8 @@ def phase_build():
     if not native_loader.is_available():
         raise SystemExit("the native PNG loader did not load")
     print(f"[build] {native_lib.name} (native PNG loader, g++)")
-    print(f"[build] {len(KERNELS)} kernels and the loader in "
+    print(f"[build] {zstd_lib.name} (the orbax reader's zstd decoder, g++)")
+    print(f"[build] {len(KERNELS)} kernels, the loader and the decoder in "
           f"{time.perf_counter() - t0:.1f} s")
     libs = ", ".join(
         f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
@@ -1525,6 +1549,164 @@ def phase_cli(vgg_path: Path) -> dict:
     return {"decoder": n_dec, "hshear": n_shear}
 
 
+def _dir_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e6
+
+
+def _orbax_fixture() -> tuple[int, float, float]:
+    """The JAX package's committed orbax checkpoint through the port's
+    reader (OCDBT, zarr v2, the hand-written zstd decoder) against its
+    ``expected.npz``; returns (leaves, ms, the decoder's MB/s over its
+    value files' frames, repeated)."""
+    from shadow_removal_istd_tpu_torch.engine.orbax_format import read_step
+    from shadow_removal_istd_tpu_torch.tools.convert import flatten_tree
+    from shadow_removal_istd_tpu_torch.utils import ocdbt, zstd
+
+    step = ORBAX_FIXTURE / "step_1"
+    t0 = time.perf_counter()
+    got = {"/".join(k): v for k, v in flatten_tree(read_step(str(step)))
+           .items() if v is not None}
+    ms = (time.perf_counter() - t0) * 1e3
+    want = dict(np.load(ORBAX_FIXTURE / "expected.npz"))
+    bad = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+           or not np.array_equal(got[k], want[k])]
+    if bad or got.keys() != want.keys():
+        raise SystemExit(f"orbax fixture: {len(bad)} leaves differ "
+                         f"({bad[:3]}), keys {sorted(got.keys() ^ want.keys())}")
+    store = ocdbt.Reader(str(step))
+    frames = [store.get(k) for k in store.keys()
+              if not k.endswith(".zarray")]
+    out = sum(len(zstd.decompress(f)) for f in frames)
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for f in frames:
+            zstd.decompress(f)
+    rate = reps * out / (time.perf_counter() - t0) / 1e6
+    return len(got), ms, rate
+
+
+def phase_orbax(vgg_path: Path) -> dict:
+    """``cli.main --checkpoint-backend orbax`` at the CLI's defaults on
+    the ``cli`` phase's ISTD directory: 2 epochs saving after each
+    (``step_N`` directories committed in the background), an
+    uninterrupted 3-epoch msgpack run, a resume from the orbax directory
+    to epoch 3 (0 leaves may differ from the msgpack run's), and the JAX
+    package's committed orbax fixture read on this host. Returns the
+    kernels' launch counts over the phase."""
+    from shadow_removal_istd_tpu_torch.engine import loop
+    from shadow_removal_istd_tpu_torch.engine.orbax_format import read_step
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+    from shadow_removal_istd_tpu_torch.ops.shear import hshear
+    from shadow_removal_istd_tpu_torch.tools.convert import (
+        train_state_to_flax,
+    )
+    from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
+
+    t_phase = time.perf_counter()
+    root = SMOKE_DIR / "orbax"
+    istd = SMOKE_DIR / "cli" / "istd"
+    suffix = "_lr0.00050_SGAN"
+    seen: dict = {"save": [], "load": [], "trainers": []}
+    orig = {k: getattr(loop.Trainer, k) for k in ("train", "save", "load")}
+
+    def train(self, epochs):
+        seen["trainers"].append(self)
+        return orig["train"](self, epochs)
+
+    def save(self, epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig["save"](self, epoch)
+        seen["save"].append((time.perf_counter() - t0) * 1e3)
+
+    def load(self, path=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig["load"](self, path)
+        torch.cuda.synchronize()
+        seen["load"].append((time.perf_counter() - t0) * 1e3)
+        seen["start"] = self.start_epoch
+
+    def run(tag, *argv):
+        seen["save"].clear()
+        with mock.patch.multiple(loop.Trainer, train=train, save=save,
+                                 load=load):
+            _run_cli(["--tasks", "train", "--data-dir", str(istd),
+                      "--vgg-weights", str(vgg_path), "--weights",
+                      str(root / f"w_{tag}"), "--logs", str(root / f"l_{tag}"),
+                      "--valid-every", "1", "--save-every", "1",
+                      "--log-every", "1", *argv, *CLI_ARGS])
+        return seen["trainers"][-1], list(seen["save"])
+
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    # the resumed run is compared with the uninterrupted one bit for bit
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    hshear.launches = 0
+    reset_decoder_counts()
+    try:
+        # 1. two epochs, an orbax save after each
+        tr, blocked = run("orbax", "--epochs", "2", "--checkpoint-backend",
+                          "orbax")
+        commits = list(tr._orbax.commit_ms)
+        odir = root / f"w_orbax{suffix}" / "checkpoint_orbax"
+        names = sorted(os.listdir(odir))
+        if names != ["meta_step_1.json", "meta_step_2.json", "step_1",
+                     "step_2"]:
+            raise SystemExit(f"orbax: the backend's directory holds {names}")
+        mb = _dir_mb(odir / "step_2")
+        print(f"[orbax] --checkpoint-backend orbax, 2 epochs: {names}, "
+              f"step_2 {mb:.1f} MB")
+        print(f"[time] orbax save ({mb:.1f} MB): the loop blocked " + ", ".join(
+            f"{t:.1f}" for t in blocked) + " ms (the state copied to the "
+            "host), the background commits " + ", ".join(
+            f"{t:.1f}" for t in commits) + " ms")
+        # 2. the uninterrupted run, msgpack
+        tr_a, saves = run("msgpack", "--epochs", "3")
+        want = train_state_to_flax(tr_a.state)
+        ck_mb = (root / f"w_msgpack{suffix}" / "checkpoint.msgpack").stat(
+        ).st_size / 1e6
+        print(f"[time] msgpack save ({ck_mb:.1f} MB), the same "
+              "configuration: the loop blocked " + ", ".join(
+                  f"{t:.1f}" for t in saves) + " ms")
+        # 3. resume from the orbax directory to epoch 3
+        tr_c, _ = run("orbax", "--epochs", "3", "--checkpoint-backend",
+                      "orbax", "--load-checkpoint", str(odir))
+        leaves, bad = _leaves_differ(want, train_state_to_flax(tr_c.state))
+        on_disk = _leaves_differ(
+            from_bytes((root / f"w_msgpack{suffix}" / "checkpoint.msgpack")
+                       .read_bytes())["state"],
+            read_step(str(odir / "step_3")))
+        print(f"[time] orbax load ({mb:.1f} MB): {seen['load'][0]:.1f} ms")
+        print(f"[orbax] resume from {odir.name}: started at epoch "
+              f"{seen['start']}, {len(tr_c.history)} epoch trained; against "
+              f"the uninterrupted 3-epoch msgpack run {bad} of {leaves} state "
+              f"leaves differ in memory, {on_disk[1]} of {on_disk[0]} between "
+              "its checkpoint.msgpack and step_3")
+        _check_history(tr_c, "orbax resumed")
+        if seen["start"] != 2 or len(tr_c.history) != 1 or bad or on_disk[1]:
+            raise SystemExit("orbax: the resumed run did not continue the "
+                             "saved one")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    n_shear, n_dec = hshear.launches, decoder_upsample.launches
+    by_variant = dict(decoder_upsample.launches_by_variant)
+    print(f"[orbax] launches over the phase's 3 runs (6 epochs): hshear "
+          f"{n_shear}, decoder {n_dec} {by_variant}")
+    if not n_shear or not n_dec:
+        raise SystemExit("orbax: a kernel of the training path never ran")
+    # 4. the JAX package's orbax checkpoint, read on this host
+    n, ms, rate = _orbax_fixture()
+    print(f"[orbax] the JAX-written fixture {ORBAX_FIXTURE}: {n} leaves equal "
+          f"to expected.npz, read in {ms:.1f} ms; the zstd decoder "
+          f"{rate:.1f} MB/s over its frames (host C++, one thread)")
+    print(f"[time] orbax phase: {time.perf_counter() - t_phase:.1f} s")
+    seen.clear()
+    return {"decoder": n_dec, "hshear": n_shear}
+
+
 def _device_busy(prof) -> tuple[float, float]:
     """(device busy ms, span ms) of a profiled region: the union of the
     card's kernel and copy intervals, and the region's span from its
@@ -1848,7 +2030,7 @@ def _host_selu_daemon() -> None:
 
 def phase_host(vgg_path: Path) -> dict:
     """The trainer's host side on the card (see the module docstring,
-    phase 7); returns the kernels' launch counts in its training run."""
+    phase 8); returns the kernels' launch counts in its training run."""
     from shadow_removal_istd_tpu_torch.data.synthetic import (
         synthetic_triplets,
     )
@@ -3201,7 +3383,7 @@ def _zoo_legacy() -> dict:
 
 def phase_zoo(vgg_path: Path) -> dict:
     """The model zoo and the legacy tree on the card (see the module
-    docstring, phase 9); returns the K1 numbers and launch counts."""
+    docstring, phase 10); returns the K1 numbers and launch counts."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     kern = _zoo_kernels(gen)
@@ -3239,7 +3421,7 @@ def _gib(nbytes: float) -> float:
 
 def phase_remat(vgg_path: Path) -> dict:
     """Rematerialized training on the card (see the module docstring,
-    phase 11); returns the ``hshear`` launches of its remat steps."""
+    phase 12); returns the ``hshear`` launches of its remat steps."""
     import copy
     import dataclasses
 
@@ -3461,7 +3643,7 @@ def phase_remat(vgg_path: Path) -> dict:
 
 def phase_h5(vgg_path: Path) -> dict:
     """The HDF5 dataset on the card's host (see the module docstring,
-    phase 12); returns the kernels' launch counts of its CLI run."""
+    phase 13); returns the kernels' launch counts of its CLI run."""
     import logging
 
     from shadow_removal_istd_tpu_torch.cli.main import build_parser
@@ -3853,7 +4035,7 @@ def _int8_timings(engine, x) -> dict:
 
 
 def phase_int8(vgg_path: Path) -> dict:
-    """int8 serving on the card (see the module docstring, phase 13);
+    """int8 serving on the card (see the module docstring, phase 14);
     returns the two kernels' JSON entries."""
     from shadow_removal_istd_tpu_torch.engine.steps import infer_step
     from shadow_removal_istd_tpu_torch.models import quant
@@ -4062,7 +4244,7 @@ def _polyfit_timing() -> dict:
 
 
 def phase_export() -> dict:
-    """Serving export on the card (see the module docstring, phase 14);
+    """Serving export on the card (see the module docstring, phase 15);
     returns K1's launches over the artifacts' forwards and the
     readings."""
     from shadow_removal_istd_tpu_torch.engine.steps import infer_step
@@ -4665,7 +4847,7 @@ def _par_serving(n_cards: int) -> dict:
 
 def phase_parallel(vgg_path: Path) -> dict:
     """Data parallelism, the two-process CLI, pipeline inference and
-    multi-device serving (see the module docstring, phase 15). Returns
+    multi-device serving (see the module docstring, phase 16). Returns
     each rank's launches and the pipeline's."""
     import torch.multiprocessing as mp
 
@@ -4978,7 +5160,7 @@ def _shard_rows(full: torch.Tensor, r: int, n: int) -> torch.Tensor:
 
 def phase_shard(par: dict) -> dict:
     """Spatial row sharding, tensor parallelism and the composed mesh
-    (see the module docstring, phase 16), on ``par``, the parallel
+    (see the module docstring, phase 17), on ``par``, the parallel
     phase's result (its single run and configuration). Returns each
     rank's launches and the readings."""
     import torch.multiprocessing as mp
@@ -5347,6 +5529,7 @@ def main() -> int:
         write_vgg_npz(vgg_path)
         runs = phase_training(vgg_path)
         cli = phase_cli(vgg_path)
+        orbax = phase_orbax(vgg_path)
         host = phase_host(vgg_path)
         ev = phase_eval(vgg_path, runs["float32"]["trainer"])
         zoo = phase_zoo(vgg_path)
@@ -5364,6 +5547,7 @@ def main() -> int:
         shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     zk = zoo["kernels"]
     kernel.update(extra, launches_cli=cli["decoder"],
+                  launches_orbax=orbax["decoder"],
                   launches_host=host["decoder"],
                   launches_eval=ev["decoder"], launches_zoo=zoo["decoder"],
                   launches_h5=h5["decoder"],
@@ -5390,6 +5574,7 @@ def main() -> int:
                   zoo_train_img_s={k: zoo[f"{k}_img_s"] for k in (
                       "unet_began", "denseunet_softadapt", "legacy")})
     shear_entry.update(launches_cli=cli["hshear"],
+                       launches_orbax=orbax["hshear"],
                        launches_host=host["hshear"],
                        host_epoch_img_s=host["host_img_s"],
                        fused_epoch_img_s=host["fused_img_s"],

@@ -36,12 +36,14 @@ Devices and ranks:
 - ``--pipeline-infer`` runs ``infer`` as the two-stage pipeline over the
   selected cards (``parallel/pipeline.py``); with fewer than two it
   warns and runs fused.
-- Flags whose feature is not ported raise ``NotImplementedError`` naming
-  the flag when set away from their default (``--checkpoint-backend
-  orbax``). Every ``--net-G``/``--net-D``
-  choice, ``--softadapt``, ``--SELU``, ``--remat`` (the rematerialized
-  train step) and ``--data-h5`` (the HDF5 dataset, read by the port's
-  own HDF5 codec; it takes precedence over ``--data-dir``) run.
+- Every ``--net-G``/``--net-D`` choice, ``--softadapt``, ``--SELU``,
+  ``--remat`` (the rematerialized train step), ``--data-h5`` (the HDF5
+  dataset, read by the port's own HDF5 codec; it takes precedence over
+  ``--data-dir``) and ``--checkpoint-backend orbax`` (``step_N`` orbax
+  directories under ``<weights>/checkpoint_orbax``, committed in the
+  background, which the JAX package reads and writes too) run.
+  ``--load-checkpoint`` takes a msgpack file or an orbax directory (the
+  backend's root or one ``step_N``).
 
 TensorBoard event files land in ``<logs>/{train,valid}``, a
 ``--profile-dir`` trace of the second epoch in that directory
@@ -99,13 +101,6 @@ PRESERVED_ARGS = [
     # per-invocation infrastructure, never part of a run's identity
     "coordinator", "num_processes", "process_id",
 ]
-
-# flag -> (args attribute, is it set away from its default?)
-_UNPORTED_FLAGS = {
-    "--checkpoint-backend orbax": ("checkpoint_backend",
-                                   lambda v: v == "orbax"),
-}
-
 
 def str2bool(v: str) -> bool:
     return v.lower() in ("yes", "true", "t", "y", "1")
@@ -225,7 +220,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-backend", default="msgpack",
                         choices=["msgpack", "orbax"],
                         help="full-state checkpoint format: msgpack = one "
-                             "file (orbax is not ported yet)")
+                             "file; orbax = a directory of step_N orbax "
+                             "checkpoints, committed in the background")
     parser.add_argument("--coordinator", default=None,
                         help="multi-host training: rank 0's rendezvous "
                              "address host:port (process 0's host); with "
@@ -320,14 +316,6 @@ def prepare_run_dirs(args) -> None:
     snapshotargs(args)
     if args.load_args is not None:
         load_args(args)
-
-
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the first flag whose feature
-    the port lacks, when set away from its default."""
-    for flag, (attr, is_set) in _UNPORTED_FLAGS.items():
-        if is_set(getattr(args, attr)):
-            raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def check_multihost_flags(args) -> None:
@@ -493,7 +481,6 @@ def main(args) -> None:
     check_multihost_flags(args)
     time_str = time.strftime("%Y%m%d-%H%M%S")
     prepare_run_dirs(args)
-    refuse_unported(args)
     processes = args.num_processes or 1
     if processes > 1 and "serve" in args.tasks:
         raise SystemExit("--tasks serve is single-process; serve from "
@@ -584,7 +571,10 @@ def _run_tasks(args, mesh: Mesh) -> None:
         data_dirs=tuple(args.data_dir), data_h5=args.data_h5,
         logs_dir=args.logs, weights_dir=args.weights,
         infered_dir=args.infered,
-        checkpoint_path=os.path.join(args.weights, "checkpoint.msgpack"),
+        checkpoint_path=os.path.join(
+            args.weights,
+            "checkpoint.msgpack" if args.checkpoint_backend == "msgpack"
+            else "checkpoint_orbax"),
         checkpoint_backend=args.checkpoint_backend,
         log_every=args.log_every, valid_every=args.valid_every,
         vis_every=args.vis_every, save_every=args.save_every,

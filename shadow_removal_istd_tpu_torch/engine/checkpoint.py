@@ -11,13 +11,27 @@ other writes. Port of ``shadow_removal_istd_tpu/engine/checkpoint.py``.
    validation loss and the plateau controllers' state.
 
 The tree mapping is ``tools/convert.py``'s; the encoding
-``utils/msgpack_codec.py``'s. The orbax backend is not ported.
+``utils/msgpack_codec.py``'s.
+
+3. The orbax backend (``--checkpoint-backend orbax``): a directory of
+   ``step_N`` orbax checkpoints (``engine/orbax_format.py``), each with a
+   ``meta_step_N.json`` beside it holding ``{"epoch", "host"}``, read and
+   written by the JAX package's ``save_checkpoint_orbax`` /
+   ``load_checkpoint_orbax`` as well. :class:`AsyncCheckpointer` commits
+   in a background thread: ``save`` returns once the state is copied to
+   the host, so the next optimizer step, which updates the parameters in
+   place, cannot reach bytes still being written.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
+import threading
+import time
 
+from shadow_removal_istd_tpu_torch.engine import orbax_format
 from shadow_removal_istd_tpu_torch.engine.state import TrainState
 from shadow_removal_istd_tpu_torch.tools.convert import (
     flax_tree_to_torch,
@@ -31,6 +45,8 @@ from shadow_removal_istd_tpu_torch.utils.msgpack_codec import (
 )
 
 NETS = ("G1", "G2", "D1", "D2")
+
+logger = logging.getLogger(__name__)
 
 
 def _net(state: TrainState, net: str):
@@ -94,3 +110,117 @@ def load_checkpoint(state: TrainState, path: str) -> tuple[int, dict]:
     raw = _read(path)
     load_train_state(raw.get("state", {}), state)
     return int(raw.get("epoch", 0)), dict(raw.get("host") or {})
+
+
+# ------------------------------------------------------------------ orbax
+
+
+class AsyncCheckpointer:
+    """Commits orbax checkpoint directories in a background thread, one at
+    a time. :meth:`save` waits for the commit before it (orbax's rule, and
+    it bounds the host copies in flight to one), then starts this one;
+    :meth:`wait_until_finished` joins it and re-raises its error.
+    ``commit_ms`` lists each finished commit's wall time."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self.commit_ms: list[float] = []
+
+    def _commit(self, path: str, tree: dict) -> None:
+        t0 = time.perf_counter()
+        try:
+            orbax_format.write_step(path, tree)
+        except BaseException as exc:    # re-raised by wait_until_finished
+            self._error = exc
+            return
+        self.commit_ms.append((time.perf_counter() - t0) * 1e3)
+        logger.info("orbax checkpoint %s committed in %.1f ms", path,
+                    self.commit_ms[-1])
+
+    def save(self, path: str, tree: dict) -> None:
+        """Write ``tree`` (host numpy leaves, never written to again) as
+        the orbax directory ``path`` in the background."""
+        self.wait_until_finished()
+        self._thread = threading.Thread(
+            target=self._commit, args=(path, tree),
+            name="orbax-commit", daemon=False)
+        self._thread.start()
+
+    def wait_until_finished(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+
+def make_orbax_checkpointer() -> AsyncCheckpointer:
+    """One checkpointer to own for a training run's lifetime."""
+    return AsyncCheckpointer()
+
+
+def save_checkpoint_orbax(state: TrainState, directory: str, step: int,
+                          host: dict | None = None,
+                          checkpointer: AsyncCheckpointer | None = None,
+                          wait: bool = False) -> None:
+    """The full training state as ``directory/step_N``, the JAX package's
+    layout: ``meta_step_N.json`` (``{"epoch", "host"}``) goes beside the
+    step directory, never inside it, and its presence does not mean the
+    step is committed (readers go through :func:`latest_orbax_step`).
+
+    Returns once every tensor is copied to the host; the directory commits
+    in the background unless ``wait``. A throwaway checkpointer (none
+    given) always drains."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    ckptr = checkpointer or make_orbax_checkpointer()
+    ckptr.wait_until_finished()
+    tree = train_state_to_flax(state)   # host copies, taken before returning
+    ckptr.save(os.path.join(directory, f"step_{step}"), tree)
+    _write(os.path.join(directory, f"meta_step_{step}.json"),
+           json.dumps({"epoch": step, "host": host or {}}).encode())
+    if wait or checkpointer is None:
+        ckptr.wait_until_finished()
+
+
+def latest_orbax_step(directory: str) -> int:
+    """Largest committed ``step_N`` in an orbax checkpoint directory (a
+    staged ``step_N.orbax-checkpoint-tmp-*`` is not one)."""
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and os.path.isdir(
+                os.path.join(directory, name)):
+            try:
+                steps.append(int(name[len("step_"):]))
+            except ValueError:
+                continue
+    if not steps:
+        raise FileNotFoundError(
+            f"no finalized orbax checkpoints under {directory}")
+    return max(steps)
+
+
+def load_checkpoint_orbax(state: TrainState, directory: str,
+                          step: int | None = None) -> tuple[int, dict]:
+    """Restore a full training state in place from an orbax checkpoint
+    directory; returns (epoch, host). ``directory`` is the backend's root
+    (its latest step, or ``step``) or one ``step_N`` directory."""
+    directory = os.path.abspath(directory)
+    base = os.path.basename(directory)
+    if base.startswith("step_"):
+        step = int(base[len("step_"):])
+        directory = os.path.dirname(directory)
+    elif step is None:
+        step = latest_orbax_step(directory)
+    load_train_state(orbax_format.read_step(
+        os.path.join(directory, f"step_{step}")), state)
+    meta_path = os.path.join(directory, f"meta_step_{step}.json")
+    epoch, host = step, {}
+    if os.path.isfile(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        epoch = int(meta.get("epoch", step))
+        host = dict(meta.get("host") or {})
+    return epoch, host

@@ -62,8 +62,15 @@ run, as in JAX. ``run.pipeline_infer`` runs ``infer`` on the two-stage
 mesh's, else every card), and warns and takes the fused path with fewer
 than two.
 
-Not ported yet (``RunConfig`` raises where one is asked for): the orbax
-backend.
+``run.checkpoint_backend``: ``"msgpack"`` writes ``run.checkpoint_path``
+as one file; ``"orbax"`` makes it a directory of ``step_N`` orbax
+checkpoints (``engine/orbax_format.py``) that the JAX package reads and
+writes too, committed in the background: ``save`` returns once rank 0 has
+copied the state to the host, and the commits in flight are drained at
+the end of ``train`` (the SIGTERM save included, so the process never
+exits before its checkpoint is committed) and before any ``load``. Every
+rank takes part in the gather of a model-sharded state; rank 0 alone
+copies and writes, and no rank waits on a barrier another one skips.
 
 The legacy tree's options: ``dcgan_init`` re-initializes the four
 networks DCGAN-style at start, drawn from the ``init`` stream after the
@@ -188,10 +195,7 @@ class RunConfig:
     pipeline_infer: bool = False
 
     def __post_init__(self):
-        if self.checkpoint_backend == "orbax":
-            raise NotImplementedError(
-                "checkpoint_backend='orbax' is not ported yet")
-        if self.checkpoint_backend != "msgpack":
+        if self.checkpoint_backend not in ("msgpack", "orbax"):
             raise ValueError(f"unknown checkpoint backend "
                              f"{self.checkpoint_backend!r}")
 
@@ -344,6 +348,7 @@ class Trainer:
         self.start_epoch = 0
         self.best_loss = float("inf")
         self.preempted = False
+        self._orbax: ckpt.AsyncCheckpointer | None = None
         self.history: list[dict[str, float]] = []
         self.last_valid: dict[str, float] = {}
         self.last_eval: dict[str, float] = {}
@@ -527,6 +532,7 @@ class Trainer:
                     break
                 if epoch % run.save_every == 0:
                     self.save(epoch + 1)
+        self._drain_async_saves()
         for w in self._writers.values():
             w.flush()
         logger.info("training time %.1fs; best validation loss %.3f",
@@ -900,14 +906,36 @@ class Trainer:
             host["plateau_g"] = self.plateau_g.state_dict()
             host["plateau_d"] = self.plateau_d.state_dict()
         with self._whole_state():
-            if self._primary:
+            if not self._primary:
+                return
+            if self.run.checkpoint_backend == "orbax":
+                if self._orbax is None:
+                    self._orbax = ckpt.make_orbax_checkpointer()
+                # returns once the state is on the host; the directory
+                # commits while the next epochs run
+                ckpt.save_checkpoint_orbax(self.state,
+                                           self.run.checkpoint_path, epoch,
+                                           host=host,
+                                           checkpointer=self._orbax)
+            else:
                 ckpt.save_checkpoint(self.state, self.run.checkpoint_path,
                                      epoch, host=host)
 
+    def _drain_async_saves(self) -> None:
+        """Wait for the orbax commits in flight (re-raising a failed one)."""
+        if self._orbax is not None:
+            self._orbax.wait_until_finished()
+
     def load(self, path: str | None = None) -> None:
+        """Restore the state from a checkpoint file (msgpack) or an orbax
+        directory (the backend's root, or one ``step_N`` in it)."""
+        self._drain_async_saves()
         path = path or self.run.checkpoint_path
         with self._whole_state():
-            epoch, host = ckpt.load_checkpoint(self.state, path)
+            if os.path.isdir(path):
+                epoch, host = ckpt.load_checkpoint_orbax(self.state, path)
+            else:
+                epoch, host = ckpt.load_checkpoint(self.state, path)
         self.start_epoch = epoch
         if "best_loss" in host:
             self.best_loss = float(host["best_loss"])

@@ -230,9 +230,48 @@ def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be float32, bfloat16 or int32, "
                         f"got {out_dtype}")
-    if _device_kind(xq, "int8_conv") == "cpu":
-        return int8_conv_plain(xq, wk, scale, bias, phase=phase,
-                               out_dtype=out_dtype)
+    _device_kind(xq, "int8_conv")
+    return int8_conv_op(xq, wk, scale, bias, phase, out_dtype)
+
+
+int8_conv.launches = 0
+
+
+@torch.library.custom_op(
+    "srit::int8_conv", mutates_args=(),
+    schema="(Tensor xq, Tensor wk, Tensor? scale, Tensor? bias, bool phase, "
+           "ScalarType out_dtype) -> Tensor")
+def int8_conv_op(xq, wk, scale, bias, phase, out_dtype):
+    """:func:`int8_conv` after its checks, as the registered op
+    ``srit::int8_conv``, so a ``FlopCounterMode`` sees it
+    (``utils/flops.py``) and a fake or meta tensor gets its shape."""
+    raise ValueError(f"int8_conv runs on cuda or cpu, not "
+                     f"{xq.device.type}")
+
+
+def _out_shape(xq, wk, phase) -> tuple[int, int, int, int]:
+    n, hp, wp, _ = xq.shape
+    rows = wk.shape[0]
+    if phase:
+        return n, rows // 4, 2 * (hp - 2), 2 * (wp - 2)
+    return n, rows, (hp - 2) // 2, (wp - 2) // 2
+
+
+@int8_conv_op.register_kernel("cpu")
+def _int8_conv_cpu(xq, wk, scale, bias, phase, out_dtype):
+    return int8_conv_plain(xq, wk, scale, bias, phase=phase,
+                           out_dtype=out_dtype)
+
+
+@int8_conv_op.register_fake
+def _int8_conv_fake(xq, wk, scale, bias, phase, out_dtype):
+    return xq.new_empty(_out_shape(xq, wk, phase), dtype=out_dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+@int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(xq, wk, scale, bias, phase, out_dtype):
+    """Launch the kernel, counted in ``int8_conv.launches``."""
     dev = xq.device
     for t in (wk, scale, bias):
         if t is not None and t.device != dev:
@@ -240,6 +279,9 @@ def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
     for t in (scale, bias):
         if t is not None and t.dtype != torch.float32:
             raise TypeError("scale and bias must be float32")
+    n, hp, wp, cp = xq.shape
+    co = wk.shape[0] // 4 if phase else wk.shape[0]
+    ho, wo = (hp - 2, wp - 2) if phase else ((hp - 2) // 2, (wp - 2) // 2)
     xq, wk = xq.contiguous(), wk.contiguous()
     scale = scale.contiguous() if scale is not None else None
     bias = bias.contiguous() if bias is not None else None
@@ -257,6 +299,3 @@ def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
         raise RuntimeError(f"int8_conv kernel launch failed (cudaError {rc})")
     int8_conv.launches += 1
     return out
-
-
-int8_conv.launches = 0

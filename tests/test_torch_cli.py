@@ -5,8 +5,9 @@ test triplets, MNet ngf 4, PatchGAN ndf 4, 32x32 crops, batch 2), a
 resumed run equal bit for bit to the uninterrupted one, inference PNGs
 against the JAX package's ``Trainer.infer`` from the same weight files,
 ``--eval-metrics``, ``--aug-method gather``, ``--device-cache false`` and
-``--profile-dir`` through a resumed run, and every flag whose feature is
-not ported refused.
+``--profile-dir`` through a resumed run, ``--checkpoint-backend orbax``
+resumed from its directory equal bit for bit to the uninterrupted run, and
+the device lists the port refuses.
 """
 import http.client
 import json
@@ -229,6 +230,44 @@ def test_resume_is_bit_exact(istd_root, tmp_path):
             assert fa.read() == fb.read(), f
 
 
+def test_orbax_backend_resumes_bit_exact(istd_root, tmp_path):
+    """``--checkpoint-backend orbax`` at its default path
+    (``<weights>/checkpoint_orbax``): 2 epochs in one run against 1
+    epoch, then a run resumed from the backend's directory; the weight
+    files byte for byte, and the two ``step_2`` directories leaf for leaf,
+    with ``meta_step_N.json`` beside each step."""
+    from shadow_removal_istd_tpu_torch.engine.orbax_format import read_step
+    from shadow_removal_istd_tpu_torch.tools.convert import flatten_tree
+
+    common = ("--tasks", "train", "--allow-missing-vgg",
+              "--checkpoint-backend", "orbax")
+    _run(*_argv(istd_root, f"{tmp_path}/a", *common, "--epochs", "2"))
+    _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "1"))
+    root = f"{tmp_path}/b/w{SUFFIX}/checkpoint_orbax"
+    assert sorted(os.listdir(root)) == ["meta_step_1.json", "step_1"]
+    _run(*_argv(istd_root, f"{tmp_path}/b", *common, "--epochs", "2",
+                "--load-checkpoint", root))
+    a, b = f"{tmp_path}/a/w{SUFFIX}", f"{tmp_path}/b/w{SUFFIX}"
+    files = sorted(f for f in os.listdir(a) if f.endswith(".msgpack"))
+    assert files == sorted(f for f in os.listdir(b)
+                           if f.endswith(".msgpack")) and len(files) == 8
+    for f in files:
+        with open(f"{a}/{f}", "rb") as fa, open(f"{b}/{f}", "rb") as fb:
+            assert fa.read() == fb.read(), f
+    for w in (a, b):
+        assert sorted(os.listdir(f"{w}/checkpoint_orbax")) == [
+            "meta_step_1.json", "meta_step_2.json", "step_1", "step_2"]
+    ta, tb = (flatten_tree(read_step(f"{w}/checkpoint_orbax/step_2"))
+              for w in (a, b))
+    assert ta.keys() == tb.keys()
+    assert ta.pop(("softadapt",)) is tb.pop(("softadapt",)) is None
+    for k in ta:
+        assert ta[k].dtype == tb[k].dtype, k
+        np.testing.assert_array_equal(ta[k], tb[k], err_msg=str(k))
+    with open(f"{b}/checkpoint_orbax/meta_step_2.json") as f:
+        assert json.load(f)["epoch"] == 2
+
+
 def test_infer_pngs_match_jax(trained, istd_root, tmp_path):
     """The JAX package's ``Trainer.infer`` from the port's weight files:
     the same file names, uint8 within 1 gray level."""
@@ -303,7 +342,6 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--checkpoint-backend", "orbax"], NotImplementedError, "orbax"),
     (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),
     (["--devices", "2"], RuntimeError, "no CUDA device"),

@@ -2,8 +2,8 @@
 
 Walks the AST of every module of ``shadow_removal_istd_tpu_torch`` and
 of ``chip_smoke.py``: none may import ``jax``, ``flax``, ``optax``,
-``msgpack`` or ``h5py`` (absent on a CUDA host; the port has its own
-codecs) or anything of ``shadow_removal_istd_tpu`` (modules without JAX
+``orbax``, ``tensorstore``, ``zstandard``, ``msgpack`` or ``h5py``
+(absent on a CUDA host; the port has its own codecs) or anything of ``shadow_removal_istd_tpu`` (modules without JAX
 included).
 """
 import ast
@@ -18,8 +18,8 @@ import torch
 from shadow_removal_istd_tpu_torch.serving import InferenceEngine
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "flax", "optax", "msgpack", "h5py",
-             "shadow_removal_istd_tpu"}
+FORBIDDEN = {"jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
+             "msgpack", "h5py", "shadow_removal_istd_tpu"}
 FILES = sorted(p.relative_to(REPO).as_posix() for p in
                [*(REPO / "shadow_removal_istd_tpu_torch").rglob("*.py"),
                 REPO / "chip_smoke.py"])
@@ -48,7 +48,9 @@ def test_port_files_found():
                 "data/h5.py", "data/hdf5_codec.py", "tools/preprocess.py",
                 "tools/export.py", "tools/color_adjustment.py",
                 "tools/convert_vgg.py", "tools/experiments.py",
-                "serving/engine.py"):
+                "serving/engine.py", "utils/zstd.py", "utils/ocdbt.py",
+                "utils/zarr2.py", "engine/orbax_format.py",
+                "utils/flops.py"):
         assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 

@@ -34,18 +34,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(rank: int, port: int, root: str, base: Path):
+def _launch(rank: int, port: int, root: str, base: Path, *extra: str,
+            epochs: int = 2):
     argv = [sys.executable, "-m", "shadow_removal_istd_tpu_torch.cli.main",
             "--tasks", "train", "--devices", "cpu",
             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
             "--process-id", str(rank), "--data-dir", root,
             "--ngf", "4", "--ndf", "4", "--image-size", "32",
-            "--batch-size", "4", "--epochs", "2", "--log-every", "1",
-            "--valid-every", "1", "--vis-every", "1", "--save-every", "1",
-            "--allow-missing-vgg",
+            "--batch-size", "4", "--epochs", str(epochs), "--log-every",
+            "1", "--valid-every", "1", "--vis-every", "1", "--save-every",
+            "1", "--allow-missing-vgg",
             "--weights", str(base / f"w{rank}"),
             "--logs", str(base / f"logs{rank}"),
-            "--infered", str(base / f"out{rank}")]
+            "--infered", str(base / f"out{rank}"), *extra]
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     return subprocess.Popen(argv, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env,
@@ -100,6 +101,48 @@ def test_two_process_cli_trains_alike_and_rank0_writes(tmp_path):
     # each rank logs to its own file, as the JAX CLI's processes do
     assert any(re.fullmatch(r"main-.*-p1\.log", f)
                for f in os.listdir(tmp_path / f"logs1{SUFFIX}"))
+
+
+def _run_pair(root: str, base: Path, *extra: str, epochs: int):
+    """Both ranks to their end (bounded); their outputs."""
+    port = _free_port()
+    procs = [_launch(r, port, root, base, *extra, epochs=epochs)
+             for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    return outs
+
+
+def test_two_process_orbax_rank0_writes_every_rank_resumes(tmp_path):
+    """``--checkpoint-backend orbax`` over two gloo ranks: both runs end
+    (the JAX package's trainer deadlocks here, rank 0 alone entering
+    orbax's barriers), rank 0 alone writes ``step_N`` and its meta file,
+    and both ranks of a second run resume from rank 0's directory and
+    train the next epoch alike."""
+    root = str(tmp_path / "istd")
+    write_istd_layout(root, n_train=8, n_test=4, h=64, w=64)
+    _run_pair(root, tmp_path, "--checkpoint-backend", "orbax", epochs=1)
+    w0, w1 = tmp_path / f"w0{SUFFIX}", tmp_path / f"w1{SUFFIX}"
+    assert _files(w1) == []
+    orbax = w0 / "checkpoint_orbax"
+    assert sorted(os.listdir(orbax)) == ["meta_step_1.json", "step_1"]
+    outs = _run_pair(root, tmp_path, "--checkpoint-backend", "orbax",
+                     "--load-checkpoint", str(orbax), epochs=2)
+    for out in outs:
+        assert "checkpoint loaded (epoch 1)" in out, out[-4000:]
+        assert "valid epoch 1:" in out and "valid epoch 0:" not in out
+    assert _metric_lines(outs[0]) == _metric_lines(outs[1])
+    assert _files(w1) == []
+    assert sorted(os.listdir(orbax)) == [
+        "meta_step_1.json", "meta_step_2.json", "step_1", "step_2"]
 
 
 # the CLI's launch of a mesh's ranks from one process (``--devices N``
