@@ -216,7 +216,8 @@ Phases; any failure exits non-zero before the result line is printed:
    32, int8 and bf16 in turns, the int8 forward's device time by kernel
    group (``[profile]``), and each kernel's time per launch and per
    forward beside its plain version, its bound and, for ``int8_conv``,
-   ``torch._int_mm`` on ``Tensor.unfold`` patches; the serving daemon
+   ``torch._int_mm`` on ``Tensor.unfold`` patches and each site's form,
+   A route, tile, split of K, TOPS and time over bound; the serving daemon
    with ``--dtype int8 --int8-calib`` answering one 480x640 request as
    the engine in this process does;
 15. export (after ``int8``): ``tools/export.py`` writes the ngf 64
@@ -311,6 +312,14 @@ passes of one augmentation (in the path's layouts where its C entry
 takes ``transpose_out``, else in the normal layout, as the kernel's
 first version did), compared bit for bit with the checkout's kernel and
 timed beside it in turns, and the whole rotation through it.
+``python3 chip_smoke.py --compare-int8 NAME=PATH [NAME=PATH ...]`` builds
+each given source of ``csrc/int8_conv.cu`` (e.g. the parent commit's)
+and times it beside the checkout's at the 20 ``int8_conv`` sites of a
+256x256 b32 int8 stacked forward (seeded random operands), every source
+launched as the wrapper launches (``int8_conv.launch``; an earlier source
+by its one C entry) and compared bit for bit with the wrapper
+(``[compare-int8]`` lines: form, taps, the A route, tile and split,
+TOPS, time over bound).
 ``python3 chip_smoke.py --compare-reflect-pad`` times the train step
 (f32 and bf16 compute) with the models' deterministic reflect-pad
 backward beside torch's atomic one, in turns (``[compare-pad]`` lines).
@@ -324,6 +333,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -607,8 +617,14 @@ def phase_build():
         _build.load(name)
         print(f"[build] {path.name}")
         for line in log.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem")):
+            if any(k in line for k in ("registers", "spill", "smem", "C7515")):
                 print(f"[ptxas] {name}: {line.strip()}")
+        # wgmma writes its accumulators asynchronously: in local memory
+        # (a stack frame) they would be read before they are written
+        if name == "int8_conv" and ("C7515" in log or re.search(
+                r"[1-9]\d* bytes stack frame", log)):
+            raise SystemExit("int8_conv: ptxas moved wgmma accumulators out "
+                             "of registers (see the [ptxas] lines)")
     if not native_loader.is_available():
         raise SystemExit("the native PNG loader did not load")
     print(f"[build] {native_lib.name} (native PNG loader, g++)")
@@ -3809,8 +3825,9 @@ def int8_conv_cost(args, kw) -> tuple[float, float]:
     once."""
     xq, wk, _, _ = args
     n, hp, wp, cp = xq.shape
-    rows, k, _, _ = wk.shape
+    rows = wk.shape[0]
     phase = kw["phase"]
+    taps = 4 if phase else 16      # an all-phase weight's 9: 4 of them
     co = rows // 4 if phase else rows
     # (N, 2H, 2W, Co) kept outputs, or (N, H/2, W/2, Co)
     outputs = n * (hp - 2) * (wp - 2) * co * (4 if phase else 1)
@@ -3818,7 +3835,7 @@ def int8_conv_cost(args, kw) -> tuple[float, float]:
         outputs //= 4
     # the channels that carry data: the weight's zero padding is no work
     ci = int((wk.reshape(-1, cp) != 0).any(0).nonzero().max()) + 1
-    ops = 2.0 * outputs * k * k * ci
+    ops = 2.0 * outputs * taps * ci
     elt = torch.tensor([], dtype=kw.get("out_dtype", torch.float32)
                        ).element_size()
     nbytes = (xq.numel() + wk.numel() + 4 * rows + 4 * co
@@ -3826,11 +3843,21 @@ def int8_conv_cost(args, kw) -> tuple[float, float]:
     return ops, nbytes
 
 
+def phase_taps(w9):
+    """``all_phase_weight``'s inverse: each phase's 2x2 taps."""
+    w = w9.view(4, w9.shape[0] // 4, 3, 3, w9.shape[3])
+    return torch.cat([w[p, :, p // 2:p // 2 + 2, p % 2:p % 2 + 2]
+                      for p in range(4)]).contiguous()
+
+
 def _int_mm_operands(xq, wk, phase: bool):
     """``torch._int_mm``'s operands for the same conv: ``Tensor.unfold``
     patches of the padded input (M x K) and the weight (K x N, N padded
-    to a multiple of 8); the phase form at every (H+1) x (W+1) position
-    and all 4*Co rows, as one matrix product computes it."""
+    to a multiple of 8); the phase form (an all-phase weight by its 2x2
+    taps, the smaller product) at every (H+1) x (W+1) position and all
+    4*Co rows, as one matrix product computes it."""
+    if phase and wk.shape[1] == 3:
+        wk = phase_taps(wk)
     k, step = (2, 1) if phase else (4, 2)
     p = xq.unfold(1, k, step).unfold(2, k, step)      # (n, h, w, cp, k, k)
     a = p.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * xq.shape[3])
@@ -3839,6 +3866,154 @@ def _int_mm_operands(xq, wk, phase: bool):
     if pad:
         b = torch.cat([b, b.new_zeros(pad, b.shape[1])])
     return a.contiguous(), b.t().contiguous()
+
+
+def _int8_site(args, kw) -> str:
+    """One ``int8_conv`` call's form and the launch its kernel makes:
+    "encoder", "stem K-walk" (Cp 16: taps share a 128-byte K tile),
+    "phase" or "final" (an all-phase weight: the 4 phases in one tile
+    over 9 taps); taps, BM x BN and K's splits."""
+    from shadow_removal_istd_tpu_torch.ops.int8_conv import conv_plan
+
+    xq, wk = args[0], args[1]
+    phase = kw["phase"]
+    form = (("final" if wk.shape[1] == 3 else "phase") if phase else
+            "stem K-walk" if xq.shape[3] == 16 else "encoder")
+    plan = conv_plan(xq, wk, phase=phase)
+    return (f"{form}, {plan['taps']} taps, A by "
+            f"{'TMA' if plan['a_tma'] else 'cp.async'}, BM {plan['bm']} x BN "
+            f"{plan['bn']}, split {plan['splits']}, {plan['blocks']} blocks")
+
+
+def int8_stacked_sites(n: int, h: int, w: int, gen):
+    """Operands of the 20 ``int8_conv`` calls of an int8 stacked G1+G2
+    forward at ngf ``NGF`` (bf16 compute), from seeded random int8 data
+    and weights, the finals' expanded to the 3x3 window as
+    ``make_stacked_int8`` serves them: yields (label, args, kw) one site
+    at a time."""
+    from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+        all_phase_weight,
+        channels_padded,
+        pad_weight,
+    )
+
+    g = NGF
+    for net, cin, cout in (("G1", 3, 1), ("G2", 4, 3)):
+        sites = [("stem", False, cin, g, 1, False)]
+        sites += [(f"down{i}", False, c, o, 2 ** (i + 1), True)
+                  for i, (c, o) in enumerate(zip(
+                      (g, 2 * g, 4 * g, 8 * g), (2 * g, 4 * g, 8 * g, 8 * g)))]
+        sites += [(f"up{j}", True, c, o, 2 ** (5 - j), True)
+                  for j, (c, o) in enumerate(zip(
+                      (8 * g, 16 * g, 8 * g, 4 * g),
+                      (8 * g, 4 * g, 2 * g, g)))]
+        sites += [("final", True, 2 * g, cout, 2, False)]
+        for name, phase, ci, co, div, has_bias in sites:
+            hi, wi = h // div, w // div
+            xq = torch.randint(-127, 128, (n, hi + 2, wi + 2,
+                                           channels_padded(ci)),
+                               dtype=torch.int8, device=DEVICE, generator=gen)
+            xq[..., ci:] = 0
+            rows = 4 * co if phase else co
+            k = 2 if phase else 4
+            wk = pad_weight(torch.randint(-127, 128, (rows, k, k, ci),
+                                          dtype=torch.int8, device=DEVICE,
+                                          generator=gen))
+            if name == "final":
+                wk = all_phase_weight(wk)
+            scale = torch.rand(rows, device=DEVICE, generator=gen) * 1e-4
+            bias = (torch.randn(co, device=DEVICE, generator=gen) * 0.1
+                    if has_bias else None)
+            out_dtype = torch.float32 if name == "final" else torch.bfloat16
+            yield (f"{net} {name}", (xq, wk, scale, bias),
+                   dict(phase=phase, out_dtype=out_dtype))
+
+
+def compare_int8(sources: dict[str, str]) -> None:
+    """The checkout's ``int8_conv`` beside other sources of
+    ``csrc/int8_conv.cu`` (e.g. the parent commit's, from ``git archive``
+    into a git-ignored directory), at the 20 sites of a 256x256 b32 int8
+    stacked forward (seeded random operands): each source's output
+    compared bit for bit with the wrapper's, then timed in turns
+    (checkout, others, others reversed, checkout), beside the bound
+    (``[compare-int8]`` lines). A source with the checkout's C entries
+    launches as the wrapper does (``int8_conv.launch``, the checkout's
+    too: no op dispatch); an earlier one without ``srit_int8_conv_split``
+    takes its one entry with ``int phase`` (forms 0 and 1, no split) and
+    the finals by their 2x2 phase weight."""
+    import ctypes
+
+    from shadow_removal_istd_tpu_torch.ops import int8_conv as mod
+
+    entries = {"checkout": mod._fns()[1:]}      # the checkout's, built first
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        libs = dict(zip(sources, pool.map(
+            lambda n, p: build_source(f"int8_conv_{n}", p), sources,
+            sources.values())))
+    legacy = {}
+    for name, dll in libs.items():
+        if hasattr(dll, "srit_int8_conv_split"):
+            entries[name] = mod.conv_entries(dll)
+        else:       # the same argument types, ``int phase`` last
+            conv = legacy[name] = dll.srit_int8_conv
+            conv.restype = ctypes.c_int
+            conv.argtypes = entries["checkout"][0].argtypes
+
+    def run_legacy(conv, xq, wk, scale, bias, phase, out_dtype):
+        n, hp, wp, cp, ho, wo, co = mod._geometry(xq, wk, phase)
+        oh, ow = (2 * ho, 2 * wo) if phase else (ho, wo)
+        out = torch.empty((n, co, oh, ow), dtype=out_dtype, device=DEVICE,
+                          memory_format=torch.channels_last)
+        rc = conv(xq.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+                  bias.data_ptr() if bias is not None else None,
+                  out.data_ptr(), mod._OUT_DTYPES[out_dtype], n, hp, wp, cp,
+                  ho, wo, co, int(phase),
+                  torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"int8_conv launch failed (cudaError {rc})")
+        return out
+
+    names = [*entries, *legacy]
+    order = names + names[:0:-1] + names[:1]
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    tot = dict.fromkeys([*names, "bound"], 0.0)
+    for label, args, kw in int8_stacked_sites(INT8_BATCH, 256, 256, gen):
+        xq, wk, scale, bias = args
+        wk2 = phase_taps(wk) if wk.shape[1] == 3 else wk
+
+        def run(name):
+            if name in legacy:
+                return run_legacy(legacy[name], xq, wk2, scale, bias,
+                                  kw["phase"], kw["out_dtype"])
+            return mod.launch(entries[name], *args, **kw)
+
+        ref = mod.int8_conv(*args, **kw)    # the wrapper's, as served
+        line = f"[compare-int8] {label} {_int8_site(args, kw)}"
+        for name in names:
+            differ = int((run(name) != ref).sum())
+            line += f" | {name} {differ} outputs differ"
+            if differ:
+                raise SystemExit(f"{name} and the wrapper differ at {label}")
+        times: dict[str, list] = {}
+        for name in order:
+            times.setdefault(name, []).append(time_ms(lambda: run(name), 10))
+        ops, nbytes = int8_conv_cost(args, kw)
+        t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        tot["bound"] += bound
+        for name, v in times.items():
+            ms = sum(v) / len(v)
+            tot[name] += ms
+            line += (f" | {name} " + "/".join(f"{t:.4f}" for t in v)
+                     + f" ms ({ops / ms / 1e9:.1f} TOPS, {ms / bound:.2f}x "
+                     f"bound)")
+        print(f"{line} | bound {bound:.4f} "
+              f"({'ops' if t_ops >= t_bytes else 'bytes'})", flush=True)
+        del args, xq, wk, wk2, scale, bias, ref
+        torch.cuda.empty_cache()
+    print(f"[compare-int8] per stacked forward 256x256 b{INT8_BATCH} (20 "
+          f"launches): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                      tot.items()), flush=True)
 
 
 def _int8_kernels_vs_plain(q1, q2, gen) -> dict:
@@ -4037,17 +4212,18 @@ def _int8_timings(engine, x) -> dict:
         except RuntimeError as exc:
             lib, lib_ok = float("nan"), False
             print(f"[time] int8 _int_mm n/a: {str(exc).splitlines()[0]}")
+        bound = max(t_ops, t_bytes)
         print(f"[time] int8 int8_conv {'phase' if kw['phase'] else 's2'} "
               f"{tuple(args[0].shape)} x {tuple(args[1].shape)} -> "
-              f"{tuple(out.shape)}: {ms:.4f} ms ({ops / ms / 1e9:.1f} "
-              f"TOPS) | plain {plain:.4f} | _int_mm {lib:.4f} | bound "
-              f"{max(t_ops, t_bytes):.4f} "
+              f"{tuple(out.shape)} ({_int8_site(args, kw)}): {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS, {ms / bound:.2f}x bound) | "
+              f"plain {plain:.4f} | _int_mm {lib:.4f} | bound {bound:.4f} "
               f"({'ops' if t_ops >= t_bytes else 'bytes'})")
         t = tot["int8_conv"]
         t["ms"] += ms
         t["plain_ms"] += plain
         t["library_ms"] += lib
-        t["bound_ms"] += max(t_ops, t_bytes)
+        t["bound_ms"] += bound
         t["ops_ms"] += t_ops
         t["bytes_ms"] += t_bytes
     del calls
@@ -5368,6 +5544,28 @@ def phase_shard(par: dict) -> dict:
             "err_3d": err3}
 
 
+def build_source(name: str, path: str, defines: tuple = ()):
+    """A kernel source (e.g. an earlier commit's, unpacked by ``git
+    archive``) built as its own library ``libcompare_{name}.so`` with
+    ``-D`` ``defines``, loaded (ctypes binds each library by its handle);
+    ptxas' register and spill lines printed."""
+    import ctypes
+
+    from shadow_removal_istd_tpu_torch.ops import _build
+
+    lib = _build.BUILD_DIR / f"libcompare_{name}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                           *(f"-D{d}" for d in defines), "-o", str(lib),
+                           path], capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed on {path}:\n{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if any(k in line for k in ("registers", "spill")):
+            print(f"[ptxas] {name}: {line.strip()}")
+    return ctypes.CDLL(str(lib))
+
+
 def build_renamed(name: str, path: str,
                   entry: str = "srit_decoder_upsample"):
     """A kernel source (e.g. an earlier commit's
@@ -5377,20 +5575,11 @@ def build_renamed(name: str, path: str,
     without ``transpose_out`` (``fn.transposes``), as the source has it."""
     import ctypes
 
-    from shadow_removal_istd_tpu_torch.ops import _build, decoder
+    from shadow_removal_istd_tpu_torch.ops import decoder
 
     renamed = f"{entry}_{name}"
-    lib = _build.BUILD_DIR / f"libcompare_{entry}_{name}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
-                           f"-D{entry}={renamed}", "-o",
-                           str(lib), path], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {path}:\n{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if any(k in line for k in ("registers", "spill")):
-            print(f"[ptxas] {name}: {line.strip()}")
-    fn = getattr(ctypes.CDLL(str(lib)), renamed)
+    fn = getattr(build_source(f"{entry}_{name}", path,
+                              (f"{entry}={renamed}",)), renamed)
     fn.restype = ctypes.c_int
     fn.transposes = "int transpose_out" in Path(path).read_text()
     fn.argtypes = (decoder._kernel_fn("cuda_core").argtypes
@@ -5539,6 +5728,11 @@ def main() -> int:
         sources = dict(a.split("=", 1) for a in sys.argv[2:])
         time_shear_passes({name: build_renamed(name, path, "srit_hshear")
                            for name, path in sources.items()})
+        return 0
+    if sys.argv[1:2] == ["--compare-int8"]:
+        # python3 chip_smoke.py --compare-int8 NAME=PATH [NAME=PATH ...]
+        print(f"[card] {nvidia_smi()}")
+        compare_int8(dict(a.split("=", 1) for a in sys.argv[2:]))
         return 0
     if sys.argv[1:2] == ["--compare-reflect-pad"]:
         print(f"[card] {nvidia_smi()}")

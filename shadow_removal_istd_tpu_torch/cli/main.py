@@ -118,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
                         type=lambda s: re.split(", *| +", s),
                         help="cuda (default, one card), cpu, or a count "
                              "N of cards: training on N > 1 starts one "
-                             "data-parallel rank per card")
+                             "data-parallel rank per card; of a list "
+                             "only the first entry counts")
     parser.add_argument("--batch-size", default=16, type=int)
     parser.add_argument("--epochs", default=100000, type=int)
     parser.add_argument("--data-dir", default=[],
@@ -334,11 +335,10 @@ def select_devices(devices: list[str], batch_size: int,
                    processes: int = 1) -> list[torch.device]:
     """``--devices``: ``cuda`` or ``cpu`` (one device), or a count N of
     cards, capped to the cards present and to the largest n with
-    ``batch_size % (processes * n) == 0`` (every rank an equal slice)."""
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"--devices {' '.join(devices)}: a list of devices is not "
-            "ported; pass cuda, cpu or a count of cards")
+    ``batch_size % (processes * n) == 0`` (every rank an equal slice).
+    Of a list only the first entry counts, as in the JAX CLI's
+    ``_select_mesh``; a ``cuda`` entry without a card raises (no quiet
+    move to the CPU)."""
     if not devices[0].isdigit():
         return [resolve_device(devices[0])]
     resolve_device("cuda")
@@ -400,11 +400,8 @@ def select_mesh(devices: list[str], batch_size: int, processes: int = 1,
     name (``cuda``, ``cpu``) is one device; the run takes the first
     ``data * spatial * model`` of them. Several processes: each brings
     its devices (:func:`select_devices` without the batch rule) and
-    the mesh must hold every rank of the run."""
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"--devices {' '.join(devices)}: a list of devices is not "
-            "ported; pass cuda, cpu or a count of cards")
+    the mesh must hold every rank of the run. Of a list only the first
+    entry counts (:func:`select_devices`)."""
     if devices[0].isdigit():
         resolve_device("cuda")
         avail = [torch.device("cuda", i)

@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["train", "infer"], type=str)
     parser.add_argument("--devices", default=["cuda"], nargs="+", type=str,
                         help="cuda (default), cpu or a count N of cards "
-                             "(training on N > 1: one rank per card)")
+                             "(training on N > 1: one rank per card); of "
+                             "several only the first counts")
     parser.add_argument("--batch-size", default=16, type=int)
     parser.add_argument("--epochs", default=100000, type=int)
     parser.add_argument("--lr-D", default=0.00002, type=float)

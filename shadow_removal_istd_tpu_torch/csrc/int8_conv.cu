@@ -39,28 +39,89 @@
 //    __fadd_rn: no FMA contraction, the plain version's order), cast to
 //    f32 or bf16; without scales the raw s32 sums are stored (the check
 //    that they equal the plain version's bit for bit).
-//    Bound: at MNet's wide sites (K = 1024..8192) the conv does some 250
-//    to 2,000 int8 operations per byte it must move, on both sides of the
-//    ~590 at which 1,979 TOPS outruns 3.35 TB/s, so some sites are bound
-//    by bytes and the wider ones by operations; chip_smoke.py computes
-//    max(ops / 1,979 TOPS, bytes / 3.35 TB/s) per site. Only the tensor
-//    cores get near either bound. Design: as decoder_upsample_tc.cu
-//    for bf16, a block of 4 warps owns a 128 x BN output tile (BN 64, or
-//    16 for narrow outputs such as the final Co 1/3 step, whose N is
-//    padded with zero weights, which is exact); mma.sync m16n8k32 s8 x s8
-//    -> s32 over 64-byte K tiles (a tap's 64 channels) staged global ->
-//    shared by 16-byte cp.async in a 3-stage ring; an A row is one output
-//    position's input pixel under the tap (zero fill past M and past Cp),
-//    a B row 64 contiguous K bytes of one output channel (the weight is
-//    kept (rows, kh, kw, Cp), K contiguous), both read by ldmatrix (the
-//    int8 fragments of m16n8k32 have the byte layout of bf16 m16n8k16's).
-//    Shared rows are padded by 16 bytes so that ldmatrix reads no bank
-//    twice. Integer sums are exact in any order. wgmma and TMA are later
-//    work.
+//    GEMM view: M = output positions (per phase), N = Co, K = taps x Cp,
+//    walked as the weight stores it: the flattened (tap, channel) axis in
+//    16-byte chunks. Integer sums are exact in any order.
+//
+//    Bounds on an H100 (1,979 int8 TOPS, 3.35 TB/s; chip_smoke.py computes
+//    max(ops / 1,979 TOPS, bytes / 3.35 TB/s) per site):
+//    - the wide sites (Cp 64..1024, K 1024..8192, Co 64..512) do 250 to
+//      2,000 operations per byte they must move, mostly past the ~590 at
+//      which the tensor cores, not the memory, are the limit: operations
+//      bound them (down0 by a little, bytes);
+//    - the stems (Cp 16 holding the image's 3 or 4 channels, Co 64) and
+//      the finals (phase form, Co 1 or 3) do some 30 operations per byte:
+//      bytes bound them, the int8 input read and the output written.
+//
+//    Design (Hopper):
+//    - the main loop runs wgmma.mma_async m64nBNk32 s32.s8.s8, both
+//      operands K-major in shared memory with the 128-byte swizzle (one
+//      128-byte K tile a stage, four k32 steps, each a descriptor advanced
+//      by 32 bytes inside the swizzle atom). A block owns a 128 x BN output
+//      tile, two consumer warpgroups on its m64 halves. BN is 8 .. 128:
+//      up to 64 columns one tile that covers them all (so A is gathered
+//      once; wgmma's N is 8 at the least), past that 128: at 256 a
+//      thread's 128 accumulators spilled beside the epilogue (and faulted
+//      at 256x256's down2), and 128 with split K measured as fast;
+//    - a producer warpgroup keeps a ring of 4 to 6 stages full. The weight
+//      tile arrives by TMA: a 2-D tiled tensor map over (rows, taps * Cp)
+//      with the 128-byte swizzle, whose zero fill past the K end and past
+//      the last row keeps ragged K and N exact. The A tile (128 output
+//      positions x 128 bytes of K) arrives by TMA too where a K tile is
+//      one box row: a box of tw x th output positions (x nb images where
+//      an image has fewer than 128) of a 4-D map (Cp, Wp, Hp, N) for the
+//      stride-1 forms (Cp a multiple of 128: 128 channels of one tap), or
+//      of a 5-D map over pixel pairs and row pairs (2 Cp, Wp / 2, 2,
+//      Hp / 2, N) for the stride-2 encoder, whose taps are then whole
+//      coordinates (Cp a multiple of 128, or 64: then taps dx, dx + 1 of
+//      down0 are one pair's 128 bytes); one thread issues both boxes,
+//      and their bytes complete the stage's mbarrier. Rows of a box past
+//      the image are masked in the epilogue. Elsewhere (the stems' Cp 16,
+//      ragged Cp 48 or 80) a K tile mixes taps that no box row holds, and
+//      A is gathered by 16-byte cp.async, each chunk written at its
+//      swizzled address; each producer thread waits for its copies two
+//      stages behind the newest and fences them into the async proxy,
+//      then its warp arrives once on the stage's mbarrier (a wider lag
+//      measured slower). TMA's im2col mode was not tried;
+//    - the stems: K walks (tap, channel) in 16-byte chunks, so a 32-byte
+//      k-step is 2 taps x 16 channels and a stem's K is 256 bytes (2 K
+//      tiles), not 16 taps x 64;
+//    - the finals (phase form, Co <= 4; phase_form 2, the weight given
+//      expanded to the 3x3 window by the layer that owns it): the 4 phases
+//      in one tile, K over the 3x3 window (9 taps; each phase's weight
+//      zero at the 5 taps it skips), N = 4 Co (8 or 16 columns), so each
+//      input pixel is gathered 9 times and not 16, for one tile and not
+//      four;
+//    - the deep sites (down3: M 2048, K 8192; the 16x16 and 8x8 levels at
+//      480x640) have fewer tiles than the card has SMs: K is split over
+//      taps until about 132 units are in flight. Each split adds its s32
+//      partials into a zeroed workspace the wrapper allocates (atomic adds,
+//      exact in any order); the split that finishes a tile last, by a
+//      per-tile counter, reads the full sums back and runs the epilogue
+//      once. One kernel, one launch per call;
+//    - the kernel is persistent: min(units, SMs x blocks an SM) blocks
+//      walk the units and the ring runs on across them, so the next
+//      tile's loads overlap an epilogue (the thin sites have 2 to 9 K
+//      tiles per tile). Where BN <= 64 an SM holds two blocks (half the
+//      shared memory each), so one block's epilogue and barrier waits
+//      overlap the other's products;
+//    - the epilogue stages each warpgroup's sums in shared memory (64
+//      columns a pass, 16 with two blocks an SM) and stores 4 columns of a
+//      row at once (16 bytes of f32, 8 of bf16, where Co is a multiple of
+//      4), with each row's output offset found once a unit and each
+//      column's scale and bias once a pass; index math is 32-bit (M <
+//      2^31): 64-bit divisions per row measured as costly as the finals'
+//      loads.
+//    No Pallas kernel stands behind this: it replaces the s8 x s8 -> s32
+//    lax.conv_general_dilated calls of the JAX int8 graph
+//    (shadow_removal_istd_tpu/models/quant.py:139, :162) and the
+//    dequantize after them.
 
+#include <cuda.h>  // CUtensorMap's types; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -191,23 +252,40 @@ __global__ void __launch_bounds__(256) quantize_pad_kernel(QuantParams p) {
 
 struct ConvParams {
   const int8_t* x;     // (N, Hp, Wp, Cp), padded
-  const int8_t* wk;    // (rows, kt, kt, Cp)
   const float* scale;  // (rows,), or null: store the s32 sums
   const float* bias;   // (Co,), or null
   void* out;           // encoder (N, Ho, Wo, Co); phase (N, 2Ho, 2Wo, Co)
+  int* ws;             // split K: (tiles, BM, BN) s32 sums, then a counter
+                       // per tile, zeroed; null when K is not split
+  int m;               // output positions per phase: N * Ho * Wo < 2^31
   int n, hp, wp, cp;
   int ho, wo;          // output grid per phase
   int co;
-  int phase_form;      // 0: 4x4 stride 2; 1: 2x2 stride 1, 4 phases
+  int phase_form;      // 0: 4x4 stride 2; 1: 2x2 stride 1, 4 phases;
+                       // 2: the 4 phases at once over 3x3 taps
   int out_dtype;       // 0 f32, 1 bf16, 2 s32
+  int kt;              // taps per side: 4, 2 or 3
+  int stride;          // 2 (encoder) or 1
+  int kq;              // 16-byte K chunks: kt * kt * Cp / 16
+  int k_tiles;         // 128-byte K tiles: ceil(kq / 8)
+  int mt, nt, phases;  // tiles along M, N and the phases
+  int splits, k_per_split;
+  int stages;          // ring depth
+  // A by TMA (Cp a multiple of 128): a tile is a box of tw x th output
+  // positions of nb images, tiles_w x tiles_h x tiles_n of them
+  int tma_a, tw, th, nb, tiles_w, tiles_h;
 };
 
-constexpr int BM = 128, BK = 64, STAGES = 3, NT = 128;
-constexpr int LD = BK + 16;            // padded shared row (bytes)
-constexpr int CPR = BK / 16;           // 16-byte chunks per row
-constexpr int A_RSTEP = NT / CPR;      // rows between one thread's A chunks
-constexpr int A_CHUNKS = BM / A_RSTEP;
-static_assert(BM % A_RSTEP == 0, "tile split");
+constexpr int BM = 128;   // output rows a tile: two m64 halves
+constexpr int BK = 128;   // bytes of K a stage: one 128-byte swizzle row
+constexpr int A_BYTES = BM * BK;
+constexpr int NT = 384;   // 2 consumer warpgroups, then 1 producer
+constexpr int FULL_ARRIVALS = 4 + 1;    // producer warps + expect_tx
+constexpr int EMPTY_ARRIVALS = 8;       // consumer warps
+constexpr int SMEM_SM = 233472;         // shared memory an SM has
+constexpr int SMEM_BLOCK = 1024;        // of it reserved for each block
+constexpr int LAG = 2;  // stages a producer thread keeps in flight before
+                        // it announces the oldest (more measured slower)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -218,198 +296,895 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+// generic-proxy writes (cp.async) made visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase with this parity has completed; a wait of
+// more than ~2^34 cycles (seconds) traps, so a fault ends the launch with
+// an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a (BK x rows) box of the weight's tensor map into shared memory; its
+// bytes complete the barrier's transaction count
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int k, int row) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
+      : "memory");
 }
 
-// c += a * b: one 16x8x32 tile, s8 operands, s32 accumulators
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+// a (128 bytes x tw x th x nb) box of x's 4-D map (Cp, Wp, Hp, N)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c, int x, int y,
+                                            int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y),
+      "r"(b)
+      : "memory");
 }
 
-template <int BN, int WARPS_M>
-__global__ void __launch_bounds__(NT) int8_conv_kernel(ConvParams p) {
-  constexpr int WARPS_N = 4 / WARPS_M;
-  constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  constexpr int MI = WM / 16, NI = WN / 8;
-  static_assert(NI % 2 == 0, "B fragments load two n-tiles at a time");
-  __shared__ __align__(16) int8_t As[STAGES][BM][LD];
-  __shared__ __align__(16) int8_t Bs[STAGES][BN][LD];
+// a (128 bytes x tw x 1 x th x nb) box of x's 5-D map (2 Cp, Wp / 2, 2,
+// Hp / 2, N): pixel pairs and row pairs, for the stride-2 encoder
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c, int x,
+                                            int py, int y, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x),
+      "r"(py), "r"(y), "r"(b)
+      : "memory");
+}
 
-  const int phase = blockIdx.z, pr = phase >> 1, pc = phase & 1;
-  const bool ph = p.phase_form != 0;
-  const int kt = ph ? 2 : 4, stride = ph ? 1 : 2;
-  const int64_t M = static_cast<int64_t>(p.n) * p.ho * p.wo;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int row0 = ph ? phase * p.co : 0;  // this phase's weight rows
-  const int64_t krow = static_cast<int64_t>(kt) * kt * p.cp;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+// the wgmma descriptor of a K-major tile with the 128-byte swizzle: rows
+// of 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
 
-  // this thread's A chunks: column a_c of rows a_r + r * A_RSTEP; each
-  // row's byte offset of its window's top-left input pixel (-1 past M)
-  const int a_c = tid % CPR, a_r = tid / CPR;
-  int64_t abase[A_CHUNKS];
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins the accumulators' registers at this point of the program, so the
+// compiler moves no read or write of them across an asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
-  for (int r = 0; r < A_CHUNKS; ++r) {
-    const int64_t m = m0 + a_r + r * A_RSTEP;
-    abase[r] = -1;
-    if (m < M) {
-      const int64_t t = m / p.wo;
-      const int ow = static_cast<int>(m - t * p.wo);
-      const int oh = static_cast<int>(t % p.ho);
-      const int64_t b = t / p.ho;
-      const int iy = oh * stride + (ph ? pr : 0);
-      const int ix = ow * stride + (ph ? pc : 0);
-      abase[r] = ((b * p.hp + iy) * p.wp + ix) * p.cp;
-    }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// the 256 consumer threads only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// the 128 threads of consumer warpgroup wg (barriers 2 and 3)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// d (+)= A (64 x 32 bytes) * B (N x 32 bytes)^T, s8 x s8 -> s32; acc 0
+// ignores d. Thread t of the warpgroup holds d[4j + e] at row 16 (t / 32)
+// + (t % 32) / 4 + 8 (e / 2), column 8j + 2 (t % 4) + e % 2.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(int (&d)[4], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(da), "l"(db), "r"(acc));
   }
+};
 
-  const int nk = (p.cp + BK - 1) / BK;  // K tiles per tap
-  const int n_tiles = kt * kt * nk;
-
-  // K tile t (tap, 64-channel slice) into ring stage s
-  auto load_tile = [&](int t, int s) {
-    const int tap = t / nk;
-    const int c0 = (t - tap * nk) * BK;
-    const int dy = tap / kt, dx = tap - dy * kt;
-    const int64_t toff = (static_cast<int64_t>(dy) * p.wp + dx) * p.cp;
-    const int c = c0 + a_c * 16;
-#pragma unroll
-    for (int r = 0; r < A_CHUNKS; ++r) {
-      const bool ok = abase[r] >= 0 && c < p.cp;
-      const int8_t* src = ok ? p.x + abase[r] + toff + c : p.x;
-      cp_async16(smem_addr(&As[s][a_r + r * A_RSTEP][a_c * 16]), src, ok);
-    }
-#pragma unroll
-    for (int idx = tid; idx < BN * CPR; idx += NT) {
-      const int nn = idx / CPR, kc = idx % CPR;
-      const int n = n0 + nn, cc = c0 + kc * 16;
-      const bool ok = n < p.co && cc < p.cp;
-      const int8_t* src =
-          ok ? p.wk + static_cast<int64_t>(row0 + n) * krow +
-                   static_cast<int64_t>(tap) * p.cp + cc
-             : p.wk;
-      cp_async16(smem_addr(&Bs[s][nn][kc * 16]), src, ok);
-    }
-  };
-
-  int acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) load_tile(s, s);
-    cp_async_commit();
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(acc));
   }
+};
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % STAGES;
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
-    // tile t is whole for every warp, and every warp is done with tile
-    // t - 1, whose stage the next load refills
-    __syncthreads();
-    if (t + STAGES - 1 < n_tiles)
-      load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    cp_async_commit();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        ldmatrix_x4(a[i], smem_addr(&As[s][wm * WM + i * 16 + (lane & 15)]
-                                        [kk + (lane >> 4) * 16]));
-#pragma unroll
-      for (int j = 0; j < NI; j += 2) {
-        // matrices: (tile j, bytes 0-15), (j, 16-31), (j+1, 0-15), (j+1,
-        // 16-31); lane l gives row l & 7 of matrix l >> 3
-        uint32_t r[4];
-        const int q = lane >> 3;
-        ldmatrix_x4(r, smem_addr(&Bs[s][wn * WN + (j + (q >> 1)) * 8 +
-                                        (lane & 7)][kk + (q & 1) * 16]));
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
   }
-  cp_async_wait<0>();
+};
 
-  // epilogue. Accumulator e of tile (i, j) sits at row lane/4 (+8 for
-  // e >= 2) and column 2*(lane%4) + e%2 of that tile.
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+// one unit of work: an output tile of one phase and one K range
+struct Unit {
+  int m0;            // gathered A: the tile's first output position
+  int b0, oh0, ow0;  // A by TMA: the box's first image, row and column
+  int n0, phase, row0, k0, k1, tile;
+};
+
+template <int BN>
+__device__ __forceinline__ Unit decode(const ConvParams& p, int u) {
+  Unit w;
+  const int ntile = u % p.nt;
+  int r = u / p.nt;
+  const int mtile = r % p.mt;
+  r /= p.mt;
+  w.phase = r % p.phases;
+  const int split = r / p.phases;
+  w.m0 = mtile * BM;
+  const int wt = mtile % p.tiles_w, ht = (mtile / p.tiles_w) % p.tiles_h;
+  w.ow0 = wt * p.tw;
+  w.oh0 = ht * p.th;
+  w.b0 = mtile / (p.tiles_w * p.tiles_h) * p.nb;
+  w.n0 = ntile * BN;
+  w.row0 = p.phases == 4 ? w.phase * p.co : 0;
+  w.k0 = split * p.k_per_split;
+  w.k1 = min(w.k0 + p.k_per_split, p.k_tiles);
+  w.tile = (w.phase * p.mt + mtile) * p.nt + ntile;
+  return w;
+}
+
+// byte offset of output position m's window corner in x (its phase's);
+// M < 2^31 (the host checks), so the divisions are 32-bit
+__device__ __forceinline__ int64_t row_base(const ConvParams& p, int m,
+                                            int phase) {
+  const int t = m / p.wo;
+  const int ow = m - t * p.wo;
+  const int oh = t % p.ho;
+  const int b = t / p.ho;
+  const bool per_phase = p.phases == 4;
+  const int iy = oh * p.stride + (per_phase ? phase >> 1 : 0);
+  const int ix = ow * p.stride + (per_phase ? phase & 1 : 0);
+  return ((static_cast<int64_t>(b) * p.hp + iy) * p.wp + ix) * p.cp;
+}
+
+// the output position of the tile's row r, or -1 where the row holds none
+__device__ __forceinline__ int row_m(const ConvParams& p, const Unit& w,
+                                     int r) {
+  if (!p.tma_a) {
+    const int m = w.m0 + r;
+    return m < p.m ? m : -1;
+  }
+  if (r >= p.tw * p.th * p.nb) return -1;
+  const int ow = w.ow0 + r % p.tw;
+  const int oh = w.oh0 + (r / p.tw) % p.th;
+  const int b = w.b0 + r / (p.tw * p.th);
+  if (ow >= p.wo || oh >= p.ho || b >= p.n) return -1;
+  return (b * p.ho + oh) * p.wo + ow;
+}
+
+// the output element offset of row m's channel 0: its pixel, or for the
+// all-phase form its base position's phase-0 pixel; -1 for no row
+__device__ __forceinline__ int64_t out_row(const ConvParams& p, const Unit& w,
+                                           int m) {
+  if (m < 0) return -1;
+  if (p.phase_form == 0) return static_cast<int64_t>(m) * p.co;
+  const int t = m / p.wo;
+  const int j2 = m - t * p.wo, i2 = t % p.ho, b = t / p.ho;
+  const int64_t wide = 2 * static_cast<int64_t>(p.wo);
+  int64_t pix = (static_cast<int64_t>(b) * 2 * p.ho + 2 * i2) * wide + 2 * j2;
+  if (p.phases == 4) pix += (w.phase >> 1) * wide + (w.phase & 1);
+  return pix * p.co;
+}
+
+// a column of the tile: its element offset from its row's, its scale and
+// bias (ofs -1 past the columns). All-phase columns are phase * Co + n.
+struct Col {
+  int ofs;
+  float scale, bias;
+};
+
+__device__ __forceinline__ Col out_col(const ConvParams& p, const Unit& w,
+                                       int col) {
+  Col k{-1, 0.f, 0.f};
+  int n = col, row = w.row0 + col;
+  if (p.phase_form == 2) {
+    if (col >= 4 * p.co) return k;
+    const int ph = col / p.co;
+    n = col - ph * p.co;
+    row = col;
+    k.ofs = ((ph >> 1) * 2 * p.wo + (ph & 1)) * p.co + n;
+  } else {
+    if (col >= p.co) return k;
+    k.ofs = col;
+  }
+  if (p.scale != nullptr) k.scale = p.scale[row];
+  if (p.bias != nullptr) k.bias = p.bias[n];
+  return k;
+}
+
+// (float)a * scale (+ bias), each rounded: the plain version's order
+__device__ __forceinline__ float dequant(const ConvParams& p, int a,
+                                         const Col& k) {
+  const float v = __fmul_rn(__int2float_rn(a), k.scale);
+  return p.bias != nullptr ? __fadd_rn(v, k.bias) : v;
+}
+
+__device__ __forceinline__ void store_one(const ConvParams& p, int64_t idx,
+                                          int a, const Col& k) {
+  if (p.out_dtype == 2)
+    static_cast<int*>(p.out)[idx] = a;
+  else if (p.out_dtype == 0)
+    static_cast<float*>(p.out)[idx] = dequant(p, a, k);
+  else
+    static_cast<__nv_bfloat16*>(p.out)[idx] =
+        __float2bfloat16_rn(dequant(p, a, k));
+}
+
+// 4 staged sums of a row at element offset base: one 16- or 8-byte store
+// where the 4 columns are consecutive channels (vec), else one by one
+__device__ __forceinline__ void store4(const ConvParams& p, int64_t base,
+                                       const Col (&k)[4], const int4& a,
+                                       bool vec) {
+  const int v[4] = {a.x, a.y, a.z, a.w};
+  if (!vec) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t m = m0 + wm * WM + i * 16 + (lane >> 2) + 8 * half;
-      if (m >= M) continue;
-      int64_t opix = m;  // encoder: outputs enumerate (b, oh, ow) as M does
-      if (ph) {
-        const int64_t t = m / p.wo;
-        const int j2 = static_cast<int>(m - t * p.wo);
-        const int i2 = static_cast<int>(t % p.ho);
-        const int64_t b = t / p.ho;
-        opix = (b * 2 * p.ho + 2 * i2 + pr) * (2 * static_cast<int64_t>(p.wo)) +
-               2 * j2 + pc;
-      }
-      const int64_t off = opix * p.co;
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn * WN + j * 8 + 2 * (lane & 3) + e;
-          if (n >= p.co) continue;
-          const int a = acc[i][j][2 * half + e];
-          if (p.out_dtype == 2) {
-            static_cast<int*>(p.out)[off + n] = a;
-            continue;
-          }
-          float v = __fmul_rn(__int2float_rn(a), p.scale[row0 + n]);
-          if (p.bias != nullptr) v = __fadd_rn(v, p.bias[n]);
-          if (p.out_dtype == 0)
-            static_cast<float*>(p.out)[off + n] = v;
-          else
-            static_cast<__nv_bfloat16*>(p.out)[off + n] =
-                __float2bfloat16_rn(v);
+    for (int i = 0; i < 4; ++i)
+      if (k[i].ofs >= 0) store_one(p, base + k[i].ofs, v[i], k[i]);
+    return;
+  }
+  const int64_t idx = base + k[0].ofs;
+  if (p.out_dtype == 2) {
+    *reinterpret_cast<int4*>(static_cast<int*>(p.out) + idx) = a;
+  } else if (p.out_dtype == 0) {
+    *reinterpret_cast<float4*>(static_cast<float*>(p.out) + idx) =
+        make_float4(dequant(p, v[0], k[0]), dequant(p, v[1], k[1]),
+                    dequant(p, v[2], k[2]), dequant(p, v[3], k[3]));
+  } else {
+    const __nv_bfloat162 lo =
+        __halves2bfloat162(__float2bfloat16_rn(dequant(p, v[0], k[0])),
+                           __float2bfloat16_rn(dequant(p, v[1], k[1])));
+    const __nv_bfloat162 hi =
+        __halves2bfloat162(__float2bfloat16_rn(dequant(p, v[2], k[2])),
+                           __float2bfloat16_rn(dequant(p, v[3], k[3])));
+    uint2 u;
+    u.x = *reinterpret_cast<const uint32_t*>(&lo);
+    u.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(p.out) + idx) = u;
+  }
+}
+
+// BM x BN output tiles: consumer warpgroup wg multiplies rows 64 wg ..
+// 64 wg + 63 (one m64 half, BN / 2 accumulators a thread)
+// blocks an SM holds: 2 where the accumulators are few (BN <= 64), so one
+// block's epilogue and barrier waits overlap the other's products
+template <int BN>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return BN <= 64 ? 2 : 1;
+}
+
+// columns an epilogue pass stages (64 rows a warpgroup)
+template <int BN>
+__host__ __device__ constexpr int staged_cols() {
+  return BN < 16 ? BN : blocks_per_sm<BN>() == 2 ? 16 : 64;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(NT, blocks_per_sm<BN>())
+    int8_conv_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap xmap,
+                     const ConvParams p) {
+  constexpr int B_BYTES = BN * BK;
+  constexpr int R = BN / 2;     // accumulators a thread
+  constexpr int ROWS = BM / 16; // A rows a producer thread copies
+  // an epilogue pass stages CC columns of 64 rows a warpgroup, 16-byte
+  // groups of a row XOR-swizzled by the row (no bank conflicts)
+  constexpr int CC = staged_cols<BN>();
+  constexpr int SWZ = (CC / 4 < 8 ? CC / 4 : 8) - 1;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle's address pattern needs 1024-byte aligned tiles
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int S = p.stages;
+  const uint32_t a_st = base;
+  const uint32_t b_st = base + S * A_BYTES;
+  const uint32_t bars = b_st + S * B_BYTES;  // S full, then S empty
+  uint8_t* const bars_ptr = smem_raw + (bars - raw);
+  volatile int* last_flag = reinterpret_cast<volatile int*>(bars_ptr + 16 * S);
+  // the epilogue's staging: 64 rows x CC words per consumer warpgroup
+  int* const staged = reinterpret_cast<int*>(bars_ptr + 16 * S + 16);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, p.tma_a ? 1 : FULL_ARRIVALS);
+      mbar_init(bars + 8 * (S + s), EMPTY_ARRIVALS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int units = p.mt * p.nt * p.phases * p.splits;
+
+  if (tid >= 256 && p.tma_a) {
+    // producer, A by TMA: one thread issues each stage's A box and weight
+    // tile; their bytes complete the stage's barrier
+    if (tid != 256) return;
+    int s = 0;
+    uint32_t round = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = decode<BN>(p, u);
+      const int pr = p.phases == 4 ? w.phase >> 1 : 0;
+      const int pc = p.phases == 4 ? w.phase & 1 : 0;
+      for (int kt = w.k0; kt < w.k1; ++kt) {
+        mbar_wait(bars + 8 * (S + s), (round & 1) ^ 1);
+        const uint32_t bar = bars + 8 * s;
+        mbar_arrive_expect_tx(bar, p.tw * p.th * p.nb * BK + B_BYTES);
+        // K bytes kt * BK on: 128 channels of one tap, or (Cp 64, the
+        // encoder) taps dx and dx + 1 of one pixel pair
+        const int tap = kt * BK / p.cp, c = kt * BK - tap * p.cp;
+        const int dy = tap / p.kt, dx = tap - dy * p.kt;
+        if (p.phase_form)
+          tma_load_4d(a_st + s * A_BYTES, &xmap, bar, c, w.ow0 + pc + dx,
+                      w.oh0 + pr + dy, w.b0);
+        else
+          tma_load_5d(a_st + s * A_BYTES, &xmap, bar, c + (dx & 1) * p.cp,
+                      w.ow0 + (dx >> 1), dy & 1, w.oh0 + (dy >> 1), w.b0);
+        tma_load_2d(b_st + s * B_BYTES, &wmap, bar, kt * BK, w.row0 + w.n0);
+        if (++s == S) {
+          s = 0;
+          ++round;
         }
       }
+    }
+    return;
+  }
+
+  if (tid >= 256) {
+    // producer: thread pt copies 16-byte chunk j of rows r0 + 16 i of
+    // each A tile (a warp reads 4 rows x 128 contiguous bytes where a K
+    // tile lies in one tap); thread 0 also issues the weight tile's TMA.
+    // It announces a stage once its copies of it have landed, LAG
+    // stages behind the newest.
+    const int pt = tid - 256, j = pt & 7, r0 = pt >> 3, lane = tid & 31;
+    const uint32_t a_row = r0 * BK + ((j ^ (r0 & 7)) << 4);  // swizzled
+    const int cpc = p.cp >> 4;
+    int s = 0, issued = 0;
+    uint32_t round = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = decode<BN>(p, u);
+      int64_t rb[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int m = w.m0 + r0 + 16 * i;
+        rb[i] = m < p.m ? row_base(p, m, w.phase) : -1;
+      }
+      for (int kt = w.k0; kt < w.k1; ++kt) {
+        mbar_wait(bars + 8 * (S + s), (round & 1) ^ 1);
+        if (pt == 0) {
+          mbar_arrive_expect_tx(bars + 8 * s, B_BYTES);
+          tma_load_2d(b_st + s * B_BYTES, &wmap, bars + 8 * s, kt * BK,
+                      w.row0 + w.n0);
+        }
+        // chunk q of the flattened (tap, channel) K axis
+        const int q = kt * (BK / 16) + j;
+        const bool kok = q < p.kq;
+        int64_t koff = 0;
+        if (kok) {
+          const int tap = q / cpc;
+          const int dy = tap / p.kt, dx = tap - dy * p.kt;
+          koff = (static_cast<int64_t>(dy) * p.wp + dx) * p.cp +
+                 (q - tap * cpc) * 16;
+        }
+        const uint32_t dst = a_st + s * A_BYTES + a_row;
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          const bool ok = kok && rb[i] >= 0;
+          cp_async16(dst + i * 16 * BK, ok ? p.x + rb[i] + koff : p.x, ok);
+        }
+        cp_async_commit();
+        if (issued >= LAG) {  // the stage LAG back has landed
+          cp_async_wait<LAG>();
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bars + 8 * ((s + S - LAG) % S));
+        }
+        ++issued;
+        if (++s == S) {
+          s = 0;
+          ++round;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0)
+      for (int i = min(issued, LAG); i > 0; --i)
+        mbar_arrive(bars + 8 * ((s + S - i) % S));
+    return;
+  }
+
+  // consumers: thread holds acc[4 jb + e] = row lrow + 8 (e / 2) of its
+  // warpgroup's 64, column 8 jb + wcol + e % 2
+  const int wg = tid >> 7, lane = tid & 31, wtid = tid & 127;
+  const int lrow = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int wcol = 2 * (lane & 3);
+  int* const st = staged + wg * 64 * CC;
+  int acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0;
+  int s = 0;
+  uint32_t round = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit w = decode<BN>(p, u);
+    int prev = -1;
+    for (int kt = w.k0; kt < w.k1; ++kt) {
+      mbar_wait(bars + 8 * s, round & 1);
+      const uint32_t a = a_st + s * A_BYTES + wg * 64 * BK;
+      const uint32_t b = b_st + s * B_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk)
+        Wgmma<BN>::mma(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
+                       (kt > w.k0 || kk > 0) ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tile's products are done
+      fence_acc(acc);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bars + 8 * (S + prev));
+      }
+      prev = s;
+      if (++s == S) {
+        s = 0;
+        ++round;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (S + prev));
+
+    if (p.splits > 1) {
+      // add this split's sums; the tile's last split stores them all
+      int* part = p.ws + static_cast<int64_t>(w.tile) * BM * BN +
+                  (wg * 64 + lrow) * BN + wcol;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        atomicAdd(part + 8 * ((i >> 1) & 1) * BN + 8 * (i >> 2) + (i & 1),
+                  acc[i]);
+      __threadfence();
+      consumer_sync();
+      if (tid == 0) {
+        int* counts = p.ws + static_cast<int64_t>(p.mt) * p.nt * p.phases *
+                                 BM * BN;
+        *last_flag = atomicAdd(counts + w.tile, 1) == p.splits - 1;
+      }
+      consumer_sync();
+      if (!*last_flag) continue;
+      __threadfence();
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        acc[i] = __ldcg(part + 8 * ((i >> 1) & 1) * BN + 8 * (i >> 2) +
+                        (i & 1));
+    }
+
+    // epilogue, CC columns a pass: the warpgroup stages its 64 rows in
+    // shared memory, then each thread stores columns cg .. cg + 3 of its
+    // rows lr0 + RSTEP i at once; row offsets, scales and biases are
+    // found once (a unit, a pass), not at every store
+    constexpr int GPR = CC / 4, RSTEP = 128 / GPR, NR = 64 / RSTEP;
+    const int cg = 4 * (wtid % GPR), lr0 = wtid / GPR;
+    int64_t orow[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i)
+      orow[i] = out_row(p, w, row_m(p, w, wg * 64 + lr0 + RSTEP * i));
+    const bool vec = p.phase_form != 2 && (p.co & 3) == 0;
+#pragma unroll
+    for (int c = 0; c < BN / CC; ++c) {
+#pragma unroll
+      for (int jj = 0; jj < CC / 8; ++jj) {
+        const int jb = c * (CC / 8) + jj, col = 8 * jj + wcol;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = lrow + 8 * hr;
+          *reinterpret_cast<int2*>(st + r * CC +
+                                   (((col >> 2) ^ (r & SWZ)) << 2) +
+                                   (col & 3)) =
+              make_int2(acc[4 * jb + 2 * hr], acc[4 * jb + 2 * hr + 1]);
+        }
+      }
+      Col k[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) k[i] = out_col(p, w, w.n0 + c * CC + cg + i);
+      warpgroup_sync(wg);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int lr = lr0 + RSTEP * i;
+        if (orow[i] >= 0 && k[0].ofs >= 0)
+          store4(p, orow[i], k,
+                 *reinterpret_cast<const int4*>(
+                     st + lr * CC + (((cg >> 2) ^ (lr & SWZ)) << 2)),
+                 vec);
+      }
+      warpgroup_sync(wg);
     }
   }
 }
 
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+// the launch's shape: tile, splits of K, ring depth, workspace
+struct Plan {
+  int bm, bn, cc, taps, mt, nt, phases, k_tiles, splits, k_per_split,
+      stages, grid;
+  int tma_a, tw, th, nb, tiles_w, tiles_h;
+  int64_t ws_words;
+};
+
+Plan make_plan(int n, int cp, int ho, int wo, int co, int phase_form,
+               int sms, bool split_ok) {
+  Plan q{};
+  // N: up to 64 columns one tile as narrow as covers them (so A is
+  // gathered once; wgmma's N is 8 at the least), past that the widest
+  // tile the columns fill; the all-phase form's columns are the 4 phases'
+  // 4 Co.
+  const int cols = phase_form == 2 ? 4 * co : co;
+  q.bn = cols >= 128                   ? 128
+         : cols > 32                   ? 64
+         : cols > 16                   ? 32
+         : cols > 8                    ? 16
+                                       : 8;
+  q.bm = BM;
+  const int64_t m = static_cast<int64_t>(n) * ho * wo;
+  const int kt = phase_form == 0 ? 4 : phase_form == 1 ? 2 : 3;
+  q.taps = kt * kt;
+  // A by TMA where a K tile is 128 channels of one tap, or in the
+  // encoder's pixel pairs 64 channels of two taps: a box of tw x th
+  // output positions (x nb images where one image is smaller), the shape
+  // that fills the most of the 128 rows
+  q.tma_a = cp % BK == 0 || (phase_form == 0 && cp == BK / 2);
+  if (q.tma_a) {
+    int best = 0;
+    const int first = (wo + BM - 1) / BM;
+    for (int tiles = first; tiles <= first + 4; ++tiles) {
+      const int tw = (wo + tiles - 1) / tiles, th = std::min(ho, BM / tw);
+      if (tw * th > best) {
+        best = tw * th;
+        q.tw = tw;
+        q.th = th;
+      }
+    }
+    q.nb = q.tw == wo && q.th == ho ? std::max(1, std::min(n, BM / (wo * ho)))
+                                    : 1;
+    q.tiles_w = (wo + q.tw - 1) / q.tw;
+    q.tiles_h = (ho + q.th - 1) / q.th;
+    q.mt = q.tiles_w * q.tiles_h * ((n + q.nb - 1) / q.nb);
+  } else {
+    q.tw = q.th = q.nb = q.tiles_w = q.tiles_h = 1;
+    q.mt = static_cast<int>((m + q.bm - 1) / q.bm);
+  }
+  q.nt = (cols + q.bn - 1) / q.bn;
+  q.phases = phase_form == 1 ? 4 : 1;
+  q.k_tiles = (kt * kt * cp + BK - 1) / BK;
+  const int64_t tiles = static_cast<int64_t>(q.mt) * q.nt * q.phases;
+  q.splits = 1;
+  if (split_ok && tiles < sms)  // about one unit per SM, 2+ K tiles each
+    q.splits = static_cast<int>(
+        std::max<int64_t>(1, std::min<int64_t>(sms / tiles, q.k_tiles / 2)));
+  q.k_per_split = (q.k_tiles + q.splits - 1) / q.splits;
+  q.splits = (q.k_tiles + q.k_per_split - 1) / q.k_per_split;
+  const int per_sm = q.bn <= 64 ? 2 : 1;  // blocks_per_sm<BN>()
+  q.cc = q.bn < 16 ? q.bn : per_sm == 2 ? 16 : 64;  // staged_cols<BN>()
+  const int room = SMEM_SM / per_sm - SMEM_BLOCK - 1024 - 16 * 8 - 16 -
+                   2 * 64 * q.cc * 4;
+  q.stages = std::min(8, room / ((BM + q.bn) * BK));
+  q.grid = static_cast<int>(
+      std::min<int64_t>(tiles * q.splits, static_cast<int64_t>(sms) * per_sm));
+  q.ws_words = q.splits > 1 ? tiles * q.bm * q.bn + tiles : 0;
+  return q;
+}
+
+// ring, barriers, flag, then the epilogue's staging (2 x 64 rows)
+size_t smem_bytes(const Plan& q) {
+  return 1024 + static_cast<size_t>(q.stages) * (BM + q.bn) * BK +
+         16 * q.stages + 16 + 2 * 64 * q.cc * 4;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+int status(cudaError_t e) { return static_cast<int>(e); }
+
+// the argument rules of srit_int8_conv
+bool conv_args_ok(int n, int hp, int wp, int cp, int ho, int wo, int co,
+                  int phase_form) {
+  if (cp % 16 || cp < 16 || n < 1 || ho < 1 || wo < 1 || co < 1 ||
+      phase_form < 0 || phase_form > 2 ||
+      static_cast<int64_t>(n) * ho * wo > INT32_MAX)
+    return false;
+  return phase_form ? hp == ho + 2 && wp == wo + 2
+                    : hp == 2 * ho + 2 && wp == 2 * wo + 2;
+}
+
+template <int BN>
+cudaError_t launch_tile(const CUtensorMap& map, const CUtensorMap& xmap,
+                        const ConvParams& p, const Plan& q,
+                        cudaStream_t s) {
+  const size_t smem = smem_bytes(q);
+  cudaError_t e = cudaFuncSetAttribute(
+      int8_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  int8_conv_kernel<BN><<<q.grid, NT, smem, s>>>(map, xmap, p);
+  return cudaGetLastError();
+}
+
+int conv_launch(const void* x, const void* wk, const void* scale,
+                const void* bias, void* out, int out_dtype, int n, int hp,
+                int wp, int cp, int ho, int wo, int co, int phase_form,
+                void* ws, int64_t ws_words, void* stream) {
+  const bool raw = out_dtype == 2;
+  if (!conv_args_ok(n, hp, wp, cp, ho, wo, co, phase_form) ||
+      !aligned16(x) || !aligned16(wk) || out_dtype < 0 || out_dtype > 2 ||
+      raw != (scale == nullptr) || (raw && bias != nullptr))
+    return status(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return status(e);
+  const Plan q = make_plan(n, cp, ho, wo, co, phase_form, sms, ws != nullptr);
+  if (q.splits > 1 && ws_words < q.ws_words)
+    return status(cudaErrorInvalidValue);
+  const int kt = phase_form == 0 ? 4 : phase_form == 1 ? 2 : 3;
+  const int rows = phase_form ? 4 * co : co;
+  const int ktot = kt * kt * cp;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return status(cudaErrorNotSupported);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ktot),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ktot)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK),
+                             static_cast<cuuint32_t>(q.bn)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(wk),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return status(cudaErrorInvalidValue);
+  CUtensorMap xmap = map;  // unread where A is gathered
+  if (q.tma_a) {
+    const cuuint64_t c = cp;
+    bool ok;
+    if (phase_form) {  // (Cp, Wp, Hp, N)
+      const cuuint64_t xdims[4] = {c, static_cast<cuuint64_t>(wp),
+                                   static_cast<cuuint64_t>(hp),
+                                   static_cast<cuuint64_t>(n)};
+      const cuuint64_t xstrides[3] = {c, c * wp, c * wp * hp};
+      const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(BK),
+                                  static_cast<cuuint32_t>(q.tw),
+                                  static_cast<cuuint32_t>(q.th),
+                                  static_cast<cuuint32_t>(q.nb)};
+      const cuuint32_t ones[4] = {1, 1, 1, 1};
+      ok = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4,
+                  const_cast<void*>(x), xdims, xstrides, xbox, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    } else {  // (2 Cp, Wp / 2, 2, Hp / 2, N): pixel pairs, row pairs
+      const cuuint64_t xdims[5] = {2 * c, static_cast<cuuint64_t>(wp / 2), 2,
+                                   static_cast<cuuint64_t>(hp / 2),
+                                   static_cast<cuuint64_t>(n)};
+      const cuuint64_t xstrides[4] = {2 * c, c * wp, 2 * c * wp, c * wp * hp};
+      const cuuint32_t xbox[5] = {static_cast<cuuint32_t>(BK),
+                                  static_cast<cuuint32_t>(q.tw), 1,
+                                  static_cast<cuuint32_t>(q.th),
+                                  static_cast<cuuint32_t>(q.nb)};
+      const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+      ok = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 5,
+                  const_cast<void*>(x), xdims, xstrides, xbox, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    }
+    if (!ok) return status(cudaErrorInvalidValue);
+  }
+  ConvParams p{};
+  p.x = static_cast<const int8_t*>(x);
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.ws = q.splits > 1 ? static_cast<int*>(ws) : nullptr;
+  p.m = static_cast<int>(static_cast<int64_t>(n) * ho * wo);
+  p.n = n;
+  p.hp = hp;
+  p.wp = wp;
+  p.cp = cp;
+  p.ho = ho;
+  p.wo = wo;
+  p.co = co;
+  p.phase_form = phase_form;
+  p.out_dtype = out_dtype;
+  p.kt = kt;
+  p.stride = phase_form ? 1 : 2;
+  p.kq = ktot / 16;
+  p.k_tiles = q.k_tiles;
+  p.mt = q.mt;
+  p.nt = q.nt;
+  p.phases = q.phases;
+  p.splits = q.splits;
+  p.k_per_split = q.k_per_split;
+  p.stages = q.stages;
+  p.tma_a = q.tma_a;
+  p.tw = q.tw;
+  p.th = q.th;
+  p.nb = q.nb;
+  p.tiles_w = q.tiles_w;
+  p.tiles_h = q.tiles_h;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (q.bn) {
+    case 128: return status(launch_tile<128>(map, xmap, p, q, s));
+    case 64: return status(launch_tile<64>(map, xmap, p, q, s));
+    case 32: return status(launch_tile<32>(map, xmap, p, q, s));
+    case 16: return status(launch_tile<16>(map, xmap, p, q, s));
+    default: return status(launch_tile<8>(map, xmap, p, q, s));
+  }
 }
 
 }  // namespace
@@ -456,47 +1231,56 @@ extern "C" int srit_quantize_pad(int dtype, const void* x0, const void* x1,
 // int8_conv: x (N, hp, wp, cp) int8 padded, wk (rows, kt, kt, cp) int8 with
 // kt 4 (phase_form 0: rows = co, stride 2, output (N, ho, wo, co)) or 2
 // (phase_form 1: rows = 4 * co, output (N, 2 ho, 2 wo, co) in
-// depth-to-space order); cp a multiple of 16, x and wk 16-byte aligned.
+// depth-to-space order), or kt 3 (phase_form 2: phase_form 1's conv with
+// the 4 phases' 2x2 kernels placed in one 3x3 window, row p * co + n
+// holding phase p = (pr, pc)'s taps at (pr + di, pc + dj), zero elsewhere);
+// cp a multiple of 16, x and wk 16-byte aligned.
 // scale (rows,) f32 and bias (co,) f32 or null; out_dtype 0 f32, 1 bf16,
-// 2 s32 (then scale and bias must be null). Returns the launch's
-// cudaError_t (cudaErrorInvalidValue for arguments outside these rules,
-// launching nothing). Launches on `stream`, does not synchronise.
+// 2 s32 (then scale and bias must be null). K is not split. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for arguments outside these
+// rules, launching nothing). Launches on `stream`, does not synchronise.
 extern "C" int srit_int8_conv(const void* x, const void* wk,
                               const void* scale, const void* bias, void* out,
                               int out_dtype, int n, int hp, int wp, int cp,
                               int ho, int wo, int co, int phase_form,
                               void* stream) {
-  const bool raw = out_dtype == 2;
-  if (cp % 16 || cp < 16 || !aligned16(x) || !aligned16(wk) || n < 1 ||
-      ho < 1 || wo < 1 || co < 1 || out_dtype < 0 || out_dtype > 2 ||
-      raw != (scale == nullptr) || (raw && bias != nullptr) ||
-      (phase_form != 0 && phase_form != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (phase_form ? (hp != ho + 2 || wp != wo + 2)
-                 : (hp != 2 * ho + 2 || wp != 2 * wo + 2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  ConvParams p{static_cast<const int8_t*>(x),
-               static_cast<const int8_t*>(wk),
-               static_cast<const float*>(scale),
-               static_cast<const float*>(bias),
-               out,
-               n,
-               hp,
-               wp,
-               cp,
-               ho,
-               wo,
-               co,
-               phase_form,
-               out_dtype};
-  const int64_t M = static_cast<int64_t>(n) * ho * wo;
-  const unsigned mt = static_cast<unsigned>((M + BM - 1) / BM);
-  const unsigned phases = phase_form ? 4 : 1;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (co <= 16) {
-    int8_conv_kernel<16, 4><<<dim3(mt, (co + 15) / 16, phases), NT, 0, s>>>(p);
-  } else {
-    int8_conv_kernel<64, 2><<<dim3(mt, (co + 63) / 64, phases), NT, 0, s>>>(p);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return conv_launch(x, wk, scale, bias, out, out_dtype, n, hp, wp, cp, ho,
+                     wo, co, phase_form, nullptr, 0, stream);
+}
+
+// srit_int8_conv with K split as srit_int8_conv_plan says, over ws: at
+// least the plan's ws_words int32 words on the device, zeroed (the kernel
+// leaves them dirty). One launch.
+extern "C" int srit_int8_conv_split(const void* x, const void* wk,
+                                    const void* scale, const void* bias,
+                                    void* out, int out_dtype, int n, int hp,
+                                    int wp, int cp, int ho, int wo, int co,
+                                    int phase_form, void* ws,
+                                    long long ws_words, void* stream) {
+  if (ws == nullptr) return status(cudaErrorInvalidValue);
+  return conv_launch(x, wk, scale, bias, out, out_dtype, n, hp, wp, cp, ho,
+                     wo, co, phase_form, ws, ws_words, stream);
+}
+
+// the launch srit_int8_conv_split makes for these shapes on the current
+// device: plan[0..9] = BM, BN, splits of K, ring stages, workspace int32
+// words (0 unsplit), blocks, taps, 1 where A arrives by TMA (0: gathered
+// by cp.async), the images one TMA box spans (1 for the gather), and the
+// tiles along M. cudaErrorInvalidValue for shapes outside
+// srit_int8_conv's rules.
+extern "C" int srit_int8_conv_plan(int n, int hp, int wp, int cp, int ho,
+                                   int wo, int co, int phase_form,
+                                   long long* plan) {
+  if (!conv_args_ok(n, hp, wp, cp, ho, wo, co, phase_form))
+    return status(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return status(e);
+  const Plan q = make_plan(n, cp, ho, wo, co, phase_form, sms, true);
+  const long long v[10] = {q.bm,     q.bn,   q.splits, q.stages, q.ws_words,
+                           q.grid,   q.taps, q.tma_a,  q.nb,     q.mt};
+  for (int i = 0; i < 10; ++i) plan[i] = v[i];
+  return 0;
 }

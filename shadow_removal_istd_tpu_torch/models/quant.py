@@ -43,6 +43,7 @@ from shadow_removal_istd_tpu_torch.models.layers import (
 )
 from shadow_removal_istd_tpu_torch.ops.decoder import subpixel_depth_to_space
 from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+    all_phase_weight,
     int8_conv,
     pad_weight,
     quantize_pad,
@@ -298,9 +299,16 @@ def make_stacked_int8(q1: dict, q2: dict, depth: int = 4,
                       activation: str = "tanh",
                       compute_dtype: torch.dtype = torch.bfloat16):
     """(q1, q2) -> ``fn(x) -> (matte, shadow_free)``, both f32 NCHW; the
-    weights are padded for the kernels once, here."""
-    q1, q2 = ({k: pad_weight(v) if k.endswith("_w") else v
-               for k, v in q.items()} for q in (q1, q2))
+    weights are padded for the kernels once, here, and the finals' (Co 1
+    and 3) expanded to the 3x3 window, where ``int8_conv`` takes their
+    four phases in one tile (``all_phase_weight``)."""
+    def prepare(k, v):
+        if not k.endswith("_w"):
+            return v
+        return all_phase_weight(pad_weight(v)) if k == "final_w" \
+            else pad_weight(v)
+
+    q1, q2 = ({k: prepare(k, v) for k, v in q.items()} for q in (q1, q2))
 
     def fn(x):
         m = mnet_apply_folded(None, x, depth=depth, activation=activation,

@@ -18,8 +18,11 @@ site into two hand-written kernels (``csrc/int8_conv.cu``):
   ``(rows, kh, kw, Cp)`` (:func:`pad_weight`), s32 sums, and the
   epilogue ``(float)acc * scale[row] (+ bias[co])`` cast to the output
   dtype; the phase form (2x2, Ci -> 4Co) stores in depth-to-space order
-  and computes only what depth-to-space keeps. Without a scale it
-  returns the s32 sums.
+  and computes only what depth-to-space keeps; a phase weight expanded
+  to the 3x3 window (:func:`all_phase_weight`, the finals' form: Co <= 4)
+  takes the four phases in one tile. Without a scale it returns the s32
+  sums; where the kernel splits K (:func:`conv_plan`) the launch
+  (:func:`launch`) allocates its zeroed workspace.
 
 Activations are NCHW in ``channels_last`` memory, as in the rest of the
 port. A CPU tensor takes the plain version, which is the kernels' spec; a
@@ -94,20 +97,28 @@ def int8_conv_plain(xq: torch.Tensor, wk: torch.Tensor,
     sums (|sum| < 2^31) are integers that float64 holds exactly, in any
     order. Encoder form (``phase=False``): 4x4 stride 2 -> (N, rows, Ho,
     Wo). Phase form: 2x2 stride 1 -> (N, 4Co, H+1, W+1) -> depth-to-space
-    -> (N, Co, 2H, 2W). Then ``acc.float() * scale`` (+ ``bias``) and
-    the cast to ``out_dtype``; without ``scale`` the int32 sums. NCHW in
-    ``channels_last`` memory."""
+    -> (N, Co, 2H, 2W); with an :func:`all_phase_weight` (3x3) it is 3x3
+    stride 1 -> (N, 4Co, H, W), phase p's block at its pixels. Then
+    ``acc.float() * scale`` (+ ``bias``) and the cast to ``out_dtype``;
+    without ``scale`` the int32 sums. NCHW in ``channels_last`` memory."""
     x = xq.permute(0, 3, 1, 2).double()
     k = wk.permute(0, 3, 1, 2).double()
     acc = F.conv2d(x, k, stride=1 if phase else 2).to(torch.int32)
     co = wk.shape[0] // 4 if phase else wk.shape[0]
     h, w = xq.shape[1] - 2, xq.shape[2] - 2
+
+    def to_space(y):
+        if not phase:
+            return y
+        if wk.shape[1] == 2:
+            return subpixel_depth_to_space(y, h, w, co)
+        # row (2 pr + pc) Co + c at (i, j) -> pixel (2i + pr, 2j + pc)
+        return y.view(-1, 2, 2, co, h, w).permute(0, 3, 4, 1, 5, 2).reshape(
+            -1, co, 2 * h, 2 * w)
+
     if scale is None:
-        y = subpixel_depth_to_space(acc, h, w, co) if phase else acc
-        return y.contiguous(memory_format=torch.channels_last)
-    y = acc.float() * scale.view(1, -1, 1, 1)
-    if phase:
-        y = subpixel_depth_to_space(y, h, w, co)
+        return to_space(acc).contiguous(memory_format=torch.channels_last)
+    y = to_space(acc.float() * scale.view(1, -1, 1, 1))
     if bias is not None:
         y = y + bias.view(1, -1, 1, 1)
     return y.to(out_dtype).contiguous(memory_format=torch.channels_last)
@@ -115,18 +126,135 @@ def int8_conv_plain(xq: torch.Tensor, wk: torch.Tensor,
 
 @functools.cache
 def _fns():
-    """The two C entry points (built on first use), typed once."""
+    """The C entry points (built on first use), typed once: quantize_pad,
+    then :func:`conv_entries`."""
     lib = _build.load("int8_conv")
     qp = lib.srit_quantize_pad
     qp.restype = ctypes.c_int
     qp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return (qp, *conv_entries(lib))
+
+
+def conv_entries(lib: ctypes.CDLL) -> tuple:
+    """A loaded build of ``csrc/int8_conv.cu``'s conv entries, typed:
+    ``srit_int8_conv``, ``srit_int8_conv_split`` (K split over a
+    workspace) and ``srit_int8_conv_plan`` (what :func:`launch` takes)."""
     cv = lib.srit_int8_conv
     cv.restype = ctypes.c_int
     cv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
-    return qp, cv
+    split = lib.srit_int8_conv_split
+    split.restype = ctypes.c_int
+    split.argtypes = (cv.argtypes[:-1]
+                      + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    plan = lib.srit_int8_conv_plan
+    plan.restype = ctypes.c_int
+    plan.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    return cv, split, plan
+
+
+def all_phase_weight(wk: torch.Tensor) -> torch.Tensor:
+    """A phase-form weight (4Co, 2, 2, Cp) as the same conv over the 3x3
+    window, (4Co, 3, 3, Cp): phase p = (pr, pc)'s taps at (pr + di, pc +
+    dj), zero elsewhere. :func:`int8_conv` then takes the four phases in
+    one tile (each input gathered once, not four times for 1-3 columns:
+    the finals' form); the layer that owns the weight expands it once."""
+    rows, _, _, cp = wk.shape
+    w4 = wk.reshape(4, rows // 4, 2, 2, cp)
+    w9 = wk.new_zeros((4, rows // 4, 3, 3, cp))
+    for p in range(4):
+        pr, pc = divmod(p, 2)
+        w9[p, :, pr:pr + 2, pc:pc + 2] = w4[p]
+    return w9.view(rows, 3, 3, cp)
+
+
+def _geometry(xq: torch.Tensor, wk: torch.Tensor, phase: bool):
+    """(n, hp, wp, cp, ho, wo, co) of a checked call: the output grid per
+    phase and the output channels."""
+    n, hp, wp, cp = xq.shape
+    co = wk.shape[0] // 4 if phase else wk.shape[0]
+    ho, wo = (hp - 2, wp - 2) if phase else ((hp - 2) // 2, (wp - 2) // 2)
+    return n, hp, wp, cp, ho, wo, co
+
+
+def _form(phase: bool, kt: int) -> int:
+    """The kernel's form: 0 encoder (4x4), 1 phase (2x2, a tile per
+    phase), 2 all four phases in one tile over the 3x3 window."""
+    return 0 if not phase else 1 if kt == 2 else 2
+
+
+def conv_plan(xq: torch.Tensor, wk: torch.Tensor, *, phase: bool) -> dict:
+    """The launch the kernel makes for these operands on their card:
+    ``bm`` x ``bn`` output tiles, ``splits`` of K (over taps), ``stages``
+    of its ring, ``ws_words`` int32 words of split-K workspace (0 when K
+    is not split), ``blocks``, ``taps`` (16, 4, or 9 for the all-phase
+    form), ``a_tma`` (1 where the activation tiles arrive by TMA, 0
+    where they are gathered by ``cp.async``), ``images`` (the images a
+    TMA box spans: 1, or more where one image is smaller than a tile)
+    and ``m_tiles`` (output tiles along M). Needs the built library (a
+    card)."""
+    *_, plan = _fns()
+    return _plan(plan, _geometry(xq, wk, phase), _form(phase, wk.shape[1]),
+                 xq.device.index)
+
+
+_PLAN_KEYS = ("bm", "bn", "splits", "stages", "ws_words", "blocks", "taps",
+              "a_tma", "images", "m_tiles")
+_PLAN_FN = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_int] * 8,
+                            ctypes.POINTER(ctypes.c_longlong))
+
+
+def _plan(plan, geo: tuple, form: int, index: int) -> dict:
+    """:func:`conv_plan` for one shape on card ``index`` from the C entry
+    ``plan``, asked once a shape (ctypes functions do not hash: the
+    cache is keyed by the entry's address)."""
+    return dict(_plan_at(ctypes.cast(plan, ctypes.c_void_p).value, geo,
+                         form, index))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_at(addr: int, geo: tuple, form: int, index: int) -> tuple:
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    with torch.cuda.device(index):
+        rc = _PLAN_FN(addr)(*geo, form, out)
+    if rc != 0:
+        raise ValueError(f"int8_conv takes no such shapes (cudaError {rc})")
+    return tuple(zip(_PLAN_KEYS, out))
+
+
+def launch(entries, xq, wk, scale, bias, phase: bool,
+           out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of the kernel through ``entries`` = (``srit_int8_conv``,
+    ``srit_int8_conv_split``, ``srit_int8_conv_plan``) of a build of
+    ``csrc/int8_conv.cu`` (:func:`_fns`'s, or another build's with the
+    same C ABI) on checked, contiguous operands on ``xq``'s card: the
+    output, and where the plan splits K a zeroed int32 workspace, are
+    allocated here. Counts nothing."""
+    conv, split, plan = entries
+    dev = xq.device
+    geo = _geometry(xq, wk, phase)
+    n, hp, wp, cp, ho, wo, co = geo
+    oh, ow = (2 * ho, 2 * wo) if phase else (ho, wo)
+    out = torch.empty((n, co, oh, ow), dtype=out_dtype, device=dev,
+                      memory_format=torch.channels_last)
+    form = _form(phase, wk.shape[1])
+    words = _plan(plan, geo, form, dev.index)["ws_words"]
+    with torch.cuda.device(dev):
+        args = (xq.data_ptr(), wk.data_ptr(),
+                scale.data_ptr() if scale is not None else None,
+                bias.data_ptr() if bias is not None else None,
+                out.data_ptr(), _OUT_DTYPES[out_dtype], *geo, form)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if words:
+            ws = torch.zeros(words, dtype=torch.int32, device=dev)
+            rc = split(*args, ws.data_ptr(), words, stream)
+        else:
+            rc = conv(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed (cudaError {rc})")
+    return out
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +304,7 @@ def quantize_pad(parts: Sequence[torch.Tensor], sx: torch.Tensor, *,
     cp = channels_padded(c0 + c1)
     out = torch.empty((n, h + 2, w + 2, cp), dtype=torch.int8,
                       device=x0.device)
-    qp, _ = _fns()
+    qp, *_ = _fns()
     with torch.cuda.device(x0.device):
         rc = qp(_IN_DTYPES[x0.dtype], xs[0].data_ptr(),
                 xs[1].data_ptr() if c1 else None, c0, c1,
@@ -199,18 +327,20 @@ def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The conv of a :func:`quantize_pad` output ``xq`` with the int8
     weight ``wk`` (rows, kh, kw, Cp) (``kh = kw = 4`` for the encoder
-    form, 2 with ``phase``, rows = 4Co), dequantized by ``scale`` (rows,)
-    and ``bias`` (Co,) into ``out_dtype``, or the int32 sums without
+    form; with ``phase`` rows = 4Co and kh = kw = 2, or 3 for an
+    :func:`all_phase_weight`), dequantized by ``scale`` (rows,) and
+    ``bias`` (Co,) into ``out_dtype``, or the int32 sums without
     ``scale``. Returns NCHW in ``channels_last`` memory (see
     :func:`int8_conv_plain`). CUDA tensors launch the kernel."""
     if xq.dtype != torch.int8 or wk.dtype != torch.int8:
         raise TypeError("xq and wk must be int8")
-    k = 2 if phase else 4
-    if (xq.dim() != 4 or wk.dim() != 4 or wk.shape[1:3] != (k, k)
-            or wk.shape[3] != xq.shape[3] or xq.shape[3] % CHANNEL_ALIGN):
+    ks = (2, 3) if phase else (4,)
+    if (xq.dim() != 4 or wk.dim() != 4 or wk.shape[1] not in ks
+            or wk.shape[2] != wk.shape[1] or wk.shape[3] != xq.shape[3]
+            or xq.shape[3] % CHANNEL_ALIGN):
         raise ValueError(f"xq (N, Hp, Wp, Cp) with Cp a multiple of 16 and "
-                         f"wk (rows, {k}, {k}, Cp); got {tuple(xq.shape)} "
-                         f"and {tuple(wk.shape)}")
+                         f"wk (rows, k, k, Cp) with k in {ks}; got "
+                         f"{tuple(xq.shape)} and {tuple(wk.shape)}")
     rows = wk.shape[0]
     if phase and rows % 4:
         raise ValueError(f"the phase form needs 4*Co weight rows, got {rows}")
@@ -271,7 +401,8 @@ def _int8_conv_fake(xq, wk, scale, bias, phase, out_dtype):
 
 @int8_conv_op.register_kernel("cuda")
 def _int8_conv_cuda(xq, wk, scale, bias, phase, out_dtype):
-    """Launch the kernel, counted in ``int8_conv.launches``."""
+    """Launch the kernel (:func:`launch`), counted in
+    ``int8_conv.launches``."""
     dev = xq.device
     for t in (wk, scale, bias):
         if t is not None and t.device != dev:
@@ -279,23 +410,9 @@ def _int8_conv_cuda(xq, wk, scale, bias, phase, out_dtype):
     for t in (scale, bias):
         if t is not None and t.dtype != torch.float32:
             raise TypeError("scale and bias must be float32")
-    n, hp, wp, cp = xq.shape
-    co = wk.shape[0] // 4 if phase else wk.shape[0]
-    ho, wo = (hp - 2, wp - 2) if phase else ((hp - 2) // 2, (wp - 2) // 2)
-    xq, wk = xq.contiguous(), wk.contiguous()
-    scale = scale.contiguous() if scale is not None else None
-    bias = bias.contiguous() if bias is not None else None
-    oh, ow = (2 * ho, 2 * wo) if phase else (ho, wo)
-    out = torch.empty((n, co, oh, ow), dtype=out_dtype, device=dev,
-                      memory_format=torch.channels_last)
-    _, cv = _fns()
-    with torch.cuda.device(dev):
-        rc = cv(xq.data_ptr(), wk.data_ptr(),
-                scale.data_ptr() if scale is not None else None,
-                bias.data_ptr() if bias is not None else None,
-                out.data_ptr(), _OUT_DTYPES[out_dtype], n, hp, wp, cp, ho,
-                wo, co, int(phase), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed (cudaError {rc})")
+    out = launch(_fns()[1:], xq.contiguous(), wk.contiguous(),
+                 scale.contiguous() if scale is not None else None,
+                 bias.contiguous() if bias is not None else None, phase,
+                 out_dtype)
     int8_conv.launches += 1
     return out

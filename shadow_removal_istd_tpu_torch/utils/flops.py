@@ -49,7 +49,9 @@ def _int8_conv_flops(xq, wk, scale, bias, phase, out_dtype,
                      out_shape=None, **kwargs) -> int:
     n, hp, wp, _ = xq
     rows, kh, kw, cp = wk
-    positions = (hp - 1) * (wp - 1) if phase else (hp - 2) // 2 * (
+    # the phase form is stride 1 over the padded input (2x2, or 3x3 for
+    # an all-phase weight); the encoder's 4x4 stride 2
+    positions = (hp - kh + 1) * (wp - kw + 1) if phase else (hp - 2) // 2 * (
         (wp - 2) // 2)
     return 2 * n * positions * rows * kh * kw * cp
 

@@ -35,6 +35,7 @@ from shadow_removal_istd_tpu_torch.cli.main import (
     makedirs,
     prepare_run_dirs,
     select_devices,
+    select_mesh,
     snapshotargs,
     str2bool,
 )
@@ -342,7 +343,7 @@ def test_serve_task_answers_on_the_trained_generators(trained, tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--devices", "cuda,cpu"], NotImplementedError, "--devices"),
+    (["--devices", "cuda,cpu"], RuntimeError, "no CUDA device"),
     (["--devices", "tpu"], ValueError, "cuda or cpu"),
     (["--devices", "2"], RuntimeError, "no CUDA device"),
 ])
@@ -354,6 +355,33 @@ def test_unported_flags_raise(istd_root, tmp_path, extra, exc, match):
                                                     + 2:],
              *(["--devices", "cpu"] if "--devices" not in extra else []),
              *extra)
+
+
+def test_device_lists_take_their_first_entry(monkeypatch):
+    """``--devices`` lists as the JAX CLI reads them (its ``_select_mesh``
+    takes ``devices[0]``): ``cpu`` first runs on the CPU whatever
+    follows, through both CLIs' parsers."""
+    from shadow_removal_istd_tpu_torch.cli.stcgan_main import (
+        build_parser as legacy_parser,
+    )
+
+    # a host without a card: the ignored cuda entry is never resolved
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert select_devices(["cpu", "cuda"], 16) == select_devices(["cpu"],
+                                                                 16)
+    assert select_mesh(["cpu", "cuda"], 16) == select_mesh(["cpu"], 16)
+    assert select_mesh(["cpu", "cuda"], 16) == ([torch.device("cpu")],
+                                                (1, 1, 1))
+    main_args = build_parser().parse_args(["--tasks", "train", "--devices",
+                                           "cpu,cuda"])
+    legacy = legacy_parser().parse_args(["--tasks", "train", "--devices",
+                                         "cpu", "cuda"])
+    for args in (main_args, legacy):
+        assert args.devices == ["cpu", "cuda"]
+        assert select_devices(list(args.devices), args.batch_size) == [
+            torch.device("cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        select_devices(["cuda", "cpu"], 16)
 
 
 @pytest.mark.parametrize("extra,logged", [

@@ -81,14 +81,13 @@ def test_decoder_op_counts_its_plain_spec(zero_pad):
     assert got == plain == 2 * 2 * 6 * 8 * (4 * 3) * (4 * 16)
 
 
-@pytest.mark.parametrize("phase", [False, True])
-def test_int8_conv_op_counts_its_plain_spec(phase):
-    k = 2 if phase else 4
+@pytest.mark.parametrize("phase,k", [(False, 4), (True, 2), (True, 3)])
+def test_int8_conv_op_counts_its_plain_spec(phase, k):
     xq = torch.zeros(2, 10, 12, 16, dtype=torch.int8)
     wk = torch.zeros(8, k, k, 16, dtype=torch.int8)
     got = flops.count_flops(int8_conv, xq, wk, phase=phase)
     plain = flops.count_flops(int8_conv_plain, xq, wk, phase=phase)
-    positions = 9 * 11 if phase else 4 * 5
+    positions = {4: 4 * 5, 2: 9 * 11, 3: 8 * 10}[k]
     assert got == plain == 2 * 2 * positions * 8 * k * k * 16
 
 

@@ -8,9 +8,17 @@ that are no multiple of the 128-row tile, thin inputs (Ci 3, padded to 16
 channels), channel counts that are no multiple of the 64-byte K tile,
 narrow outputs (Co 1 and 3 in the phase form: 4*Co = 4 and 12) and odd
 ones, unequal two-part inputs with one part below 16 channels, odd H and
-W, both pads and both compute dtypes. Everything is integer or one
-rounding per step, so every comparison is exact: the int8 tensors, the
-s32 sums and the dequantized outputs bit for bit.
+W, both pads and both compute dtypes; and each path of the kernel's
+plan (``conv_plan``): the stems' (tap, channel) K walk at Cp 16, K split
+over taps at the deep sites, ragged Cp (48, 80) that the weight's zero
+fill makes exact, tiles that cross images (a TMA box of 2 images, a
+gathered tile), Co 512 on four N tiles, the finals' form (a weight
+expanded by ``all_phase_weight``: all four phases in one tile over the 3x3
+window; the narrow 2x2 cases above take a tile per phase), and the
+activation tiles by TMA boxes (``a_tma``) or by the ``cp.async`` gather.
+Everything is integer or one rounding per step, so every comparison is
+exact: the int8 tensors, the s32 sums and the dequantized outputs bit for
+bit.
 
 Marked ``cuda``; skips without a card. On a machine with one (the tests'
 conftest imports JAX, which that machine need not have)::
@@ -21,7 +29,9 @@ import pytest
 import torch
 
 from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+    all_phase_weight,
     channels_padded,
+    conv_plan,
     int8_conv,
     int8_conv_plain,
     pad_weight,
@@ -91,13 +101,22 @@ def _conv_inputs(n, h, w, ci, rows, k, gen, dev):
 ])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_int8_conv_matches_plain(cuda, phase, n, h, w, ci, co, out_dtype):
+    _check_conv(cuda, phase, n, h, w, ci, co, out_dtype)
+
+
+def _check_conv(dev, phase, n, h, w, ci, co, out_dtype, all_phase=False):
+    """The kernel against the plain version in s32, with a bias and
+    without, bit for bit (the phase weight expanded by
+    ``all_phase_weight`` with ``all_phase``); returns the plan it ran."""
     gen = torch.Generator().manual_seed(ci * 7 + co)
     if not phase:
         h, w = 2 * h, 2 * w        # the encoder form halves an even input
     rows = 4 * co if phase else co
     xq, wk, scale = _conv_inputs(n, h, w, ci, rows, 2 if phase else 4, gen,
-                                 cuda)
-    bias = (torch.randn(co, generator=gen) * 0.1).to(cuda)
+                                 dev)
+    if all_phase:
+        wk = all_phase_weight(wk)
+    bias = (torch.randn(co, generator=gen) * 0.1).to(dev)
     before = int8_conv.launches
     acc = int8_conv(xq, wk, phase=phase)
     got = int8_conv(xq, wk, scale, bias, phase=phase, out_dtype=out_dtype)
@@ -113,6 +132,56 @@ def test_int8_conv_matches_plain(cuda, phase, n, h, w, ci, co, out_dtype):
     nobias = int8_conv(xq, wk, scale, phase=phase, out_dtype=out_dtype)
     assert torch.equal(nobias, int8_conv_plain(xq, wk, scale, phase=phase,
                                                out_dtype=out_dtype))
+    return conv_plan(xq, wk, phase=phase)
+
+
+# each path of the plan, with what the plan must take for it
+@pytest.mark.parametrize("phase,n,h,w,ci,co,path", [
+    (False, 2, 128, 128, 3, 64, "stem"),     # G1's stem at 256x256
+    (False, 1, 32, 32, 4, 64, "stem"),       # G2's stem, 64x64
+    (False, 8, 16, 16, 512, 512, "split"),   # down3: M 2048, K 8192
+    (True, 2, 8, 8, 512, 512, "split"),      # up0's form at Ci 512, 8x8
+    (False, 2, 9, 7, 45, 40, "ragged"),      # Cp 48, Co 40 on a 64 tile
+    (True, 2, 6, 10, 48, 32, "ragged"),      # Cp 48, phase: K 192
+    (True, 1, 9, 11, 70, 24, "ragged"),      # Cp 80, phase: K 320
+    (True, 4, 8, 8, 256, 128, "cross"),      # a TMA box of 2 images
+    (False, 4, 8, 8, 128, 64, "cross"),
+    (True, 4, 8, 8, 80, 32, "cross"),        # a gathered tile: 2 images
+    (False, 9, 32, 32, 64, 512, "co512"),    # 4 N tiles of 128, unsplit
+    (False, 2, 20, 12, 64, 128, "tma"),      # down0's Cp 64: pixel pairs
+    (True, 2, 15, 20, 512, 512, "tma"),      # 480x640's up0 grid
+    (True, 2, 64, 64, 128, 1, "final"),      # G1's final, 4 phases at once
+    (True, 1, 64, 48, 128, 3, "final"),      # G2's: 12 columns
+    (True, 3, 5, 7, 16, 4, "final"),         # Cp 16: K 144, ragged
+    (True, 2, 8, 8, 64, 8, "all_phase"),     # the form past the finals:
+    (True, 1, 6, 10, 64, 40, "all_phase"),   # 32, and 160 on 2 N tiles
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_paths_match_plain(cuda, phase, n, h, w, ci, co, path,
+                                     out_dtype):
+    plan = _check_conv(cuda, phase, n, h, w, ci, co, out_dtype,
+                       all_phase=path in ("final", "all_phase"))
+    assert plan["bm"] == 128
+    if path == "stem":
+        assert channels_padded(ci) == 16 and plan["splits"] == 1
+        assert plan["a_tma"] == 0     # taps share a K tile: gathered
+    elif path == "split":
+        assert plan["splits"] > 1 and plan["ws_words"] > 0
+    elif path == "co512":
+        assert plan["bn"] == 128 and plan["splits"] == 1
+    elif path == "cross":        # a tile holds rows of two images
+        if plan["a_tma"]:
+            assert plan["images"] > 1
+        else:
+            assert plan["m_tiles"] < n
+    elif path == "ragged":
+        assert plan["a_tma"] == 0
+    elif path == "tma":
+        assert plan["a_tma"] == 1
+    elif path == "final":
+        assert plan["taps"] == 9 and plan["bn"] == (8 if co <= 2 else 16)
+    elif path == "all_phase":
+        assert plan["taps"] == 9
 
 
 def test_wrappers_refuse_bad_operands(cuda):
@@ -120,6 +189,8 @@ def test_wrappers_refuse_bad_operands(cuda):
     wk = torch.zeros(8, 4, 4, 16, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):        # a 2x2 weight for the s2 form
         int8_conv(xq, wk[:, :2, :2], phase=False)
+    with pytest.raises(ValueError):        # a 4x4 weight for the phase form
+        int8_conv(xq, wk[:, :4, :4], phase=True)
     with pytest.raises(ValueError):        # channels differ
         int8_conv(xq, wk[..., :8].contiguous(), phase=False)
     with pytest.raises(ValueError):        # sx on the host

@@ -33,7 +33,9 @@ from shadow_removal_istd_tpu.serving import (
 from shadow_removal_istd_tpu_torch.models import get_generator
 from shadow_removal_istd_tpu_torch.models import quant as tq
 from shadow_removal_istd_tpu_torch.ops.int8_conv import (
+    all_phase_weight,
     channels_padded,
+    int8_conv,
     int8_conv_plain,
     pad_weight,
     quantize_pad_plain,
@@ -217,6 +219,44 @@ def test_plain_int8_conv_equals_lax_conv(phase, ci, co):
     got = int8_conv_plain(xq, wk, torch.from_numpy(s), torch.from_numpy(b),
                           phase=phase)
     np.testing.assert_array_equal(_nhwc(got), np.asarray(deq))
+
+
+@pytest.mark.parametrize("co", [1, 3])
+def test_all_phase_weight_is_the_phase_conv(co):
+    """The finals' kernel form (all four phases over the 3x3 window):
+    a 3x3 stride-1 conv of the padded input with ``all_phase_weight``
+    gives, in its column block p, JAX's 2x2 phase conv of phase p exactly,
+    and ``int8_conv_plain`` takes the expanded weight to the 2x2 weight's
+    result, in s32 sums and dequantized, bit for bit."""
+    rng = np.random.default_rng(co)
+    h, w, ci = 7, 9, 16
+    xp = rng.integers(-127, 128, (2, h + 2, w + 2, ci), dtype=np.int8)
+    w_hwio = rng.integers(-127, 128, (2, 2, ci, 4 * co), dtype=np.int8)
+    want = jax_depth_to_space(jax.lax.conv_general_dilated(
+        xp, w_hwio, (1, 1), "VALID", dimension_numbers=(
+            "NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32),
+        h, w, co)
+    wk = torch.from_numpy(w_hwio.transpose(3, 0, 1, 2).copy())
+    w9 = all_phase_weight(wk)
+    assert w9.shape == (4 * co, 3, 3, ci) and w9.is_contiguous()
+    got = jax.lax.conv_general_dilated(
+        xp, w9.permute(1, 2, 3, 0).numpy(), (1, 1), "VALID",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
+    for p in range(4):
+        np.testing.assert_array_equal(
+            np.asarray(got)[..., p * co:(p + 1) * co],
+            np.asarray(want)[:, p // 2::2, p % 2::2])
+    xq = torch.from_numpy(xp)
+    acc = int8_conv_plain(xq, w9, phase=True)
+    np.testing.assert_array_equal(acc.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(want))
+    s = torch.from_numpy((rng.random(4 * co) * 1e-3).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(co).astype(np.float32))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(
+            int8_conv(xq, w9, s, b, phase=True, out_dtype=out_dtype),
+            int8_conv_plain(xq, wk, s, b, phase=True, out_dtype=out_dtype))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
