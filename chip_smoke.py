@@ -306,6 +306,12 @@ earlier commit's ``csrc/decoder_upsample.cu``, unpacked by ``git
 archive`` into a git-ignored directory) with its C entry renamed, and
 times it beside the checkout's at the f32 wide steps of validation and
 serving, with cuDNN f32 and the bound (``[compare]`` lines).
+``python3 chip_smoke.py --compare-narrow NAME=PATH [NAME=PATH ...]``
+does the same for sources of ``csrc/decoder_upsample_narrow.cu``, at the
+narrow shapes of bf16 serving (256x256 b32), the 480x640 b4 burst, f32
+validation (480x640 b16, zero pad) and f32 serving, Co 1 and Co 3 apart,
+with cuDNN, the bound and the f32 FMA ceiling (``[compare-narrow]``
+lines).
 ``python3 chip_smoke.py --compare-hshear NAME=PATH [NAME=PATH ...]``
 does the same for sources of ``csrc/hshear.cu``: each runs the three
 passes of one augmentation (in the path's layouts where its C entry
@@ -564,6 +570,19 @@ def cuda_core_only(parts, w4, scale4=None, bias4=None, *, leaky,
 
     return _launch(tuple(parts), w4, scale4, bias4, w4.shape[-1] // 4,
                    leaky, zero_pad, "cuda_core")[0]
+
+
+def kernel_only(parts, w4, scale4=None, bias4=None, *, leaky,
+                zero_pad=False):
+    """``decoder_upsample``'s kernel, the one :func:`decoder_variant`
+    picks, launched through the wrapper's ``_launch`` without the op's
+    dispatch (timing only; not counted): the op's ~80 us of host work a
+    call is longer than the narrow kernel, so timing through it would
+    read the host."""
+    from shadow_removal_istd_tpu_torch.ops.decoder import _launch
+
+    return _launch(tuple(parts), w4, scale4, bias4, w4.shape[-1] // 4,
+                   leaky, zero_pad)[0]
 
 
 def decoder_f64(parts, w4, s4, b4, *, leaky, zero_pad=False):
@@ -834,6 +853,7 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
                for k in ("ms", "cuda_core_ms", "plain_ms", "library_ms",
                          "bound_ms", "fma_ms")}
         tot.update(ops_ms=0.0, bytes_ms=0.0)
+        by_co: dict[int, dict] = {}     # the final steps, Co 1 and 3 apart
         for label, sh, sw, parts, co, final in decoder_steps(h, w):
             xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final, dt,
                                          gen)
@@ -855,7 +875,7 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
             if not ok:
                 raise SystemExit(f"kernel disagrees or wrong variant at "
                                  f"{h}x{w} b{n} {label}")
-            ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw))
+            ms = time_ms(lambda: kernel_only(xs, w4, s4, b4, **kw))
             ms_cc = (ms if variant == "cuda_core" else
                      time_ms(lambda: cuda_core_only(xs, w4, s4, b4, **kw)))
             plain = time_ms(
@@ -884,6 +904,8 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
                            ("bound_ms", bound), ("fma_ms", fma)):
                 tot[key] += reps * v
                 tot[group + key] += reps * v
+                if final:
+                    by_co.setdefault(co, {})[key] = v
             tot["ops_ms"] += reps * t_ops
             tot["bytes_ms"] += reps * t_bytes
         print(f"[time] {h}x{w} b{n} per stacked forward (10 launches): "
@@ -896,13 +918,19 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
               f"{tot['wide_cuda_core_ms']:.4f}, cudnn conv "
               f"{tot['wide_library_ms']:.4f}, bound "
               f"{tot['wide_bound_ms']:.4f}")
+        def co_split(key):
+            return " (" + ", ".join(f"Co {co} {v[key]:.4f}"
+                                    for co, v in sorted(by_co.items())) + ")"
+
         print(f"[time] {h}x{w} b{n} final steps (2 launches): narrow "
-              f"{tot['final_ms']:.4f} ms, cuda_core "
-              f"{tot['final_cuda_core_ms']:.4f}, plain "
-              f"{tot['final_plain_ms']:.4f}, cudnn conv "
-              f"{tot['final_library_ms']:.4f}, bound "
-              f"{tot['final_bound_ms']:.4f}, f32 FMA ceiling "
-              f"{tot['final_fma_ms']:.4f}")
+              f"{tot['final_ms']:.4f} ms{co_split('ms')}, cuda_core "
+              f"{tot['final_cuda_core_ms']:.4f}{co_split('cuda_core_ms')}, "
+              f"plain {tot['final_plain_ms']:.4f}{co_split('plain_ms')}, "
+              f"cudnn conv {tot['final_library_ms']:.4f}"
+              f"{co_split('library_ms')}, bound "
+              f"{tot['final_bound_ms']:.4f}{co_split('bound_ms')}, f32 FMA "
+              f"ceiling {tot['final_fma_ms']:.4f}{co_split('fma_ms')}")
+        tot["by_co"] = by_co
         totals[(h, w)] = tot
 
     engine = InferenceEngine("mnet", ngf=NGF, dtype="bfloat16",
@@ -948,6 +976,8 @@ def phase_timings(worst_err: dict, launches: int, by_variant: dict) -> dict:
             "wide_ms": round(t["wide_ms"], 5),
             "wide_cuda_core_ms": round(t["wide_cuda_core_ms"], 5),
             "narrow_ms": round(t["final_ms"], 5),
+            "narrow_co1_ms": round(t["by_co"][1]["ms"], 5),
+            "narrow_co3_ms": round(t["by_co"][3]["ms"], 5),
             "narrow_cuda_core_ms": round(t["final_cuda_core_ms"], 5),
             "stacked_img_s": round(32e3 / ms, 2),
             "plain_ms": round(t["plain_ms"], 5),
@@ -5571,8 +5601,10 @@ def build_renamed(name: str, path: str,
     """A kernel source (e.g. an earlier commit's
     ``csrc/decoder_upsample.cu``, whose C entry is ``entry``) built with
     its C entry renamed, so it loads beside the checkout's; typed like
-    the checkout's CUDA-core decoder entry, or like ``hshear``'s with or
-    without ``transpose_out`` (``fn.transposes``), as the source has it."""
+    the checkout's decoder entries (``srit_decoder_upsample`` and
+    ``srit_decoder_upsample_narrow`` share one signature), or like
+    ``hshear``'s with or without ``transpose_out`` (``fn.transposes``),
+    as the source has it."""
     import ctypes
 
     from shadow_removal_istd_tpu_torch.ops import decoder
@@ -5583,7 +5615,8 @@ def build_renamed(name: str, path: str,
     fn.restype = ctypes.c_int
     fn.transposes = "int transpose_out" in Path(path).read_text()
     fn.argtypes = (decoder._kernel_fn("cuda_core").argtypes
-                   if entry == "srit_decoder_upsample" else
+                   if entry in ("srit_decoder_upsample",
+                                "srit_decoder_upsample_narrow") else
                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
                        6 + fn.transposes) + [ctypes.c_void_p])
     return fn
@@ -5660,6 +5693,103 @@ def compare_cuda_core(sources: dict[str, str]) -> None:
             f"{k} {v:.4f} ms" for k, v in tot.items()), flush=True)
 
 
+# the narrow kernel's shapes on the paths: (label, output HxW, batch,
+# dtype, parts, zero pad); the final step's input is half the output
+NARROW_SHAPES = (
+    ("serving 256x256 b32 bf16 edge split", (256, 256), 32, torch.bfloat16,
+     (64, 64), False),
+    ("burst 480x640 b4 bf16 edge split", (480, 640), 4, torch.bfloat16,
+     (64, 64), False),
+    ("validation 480x640 b16 f32 zero one part", (480, 640), 16,
+     torch.float32, (128,), True),
+    ("f32 serving 256x256 b32 f32 edge split", (256, 256), 32, torch.float32,
+     (64, 64), False),
+)
+
+
+def compare_narrow(sources: dict[str, str]) -> None:
+    """The checkout's narrow kernel beside other sources of
+    ``csrc/decoder_upsample_narrow.cu`` (e.g. the parent commit's, unpacked
+    by ``git archive`` into a git-ignored directory), at every narrow shape
+    the paths run (:data:`NARROW_SHAPES`), Co 1 and Co 3 apart: each
+    launched through the wrapper's ``_launch(..., variant)`` (another
+    source by its renamed C entry in ``_kernel_fn``'s place), held to the
+    plain version at the stated tolerance and compared with the first
+    other source's output, then timed in turns (checkout, others, others
+    reversed, checkout) beside one cuDNN convolution of the padded concat,
+    the bound and the f32 FMA ceiling (``[compare-narrow]`` lines; the
+    pair is the path's 2 launches)."""
+    from shadow_removal_istd_tpu_torch.ops import decoder
+
+    decoder._kernel_fn("narrow")     # the checkout's, built first
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        fns = dict(zip(sources, pool.map(
+            lambda name, path: build_renamed(
+                name, path, "srit_decoder_upsample_narrow"),
+            sources, sources.values())))
+    real = decoder._kernel_fn
+    names = ["narrow", *fns]
+    order = names + names[:0:-1] + names[:1]
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    for label, (h, w), n, dtype, parts, zero_pad in NARROW_SHAPES:
+        sh, sw = h // 2, w // 2
+        pair: dict[str, float] = {}
+        for co in (1, 3):
+            xs, w4, _, _ = step_inputs(n, sh, sw, parts, co, True, dtype, gen)
+            plan = decoder.narrow_plan(xs, co)
+
+            def run(name):
+                return decoder._launch(tuple(xs), w4, None, None, co, False,
+                                       zero_pad, name)[0]
+
+            want = decoder.decoder_upsample_plain(xs, w4, leaky=False,
+                                                  zero_pad=zero_pad)
+            line = (f"[compare-narrow] {label} Co {co} ({plan['route']}, "
+                    f"loads {'+'.join(plan['loads'])}, {plan['blocks']} "
+                    f"blocks)")
+            with mock.patch.object(decoder, "_kernel_fn",
+                                   lambda v: fns.get(v) or real(v)):
+                outs = {name: run(name) for name in names}
+                torch.cuda.synchronize()
+                for name, got in outs.items():
+                    err = (got.float() - want.float()).abs().max().item()
+                    if err > TOL[dtype] or got.shape != want.shape:
+                        raise SystemExit(f"{name} disagrees at {label} Co "
+                                         f"{co}: {err:.3e}")
+                    line += f" | {name} err {err:.2e}"
+                if len(names) > 1:
+                    diff = (outs["narrow"].float()
+                            - outs[names[1]].float()).abs().max().item()
+                    line += f" | max diff from {names[1]} {diff:.3e}"
+                del outs
+                times: dict[str, list] = {}
+                for name in order:
+                    times.setdefault(name, []).append(
+                        time_ms(lambda: run(name), 20))
+            a = torch.nn.functional.pad(torch.cat(xs, 1), (1, 1, 1, 1),
+                                        mode="constant" if zero_pad
+                                        else "replicate")
+            k = w4.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 20)
+            elt = 2 if dtype == torch.bfloat16 else 4
+            flops, nbytes = step_cost(n, sh, sw, parts, co, True, elt)
+            peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+            bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+            fma = fma_ceiling_ms(flops, nbytes)
+            for name, v in times.items():
+                ms = sum(v) / len(v)
+                pair[name] = pair.get(name, 0.0) + ms
+                line += " | " + name + " " + "/".join(
+                    f"{t:.4f}" for t in v) + " ms"
+            for key, v in (("cudnn", lib), ("bound", bound), ("fma", fma)):
+                pair[key] = pair.get(key, 0.0) + v
+            print(f"{line} | cudnn conv {lib:.4f} | bound {bound:.4f} | f32 "
+                  f"FMA ceiling {fma:.4f}", flush=True)
+        print(f"[compare-narrow] {label} pair (Co 1 + Co 3): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in pair.items()), flush=True)
+
+
 def compare_reflect_pad() -> None:
     """The train step at the CLI's defaults (f32, and bf16 compute) with
     the models' reflect pad (its deterministic backward folds the
@@ -5721,6 +5851,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(f"[card] {nvidia_smi()}")
         compare_cuda_core(dict(a.split("=", 1) for a in sys.argv[2:]))
+        return 0
+    if sys.argv[1:2] == ["--compare-narrow"]:
+        # python3 chip_smoke.py --compare-narrow NAME=PATH [NAME=PATH ...]
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[card] {nvidia_smi()}")
+        compare_narrow(dict(a.split("=", 1) for a in sys.argv[2:]))
         return 0
     if sys.argv[1:2] == ["--compare-hshear"]:
         # python3 chip_smoke.py --compare-hshear NAME=PATH [NAME=PATH ...]

@@ -19,119 +19,97 @@
 // of range (ConvTranspose(4,2,1)). The output goes straight into
 // (N, 2H, 2W, Co): the depth-to-space is the epilogue's addressing.
 //
-// Bound on the H100: per input value and output channel the step does 16
-// FMAs (4 phases x 4 taps), i.e. 32*Co FLOP per input element of 2 or 4
-// bytes. At 256^2 b32 bf16 (Ci 128) Co 1 must move 138 MB (0.041 ms at
-// 3.35 TB/s) for 2.15 GFLOP (0.032 ms at the 67 TFLOP/s f32 FMA rate);
-// Co 3 needs 6.44 GFLOP (0.096 ms) for 143 MB. So on the CUDA cores the
-// ceiling is the bytes at Co 1 and the FMA pipe at Co 3. f32 FMAs round
-// to nearest, so the f32 form holds 2e-5 against the plain version (TF32
-// would not) and the bf16 form rounds from an accurate f32 sum.
+// Bound on the H100: a step reads each input element once and writes
+// 4*Co outputs a position. At 256^2 b32 (input 128^2, Ci 64 + 64) bf16
+// that is 134 MB in and 8 (Co 1) or 25 MB (Co 3) out: 0.085 ms for the
+// pair at 3.35 TB/s. The products are few: as an all-phase 3x3 GEMM (K =
+// 9 Ci, N = 4 Co padded to 8 or 16) 19.3 GFLOP at Co 3, 0.020 ms at 989
+// TFLOP/s, so on the tensor cores the step is bound by its bytes. On the
+// CUDA cores (16 Co FMAs an input value) the f32 FMA pipe would cap it
+// at Co 3 (0.138 ms for the bf16 pair), above the bytes bound.
 //
-// Design: each input element is read from device memory once for all
-// four phases and taps. A block of 128 threads (8 along W x 16 along H)
-// owns a 16 x 32 tile of input positions of one image, every phase and
-// every output channel; a thread owns 4 adjacent positions of a row and
-// keeps 4*Co f32 accumulators for each. The channels of one part go in
-// chunks of two 16-byte pieces per pixel (16 bf16 or 8 f32 channels: one
-// 32-byte sector):
+// A. bf16 (narrow_tc_kernel): an implicit GEMM on the tensor cores.
+//    - Form: the all-phase 3x3 window. A row is one input position of a
+//      16 x 32 tile, K its 3x3 neighbourhood x channels, N the 4 phases x
+//      Co (8 columns at Co <= 2, 16 at Co 3..4), so the tile's output is
+//      disjoint from its neighbours' and the epilogue writes each
+//      position's 2 x 2 x Co outputs. The phase-grid form (4 taps over
+//      (H+1) x (W+1), pallas_decoder.py:75-84) does 4/9 of the products,
+//      but its tiles of the grid overlap the next tile's outputs or leave
+//      a one-column tile at every edge (129 = 4 x 32 + 1 at 128^2).
+//    - B, the expanded weight (9 taps x Ci x N, zero where a phase skips
+//      a tap; 36 KB at Ci 128, N 16), is built inside the kernel from w4
+//      into shared memory in mma fragment order (one 8- or 16-byte load a
+//      thread per tap and k step), once a launch where every chunk's
+//      slice fits (Ci <= 256 at N 16), else per chunk into two slots.
+//    - Loads: a ring of 4 stages, each one 32-channel chunk of a tile's
+//      18 x 34 halo (64 bytes a pixel, the 64-byte swizzle). A part whose
+//      pointer is 16-byte aligned and whose channels are a multiple of 8
+//      arrives by TMA: one 4-D tensor map (C, W, H, N) a part, one box a
+//      stage completing the stage's mbarrier; out-of-range pixels and
+//      channels past the part are TMA's zero fill, which is the zero-pad
+//      form. Any other part is loaded element by element into the same
+//      swizzled layout (the route is fixed before the launch, from the
+//      pointers and channel counts). The edge form clamps the pixel each
+//      ldmatrix row address names, so the halo itself is never patched.
+//      The block is persistent (one a SM) and the ring runs across its
+//      tiles, so the next tile's chunks are in flight (3 stages, ~118 KB
+//      an SM) while this one's are multiplied and stored.
+//    - LeakyReLU: once per element, in shared memory, after a stage lands
+//      (bf16(0.2f * x) for x < 0, as F.leaky_relu in bf16).
+//    - Products: 8 warps, each 4 rows x 16 columns of the tile (4 m16
+//      tiles). mma.sync m16n8k16 bf16 -> f32 with A by ldmatrix: a
+//      neighbour is another row address into the same halo, nothing is
+//      transposed. A warp walks the 6 halo rows its 4 rows read: each
+//      halo row's fragment, at each of the 3 column shifts, feeds every
+//      one of the 4 rows that reads it, so A is read from shared memory
+//      18 times a k step for 4 rows and not 36. Shared-memory traffic (A,
+//      B and the TMA writes, ~1 KB a position and 32 channels) then stays
+//      under the bytes bound; the tensor-core work is a quarter of it or
+//      less, which is why mma.sync suffices and wgmma (m64, A from a
+//      swizzled descriptor that a shifted neighbour would misalign) is
+//      not used.
+//    - Accuracy: the tensor cores' f32 sums do not round to nearest, so
+//      each chunk (288-deep K) is summed in fresh registers and added to
+//      the accumulator in f32 round-to-nearest, as decoder_upsample_tc.cu
+//      does.
+//    - Epilogue as before: the f32 affine with two roundings, the cast,
+//      and the depth-to-space store, a bf16 pair a store (phases 0..1 and
+//      2..3 are 2 Co contiguous outputs of rows 2i and 2i+1).
 //
-//   - loads: the chunk's 18 x 34 halo goes global -> shared in its
-//     channels-last form with 16-byte cp.async.cg, consecutive threads on
-//     consecutive pieces of a pixel, into a 2-stage ring, so the next
-//     chunk is in flight while this one is computed. Edge padding clamps
-//     the source pixel; zero padding and channels past the part use the
-//     zero-fill form. Where the part's pointer or channel count rules out
-//     16-byte copies (the kernel checks both), each thread loads its
-//     piece channel by channel and stores it itself. A pixel's record is
-//     swizzled (piece j at slot j ^ (pixel / (8/PIECES)) % PIECES) so that
-//     8 consecutive pixels' same piece hit 32 distinct banks. (Loading one
-//     16-byte piece per pixel straight into registers, each warp load
-//     touching 32 lines, was slower on the H100: the loads set the pace.);
-//   - transpose: per piece, the block turns the ring's records into f32
-//     planes [channel][row][col] (rows of 36 floats), applying the
-//     LeakyReLU once here;
-//   - weights: each chunk's w4 slice is loaded into registers one chunk
-//     ahead and stored to shared memory as [channel][tap][phase][Co], so
-//     one channel's 16*Co weights are 4*Co float4 broadcast loads;
-//   - FMAs: per channel, a thread reads each of its 3 halo rows as two
-//     float4 (6 of the 8 values used) and runs the 16*Co FMAs of each of
-//     its 4 positions over the 3x3 neighbourhood: a neighbour value feeds
-//     every position and phase that reads it, a weight every position.
-//
-// Shared-memory wavefronts per FMA instruction, per channel and warp: 3
-// rows x 2 float4 (4 wavefronts each) + 4*Co weight broadcasts against
-// 64*Co FMAs: Co 1 0.44, Co 2 0.25, Co 3 0.19, Co 4 0.16. An SM issues 4
-// warp FMAs and serves one wavefront per clock, so from Co 2 up the FMA
-// pipe sets the pace; at Co 1 shared memory does (0.44 / 0.25 x 0.032 =
-// 0.056 ms at 256^2 b32, above the 0.041 ms of its bytes). The epilogue
-// applies the affine (two roundings, as the plain version), casts, and
-// writes each thread's 2x2xCo quads: per output row 8*Co contiguous
-// elements, the neighbouring thread's next to them.
+// B. f32 (narrow_f32_kernel, the CUDA-core design): the TF32 tensor cores
+//    would not hold 2e-5 against the plain version, so f32 stays on the
+//    CUDA cores. A block of 128 threads (8 along W x 16 along H) owns a 16
+//    x 32 tile of input positions, every phase and output channel; a
+//    thread owns 4 adjacent positions of a row and keeps 4*Co f32
+//    accumulators for each. The channels of one part go in chunks of two
+//    16-byte pieces per pixel (8 f32 channels):
+//    - loads: the chunk's 18 x 34 halo goes global -> shared channels-last
+//      with 16-byte cp.async.cg into a 2-stage ring (edge padding clamps
+//      the source pixel; zero padding and channels past the part use the
+//      zero-fill form); where the part's pointer or channel count rules
+//      out 16-byte copies, each thread loads its piece channel by channel.
+//      A pixel's record is swizzled (piece j at slot j ^ (pixel / 4) % 2)
+//      so that 8 consecutive pixels' same piece hit 32 distinct banks;
+//    - transpose: per piece, the block turns the ring's records into f32
+//      planes [channel][row][col] (rows of 36 floats), LeakyReLU once here;
+//    - weights: each chunk's w4 slice is loaded into registers one chunk
+//      ahead and stored to shared memory as [channel][tap][phase][Co];
+//    - FMAs: per channel, a thread reads each of its 3 halo rows as two
+//      float4 and runs the 16*Co FMAs of each of its 4 positions over the
+//      3x3 neighbourhood (round to nearest, so it holds 2e-5).
+//    Shared-memory wavefronts per warp FMA are 0.44 at Co 1, 0.19 at Co 3,
+//    against one wavefront a clock for 4 warp FMAs: the FMA pipe sets the
+//    pace from Co 2 up, shared memory at Co 1.
 
+#include <cuda.h>  // CUtensorMap's types; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
-
-constexpr int TX = 8, TY = 16, NT = TX * TY;  // threads along W, along H
-constexpr int PX = 4;                         // positions a thread along W
-constexpr int TW = TX * PX, TH = TY;          // tile: 16 x 32 positions
-constexpr int HC = TW + 2, HR = TH + 2;       // halo columns, rows
-constexpr int HALO = HR * HC;                 // halo pixels
-constexpr int RS = 36;                        // plane row stride (floats)
-constexpr int PLANE = HR * RS;                // floats per channel plane
-static_assert(RS >= HC + 2 && RS % 4 == 0, "two float4 per row, aligned");
-constexpr int PIECES = 2;                     // 16-byte pieces a pixel
-constexpr int STAGES = 2;                     // chunks in the ring
-constexpr int RAW = HALO * 4 * PIECES;        // words per ring stage
-constexpr int PF = (HALO * PIECES + NT - 1) / NT;  // pieces a thread copies
-constexpr int TPF = (HALO + NT - 1) / NT;          // pixels it transposes
-static_assert(NT % PIECES == 0, "a thread copies one piece of pixels");
-
-template <typename T>
-struct Elt;
-
-template <>
-struct Elt<float> {
-  static constexpr int VEC = 4;  // channels a 16-byte piece
-  static __device__ __forceinline__ float get(const uint4& v, int k) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    return __uint_as_float(w[k]);
-  }
-  // element i of x as the low bits of a 32-bit word
-  static __device__ __forceinline__ uint32_t bits(const float* x, int64_t i) {
-    return __float_as_uint(x[i]);
-  }
-  static __device__ __forceinline__ float to(float v) { return v; }
-  static __device__ __forceinline__ float from(float v) { return v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Elt<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  static __device__ __forceinline__ float get(const uint4& v, int k) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    const uint32_t word = w[k >> 1];
-    return __uint_as_float((k & 1) ? (word & 0xffff0000u) : (word << 16));
-  }
-  static __device__ __forceinline__ uint32_t bits(const __nv_bfloat16* x,
-                                                 int64_t i) {
-    return __bfloat16_as_ushort(x[i]);
-  }
-  static __device__ __forceinline__ float to(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from(float v) {
-    return __float2bfloat16(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-};
 
 struct Params {
   const void* x0;
@@ -145,7 +123,7 @@ struct Params {
   int leaky, zero_pad;
 };
 
-__device__ __forceinline__ bool aligned16(const void* ptr) {
+__device__ __host__ __forceinline__ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
@@ -170,28 +148,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// ---------------------------------------------------------------------------
+// B. f32 on the CUDA cores
+
+namespace f32 {
+
+constexpr int TX = 8, TY = 16, NT = TX * TY;  // threads along W, along H
+constexpr int PX = 4;                         // positions a thread along W
+constexpr int TW = TX * PX, TH = TY;          // tile: 16 x 32 positions
+constexpr int HC = TW + 2, HR = TH + 2;       // halo columns, rows
+constexpr int HALO = HR * HC;                 // halo pixels
+constexpr int RS = 36;                        // plane row stride (floats)
+constexpr int PLANE = HR * RS;                // floats per channel plane
+static_assert(RS >= HC + 2 && RS % 4 == 0, "two float4 per row, aligned");
+constexpr int VEC = 4;                        // channels a 16-byte piece
+constexpr int PIECES = 2;                     // 16-byte pieces a pixel
+constexpr int STAGES = 2;                     // chunks in the ring
+constexpr int RAW = HALO * 4 * PIECES;        // words per ring stage
+constexpr int PF = (HALO * PIECES + NT - 1) / NT;  // pieces a thread copies
+constexpr int TPF = (HALO + NT - 1) / NT;          // pixels it transposes
+static_assert(NT % PIECES == 0, "a thread copies one piece of pixels");
+
 // word offset of pixel P's piece j in a ring stage (see the header)
 __device__ __forceinline__ int raw_at(int P, int j) {
   return P * 4 * PIECES + 4 * (j ^ ((P / (8 / PIECES)) % PIECES));
 }
 
-// channels ch .. ch+VEC-1 of the pixel whose channels start at x + base,
-// zero past cp, one load a channel
-template <typename T>
-__device__ __forceinline__ uint4 load_piece(const T* x, int64_t base, int ch,
-                                            int cp) {
-  constexpr int VEC = Elt<T>::VEC, PER = VEC / 4;  // elements a word
+// channels ch .. ch+3 of the pixel whose channels start at x + base, zero
+// past cp, one load a channel
+__device__ __forceinline__ uint4 load_piece(const float* x, int64_t base,
+                                            int ch, int cp) {
   uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int k = 0; k < VEC; ++k)
-    if (ch + k < cp)
-      w[k / PER] |= Elt<T>::bits(x, base + ch + k) << (32 / PER * (k % PER));
+    if (ch + k < cp) w[k] = __float_as_uint(x[base + ch + k]);
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <typename T, int CO>
-__global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
-  constexpr int VEC = Elt<T>::VEC;      // channels a piece
+template <int CO>
+__global__ void __launch_bounds__(NT) narrow_f32_kernel(Params p) {
   constexpr int CKC = VEC * PIECES;     // channels a chunk
   constexpr int NW = 16 * CO;           // weights a channel
   constexpr int WPT = (CKC * NW + NT - 1) / NT;  // weights a thread stages
@@ -203,8 +198,8 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
   float* xs = reinterpret_cast<float*>(smem + STAGES * RAW);  // [VEC][PLANE]
   float* ws = xs + VEC * PLANE;                           // [CKC][NW]
 
-  const T* w4 = static_cast<const T*>(p.w4);
-  T* out = static_cast<T*>(p.out);
+  const float* w4 = static_cast<const float*>(p.w4);
+  float* out = static_cast<float*>(p.out);
   const int h = p.h, w = p.w, ci = p.ci0 + p.ci1;
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
@@ -230,7 +225,7 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
 
   // chunk q: CKC channels from c0 of part 0 (q < n0) or part 1
   struct Chunk {
-    const T* x;
+    const float* x;
     int cp, c0, off;
     bool vec;
   };
@@ -239,9 +234,9 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
   const bool vec0 = aligned16(p.x0) && p.ci0 % VEC == 0;
   const bool vec1 = aligned16(p.x1) && p.ci1 % VEC == 0;
   auto chunk = [&](int q) {
-    return q < n0 ? Chunk{static_cast<const T*>(p.x0), p.ci0, q * CKC, 0,
-                          vec0}
-                  : Chunk{static_cast<const T*>(p.x1), p.ci1,
+    return q < n0 ? Chunk{static_cast<const float*>(p.x0), p.ci0, q * CKC,
+                          0, vec0}
+                  : Chunk{static_cast<const float*>(p.x1), p.ci1,
                           (q - n0) * CKC, p.ci0, vec1};
   };
 
@@ -260,7 +255,7 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
         cp_async16(smem_addr(dst), ok ? c.x + base + ch : c.x, ok);
       else
         *reinterpret_cast<uint4*>(dst) =
-            ok ? load_piece<T>(c.x, base, ch, c.cp) : make_uint4(0, 0, 0, 0);
+            ok ? load_piece(c.x, base, ch, c.cp) : make_uint4(0, 0, 0, 0);
     }
   };
 
@@ -273,8 +268,9 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
       const int k = e / NW, r = e - k * NW;  // r = tap*4Co + phase*Co + co
       const int tap = r / (4 * CO);
       wr[u] = e < CKC * NW && c.c0 + k < c.cp
-                  ? Elt<T>::to(w4[(static_cast<int64_t>(tap) * ci + c.off +
-                                   c.c0 + k) * (4 * CO) + (r - tap * 4 * CO)])
+                  ? w4[(static_cast<int64_t>(tap) * ci + c.off + c.c0 + k) *
+                           (4 * CO) +
+                       (r - tap * 4 * CO)]
                   : 0.f;
     }
   };
@@ -315,10 +311,11 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
         const int s = P / HC, t = P - s * HC;
         const uint4 v =
             *reinterpret_cast<const uint4*>(stage + raw_at(P, j));
+        const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          float f = Elt<T>::get(v, e);
-          if (p.leaky && f < 0.f) f = Elt<T>::round(0.2f * f);
+          float f = __uint_as_float(vw[e]);
+          if (p.leaky && f < 0.f) f = 0.2f * f;
           xs[e * PLANE + s * RS + t] = f;
         }
       }
@@ -367,7 +364,7 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
     }
   }
 
-  // epilogue: affine on the f32 accumulator, cast, depth-to-space store
+  // epilogue: affine on the f32 accumulator, depth-to-space store
   const int i = i0 + ty;
   if (i >= h) return;
   const bool affine = p.scale4 != nullptr;
@@ -380,7 +377,7 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
   const int64_t h2 = 2 * static_cast<int64_t>(h), w2 = 2 * w;
 #pragma unroll
   for (int pr = 0; pr < 2; ++pr) {
-    T* orow = out + (blockIdx.z * h2 + 2 * i + pr) * w2 * CO;
+    float* orow = out + (blockIdx.z * h2 + 2 * i + pr) * w2 * CO;
 #pragma unroll
     for (int px = 0; px < PX; ++px) {
       const int j = j0 + tx * PX + px;
@@ -393,35 +390,574 @@ __global__ void __launch_bounds__(NT) decoder_upsample_narrow_kernel(Params p) {
           float v = acc[px][ph][o];
           if (affine)  // two roundings, as the plain version
             v = __fadd_rn(__fmul_rn(v, s4[ph * CO + o]), b4[ph * CO + o]);
-          orow[(2 * j + pc) * CO + o] = Elt<T>::from(v);
+          orow[(2 * j + pc) * CO + o] = v;
         }
       }
     }
   }
 }
 
-template <typename T, int CO>
+template <int CO>
+constexpr int smem_bytes() {
+  return 4 * (STAGES * RAW + VEC * PLANE + VEC * PIECES * 16 * CO);
+}
+
+int grid_blocks(const Params& p) {
+  return ((p.w + TW - 1) / TW) * ((p.h + TH - 1) / TH) * p.n;
+}
+
+template <int CO>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int VEC = Elt<T>::VEC;
-  constexpr int bytes =
-      4 * (STAGES * RAW + VEC * PLANE + VEC * PIECES * 16 * CO);
+  constexpr int bytes = smem_bytes<CO>();
   const cudaError_t set = cudaFuncSetAttribute(
-      decoder_upsample_narrow_kernel<T, CO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      narrow_f32_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid((p.w + TW - 1) / TW, (p.h + TH - 1) / TH, p.n);
-  decoder_upsample_narrow_kernel<T, CO><<<grid, NT, bytes, stream>>>(p);
+  narrow_f32_kernel<CO><<<grid, NT, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_co(const Params& p, cudaStream_t stream) {
-  switch (p.co) {
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
-    default: return launch<T, 4>(p, stream);
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// A. bf16 on the tensor cores
+
+namespace tc {
+
+constexpr int TH = 16, TW = 32;               // tile of input positions
+constexpr int HR = TH + 2, HC = TW + 2;       // halo rows, columns
+constexpr int HALO = HR * HC;                 // 612 pixels
+constexpr int CK = 32;                        // channels a chunk
+constexpr int PIX = 2 * CK;                   // bytes a pixel in a stage
+constexpr int PIECES = CK / 8;                // 16-byte pieces a pixel
+constexpr int KS = CK / 16;                   // k steps a chunk
+constexpr int BOX_BYTES = HALO * PIX;         // one TMA box: 39,168
+constexpr int STAGE = (BOX_BYTES + 511) / 512 * 512;  // 64-byte swizzle atom
+constexpr int STAGES = 4;
+constexpr int R = 4;                          // tile rows a warp
+constexpr int NT = 32 * (TH / R) * (TW / 16); // 8 warps of 4 x 16
+constexpr int SMEM_CAP = 232448;              // a block's dynamic maximum
+constexpr int SMEM_FIXED = 1024 + STAGES * STAGE + 8 * STAGES;
+static_assert(PIX == 64, "stages use the 64-byte swizzle");
+
+// bytes of one chunk's B in fragment order: 9 taps x KS k steps x 32 lanes
+// x NJ n8 tiles x 2 words
+__host__ __device__ constexpr int slot_bytes(int nj) {
+  return 9 * KS * 32 * nj * 8;
+}
+
+enum Load { TMA = 0, CP_ASYNC = 1, SCALAR = 2 };
+
+struct KParams {
+  const uint16_t* x0;
+  const uint16_t* x1;
+  int ci0, ci1, nq0, nq;
+  int load0, load1;
+  const uint16_t* w4;
+  const float* scale4;
+  const float* bias4;
+  __nv_bfloat16* out;
+  int h, w, tiles_x, tiles_y, tiles;
+  int leaky, zero_pad, resident, out4;
+};
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase with this parity has completed; a wait of
+// more than ~2^34 cycles (seconds) traps, so a fault ends the launch with
+// an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a (32 channels x 34 x 18 x 1) box of a part's map (C, W, H, N)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c, int x, int y,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y),
+      "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a * b: one 16x8x16 tile, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// LeakyReLU(0.2) on a bf16 pair, each as bf16(0.2f * float(x)) where x < 0
+// (torch's leaky_relu for bf16). max(x, bf16(0.2f * x)) is that value for
+// every x: rounding is monotone, so bf16(0.2f * x) <= x for x >= 0 and
+// >= x for x < 0.
+__device__ __forceinline__ uint32_t leaky2(uint32_t v) {
+  const float lo = __uint_as_float(v << 16);
+  const float hi = __uint_as_float(v & 0xffff0000u);
+  const __nv_bfloat162 s = __floats2bfloat162_rn(0.2f * lo, 0.2f * hi);
+  const __nv_bfloat162 r =
+      __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&v), s);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// byte offset of 16-byte piece j (0..3) of halo pixel P in a stage: the
+// 64-byte swizzle TMA writes (piece bits 4-5 XOR address bits 7-8)
+__device__ __forceinline__ uint32_t piece_at(int P, int j) {
+  return static_cast<uint32_t>(P * PIX + ((j ^ ((P >> 1) & 3)) << 4));
+}
+
+struct Tile {
+  int img, i0, j0;
+};
+
+__device__ __forceinline__ Tile tile_at(const KParams& p, int t) {
+  const int tx = t % p.tiles_x, r = t / p.tiles_x;
+  const int ty = r % p.tiles_y;
+  return Tile{r / p.tiles_y, ty * TH, tx * TW};
+}
+
+template <int CO>
+__global__ void __launch_bounds__(NT, 1)
+    narrow_tc_kernel(const __grid_constant__ CUtensorMap map0,
+                     const __grid_constant__ CUtensorMap map1,
+                     const KParams p) {
+  constexpr int NJ = CO <= 2 ? 1 : 2;           // n8 tiles: N = 8 or 16
+  constexpr int SLOT = slot_bytes(NJ);
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's swizzle pattern follows address bits: stages start 512-aligned
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  uint8_t* const gb = gbase + STAGES * STAGE;   // B slots
+  const int nslots = p.resident ? p.nq : 2;
+  const uint32_t bars = base + STAGES * STAGE + nslots * SLOT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ci = p.ci0 + p.ci1;
+
+  // chunk q's B (every tap, both k steps) from w4 into slot `slot`:
+  // word ((tap * KS + ks) * 32 + lane) * 2 NJ + 2 j + r holds the bf16 pair
+  // b_r of n8 tile j of mma.sync's B fragment for that lane
+  auto build_b = [&](int q, int slot) {
+    const bool first = q < p.nq0;
+    const int cip = first ? p.ci0 : p.ci1, off = first ? 0 : p.ci0;
+    const int cq = (first ? q : q - p.nq0) * CK;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(gb + slot * SLOT);
+    for (int e = tid; e < SLOT / 4; e += NT) {
+      const int r = e & 1, j = (e >> 1) % NJ, rest = e / (2 * NJ);
+      const int l = rest & 31, tk = rest >> 5;
+      const int tap = tk / KS, ks = tk - KS * tap;
+      const int dr = tap / 3, dc = tap - 3 * dr;
+      const int n = 8 * j + (l >> 2);
+      const int k = cq + 16 * ks + 2 * (l & 3) + 8 * r;
+      uint32_t v = 0;
+      if (n < 4 * CO) {
+        const int ph = n / CO;
+        const int di = dr - (ph >> 1), dj = dc - (ph & 1);
+        if (di >= 0 && di <= 1 && dj >= 0 && dj <= 1) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2)
+            if (k + e2 < cip)
+              v |= static_cast<uint32_t>(
+                       p.w4[(static_cast<int64_t>(2 * di + dj) * ci + off +
+                             k + e2) *
+                                (4 * CO) +
+                            n])
+                   << (16 * e2);
+        }
+      }
+      dst[e] = v;
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (p.resident)
+    for (int q = 0; q < p.nq; ++q) build_b(q, q);
+
+  const int my_tiles =
+      (p.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int nsteps = my_tiles * p.nq;
+
+  // step k: chunk k % nq of this block's tile k / nq, into stage k % STAGES
+  auto issue = [&](int k) {
+    const int q = k % p.nq, s = k % STAGES;
+    const Tile t = tile_at(p, blockIdx.x + (k / p.nq) * gridDim.x);
+    const bool first = q < p.nq0;
+    const int cq = (first ? q : q - p.nq0) * CK;
+    const uint32_t bar = bars + 8 * s;
+    if ((first ? p.load0 : p.load1) == TMA) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(bar, BOX_BYTES);
+        tma_load_4d(base + s * STAGE, first ? &map0 : &map1, bar, cq,
+                    t.j0 - 1, t.i0 - 1, t.img);
+      }
+      return;
+    }
+    // element by element, zero outside the image and past the part
+    const uint16_t* x = first ? p.x0 : p.x1;
+    const int cip = first ? p.ci0 : p.ci1;
+    uint8_t* stage = gbase + s * STAGE;
+    for (int e = tid; e < HALO * PIECES; e += NT) {
+      const int P = e / PIECES, j = e % PIECES;
+      const int rr = t.i0 - 1 + P / HC, qq = t.j0 - 1 + P % HC;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (rr >= 0 && rr < p.h && qq >= 0 && qq < p.w) {
+        const int64_t px =
+            ((static_cast<int64_t>(t.img) * p.h + rr) * p.w + qq) * cip;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int ch = cq + 8 * j + c;
+          if (ch < cip)
+            v[c >> 1] |= static_cast<uint32_t>(x[px + ch]) << (16 * (c & 1));
+        }
+      }
+      *reinterpret_cast<uint4*>(stage + piece_at(P, j)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    fence_proxy_async();  // before a later TMA write to this stage
+    if (tid == 0) mbar_arrive(bar);
+  };
+
+  for (int k = 0; k < STAGES - 1 && k < nsteps; ++k) issue(k);
+  __syncthreads();  // barriers initialised, B built, element loads done
+
+  // this warp's rows r0 .. r0+3 and columns c0 .. c0+15 of the tile
+  const int r0 = R * (warp / (TW / 16)), c0 = 16 * (warp % (TW / 16));
+  const int g = lane >> 2, t4 = lane & 3;
+  const int arow = lane & 15, akc = lane >> 4;  // ldmatrix row, 8-chan half
+  // the epilogue's columns n = 8 j + 2 t4 + e, their scale and bias
+  float sc[NJ][2], bi[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * t4 + e;
+      const bool on = p.scale4 != nullptr && n < 4 * CO;
+      sc[j][e] = on ? p.scale4[n] : 1.f;
+      bi[j][e] = on ? p.bias4[n] : 0.f;
+    }
+
+  float acc[R][NJ][4];
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  for (int k = 0; k < nsteps; ++k) {
+    const int q = k % p.nq, s = k % STAGES;
+    if (!p.resident) build_b(q, k & 1);  // slot k & 1 last read at k - 2
+    mbar_wait(bars + 8 * s, (k / STAGES) & 1);
+    if (p.leaky) {
+      uint4* v = reinterpret_cast<uint4*>(gbase + s * STAGE);
+      for (int e = tid; e < BOX_BYTES / 16; e += NT) {
+        uint4 u = v[e];
+        u.x = leaky2(u.x);
+        u.y = leaky2(u.y);
+        u.z = leaky2(u.z);
+        u.w = leaky2(u.w);
+        v[e] = u;
+      }
+      fence_proxy_async();
+    }
+    __syncthreads();  // stage s ready; every warp is done with step k - 1
+    if (k + STAGES - 1 < nsteps) issue(k + STAGES - 1);  // stage of k - 1
+
+    const Tile t = tile_at(p, blockIdx.x + (k / p.nq) * gridDim.x);
+    // halo pixel of each of the 6 halo rows and 3 column shifts this
+    // thread's ldmatrix rows read; the edge form clamps them to the image
+    int hrow[R + 2], hcol[3];
+#pragma unroll
+    for (int u = 0; u < R + 2; ++u) {
+      int r = r0 + u;
+      if (!p.zero_pad)
+        r = min(max(t.i0 + r - 1, 0), p.h - 1) - t.i0 + 1;
+      hrow[u] = r * HC;
+    }
+#pragma unroll
+    for (int dc = 0; dc < 3; ++dc) {
+      int c = c0 + arow + dc;
+      if (!p.zero_pad) c = min(max(t.j0 + c - 1, 0), p.w - 1) - t.j0 + 1;
+      hcol[dc] = c;
+    }
+
+    const uint32_t st = base + s * STAGE;
+    const uint8_t* bq = gb + (p.resident ? q : (k & 1)) * SLOT;
+    float part[R][NJ][4];
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[m][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t b[9][NJ][2];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint8_t* src = bq + ((tap * KS + ks) * 32 + lane) * NJ * 8;
+        if constexpr (NJ == 2) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src);
+          b[tap][0][0] = v.x;
+          b[tap][0][1] = v.y;
+          b[tap][NJ - 1][0] = v.z;
+          b[tap][NJ - 1][1] = v.w;
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(src);
+          b[tap][0][0] = v.x;
+          b[tap][0][1] = v.y;
+        }
+      }
+      const int kc = 2 * ks + akc;
+#pragma unroll
+      for (int u = 0; u < R + 2; ++u)
+#pragma unroll
+        for (int dc = 0; dc < 3; ++dc) {
+          const int P = hrow[u] + hcol[dc];
+          uint32_t a[4];
+          ldmatrix_x4(a, st + piece_at(P, kc));
+#pragma unroll
+          for (int dr = 0; dr < 3; ++dr) {
+            const int m = u - dr;  // tile row r0 + m reads halo row u here
+            if (m < 0 || m >= R) continue;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+              mma_bf16(part[m][j], a, b[3 * dr + dc][j][0],
+                       b[3 * dr + dc][j][1]);
+          }
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[m][j][e] = __fadd_rn(acc[m][j][e], part[m][j][e]);
+
+    if (q != p.nq - 1) continue;
+    // epilogue: affine, cast, depth-to-space store of the tile
+    const int64_t h2 = 2 * static_cast<int64_t>(p.h), w2 = 2 * p.w;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int i = t.i0 + r0 + m;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // accumulator rows g and g + 8
+        const int jj = t.j0 + c0 + g + 8 * e;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int n = 8 * j + 2 * t4;  // n, n + 1: one phase row's pair
+          if (i < p.h && jj < p.w && n < 4 * CO) {
+            float v0 = acc[m][j][2 * e], v1 = acc[m][j][2 * e + 1];
+            if (p.scale4 != nullptr) {  // two roundings, as the plain one
+              v0 = __fadd_rn(__fmul_rn(v0, sc[j][0]), bi[j][0]);
+              v1 = __fadd_rn(__fmul_rn(v1, sc[j][1]), bi[j][1]);
+            }
+            const int pr = n >= 2 * CO ? 1 : 0;
+            __nv_bfloat16* dst =
+                p.out + ((t.img * h2 + 2 * i + pr) * w2 + 2 * jj) * CO +
+                (n - 2 * CO * pr);
+            const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+            if (p.out4) {
+              *reinterpret_cast<__nv_bfloat162*>(dst) = pair;
+            } else {
+              dst[0] = pair.x;
+              dst[1] = pair.y;
+            }
+          }
+          acc[m][j][2 * e] = acc[m][j][2 * e + 1] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a part's load route: TMA where its rows are whole 16-byte pieces on a
+// 16-byte aligned base (the tensor map's rules), else element by element
+int part_load(const void* x, int cip) {
+  return aligned16(x) && cip > 0 && cip % 8 == 0 ? TMA : SCALAR;
+}
+
+// the launch: blocks, whether every chunk's B stays resident, bytes of
+// dynamic shared memory
+struct Plan {
+  int load0, load1, nq0, nq, nj, tiles_x, tiles_y, tiles, grid, resident;
+  int smem;
+};
+
+Plan make_plan(const Params& p, int sms) {
+  Plan q{};
+  q.load0 = part_load(p.x0, p.ci0);
+  q.load1 = p.ci1 > 0 ? part_load(p.x1, p.ci1) : -1;
+  q.nq0 = (p.ci0 + CK - 1) / CK;
+  q.nq = q.nq0 + (p.ci1 + CK - 1) / CK;
+  q.nj = p.co <= 2 ? 1 : 2;
+  q.tiles_x = (p.w + TW - 1) / TW;
+  q.tiles_y = (p.h + TH - 1) / TH;
+  const int64_t tiles = static_cast<int64_t>(q.tiles_x) * q.tiles_y * p.n;
+  q.tiles = static_cast<int>(std::min<int64_t>(tiles, INT32_MAX));
+  q.grid = static_cast<int>(std::min<int64_t>(tiles, sms));
+  const int slot = slot_bytes(q.nj);
+  q.resident = SMEM_FIXED + q.nq * slot <= SMEM_CAP;
+  q.smem = SMEM_FIXED + (q.resident ? q.nq : 2) * slot;
+  return q;
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
+// a part's 4-D map (C, W, H, N), boxes of 32 channels x 34 x 18 x 1
+bool encode_part(CUtensorMap* map, EncodeTiled encode, const void* x,
+                 int cip, const Params& p) {
+  const cuuint64_t c = cip, e = 2;
+  const cuuint64_t dims[4] = {c, static_cast<cuuint64_t>(p.w),
+                              static_cast<cuuint64_t>(p.h),
+                              static_cast<cuuint64_t>(p.n)};
+  const cuuint64_t strides[3] = {c * e, c * e * p.w, c * e * p.w * p.h};
+  const cuuint32_t box[4] = {CK, HC, HR, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int CO>
+int launch(const Params& p, cudaStream_t stream) {
+  int sms = 0;
+  if (const int e = sm_count(&sms)) return e;
+  const Plan q = make_plan(p, sms);
+  if (q.tiles == 0) return 0;
+  CUtensorMap map0{}, map1{};
+  if (q.load0 == TMA || q.load1 == TMA) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    if ((q.load0 == TMA && !encode_part(&map0, encode, p.x0, p.ci0, p)) ||
+        (q.load1 == TMA && !encode_part(&map1, encode, p.x1, p.ci1, p)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KParams k{};
+  k.x0 = static_cast<const uint16_t*>(p.x0);
+  k.x1 = static_cast<const uint16_t*>(p.x1);
+  k.ci0 = p.ci0;
+  k.ci1 = p.ci1;
+  k.nq0 = q.nq0;
+  k.nq = q.nq;
+  k.load0 = q.load0;
+  k.load1 = q.load1;
+  k.w4 = static_cast<const uint16_t*>(p.w4);
+  k.scale4 = p.scale4;
+  k.bias4 = p.bias4;
+  k.out = static_cast<__nv_bfloat16*>(p.out);
+  k.h = p.h;
+  k.w = p.w;
+  k.tiles_x = q.tiles_x;
+  k.tiles_y = q.tiles_y;
+  k.tiles = q.tiles;
+  k.leaky = p.leaky;
+  k.zero_pad = p.zero_pad;
+  k.resident = q.resident;
+  k.out4 = (reinterpret_cast<uintptr_t>(p.out) & 3) == 0;
+  const cudaError_t set = cudaFuncSetAttribute(
+      narrow_tc_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      q.smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  narrow_tc_kernel<CO><<<q.grid, NT, q.smem, stream>>>(map0, map1, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+template <int CO>
+int launch(int dtype, const Params& p, cudaStream_t stream) {
+  return dtype == 0 ? f32::launch<CO>(p, stream) : tc::launch<CO>(p, stream);
+}
+
+bool args_ok(int dtype, int ci0, int ci1, int n, int h, int w, int co) {
+  return co >= 1 && co <= 4 && (dtype == 0 || dtype == 1) && ci0 >= 1 &&
+         ci1 >= 0 && n >= 0 && h >= 0 && w >= 0;
 }
 
 }  // namespace
@@ -438,13 +974,53 @@ extern "C" int srit_decoder_upsample_narrow(int dtype, const void* x0,
                                             int n, int h, int w, int co,
                                             int leaky, int zero_pad,
                                             void* stream) {
-  if (co < 1 || co > 4 || (dtype != 0 && dtype != 1))
+  if (!args_ok(dtype, ci0, ci1, n, h, w, co))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x0, x1, ci0, ci1, w4,
            static_cast<const float*>(scale4),
            static_cast<const float*>(bias4), out, n, h, w, co, leaky,
            zero_pad};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_co<float>(p, s)
-                    : launch_co<__nv_bfloat16>(p, s);
+  if (static_cast<int64_t>(n) * h * w == 0) return 0;
+  switch (co) {
+    case 1: return launch<1>(dtype, p, s);
+    case 2: return launch<2>(dtype, p, s);
+    case 3: return launch<3>(dtype, p, s);
+    default: return launch<4>(dtype, p, s);
+  }
+}
+
+// The launch srit_decoder_upsample_narrow makes for these arguments on the
+// current device: plan[0..9] = route (0 CUDA cores, f32; 1 tensor cores,
+// bf16), part 0's load and part 1's (0 TMA, 1 16-byte cp.async, 2
+// element by element, -1 no part), ring stages, tile rows, tile columns,
+// blocks, 1 where every chunk's B stays resident (-1 in f32), GEMM
+// columns N (4 Co in f32), tiles.
+// cudaErrorInvalidValue for arguments the entry refuses.
+extern "C" int srit_decoder_upsample_narrow_plan(int dtype, const void* x0,
+                                                 const void* x1, int ci0,
+                                                 int ci1, int n, int h, int w,
+                                                 int co, long long* plan) {
+  if (!args_ok(dtype, ci0, ci1, n, h, w, co))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{x0, x1, ci0, ci1, nullptr, nullptr, nullptr, nullptr,
+                 n, h, w, co, 0, 0};
+  if (dtype == 0) {
+    auto load = [](const void* x, int cip) {
+      return aligned16(x) && cip % f32::VEC == 0 ? tc::CP_ASYNC : tc::SCALAR;
+    };
+    const int blocks = f32::grid_blocks(p);
+    const long long f[10] = {
+        0,       load(x0, ci0), ci1 > 0 ? load(x1, ci1) : -1, f32::STAGES,
+        f32::TH, f32::TW,       blocks,  -1, 4 * co, blocks};
+    std::copy(f, f + 10, plan);
+    return 0;
+  }
+  int sms = 0;
+  if (const int e = tc::sm_count(&sms)) return e;
+  const tc::Plan q = tc::make_plan(p, sms);
+  const long long b[10] = {1,      q.load0, q.load1,   tc::STAGES, tc::TH,
+                           tc::TW, q.grid,  q.resident, 8 * q.nj,   q.tiles};
+  std::copy(b, b + 10, plan);
+  return 0;
 }

@@ -26,8 +26,12 @@ hand-written kernels, chosen by shape (:func:`decoder_variant`):
 
 - ``narrow`` (``csrc/decoder_upsample_narrow.cu``): Co <= 4 in either
   dtype, i.e. the Co 1/3 final layer; one pass over a spatial tile that
-  reads each input element once for all four phases and taps, FMAs on
-  the CUDA cores;
+  reads each input element once for all four phases and taps. In bf16 an
+  implicit GEMM over the 3x3 window on the tensor cores (``mma.sync``,
+  A by ``ldmatrix`` from the halo, N the 4 phases x Co), its halo chunks
+  in a 4-stage ring fed by TMA (element loads for a misaligned or ragged
+  part; :func:`narrow_plan` reports the route); in f32 FMAs on the CUDA
+  cores;
 - ``tensor_core`` (``csrc/decoder_upsample_tc.cu``): bf16 with Co >= 32,
   every channel count a multiple of 8 and 16-byte aligned tensors, i.e.
   every MNet step at ngf 64 but the final one; ``mma.sync`` on the tensor
@@ -109,6 +113,56 @@ def decoder_upsample_plain(parts: Sequence[torch.Tensor], w4: torch.Tensor,
     return subpixel_depth_to_space(acc.to(dtype), h, w, co)
 
 
+def narrow_weight(w4: torch.Tensor) -> torch.Tensor:
+    """The narrow kernel's B in plain PyTorch: ``w4`` (2, 2, Ci, 4Co) as
+    one weight over the 3x3 window, (3, 3, Ci, N) with N = 4Co padded to 8
+    (Co <= 2) or 16: phase p = (pr, pc) reads tap (pr + di, pc + dj) with
+    ``w4[di, dj]``, and is zero at the 5 taps it skips and in the padded
+    columns. The kernel builds the same values in shared memory, in mma
+    fragment order, one 32-channel chunk at a time."""
+    _, _, ci, co4 = w4.shape
+    co = co4 // 4
+    b = w4.new_zeros((3, 3, ci, 8 if co <= 2 else 16))
+    for p in range(4):
+        pr, pc = divmod(p, 2)
+        b[pr:pr + 2, pc:pc + 2, :, p * co:(p + 1) * co] = \
+            w4[:, :, :, p * co:(p + 1) * co]
+    return b
+
+
+def decoder_upsample_all_phase(parts: Sequence[torch.Tensor],
+                               w4: torch.Tensor,
+                               scale4: torch.Tensor | None = None,
+                               bias4: torch.Tensor | None = None, *,
+                               leaky: bool,
+                               zero_pad: bool = False) -> torch.Tensor:
+    """:func:`decoder_upsample_plain` in the narrow kernel's form, for
+    tests: each input position's 4 phases x Co from one conv over its 3x3
+    window with :func:`narrow_weight`, summed over parts in f32, the
+    padded columns dropped, affine, cast, and each position's 2 x 2 x Co
+    outputs put at (2i + pr, 2j + pc). The main path never calls it."""
+    dtype = parts[0].dtype
+    n, _, h, w = parts[0].shape
+    co = w4.shape[-1] // 4
+    b = narrow_weight(w4)
+    acc, off = None, 0
+    for x in parts:
+        c = x.shape[1]
+        a = F.leaky_relu(x, 0.2) if leaky else x
+        a = F.pad(a.float(), (1, 1, 1, 1),
+                  mode="constant" if zero_pad else "replicate")
+        y = F.conv2d(a, b[:, :, off:off + c].float().permute(3, 2, 0, 1))
+        acc = y if acc is None else acc + y
+        off += c
+    acc = acc[:, :4 * co]                               # (n, 4co, h, w)
+    if scale4 is not None:
+        acc = acc * scale4.float().view(1, -1, 1, 1) \
+            + bias4.float().view(1, -1, 1, 1)
+    y = acc.to(dtype).view(n, 2, 2, co, h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(n, co, 2 * h, 2 * w).contiguous(
+        memory_format=torch.channels_last)
+
+
 def _check(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,
            scale4: torch.Tensor | None,
            bias4: torch.Tensor | None) -> int:
@@ -165,6 +219,49 @@ def _kernel_fn(variant: str):
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return fn
+
+
+_LOADS = {0: "tma", 1: "cp.async", 2: "scalar"}
+
+
+@functools.cache
+def _plan_fn():
+    """The narrow kernel's plan entry (built on first use), typed once."""
+    fn = _build.load("decoder_upsample_narrow") \
+        .srit_decoder_upsample_narrow_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    return fn
+
+
+def narrow_plan(parts: Sequence[torch.Tensor], co: int) -> dict:
+    """The launch the narrow kernel makes for these inputs on the current
+    card (its C entry ``srit_decoder_upsample_narrow_plan``): ``route``
+    (``"tensor_core"`` in bf16, ``"cuda_core"`` in f32), each part's
+    ``loads`` (``"tma"``, ``"cp.async"`` or ``"scalar"``), ``stages``,
+    ``tile`` (rows, columns), ``blocks``, ``resident`` (every chunk's
+    expanded weight kept in shared memory; None in f32), ``n_cols`` (the
+    GEMM's N) and ``tiles``."""
+    x0 = parts[0]
+    if x0.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {x0.dtype}")
+    n, ci0, h, w = x0.shape
+    x1 = parts[1] if len(parts) == 2 else None
+    plan = (ctypes.c_longlong * 10)()
+    with torch.cuda.device(x0.device):
+        rc = _plan_fn()(_KERNEL_DTYPES[x0.dtype], x0.data_ptr(),
+                x1.data_ptr() if x1 is not None else None, ci0,
+                x1.shape[1] if x1 is not None else 0, n, h, w, co, plan)
+    if rc != 0:
+        raise RuntimeError(f"narrow plan refused these inputs "
+                           f"(cudaError {rc})")
+    v = list(plan)
+    return {"route": "tensor_core" if v[0] else "cuda_core",
+            "loads": tuple(_LOADS[k] for k in v[1:3] if k != -1),
+            "stages": v[3], "tile": (v[4], v[5]), "blocks": v[6],
+            "resident": None if v[7] < 0 else bool(v[7]), "n_cols": v[8],
+            "tiles": v[9]}
 
 
 def _launch(parts: tuple[torch.Tensor, ...], w4: torch.Tensor,

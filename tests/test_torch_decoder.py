@@ -22,7 +22,10 @@ from shadow_removal_istd_tpu_torch.models.mnet import MNet
 from shadow_removal_istd_tpu_torch.ops.decoder import (
     _aligned,
     decoder_upsample,
+    decoder_upsample_all_phase,
+    decoder_upsample_plain,
     decoder_variant,
+    narrow_weight,
     subpixel_depth_to_space,
 )
 
@@ -296,3 +299,105 @@ def test_alignment_is_read_off_the_data_pointers():
     assert not _aligned(y) and not _aligned(x, y)
     assert decoder_variant(torch.bfloat16, 32, 0, 64,
                            _aligned(y)) == "cuda_core"
+
+
+# the narrow kernel's weight map: Co 1..4; both pads; with LeakyReLU and
+# the affine (a wide step) or without both (the final layer); the final
+# layer's channel split, a ragged split and one part
+_TWIN_PARTS = [(64, 64), (9, 5), (20,)]
+
+
+def _twin_inputs(parts, co, final, seed):
+    """numpy inputs (f32) for a narrow step: NHWC parts, w4, s4, b4."""
+    n, h, w = 2, 5, 7
+    x, w4, s4, b4 = _inputs(n, h, w, sum(parts), co, "float32", seed)
+    if final:
+        s4, b4 = np.ones_like(s4), np.zeros_like(b4)
+    bounds = np.cumsum((0,) + parts)
+    xs = [x[..., a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    return x, xs, w4, s4, b4
+
+
+def _jax_step_form(x, w4, s4, b4, leaky, zero_pad):
+    """The JAX decoder step in the form the Pallas kernel lacks (no
+    LeakyReLU, or zero padding): JAX's reference composition with its
+    activation and pad swapped (f32, highest precision)."""
+    a = jnp.asarray(x)
+    if leaky:
+        a = jnp.maximum(a, 0.2 * a)
+    ap = jnp.pad(a, ((0, 0), (1, 1), (1, 1), (0, 0)),
+                 mode="constant" if zero_pad else "edge")
+    with jax.default_matmul_precision("highest"):
+        y = jax.lax.conv_general_dilated(
+            ap, jnp.asarray(w4), (1, 1), "VALID",
+            dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    y = y * jnp.asarray(s4) + jnp.asarray(b4)
+    n, h, w, _ = x.shape
+    return np.asarray(jl.subpixel_depth_to_space(y, h, w, w4.shape[-1] // 4))
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("parts", _TWIN_PARTS)
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("co", [1, 2, 3, 4])
+def test_narrow_weight_twin_matches_plain(co, zero_pad, parts, final):
+    """The kernel's all-phase 3x3 form (its B, :func:`narrow_weight`) is
+    the step: equal to ``decoder_upsample_plain`` within 1e-5 in f32."""
+    _, xs, w4, s4, b4 = _twin_inputs(parts, co, final, seed=10 + co)
+    args = ([_t(x, "float32") for x in xs], torch.from_numpy(w4),
+            None if final else torch.from_numpy(s4),
+            None if final else torch.from_numpy(b4))
+    kw = dict(leaky=not final, zero_pad=zero_pad)
+    got = decoder_upsample_all_phase(*args, **kw)
+    want = decoder_upsample_plain(*args, **kw)
+    assert got.shape == want.shape == (2, co, 10, 14)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("parts", _TWIN_PARTS)
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("co", [1, 2, 3, 4])
+def test_narrow_weight_twin_matches_jax(co, zero_pad, parts, final):
+    """The all-phase form against JAX on the same numpy inputs, within
+    1e-5 in f32: JAX's ``fused_decoder_upsample`` (Pallas, interpret
+    mode) where it applies, the edge form with LeakyReLU (the final
+    layer's identity affine as scale 1, bias 0); JAX's reference
+    composition with its pad and activation swapped elsewhere."""
+    x, xs, w4, s4, b4 = _twin_inputs(parts, co, final, seed=20 + co)
+    got = decoder_upsample_all_phase(
+        [_t(p, "float32") for p in xs], torch.from_numpy(w4),
+        None if final else torch.from_numpy(s4),
+        None if final else torch.from_numpy(b4), leaky=not final,
+        zero_pad=zero_pad)
+    if not zero_pad and not final:
+        with jax.default_matmul_precision("highest"):
+            want = np.asarray(fused_decoder_upsample(
+                jnp.asarray(x), jnp.asarray(w4), jnp.asarray(s4),
+                jnp.asarray(b4), interpret=True))
+    else:
+        want = _jax_step_form(x, w4, s4, b4, not final, zero_pad)
+    np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("co", [1, 2, 3, 4])
+def test_narrow_weight_layout(co):
+    """(3, 3, Ci, 8 or 16): phase p = (pr, pc) holds w4[di, dj] at tap
+    (pr + di, pc + dj), zeros at its other 5 taps and past 4 Co."""
+    rng = np.random.default_rng(co)
+    w4 = torch.from_numpy(rng.standard_normal((2, 2, 6, 4 * co))).float()
+    b = narrow_weight(w4)
+    assert b.shape == (3, 3, 6, 8 if co <= 2 else 16)
+    assert not b[..., 4 * co:].any()
+    for p in range(4):
+        pr, pc = divmod(p, 2)
+        cols = slice(p * co, (p + 1) * co)
+        for dr in range(3):
+            for dc in range(3):
+                di, dj = dr - pr, dc - pc
+                if 0 <= di <= 1 and 0 <= dj <= 1:
+                    assert torch.equal(b[dr, dc, :, cols], w4[di, dj, :, cols])
+                else:
+                    assert not b[dr, dc, :, cols].any()

@@ -10,9 +10,12 @@ counts that are no multiple of the K step, the output tile or the
 narrow kernel's channel chunk, spatial sizes that are no multiple of the
 narrow kernel's tile, unequal split-skip parts, both padding forms and
 both epilogues; the CUDA-core kernel's three tiles (128x128, 128x64,
-128x16) on its 16-byte and its scalar loads, and at K = 4096. Each case
-asserts which variant ran. Tolerances as in chip_smoke.py: 2e-5 in f32
-(TF32 off), 3e-2 in bf16.
+128x16) on its 16-byte and its scalar loads, and at K = 4096; the
+narrow kernel's bf16 routes (TMA against element loads, one part of each,
+the expanded weight resident or rebuilt per chunk) and its edge-form
+tiles on every image border, each read off its plan
+(``narrow_plan``). Each case asserts which variant ran. Tolerances as in
+chip_smoke.py: 2e-5 in f32 (TF32 off), 3e-2 in bf16.
 
 Marked ``cuda``; skips without a card. On a machine with one (the tests'
 conftest imports JAX, which that machine need not have)::
@@ -27,6 +30,7 @@ from shadow_removal_istd_tpu_torch.ops.decoder import (
     decoder_upsample_plain,
     _launch,
     decoder_variant,
+    narrow_plan,
 )
 
 pytestmark = pytest.mark.cuda
@@ -246,3 +250,79 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         decoder_upsample(xs, w4.to(torch.bfloat16), s4, b4, leaky=True)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         decoder_upsample([xs[0].half()], w4.half(), s4, b4, leaky=True)
+
+
+@pytest.mark.parametrize("parts,misaligned,loads", [
+    ((64, 64), False, ("tma", "tma")),      # the final layer's parts
+    ((16, 13), False, ("tma", "scalar")),   # Ci 13: rows off 16 bytes
+    ((9, 5), False, ("scalar", "scalar")),
+    ((16, 8), True, ("scalar", "tma")),     # part 0 one element past
+    ((40,), False, ("tma",)),               # one part, a ragged chunk
+])
+@pytest.mark.parametrize("co", [1, 3])
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("final", [False, True])
+def test_narrow_bf16_load_routes(cuda, parts, misaligned, loads, co,
+                                 zero_pad, final):
+    """bf16 narrow: each part arrives by TMA where it is 16-byte aligned
+    with channels a multiple of 8, else element by element into the same
+    ring, as the kernel's plan says; the output matches the plain
+    version either way."""
+    xs, w4, s4, b4 = _inputs(2, 19, 37, parts, co, not final,
+                             torch.bfloat16)
+    if misaligned:
+        xs = [_misaligned(xs[0])] + xs[1:]
+    plan = narrow_plan(xs, co)
+    assert plan["route"] == "tensor_core" and plan["loads"] == loads
+    assert plan["n_cols"] == (8 if co <= 2 else 16) and plan["stages"] >= 3
+    _check(xs, w4, s4, b4, zero_pad, not final, "narrow")
+
+
+@pytest.mark.parametrize("n,h,w", [
+    (3, 16, 32),     # tiles end exactly on each image's edge
+    (2, 32, 64),     # 2 x 2 whole tiles an image
+    (2, 37, 70),     # ragged last tile row and column: every border
+    (1, 3, 50),      # H under one tile
+    (2, 40, 5),      # W under one tile
+    (5, 1, 1),       # one pixel an image: every tap clamps
+    (1, 15, 31),     # one ragged tile
+])
+@pytest.mark.parametrize("co", [1, 2, 3, 4])
+@pytest.mark.parametrize("zero_pad", [False, True])
+def test_narrow_bf16_tiles_at_every_border(cuda, n, h, w, co, zero_pad):
+    """The edge form clamps the halo pixel of every tile on an image
+    border (top, bottom, left, right, corners), the zero form reads TMA's
+    zero fill; images smaller than one tile and batches whose tiles end
+    on an image boundary included."""
+    xs, w4, s4, b4 = _inputs(n, h, w, (64, 64), co, False, torch.bfloat16)
+    plan = narrow_plan(xs, co)
+    assert plan["loads"] == ("tma", "tma")
+    assert plan["tiles"] == n * -(-h // plan["tile"][0]) * \
+        -(-w // plan["tile"][1])
+    _check(xs, w4, s4, b4, zero_pad, True, "narrow")
+
+
+@pytest.mark.parametrize("parts,co,resident", [
+    ((64, 64), 3, True),
+    ((200, 120), 3, False),   # 11 chunks of B past shared memory at N 16
+    ((200, 120), 1, True),    # the same fit at N 8
+    ((300, 260), 1, False),
+])
+def test_narrow_bf16_expanded_weight_slots(cuda, parts, co, resident):
+    """The expanded weight stays resident where every chunk's slice fits,
+    else it is rebuilt per chunk into two slots; both match."""
+    xs, w4, s4, b4 = _inputs(2, 20, 40, parts, co, True, torch.bfloat16)
+    assert narrow_plan(xs, co)["resident"] is resident
+    _check(xs, w4, s4, b4, False, True, "narrow")
+
+
+@pytest.mark.parametrize("misaligned,loads", [
+    (False, ("cp.async", "cp.async")), (True, ("scalar", "cp.async"))])
+def test_narrow_f32_stays_on_cuda_cores(cuda, misaligned, loads):
+    xs, w4, s4, b4 = _inputs(2, 9, 35, (64, 64), 3, True, torch.float32)
+    if misaligned:
+        xs = [_misaligned(xs[0])] + xs[1:]
+    plan = narrow_plan(xs, 3)
+    assert plan["route"] == "cuda_core" and plan["loads"] == loads
+    assert plan["resident"] is None
+    _check(xs, w4, s4, b4, True, True, "narrow")
