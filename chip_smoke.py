@@ -204,20 +204,30 @@ Phases; any failure exits non-zero before the result line is printed:
    --NN-upconv yes`` for one epoch on the ``cli`` directory writes
    nearest-upsample MNet weights;
    ``InferenceEngine(dtype="int8")`` loads them, calibrated on the
-   directory's 8 test images; ``quantize_pad`` and ``int8_conv``
-   (``csrc/int8_conv.cu``) against their plain versions at every conv
-   site of the stacked pair (20 of each) at 256x256 and 480x640, batch
-   2, in f32 and bf16 compute: the int8 tensors, the s32 sums and the
-   dequantized outputs bit for bit; the engine's 480x640 batch-4 forward
-   launches each kernel 20 times, and its uint8 output is within 2 gray
-   levels of the same engine on the plain versions (the share of values
-   that differ printed); PSNR of int8 against the folded f32 forward and
-   the bf16 engine on the same inputs; stacked img/s at 256x256, batch
-   32, int8 and bf16 in turns, the int8 forward's device time by kernel
-   group (``[profile]``), and each kernel's time per launch and per
+   directory's 8 test images; the kernels of ``csrc/int8_conv.cu``
+   against their plain versions at every conv site of the stacked pair
+   at 256x256 and 480x640, batch 2, in f32 and bf16 compute: the stems'
+   ``quantize_pad`` (2), the fused ``int8_conv_quantized`` (18: every
+   destination's channels, pad ring included, against the plain
+   composition ``int8_conv`` -> compute dtype -> LeakyReLU x k ->
+   ``quantize_pad``) and the finals' ``int8_conv`` (2), their s32 sums
+   and dequantized outputs bit for bit, and the fused forward against the
+   selective all-sites forward (``quant_sites`` naming every site:
+   ``quantize_pad`` before each conv) bit for bit; the engine's 480x640
+   batch-4 forward launches ``int8_conv`` 20 times (18 of them the fused
+   call, counted apart too) and ``quantize_pad`` 2 times, and its uint8
+   output is within 2 gray levels of the same
+   engine on the plain versions (the share of values that differ
+   printed); PSNR of int8 against the folded f32 forward and the bf16
+   engine on the same inputs; stacked img/s at 256x256, batch 32, int8
+   and bf16 in turns; the device time by kernel group (``[profile]``),
+   the wall time a batch and img/s of the fused and the selective
+   all-sites int8 forward in turns; each kernel's time per launch and per
    forward beside its plain version, its bound and, for ``int8_conv``,
    ``torch._int_mm`` on ``Tensor.unfold`` patches and each site's form,
-   A route, tile, split of K, TOPS and time over bound; the serving daemon
+   A route, tile, split of K, TOPS and time over bound, every fused
+   destination of that 256x256 b32 forward held against the plain
+   composition bit for bit; the serving daemon
    with ``--dtype int8 --int8-calib`` answering one 480x640 request as
    the engine in this process does;
 15. export (after ``int8``): ``tools/export.py`` writes the ngf 64
@@ -318,14 +328,19 @@ passes of one augmentation (in the path's layouts where its C entry
 takes ``transpose_out``, else in the normal layout, as the kernel's
 first version did), compared bit for bit with the checkout's kernel and
 timed beside it in turns, and the whole rotation through it.
-``python3 chip_smoke.py --compare-int8 NAME=PATH [NAME=PATH ...]`` builds
-each given source of ``csrc/int8_conv.cu`` (e.g. the parent commit's)
-and times it beside the checkout's at the 20 ``int8_conv`` sites of a
-256x256 b32 int8 stacked forward (seeded random operands), every source
-launched as the wrapper launches (``int8_conv.launch``; an earlier source
-by its one C entry) and compared bit for bit with the wrapper
-(``[compare-int8]`` lines: form, taps, the A route, tile and split,
-TOPS, time over bound).
+``python3 chip_smoke.py --compare-int8 NAME=PATH [NAME=PATH ...]`` times,
+at each of the 20 conv sites of a 256x256 b32 int8 stacked forward
+(seeded random operands), the checkout's fused call (its destinations as
+the forward gives them) beside the unfused routes of the checkout and of
+each given source of ``csrc/int8_conv.cu`` (e.g. the parent commit's):
+its ``int8_conv`` into the compute dtype plus either the ``quantize_pad``
+launch that the fusion removed (the one whose first part this site
+produces: ``forward``, which sums to the unfused forward) or one
+``quantize_pad`` of the site's output per destination (``site``: each
+destination charged to the site that produces it, the per-site
+comparison), in turns; each fused destination is compared bit for bit
+with the routes' results (``[compare-int8]`` lines: form, taps, the A
+route, tile and split, destinations, time over bound).
 ``python3 chip_smoke.py --compare-reflect-pad`` times the train step
 (f32 and bf16 compute) with the models' deterministic reflect-pad
 backward beside torch's atomic one, in turns (``[compare-pad]`` lines).
@@ -3825,13 +3840,18 @@ def phase_h5(vgg_path: Path) -> dict:
 
 
 def _record_int8(fn):
-    """Run ``fn()`` with ``models.quant``'s ``quantize_pad`` and
-    ``int8_conv`` wrapped to record each call's arguments and output;
-    returns (fn's result, {"quantize_pad": [...], "int8_conv": [...]})."""
+    """Run ``fn()`` with ``models.quant``'s ``quantize_pad``,
+    ``int8_conv`` and ``int8_conv_quantized`` wrapped to record each
+    call; returns (fn's result, {name: [...]}): the first two's
+    arguments and output, the fused call's arguments, destinations and a
+    copy of the channels it wrote into each, taken right after it (a
+    decoder site's input is written by two calls)."""
     from shadow_removal_istd_tpu_torch.models import quant
 
-    calls: dict = {"quantize_pad": [], "int8_conv": []}
+    calls: dict = {"quantize_pad": [], "int8_conv": [],
+                   "int8_conv_quantized": []}
     real_qp, real_cv = quant.quantize_pad, quant.int8_conv
+    real_fq = quant.int8_conv_quantized
 
     def qp(parts, sx, **kw):
         out = real_qp(parts, sx, **kw)
@@ -3843,16 +3863,27 @@ def _record_int8(fn):
         calls["int8_conv"].append(((xq, wk, scale, bias), kw, out))
         return out
 
-    with mock.patch.multiple(quant, quantize_pad=qp, int8_conv=cv):
+    def fq(xq, wk, scale, bias=None, *, dests, **kw):
+        dests = tuple(dests)
+        real_fq(xq, wk, scale, bias, dests=dests, **kw)
+        co = wk.shape[0] // 4 if kw["phase"] else wk.shape[0]
+        written = [d[0][..., d[4]:d[4] + co].clone() for d in dests]
+        calls["int8_conv_quantized"].append(
+            ((xq, wk, scale, bias), kw, dests, written))
+
+    with mock.patch.multiple(quant, quantize_pad=qp, int8_conv=cv,
+                             int8_conv_quantized=fq):
         result = fn()
     return result, calls
 
 
-def int8_conv_cost(args, kw) -> tuple[float, float]:
+def int8_conv_cost(args, kw, dests=()) -> tuple[float, float]:
     """(operations, bytes) one ``int8_conv`` call must do and move: the
     products of the real channels at the outputs kept, the padded int8
     input, the weight, scales and bias read once, the output written
-    once."""
+    once; for the fused call (``dests`` given) each destination's channel
+    range of its padded tensor written once (pad ring included) in place
+    of the output, and each destination's scale read."""
     xq, wk, _, _ = args
     n, hp, wp, cp = xq.shape
     rows = wk.shape[0]
@@ -3866,10 +3897,13 @@ def int8_conv_cost(args, kw) -> tuple[float, float]:
     # the channels that carry data: the weight's zero padding is no work
     ci = int((wk.reshape(-1, cp) != 0).any(0).nonzero().max()) + 1
     ops = 2.0 * outputs * taps * ci
-    elt = torch.tensor([], dtype=kw.get("out_dtype", torch.float32)
-                       ).element_size()
-    nbytes = (xq.numel() + wk.numel() + 4 * rows + 4 * co
-              + outputs * elt)
+    nbytes = xq.numel() + wk.numel() + 4 * rows + 4 * co
+    if dests:
+        nbytes += sum(d[0][..., :co].numel() + 4 for d in dests)
+    else:
+        elt = torch.tensor([], dtype=kw.get("out_dtype", torch.float32)
+                           ).element_size()
+        nbytes += outputs * elt
     return ops, nbytes
 
 
@@ -3916,32 +3950,38 @@ def _int8_site(args, kw) -> str:
 
 
 def int8_stacked_sites(n: int, h: int, w: int, gen):
-    """Operands of the 20 ``int8_conv`` calls of an int8 stacked G1+G2
-    forward at ngf ``NGF`` (bf16 compute), from seeded random int8 data
-    and weights, the finals' expanded to the 3x3 window as
-    ``make_stacked_int8`` serves them: yields (label, args, kw) one site
-    at a time."""
+    """Operands of the 20 conv sites of an int8 stacked G1+G2 forward at
+    ngf ``NGF`` (bf16 compute), from seeded random int8 data and weights,
+    the finals' expanded to the 3x3 window as ``make_stacked_int8``
+    serves them: yields (label, args, kw, dests) one site at a time, kw
+    the unfused call's (its output in bf16; the finals' f32), ``dests``
+    the site's destinations as ``models.quant.int8_wiring`` gives them
+    to its fused call (``(site, channels, c_off, leaky, reflect)``; empty
+    for the finals)."""
+    from shadow_removal_istd_tpu_torch.models.quant import int8_wiring
     from shadow_removal_istd_tpu_torch.ops.int8_conv import (
         all_phase_weight,
-        channels_padded,
+        channels_padded as chp,
         pad_weight,
     )
 
     g = NGF
+    enc = (g, 2 * g, 4 * g, 8 * g, 8 * g)      # stem, down0..3 outputs
+    dec = (8 * g, 4 * g, 2 * g, g)             # up0..3 outputs
+    wiring = int8_wiring({"stem": g, **{f"down{i}": c for i, c in
+                                         enumerate(enc[1:])},
+                          **{f"up{j}": c for j, c in enumerate(dec)}})
     for net, cin, cout in (("G1", 3, 1), ("G2", 4, 3)):
         sites = [("stem", False, cin, g, 1, False)]
         sites += [(f"down{i}", False, c, o, 2 ** (i + 1), True)
-                  for i, (c, o) in enumerate(zip(
-                      (g, 2 * g, 4 * g, 8 * g), (2 * g, 4 * g, 8 * g, 8 * g)))]
+                  for i, (c, o) in enumerate(zip(enc[:4], enc[1:]))]
         sites += [(f"up{j}", True, c, o, 2 ** (5 - j), True)
                   for j, (c, o) in enumerate(zip(
-                      (8 * g, 16 * g, 8 * g, 4 * g),
-                      (8 * g, 4 * g, 2 * g, g)))]
+                      (8 * g, 16 * g, 8 * g, 4 * g), dec))]
         sites += [("final", True, 2 * g, cout, 2, False)]
         for name, phase, ci, co, div, has_bias in sites:
             hi, wi = h // div, w // div
-            xq = torch.randint(-127, 128, (n, hi + 2, wi + 2,
-                                           channels_padded(ci)),
+            xq = torch.randint(-127, 128, (n, hi + 2, wi + 2, chp(ci)),
                                dtype=torch.int8, device=DEVICE, generator=gen)
             xq[..., ci:] = 0
             rows = 4 * co if phase else co
@@ -3956,105 +3996,193 @@ def int8_stacked_sites(n: int, h: int, w: int, gen):
                     if has_bias else None)
             out_dtype = torch.float32 if name == "final" else torch.bfloat16
             yield (f"{net} {name}", (xq, wk, scale, bias),
-                   dict(phase=phase, out_dtype=out_dtype))
+                   dict(phase=phase, out_dtype=out_dtype),
+                   wiring.get(name, []))
 
 
 def compare_int8(sources: dict[str, str]) -> None:
-    """The checkout's ``int8_conv`` beside other sources of
-    ``csrc/int8_conv.cu`` (e.g. the parent commit's, from ``git archive``
-    into a git-ignored directory), at the 20 sites of a 256x256 b32 int8
-    stacked forward (seeded random operands): each source's output
-    compared bit for bit with the wrapper's, then timed in turns
-    (checkout, others, others reversed, checkout), beside the bound
-    (``[compare-int8]`` lines). A source with the checkout's C entries
-    launches as the wrapper does (``int8_conv.launch``, the checkout's
-    too: no op dispatch); an earlier one without ``srit_int8_conv_split``
-    takes its one entry with ``int phase`` (forms 0 and 1, no split) and
-    the finals by their 2x2 phase weight."""
-    import ctypes
+    """The checkout's fused call beside unfused routes of the checkout and
+    of other sources of ``csrc/int8_conv.cu`` (e.g. the parent commit's,
+    from ``git archive`` into a git-ignored directory), at the 20 sites of
+    a 256x256 b32 int8 stacked forward (seeded random operands), each
+    unfused route ``int8_conv`` into bf16 and then ``quantize_pad``
+    launches (their LeakyReLU by the kernel's flag, so the unfused side
+    leaves out the forward's elementwise LeakyReLU) in two charges:
 
+    - ``forward``: the one ``quantize_pad`` launch that the fusion removed
+      and whose first part this site produces (a decoder site's input
+      with its link): launch for launch the unfused forward, so the 20
+      sites sum to it, but a decoder site is charged its link's quantize
+      and an encoder site not;
+    - ``site``: one ``quantize_pad`` of this site's output alone per
+      destination of the fused call (8 launches more a forward), each
+      destination charged to the site that produces it: the per-site
+      comparison.
+
+    Every destination of the fused call is compared bit for bit with the
+    ``site`` route's result, the first also with the ``forward`` route's;
+    then all are timed in turns (fused, routes, routes reversed, fused),
+    beside the bounds (``[compare-int8]`` lines). The finals take
+    ``int8_conv`` alone on every side; the stems' own input
+    ``quantize_pad`` runs on every side and is left out. Each source
+    launches as the wrappers do (``launch``, ``launch_quantize_pad``,
+    ``launch_quantized``: no op dispatch)."""
     from shadow_removal_istd_tpu_torch.ops import int8_conv as mod
 
-    entries = {"checkout": mod._fns()[1:]}      # the checkout's, built first
+    lib = mod._build.load("int8_conv")
+    pairs = {"checkout": (mod.quantize_pad_entry(lib),
+                          mod.conv_entries(lib))}
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
         libs = dict(zip(sources, pool.map(
             lambda n, p: build_source(f"int8_conv_{n}", p), sources,
             sources.values())))
-    legacy = {}
     for name, dll in libs.items():
-        if hasattr(dll, "srit_int8_conv_split"):
-            entries[name] = mod.conv_entries(dll)
-        else:       # the same argument types, ``int phase`` last
-            conv = legacy[name] = dll.srit_int8_conv
-            conv.restype = ctypes.c_int
-            conv.argtypes = entries["checkout"][0].argtypes
-
-    def run_legacy(conv, xq, wk, scale, bias, phase, out_dtype):
-        n, hp, wp, cp, ho, wo, co = mod._geometry(xq, wk, phase)
-        oh, ow = (2 * ho, 2 * wo) if phase else (ho, wo)
-        out = torch.empty((n, co, oh, ow), dtype=out_dtype, device=DEVICE,
-                          memory_format=torch.channels_last)
-        rc = conv(xq.data_ptr(), wk.data_ptr(), scale.data_ptr(),
-                  bias.data_ptr() if bias is not None else None,
-                  out.data_ptr(), mod._OUT_DTYPES[out_dtype], n, hp, wp, cp,
-                  ho, wo, co, int(phase),
-                  torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise SystemExit(f"int8_conv launch failed (cudaError {rc})")
-        return out
-
-    names = [*entries, *legacy]
+        pairs[name] = (mod.quantize_pad_entry(dll), mod.conv_entries(dll))
+    fused_fn = mod._quantized_fn()
+    routes = [(src, charge) for charge in ("forward", "site")
+              for src in pairs]
+    names = ["fused", *(f"{s} {c}" for s, c in routes)]
     order = names + names[:0:-1] + names[:1]
     gen = torch.Generator(device=DEVICE).manual_seed(18)
-    tot = dict.fromkeys([*names, "bound"], 0.0)
-    for label, args, kw in int8_stacked_sites(INT8_BATCH, 256, 256, gen):
-        xq, wk, scale, bias = args
-        wk2 = phase_taps(wk) if wk.shape[1] == 3 else wk
+    tot = dict.fromkeys([*names, "fused bound", "forward bound",
+                         "site bound"], 0.0)
+    mb = 1e3 / PEAK_BYTES
+    for label, args, kw, wiring in int8_stacked_sites(INT8_BATCH, 256, 256,
+                                                      gen):
+        y = mod.int8_conv(*args, **kw)
+        n, co, oh, ow = y.shape
+        bufs = [torch.zeros(n, oh + 2, ow + 2, mod.channels_padded(ch),
+                            dtype=torch.int8, device=DEVICE)
+                for _, ch, *_ in wiring]
+        dests = []
+        for k, (buf, (_, _, c_off, lk, rf)) in enumerate(zip(bufs, wiring)):
+            a = y.float()
+            for _ in range(lk):
+                a = torch.where(a > 0, a, a * 0.2)
+            sx = a.abs().amax() * (0.7 - 0.1 * k) / 127
+            dests.append((buf, sx, lk, rf, c_off))
+        c_link = wiring[0][1] - co if wiring else 0
+        link = ()
+        if c_link:
+            link = ((torch.randn(n, c_link, oh, ow, device=DEVICE,
+                                 generator=gen) * y.float().std()).to(
+                y.dtype).contiguous(memory_format=torch.channels_last),)
+        cols = [list(t) for t in zip(*dests)]
 
-        def run(name):
-            if name in legacy:
-                return run_legacy(legacy[name], xq, wk2, scale, bias,
-                                  kw["phase"], kw["out_dtype"])
-            return mod.launch(entries[name], *args, **kw)
+        def run_fused():
+            if not dests:
+                return mod.launch(pairs["checkout"][1], *args, **kw)
+            mod.launch_quantized(fused_fn, *args[:4], kw["phase"],
+                                 torch.bfloat16, cols[0],
+                                 [t.reshape(()) for t in cols[1]], *cols[2:])
 
-        ref = mod.int8_conv(*args, **kw)    # the wrapper's, as served
+        def run_route(src, charge, leaked=False):
+            qp, conv = pairs[src]
+            u = mod.launch(conv, *args, **kw)
+            if not dests:
+                return u
+            if charge == "forward":
+                return [mod.launch_quantize_pad(
+                    qp, (u, *link), dests[0][1], leaky=dests[0][2] > 0,
+                    reflect=dests[0][3])]
+            # a link is LeakyReLU'd once before its decoder site's own;
+            # the timed route leaves that elementwise launch out
+            return [mod.launch_quantize_pad(
+                qp, (mod.leaky_relu(u) if leaked and lk == 2 else u,), sx,
+                leaky=lk > 0, reflect=rf) for _, sx, lk, rf, _ in dests]
+
         line = f"[compare-int8] {label} {_int8_site(args, kw)}"
-        for name in names:
-            differ = int((run(name) != ref).sum())
-            line += f" | {name} {differ} outputs differ"
+        got = run_fused()
+        if dests:
+            line += " -> " + " + ".join(
+                f"(Cp {d[0].shape[3]}, at {d[4]}, leaky x{d[2]}, "
+                f"{'reflect' if d[3] else 'edge'})" for d in dests)
+            got = [d[0][..., d[4]:d[4] + co] for d in dests]
+        for src, charge in routes:
+            want = run_route(src, charge, leaked=True)
+            if dests:
+                differ = sum(int((g != wt[..., :co]).sum())
+                             for g, wt in zip(got, want))
+            else:
+                differ = int((got != want).sum())
+            line += f" | {src} {charge} {differ} differ"
             if differ:
-                raise SystemExit(f"{name} and the wrapper differ at {label}")
+                raise SystemExit(f"the fused call and the {src} {charge} "
+                                 f"route differ at {label}")
         times: dict[str, list] = {}
         for name in order:
-            times.setdefault(name, []).append(time_ms(lambda: run(name), 10))
-        ops, nbytes = int8_conv_cost(args, kw)
-        t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound = max(t_ops, t_bytes)
-        tot["bound"] += bound
+            fn = run_fused if name == "fused" else (
+                lambda name=name: run_route(*name.split(" ")))
+            times.setdefault(name, []).append(time_ms(fn, 10))
+        ops, nbytes = int8_conv_cost(args, kw, dests)
+        f_ops = ops / PEAK_INT8 * 1e3
+        bound = {"fused": max(f_ops, nbytes * mb)}
+        conv_bound = max(f_ops, int8_conv_cost(args, kw)[1] * mb)
+        bound["forward"] = bound["site"] = conv_bound
+        if dests:   # the quantize_pad launches: their parts in, outputs out
+            y_bytes = y.numel() * y.element_size()
+            bound["forward"] += (y_bytes * (1 + c_link / co)
+                                 + bufs[0].numel()) * mb
+            bound["site"] += sum(y_bytes + n * (oh + 2) * (ow + 2)
+                                 * mod.channels_padded(co) for _ in dests) * mb
+        for k, v in bound.items():
+            tot[f"{k} bound"] += v
         for name, v in times.items():
             ms = sum(v) / len(v)
             tot[name] += ms
+            over = ms / bound[name.split(" ")[-1]]
             line += (f" | {name} " + "/".join(f"{t:.4f}" for t in v)
-                     + f" ms ({ops / ms / 1e9:.1f} TOPS, {ms / bound:.2f}x "
-                     f"bound)")
-        print(f"{line} | bound {bound:.4f} "
-              f"({'ops' if t_ops >= t_bytes else 'bytes'})", flush=True)
-        del args, xq, wk, wk2, scale, bias, ref
+                     + f" ms ({over:.2f}x bound)")
+        print(f"{line} | bounds: fused {bound['fused']:.4f} "
+              f"({'ops' if f_ops >= nbytes * mb else 'bytes'}), forward "
+              f"{bound['forward']:.4f}, site {bound['site']:.4f}",
+              flush=True)
+        del args, y, bufs, dests, cols, link, got
         torch.cuda.empty_cache()
     print(f"[compare-int8] per stacked forward 256x256 b{INT8_BATCH} (20 "
-          f"launches): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
-                                      tot.items()), flush=True)
+          f"sites; the forward routes' 18 quantize_pad launches, the site "
+          f"routes' 26, beside their 20 int8_conv): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in tot.items()),
+          flush=True)
 
 
-def _int8_kernels_vs_plain(q1, q2, gen) -> dict:
-    """Both int8 kernels against their plain versions at every conv site
-    of the stacked pair (20 of each), at 256x256 and 480x640, batch 2,
-    in f32 and bf16 compute: the int8 tensors, the s32 sums and the
-    dequantized outputs bit for bit."""
+INT8_SITES = frozenset({"stem", "down0", "down1", "down2", "down3", "up0",
+                        "up1", "up2", "up3", "final"})
+
+
+def _selective_int8(f1, f2, q1, q2, dtype):
+    """The stacked pair on the selective int8 forward with every site
+    int8 (``quant_sites`` naming all: ``quantize_pad`` before each conv,
+    each conv's output in ``dtype``), on the weights ``make_stacked_int8``
+    serves (``kernel_pack``: the finals in their all-phase form): the
+    unfused route the fused one replaced, launch for launch."""
+    from shadow_removal_istd_tpu_torch.models import quant
+
+    q1, q2 = quant.kernel_pack(q1), quant.kernel_pack(q2)
+
+    def fn(x):
+        m = quant.mnet_apply_folded(f1, x, qparams=q1, quant_sites=INT8_SITES,
+                                    compute_dtype=dtype)
+        y = quant.mnet_apply_folded(f2, torch.cat([x.float(), m], 1),
+                                    qparams=q2, quant_sites=INT8_SITES,
+                                    compute_dtype=dtype)
+        return m, y
+    return fn
+
+
+def _int8_kernels_vs_plain(f1, f2, q1, q2, gen) -> dict:
+    """The int8 kernels against their plain versions at every conv site of
+    the stacked pair, at 256x256 and 480x640, batch 2, in f32 and bf16
+    compute: the stems' ``quantize_pad`` (2), the fused call (18: each
+    destination's channels as written, against the plain composition),
+    the finals' ``int8_conv`` (2) and every conv's s32 sums, bit for bit;
+    then the fused forward against the selective all-sites forward, bit
+    for bit."""
     from shadow_removal_istd_tpu_torch.models.quant import make_stacked_int8
     from shadow_removal_istd_tpu_torch.ops.int8_conv import (
         int8_conv,
         int8_conv_plain,
+        int8_conv_quantized_plain,
         quantize_pad_plain,
     )
 
@@ -4063,7 +4191,7 @@ def _int8_kernels_vs_plain(q1, q2, gen) -> dict:
         x = torch.rand((2, 3, h, w), device=DEVICE, generator=gen) * 2 - 1
         for dtype in (torch.float32, torch.bfloat16):
             fn = make_stacked_int8(q1, q2, compute_dtype=dtype)
-            _, calls = _record_int8(lambda: fn(x))
+            (m, y), calls = _record_int8(lambda: fn(x))
             torch.cuda.synchronize()
             bad = []
             for (parts, sx), kw, got in calls["quantize_pad"]:
@@ -4071,31 +4199,58 @@ def _int8_kernels_vs_plain(q1, q2, gen) -> dict:
                                                            **kw)):
                     bad.append(f"quantize_pad {tuple(parts[0].shape)} "
                                f"{len(parts)} parts {kw}")
-            n_acc = 0
-            for args, kw, got in calls["int8_conv"]:
+            n_acc = n_dest = 0
+            convs = [(args, kw, got) for args, kw, got in calls["int8_conv"]]
+            convs += [(args, kw, None) for args, kw, *_ in
+                      calls["int8_conv_quantized"]]
+            for args, kw, got in convs:
                 acc = int8_conv(args[0], args[1], phase=kw["phase"])
                 want_acc = int8_conv_plain(args[0], args[1],
                                            phase=kw["phase"])
-                want = int8_conv_plain(*args, **kw)
                 n_acc += int((acc != want_acc).sum())
+                if not torch.equal(acc, want_acc):
+                    bad.append(f"int8_conv {tuple(args[0].shape)} {kw} s32 "
+                               f"differ {int((acc != want_acc).sum())}")
+                if got is None:
+                    continue
+                want = int8_conv_plain(*args, **kw)
                 err = (got.float() - want.float()).abs().max().item()
                 worst = max(worst, err)
-                if not torch.equal(acc, want_acc) or not torch.equal(got,
-                                                                     want):
+                if not torch.equal(got, want):
                     bad.append(f"int8_conv {tuple(args[0].shape)} -> "
-                               f"{tuple(got.shape)} {kw} s32 differ "
-                               f"{int((acc != want_acc).sum())}, max abs "
-                               f"{err:.3e}")
-            print(f"[int8] {h}x{w} b2 {str(dtype)[6:]}: "
-                  f"{len(calls['quantize_pad'])} quantize_pad and "
-                  f"{len(calls['int8_conv'])} int8_conv sites vs plain: "
-                  f"{len(bad)} differ (int8 tensors, s32 sums: {n_acc} "
-                  f"differ, dequantized outputs: bit for bit)")
-            if (bad or len(calls["quantize_pad"]) != 20
-                    or len(calls["int8_conv"]) != 20):
+                               f"{tuple(got.shape)} {kw} max abs {err:.3e}")
+            for args, kw, dests, written in calls["int8_conv_quantized"]:
+                plain = [(torch.zeros_like(d[0]), *d[1:]) for d in dests]
+                int8_conv_quantized_plain(*args, **kw, dests=plain)
+                for (buf, sx, leaky, reflect, c_off), got in zip(plain,
+                                                                 written):
+                    want = buf[..., c_off:c_off + got.shape[3]]
+                    err = (got.float() - want.float()).abs().max().item()
+                    worst = max(worst, err)
+                    n_dest += 1
+                    if not torch.equal(got, want):
+                        bad.append(f"int8_conv_quantized "
+                                   f"{tuple(args[0].shape)} -> "
+                                   f"{tuple(buf.shape)} at {c_off} leaky "
+                                   f"x{leaky} reflect {reflect}: max abs "
+                                   f"{err:.0f}")
+            sel = _selective_int8(f1, f2, q1, q2, dtype)(x)
+            same = torch.equal(m, sel[0]) and torch.equal(y, sel[1])
+            counts = {k: len(v) for k, v in calls.items()}
+            print(f"[int8] {h}x{w} b2 {str(dtype)[6:]}: {counts} sites vs "
+                  f"plain: {len(bad)} differ (int8 tensors, {n_dest} fused "
+                  f"destinations, s32 sums: {n_acc} differ, dequantized "
+                  f"outputs: bit for bit); fused forward vs selective "
+                  f"all-sites forward: "
+                  f"{'bit for bit' if same else 'DIFFER'}")
+            if bad or counts != {"quantize_pad": 2, "int8_conv": 2,
+                                 "int8_conv_quantized": 18}:
                 raise SystemExit("int8 kernels disagree with their plain "
                                  "versions: " + "; ".join(bad[:5]))
-            del calls
+            if not same:
+                raise SystemExit("int8: the fused forward differs from the "
+                                 "selective all-sites forward")
+            del calls, sel, m, y
             torch.cuda.empty_cache()
     return {"max_abs_err": worst}
 
@@ -4153,20 +4308,20 @@ def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
     return 20 * math.log10(2.0 / max(rms, 1e-12))
 
 
-def _int8_profile(engine, x) -> dict:
-    """Device time of one int8 stacked forward by kernel group, with the
-    launches the profiler saw of each int8 kernel (20 each when none was
-    lost)."""
+def _int8_profile(label: str, fn) -> dict:
+    """Device time of one int8 stacked forward ``fn()`` by kernel group,
+    with the launches the profiler saw of each int8 kernel (the fused
+    call is ``int8_conv``'s kernel)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    engine._stacked(x)
+    fn()
     torch.cuda.synchronize()
     # a warm-up step under the profiler first, as profile_rotation does
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
-            engine._stacked(x)
+            fn()
             torch.cuda.synchronize()
             prof.step()
     groups = dict.fromkeys(("int8_conv", "quantize_pad", "elementwise",
@@ -4189,30 +4344,96 @@ def _int8_profile(engine, x) -> dict:
         if group in seen:
             seen[group] += e.count
     total = sum(groups.values())
-    print(f"[profile] int8 stacked 256x256 b{x.shape[0]}: device time "
-          f"{total:.3f} ms: " + ", ".join(
-              f"{k} {v:.3f} ({100 * v / max(total, 1e-9):.1f} %)"
-              for k, v in groups.items())
+    print(f"[profile] int8 stacked {label}: device time {total:.3f} ms: "
+          + ", ".join(f"{k} {v:.3f} ({100 * v / max(total, 1e-9):.1f} %)"
+                      for k, v in groups.items())
           + f"; launches seen {seen}")
     return {**{k + "_ms": round(v, 4) for k, v in groups.items()},
-            "launches_seen": seen}
+            "device_ms": round(total, 4), "launches_seen": seen}
+
+
+def _int8_routes(engine, selective, x) -> dict:
+    """The fused int8 stacked forward (the engine's) and the selective
+    all-sites one (the same engine with ``selective`` as its int8 fn) on
+    the batch ``x``: device time by group (``_int8_profile``), then the
+    wall time a batch (host clock over 10 forwards ending in a
+    synchronise) and img/s in turns (fused, selective, selective,
+    fused)."""
+    def run(route):
+        if route == "fused":
+            return engine._stacked(x)
+        with mock.patch.object(engine, "_int8_fn", selective):
+            return engine._stacked(x)
+
+    size = f"{x.shape[1]}x{x.shape[2]} b{x.shape[0]}"
+    out = {route: _int8_profile(f"{size}, {route}", lambda: run(route))
+           for route in ("fused", "selective")}
+    walls: dict = {}
+    for route in ("fused", "selective", "selective", "fused"):
+        for _ in range(3):
+            run(route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            run(route)
+        torch.cuda.synchronize()
+        walls.setdefault(route, []).append(
+            (time.perf_counter() - t0) * 1e3 / 10)
+    for route, v in walls.items():
+        wall = sum(v) / len(v)
+        out[route].update(wall_ms=[round(t, 4) for t in v],
+                          img_s=round(x.shape[0] * 1e3 / wall, 2))
+        print(f"[time] int8 {route} stacked {size}, in turns: device "
+              f"{out[route]['device_ms']:.3f} ms, wall "
+              + "/".join(f"{t:.3f}" for t in v)
+              + f" ms a batch, {out[route]['img_s']:.1f} img/s")
+    return out
 
 
 def _int8_timings(engine, x) -> dict:
-    """Each kernel's time over the 20 launches of one 256x256 b32 int8
+    """Each kernel's time over its launches in one 256x256 b32 int8
     stacked forward, on that forward's inputs, beside its plain version,
-    ``torch._int_mm`` on unfold patches (``int8_conv``) and its bound."""
+    its bound and, for ``int8_conv``, ``torch._int_mm`` on unfold
+    patches: the stems' ``quantize_pad``, and ``int8_conv``'s launches,
+    the fused ones also apart (``fused``), each with its launches in the
+    recorded forward (``launches``). Every destination the fused calls
+    wrote in that forward is held against the plain composition
+    (``int8_conv_quantized_plain`` into zeroed buffers) bit for bit."""
     from shadow_removal_istd_tpu_torch.ops.int8_conv import (
         int8_conv,
         int8_conv_plain,
+        int8_conv_quantized,
+        int8_conv_quantized_plain,
         quantize_pad,
         quantize_pad_plain,
     )
 
     _, calls = _record_int8(lambda: engine._stacked(x))
-    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                   ops_ms=0.0, bytes_ms=0.0)
-           for k in ("int8_conv", "quantize_pad")}
+    torch.cuda.synchronize()
+    n_dest = 0
+    for args, kw, dests, written in calls["int8_conv_quantized"]:
+        plain = [(torch.zeros_like(d[0]), *d[1:]) for d in dests]
+        with torch.inference_mode():
+            int8_conv_quantized_plain(*args, **kw, dests=plain)
+        for (buf, _, leaky, reflect, c_off), got in zip(plain, written):
+            n_dest += 1
+            if not torch.equal(got, buf[..., c_off:c_off + got.shape[3]]):
+                raise SystemExit(
+                    f"int8: the fused call {tuple(args[0].shape)} -> "
+                    f"{tuple(buf.shape)} at {c_off} leaky x{leaky} reflect "
+                    f"{reflect} differs from its plain composition")
+        del plain
+    print(f"[int8] {x.shape[1]}x{x.shape[2]} b{x.shape[0]}: "
+          f"{len(calls['int8_conv_quantized'])} fused calls, {n_dest} "
+          f"destinations vs the plain composition: bit for bit")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ops_ms",
+            "bytes_ms")
+    tot = {k: dict.fromkeys(keys, 0.0)
+           for k in ("int8_conv", "fused", "quantize_pad")}
+    tot["quantize_pad"]["launches"] = len(calls["quantize_pad"])
+    tot["fused"]["launches"] = len(calls["int8_conv_quantized"])
+    tot["int8_conv"]["launches"] = (len(calls["int8_conv"])
+                                    + tot["fused"]["launches"])
     lib_ok = True
     for (parts, sx), kw, out in calls["quantize_pad"]:
         ms = time_ms(lambda: quantize_pad(parts, sx, **kw), 10)
@@ -4230,10 +4451,24 @@ def _int8_timings(engine, x) -> dict:
         t["plain_ms"] += plain
         t["bound_ms"] += bound
         t["bytes_ms"] += bound
-    for args, kw, out in calls["int8_conv"]:
-        ms = time_ms(lambda: int8_conv(*args, **kw), 10)
-        plain = time_ms(lambda: int8_conv_plain(*args, **kw), 2)
-        ops, nbytes = int8_conv_cost(args, kw)
+    convs = [(args, kw, None, out) for args, kw, out in calls["int8_conv"]]
+    convs += [(args, kw, dests, None) for args, kw, dests, _ in
+              calls["int8_conv_quantized"]]
+    for args, kw, dests, out in convs:
+        if dests:
+            # the forward's destinations: inference tensors
+            with torch.inference_mode():
+                ms = time_ms(lambda: int8_conv_quantized(*args, **kw,
+                                                         dests=dests), 10)
+                plain = time_ms(lambda: int8_conv_quantized_plain(
+                    *args, **kw, dests=dests), 2)
+            to = " + ".join(f"{tuple(d[0].shape)} at {d[4]} leaky x{d[2]}"
+                            f"{' reflect' if d[3] else ''}" for d in dests)
+        else:
+            ms = time_ms(lambda: int8_conv(*args, **kw), 10)
+            plain = time_ms(lambda: int8_conv_plain(*args, **kw), 2)
+            to = str(tuple(out.shape))
+        ops, nbytes = int8_conv_cost(args, kw, dests or ())
         t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / PEAK_BYTES * 1e3
         try:
             a, b = _int_mm_operands(args[0], args[1], kw["phase"])
@@ -4243,26 +4478,27 @@ def _int8_timings(engine, x) -> dict:
             lib, lib_ok = float("nan"), False
             print(f"[time] int8 _int_mm n/a: {str(exc).splitlines()[0]}")
         bound = max(t_ops, t_bytes)
-        print(f"[time] int8 int8_conv {'phase' if kw['phase'] else 's2'} "
-              f"{tuple(args[0].shape)} x {tuple(args[1].shape)} -> "
-              f"{tuple(out.shape)} ({_int8_site(args, kw)}): {ms:.4f} ms "
-              f"({ops / ms / 1e9:.1f} TOPS, {ms / bound:.2f}x bound) | "
-              f"plain {plain:.4f} | _int_mm {lib:.4f} | bound {bound:.4f} "
-              f"({'ops' if t_ops >= t_bytes else 'bytes'})")
-        t = tot["int8_conv"]
-        t["ms"] += ms
-        t["plain_ms"] += plain
-        t["library_ms"] += lib
-        t["bound_ms"] += bound
-        t["ops_ms"] += t_ops
-        t["bytes_ms"] += t_bytes
-    del calls
+        print(f"[time] int8 {'fused ' if dests else ''}int8_conv "
+              f"{'phase' if kw['phase'] else 's2'} {tuple(args[0].shape)} x "
+              f"{tuple(args[1].shape)} -> {to} ({_int8_site(args, kw)}): "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS, {ms / bound:.2f}x "
+              f"bound) | plain {plain:.4f} | _int_mm {lib:.4f} | bound "
+              f"{bound:.4f} ({'ops' if t_ops >= t_bytes else 'bytes'})")
+        for key in ("int8_conv", "fused") if dests else ("int8_conv",):
+            t = tot[key]
+            t["ms"] += ms
+            t["plain_ms"] += plain
+            t["library_ms"] += lib
+            t["bound_ms"] += bound
+            t["ops_ms"] += t_ops
+            t["bytes_ms"] += t_bytes
+    del calls, convs
     torch.cuda.empty_cache()
     for k, t in tot.items():
         print(f"[time] int8 {k} per stacked forward 256x256 b{x.shape[0]} "
-              f"(20 launches): kernels {t['ms']:.4f} ms, plain "
+              f"({t['launches']} launches): kernels {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f}"
-              + (f", _int_mm {t['library_ms']:.4f}" if k == "int8_conv"
+              + (f", _int_mm {t['library_ms']:.4f}" if k != "quantize_pad"
                  else ""))
     if not lib_ok:
         tot["int8_conv"]["library_ms"] = None
@@ -4277,6 +4513,8 @@ def phase_int8(vgg_path: Path) -> dict:
     from shadow_removal_istd_tpu_torch.ops.int8_conv import (
         int8_conv,
         int8_conv_plain,
+        int8_conv_quantized,
+        int8_conv_quantized_plain,
         quantize_pad,
         quantize_pad_plain,
     )
@@ -4302,7 +4540,7 @@ def phase_int8(vgg_path: Path) -> dict:
                                    for x, m in zip(batches, m1)])
     q1, q2 = quant.quantize_mnet(f1, s1), quant.quantize_mnet(f2, s2)
     del batches, m1
-    check = _int8_kernels_vs_plain(q1, q2, gen)
+    check = _int8_kernels_vs_plain(f1, f2, q1, q2, gen)
 
     # the main path: one stacked forward of a 480x640 batch of 4
     imgs = calib[:4]
@@ -4310,17 +4548,24 @@ def phase_int8(vgg_path: Path) -> dict:
     engine.infer_group(imgs)
     torch.cuda.synchronize()
     quantize_pad.launches = int8_conv.launches = 0
+    int8_conv_quantized.launches = 0
     got = engine.infer_group(imgs)
     torch.cuda.synchronize()
     launches = {"int8_conv": int8_conv.launches,
+                "int8_conv_quantized": int8_conv_quantized.launches,
                 "quantize_pad": quantize_pad.launches}
     print(f"[int8] engine infer_group {size}: launches per stacked "
           f"forward {launches}")
-    if launches != {"int8_conv": 20, "quantize_pad": 20}:
-        raise SystemExit(f"int8: expected 20 launches of each kernel per "
-                         f"stacked forward, got {launches}")
+    # 18 of the 20 convs quantize the next sites' inputs in their
+    # epilogue: only the stems' inputs take quantize_pad
+    if launches != {"int8_conv": 20, "int8_conv_quantized": 18,
+                    "quantize_pad": 2}:
+        raise SystemExit(f"int8: expected 20 int8_conv (18 fused) and 2 "
+                         f"quantize_pad launches per stacked forward, got "
+                         f"{launches}")
     with mock.patch.multiple(quant, quantize_pad=quantize_pad_plain,
-                             int8_conv=int8_conv_plain):
+                             int8_conv=int8_conv_plain,
+                             int8_conv_quantized=int8_conv_quantized_plain):
         want = engine.infer_group(imgs)
     diffs = [np.abs(g.astype(np.int16) - p)
              for gp, pp in zip(got, want) for g, p in zip(gp, pp)]
@@ -4366,7 +4611,8 @@ def phase_int8(vgg_path: Path) -> dict:
     print(f"[time] stacked G1+G2 256x256 b{INT8_BATCH}, in turns: " + "; ".join(
         f"{k} {img_s[k]:.1f} img/s (" + ", ".join(f"{t:.3f}" for t in v)
         + " ms/batch)" for k, v in runs.items()))
-    split = _int8_profile(engine, xs)
+    routes = _int8_routes(engine, _selective_int8(f1, f2, q1, q2,
+                                                  torch.bfloat16), xs)
     tot = _int8_timings(engine, xs)
     print(f"[time] int8 phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -4385,9 +4631,14 @@ def phase_int8(vgg_path: Path) -> dict:
                          f"{INT8_BATCH}"}
 
     conv = entry("int8_conv", tot["int8_conv"])
-    conv.update(stacked_img_s=round(img_s["int8"], 2),
+    fused = tot["fused"]
+    conv.update(fused_launches=launches["int8_conv_quantized"],
+                fused_ms=round(fused["ms"], 5),
+                fused_plain_ms=round(fused["plain_ms"], 5),
+                fused_bound_ms=round(fused["bound_ms"], 5),
+                stacked_img_s=round(img_s["int8"], 2),
                 bf16_stacked_img_s=round(img_s["bf16"], 2),
-                profile=split, **{k: round(v, 3) for k, v in acc.items()})
+                routes=routes, **{k: round(v, 3) for k, v in acc.items()})
     return {"kernels": [conv, entry("quantize_pad", tot["quantize_pad"])]}
 
 

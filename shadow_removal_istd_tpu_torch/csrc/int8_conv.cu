@@ -116,6 +116,49 @@
 //    lax.conv_general_dilated calls of the JAX int8 graph
 //    (shadow_removal_istd_tpu/models/quant.py:139, :162) and the
 //    dequantize after them.
+//
+// C. The fused quantize (srit_int8_conv_quantized): B's conv whose
+//    epilogue writes, in place of a bf16 or f32 output, the padded int8
+//    inputs of the sites that read it: A's quantize_pad folded into the
+//    producer. At every site but the stems the only consumers of a conv's
+//    output are the next sites' quantizes (mnet_apply_folded's int8 graph,
+//    quant.py:236-273): the encoder's LeakyReLU, its link to the decoder
+//    (LeakyReLU again at the decoder site), the decoder's next input part.
+//    So the epilogue takes B's value v, rounds it to the compute dtype,
+//    and for each of 1 or 2 destinations applies LeakyReLU 0, 1 or 2
+//    times and A's quantize with that destination's scale, and stores the
+//    byte at (b, y + 1, x + 1, c_off + n) of its (N, H + 2, W + 2, Cp)
+//    tensor (the phase form at its depth-to-space pixel). A pixel that a
+//    pad reads stores there too: edge, row 0 to row -1 and row H - 1 to
+//    row H; reflect, row 1 to row -1 and row H - 2 to row H; columns and
+//    corners alike. That is A's output, one part of it, bit for bit.
+//    Bound: B's, with 1 byte an output (a destination) in place of 2 or
+//    4; what it saves is the bf16 activation written, read by an
+//    elementwise LeakyReLU and written again, and read by A (and the
+//    encoder links read once more at their decoder site), and A's
+//    launches: 18 of 20 a stacked forward (the stems' inputs, the image
+//    and G2's concat, come from no conv and keep A). Its main loop, tiles
+//    and plan are B's (a second instantiation of B's kernel per BN).
+//    Design, each point measured on an H100 (chip_smoke.py
+//    --compare-int8):
+//    - B's staged epilogue, 4 channels of a row a thread, one 4-byte
+//      store where Co and the channel offset are multiples of 4, else
+//      byte stores; the passes over the staged columns kept rolled (one
+//      copy of the code): unrolled, the epilogue's instruction stream
+//      stalled on the instruction cache and ran at 2-3x B's time;
+//    - a thread dequantizes its rows' values once, then per destination
+//      (in order of LeakyReLU count) LeakyReLUs, quantizes and stores
+//      them, all rows' bytes before their stores, on full-rate units
+//      (packed bf16 LeakyReLU, the quotient from RN(1 / sx) by two FMA
+//      steps, rint by adding 1.5 * 2^23): A's quarter-rate conversions
+//      and division made the epilogue throughput-bound; the values are
+//      A's bit for bit;
+//    - the destinations live in shared memory, each read by a runtime
+//      index, and nothing calls a function: local memory is refused
+//      (phase_build), and at BN 64 (two blocks an SM, 80 registers) the
+//      registers are all taken;
+//    - a pixel on the border stores its copies (one pad row and/or
+//      column: up to 3) after all rows' stores.
 
 #include <cuda.h>  // CUtensorMap's types; the encoder is found at run time
 #include <cuda_bf16.h>
@@ -248,7 +291,16 @@ __global__ void __launch_bounds__(256) quantize_pad_kernel(QuantParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// B. int8_conv
+// B. int8_conv (and C, its fused quantize)
+
+// one padded int8 tensor the fused epilogue writes
+struct Dest {
+  int8_t* out;      // (N, dh + 2, dw + 2, cp)
+  const float* sx;  // device scalar: its activation scale
+  int cp, c_off;    // its channels; the first one this conv writes
+  int leaky;        // LeakyReLUs before the quantize: 0, 1 or 2
+  int reflect;      // the pad: reflect, else edge
+};
 
 struct ConvParams {
   const int8_t* x;     // (N, Hp, Wp, Cp), padded
@@ -274,6 +326,10 @@ struct ConvParams {
   // A by TMA (Cp a multiple of 128): a tile is a box of tw x th output
   // positions of nb images, tiles_w x tiles_h x tiles_n of them
   int tma_a, tw, th, nb, tiles_w, tiles_h;
+  // the fused quantize (C): destinations, compute dtype (0 f32, 1 bf16)
+  // and the output grid dh x dw (< 2^15 each) they pad
+  Dest dst[2];
+  int ndst, cd, dh, dw;
 };
 
 constexpr int BM = 128;   // output rows a tile: two m64 halves
@@ -606,6 +662,23 @@ __device__ __forceinline__ int64_t out_row(const ConvParams& p, const Unit& w,
   return pix * p.co;
 }
 
+// the fused epilogue's row: output position m's pixel (y, x) in the
+// dh x dw grid (the phase form's depth-to-space pixel) and its padded
+// pixel's index, packed as (y << 48) | (x << 32) | index; -1 for no row
+__device__ __forceinline__ int64_t dest_row(const ConvParams& p,
+                                            const Unit& w, int m) {
+  if (m < 0) return -1;
+  const int t = m / p.wo;
+  int x = m - t * p.wo, y = t % p.ho;
+  const int b = t / p.ho;
+  if (p.phase_form) {
+    y = 2 * y + (w.phase >> 1);
+    x = 2 * x + (w.phase & 1);
+  }
+  const uint32_t pix = (b * (p.dh + 2) + y + 1) * (p.dw + 2) + x + 1;
+  return (static_cast<int64_t>((y << 16) | x) << 32) | pix;
+}
+
 // a column of the tile: its element offset from its row's, its scale and
 // bias (ofs -1 past the columns). All-phase columns are phase * Co + n.
 struct Col {
@@ -683,6 +756,82 @@ __device__ __forceinline__ void store4(const ConvParams& p, int64_t base,
   }
 }
 
+// C's arithmetic. Each step is bit for bit A's (quantize_pad's) on the
+// same value, on full-rate units where A's are quarter-rate (bf16
+// rounding of every LeakyReLU, rintf, the float -> int cast, the
+// division's reciprocal), and with no call: __fdiv_rn's and
+// __frcp_rn's slow paths are calls, which give the kernel a stack frame.
+
+// LeakyReLU as max(v, v * slope): for v < 0 the rounded product lies in
+// [v, 0], for v >= 0 in [0, v], so max picks leaky()'s branch (signed
+// zeros included); bf16 pairs by one packed multiply (the product of
+// two bf16 values rounded once) and one packed max
+__device__ __forceinline__ __nv_bfloat162 leaky2(__nv_bfloat162 h) {
+  return __hmax2(h, __hmul2(h, __float2bfloat162_rn(0.2001953125f)));
+}
+
+__device__ __forceinline__ float leaky_f32(float v) {
+  return fmaxf(v, __fmul_rn(v, 0.2f));
+}
+
+// RN(a / b), __fdiv_rn's value, with no call: the quotient in double
+// from the hardware's approximate reciprocal, two Newton steps and one
+// remainder step (relative error near double's 2^-53); a quotient of two
+// floats is never a float rounding midpoint and lies at least 2^-49
+// (relative) from one, so its rounding to float is RN(a / b). A zero or
+// infinite b, or a non-finite a, takes the product with 1 / b's exact
+// value (inf, 0, or +-1), as the division gives.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  if (b == 0.f || isinf(b) || !isfinite(a))
+    return __fmul_rn(a, copysignf(b == 0.f    ? __int_as_float(0x7f800000)
+                                  : isinf(b) ? 0.f
+                                             : 1.f,
+                                  b));
+  const double bd = b, ad = a;
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(bd));
+  y = __fma_rn(y, __fma_rn(-bd, y, 1.0), y);
+  y = __fma_rn(y, __fma_rn(-bd, y, 1.0), y);
+  double q = __dmul_rn(ad, y);
+  q = __fma_rn(__fma_rn(-bd, q, ad), y, q);
+  return __double2float_rn(q);
+}
+
+// quantize() with div_rn, in the low byte
+__device__ __forceinline__ uint32_t quantize_exact(float v, float sx) {
+  const float q = fminf(fmaxf(rintf(div_rn(v, sx)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(q));
+}
+
+// clip(rint(v / sx), -127, 127) in the low byte, for sx in [2^-96,
+// 2^96] (no remainder falls below float's normal range where a quotient
+// nears a rounding boundary) and y = RN(1 / sx): the quotient by two FMA
+// corrections of v * y (the first makes it faithful, the second, by
+// Markstein's theorem, correctly rounded: __fdiv_rn's value), or v * y
+// itself where that is past +-256 (the result saturates either way);
+// rint by adding 1.5 * 2^23 (the sum's last bit is the integer, rounded
+// half to even)
+__device__ __forceinline__ uint32_t quantize_fast(float v, float sx,
+                                                  float y) {
+  const float q0 = __fmul_rn(v, y);
+  float r = __fmaf_rn(-sx, q0, v);
+  const float q1 = __fmaf_rn(r, y, q0);
+  r = __fmaf_rn(-sx, q1, v);
+  float q = fabsf(q0) < 256.f ? __fmaf_rn(r, y, q1) : q0;
+  q = fminf(fmaxf(q, -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(q, 12582912.f));
+}
+
+__device__ __forceinline__ bool quantize_fast_ok(float sx) {
+  return sx >= 0x1p-96f && sx <= 0x1p96f;
+}
+
+// the low bytes of b[0..3] as one word, b[0] lowest
+__device__ __forceinline__ uint32_t pack_bytes(const uint32_t (&b)[4]) {
+  return __byte_perm(__byte_perm(b[0], b[1], 0x0040),
+                     __byte_perm(b[2], b[3], 0x0040), 0x5410);
+}
+
 // BM x BN output tiles: consumer warpgroup wg multiplies rows 64 wg ..
 // 64 wg + 63 (one m64 half, BN / 2 accumulators a thread)
 // blocks an SM holds: 2 where the accumulators are few (BN <= 64), so one
@@ -698,7 +847,252 @@ __host__ __device__ constexpr int staged_cols() {
   return BN < 16 ? BN : blocks_per_sm<BN>() == 2 ? 16 : 64;
 }
 
-template <int BN>
+// a destination as C's epilogue reads it: from shared memory, filled
+// once a block (a runtime index into the kernel's parameters would copy
+// them to local memory)
+struct DestInfo {
+  int8_t* out;
+  float sx, y;  // the scale and RN(1 / sx)
+  int cp, c_off, leaky, reflect;
+};
+
+// 4 quantized channels (word's bytes) from channel n0 on at padded pixel
+// pix of a destination: one 4-byte store where they are consecutive and
+// 4-byte aligned there (vec), else a byte each for the nv (< 4) that
+// exist
+__device__ __forceinline__ void put4(const DestInfo& D, int pix, int n0,
+                                     int nv, uint32_t word, bool vec) {
+  int8_t* dst = D.out + static_cast<int64_t>(pix) * D.cp + D.c_off + n0;
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(dst) = word;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < nv) dst[i] = static_cast<int8_t>(word >> (8 * i));
+}
+
+// the NR rows' values (4 f32 each) quantized into words, one a row
+template <int NR>
+__device__ __forceinline__ void quantize_rows(const float (&t)[NR][4],
+                                              float sx, float y,
+                                              uint32_t (&words)[NR]) {
+  uint32_t b[4];
+  if (quantize_fast_ok(sx)) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[e] = quantize_fast(t[i][e], sx, y);
+      words[i] = pack_bytes(b);
+    }
+  } else {
+    // one value at a time: its double temporaries, not all the rows',
+    // take registers (this path is not taken with the scales
+    // quantize_mnet makes)
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      uint32_t word = 0;
+#pragma unroll 1
+      for (int e = 0; e < 4; ++e) {
+        const float v = e == 0   ? t[i][0]
+                        : e == 1 ? t[i][1]
+                        : e == 2 ? t[i][2]
+                                 : t[i][3];
+        word |= (quantize_exact(v, sx) & 0xffu) << (8 * e);
+      }
+      words[i] = word;
+    }
+  }
+}
+
+// the rows' values in the compute dtype (BF16: bf16 pairs h, else f32
+// t) LeakyReLU'd n more times, then (BF16) unpacked into t
+template <bool BF16, int NR>
+__device__ __forceinline__ void leaky_rows(__nv_bfloat162 (&h)[NR][2],
+                                           float (&t)[NR][4], int n) {
+  for (int l = 0; l < n; ++l) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      if constexpr (BF16) {
+        h[i][0] = leaky2(h[i][0]);
+        h[i][1] = leaky2(h[i][1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[i][e] = leaky_f32(t[i][e]);
+      }
+    }
+  }
+  if constexpr (BF16) {
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      t[i][0] = __low2float(h[i][0]);
+      t[i][1] = __high2float(h[i][0]);
+      t[i][2] = __low2float(h[i][1]);
+      t[i][3] = __high2float(h[i][1]);
+    }
+  }
+}
+
+// one destination's stores of the thread's NR rows, then, for the rows
+// on the border, the pad ring's copies
+template <int NR>
+__device__ __forceinline__ void store_rows(const ConvParams& p,
+                                           const DestInfo& D,
+                                           const int64_t (&orow)[NR], int n0,
+                                           const uint32_t (&words)[NR]) {
+  const bool vec = (p.co & 3) == 0 && (D.c_off & 3) == 0;
+  const int nv = p.co - n0;
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+    if (orow[i] >= 0)
+      put4(D, static_cast<int>(orow[i] & 0xffffffff), n0, nv, words[i],
+           vec);
+  const int lo = D.reflect ? 1 : 0, wp = p.dw + 2;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    if (orow[i] < 0) continue;
+    const int pix = static_cast<int>(orow[i] & 0xffffffff);
+    const int y = static_cast<int>(orow[i] >> 48);
+    const int x = static_cast<int>((orow[i] >> 32) & 0xffff);
+    // the pad rows and columns that read this pixel: row -1 (edge: from
+    // row 0; reflect: from row 1) and row dh (from dh - 1; dh - 2), as
+    // offsets from it; 0 where none does
+    const int ylo = y == lo ? -(y + 1) : 0;
+    const int yhi = y == p.dh - 1 - lo ? p.dh - y : 0;
+    const int xlo = x == lo ? -(x + 1) : 0;
+    const int xhi = x == p.dw - 1 - lo ? p.dw - x : 0;
+    if ((ylo | yhi | xlo | xhi) == 0) continue;
+    if ((ylo == 0 || yhi == 0) && (xlo == 0 || xhi == 0)) {
+      // one pad row and/or one pad column: at most 3 copies
+      const int oy = ylo + yhi, ox = xlo + xhi;
+      if (oy != 0) put4(D, pix + oy * wp, n0, nv, words[i], vec);
+      if (ox != 0) put4(D, pix + ox, n0, nv, words[i], vec);
+      if (oy != 0 && ox != 0)
+        put4(D, pix + oy * wp + ox, n0, nv, words[i], vec);
+      continue;
+    }
+    // both pad rows or both pad columns read it (a grid of 1 to 3)
+#pragma unroll 1
+    for (int j = 1; j < 9; ++j) {  // (row, column) copies but (0, 0)
+      const int r = j / 3, c = j - 3 * (j / 3);
+      const int oy = r == 0 ? 0 : r == 1 ? ylo : yhi;
+      const int ox = c == 0 ? 0 : c == 1 ? xlo : xhi;
+      if ((r == 0 || oy != 0) && (c == 0 || ox != 0))
+        put4(D, pix + oy * wp + ox, n0, nv, words[i], vec);
+    }
+  }
+}
+
+// one pass of C's epilogue for the thread's NR rows (dest_row's packed
+// rows) of 4 staged sums, columns k: each value dequantized and rounded
+// to the compute dtype once, then, destination by destination (the host
+// orders them by LeakyReLU count), LeakyReLU'd up to its count,
+// quantized and stored. All rows' bytes are computed before their first
+// store, so the rows' chains overlap (a branch would part them).
+template <bool BF16, int NR>
+__device__ __forceinline__ void quantize_pass(const ConvParams& p,
+                                              const DestInfo* info,
+                                              const int64_t (&orow)[NR],
+                                              const Col (&k)[4],
+                                              const int4 (&sums)[NR]) {
+  __nv_bfloat162 h[NR][2];
+  float t[NR][4];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int acc[4] = {sums[i].x, sums[i].y, sums[i].z, sums[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[i][e] = dequant(p, acc[e], k[e]);
+    if constexpr (BF16) {
+      h[i][0] = __floats2bfloat162_rn(t[i][0], t[i][1]);
+      h[i][1] = __floats2bfloat162_rn(t[i][2], t[i][3]);
+    }
+  }
+  uint32_t words[NR];
+  const int n0 = k[0].ofs;
+  int done = 0;
+#pragma unroll 1
+  for (int d = 0; d < p.ndst; ++d) {
+    const DestInfo& D = info[d];
+    leaky_rows<BF16>(h, t, D.leaky - done);
+    done = D.leaky;
+    quantize_rows(t, D.sx, D.y, words);
+    store_rows(p, D, orow, n0, words);
+  }
+}
+
+// one pass (c) of C's epilogue: B's staging of the pass's accumulators
+// (picked by a constant index: c is one where the passes are unrolled,
+// else each candidate is tested), then quantize_pass
+template <int BN, int R, int NR>
+__device__ __forceinline__ void fused_pass(const ConvParams& p, const Unit& w,
+                                           int c, const int (&acc)[R],
+                                           int* st, const DestInfo* info,
+                                           const int64_t (&orow)[NR], int wg,
+                                           int lr0, int cg, int lrow,
+                                           int wcol) {
+  constexpr int CC = staged_cols<BN>();
+  constexpr int SWZ = (CC / 4 < 8 ? CC / 4 : 8) - 1;
+  constexpr int RSTEP = 64 / NR;
+#pragma unroll
+  for (int cc = 0; cc < BN / CC; ++cc) {
+    if (cc != c) continue;
+#pragma unroll
+    for (int jj = 0; jj < CC / 8; ++jj) {
+      const int jb = cc * (CC / 8) + jj, col = 8 * jj + wcol;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lrow + 8 * hr;
+        *reinterpret_cast<int2*>(st + r * CC +
+                                 (((col >> 2) ^ (r & SWZ)) << 2) +
+                                 (col & 3)) =
+            make_int2(acc[4 * jb + 2 * hr], acc[4 * jb + 2 * hr + 1]);
+      }
+    }
+  }
+  Col k[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) k[i] = out_col(p, w, w.n0 + c * CC + cg + i);
+  warpgroup_sync(wg);
+  if (k[0].ofs >= 0) {
+    int4 sums[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int lr = lr0 + RSTEP * i;
+      sums[i] = *reinterpret_cast<const int4*>(
+          st + lr * CC + (((cg >> 2) ^ (lr & SWZ)) << 2));
+    }
+    if (p.cd)
+      quantize_pass<true>(p, info, orow, k, sums);
+    else
+      quantize_pass<false>(p, info, orow, k, sums);
+  }
+  warpgroup_sync(wg);
+}
+
+// C's epilogue of a unit: B's staging, CC columns a pass, the passes
+// kept rolled (one copy of the code: unrolled, the passes' rows made an
+// instruction stream that stalled on the instruction cache)
+template <int BN, int R>
+__device__ __forceinline__ void fused_epilogue(const ConvParams& p,
+                                               const Unit& w,
+                                               const int (&acc)[R], int* st,
+                                               const DestInfo* info, int wg,
+                                               int wtid, int lrow,
+                                               int wcol) {
+  constexpr int CC = staged_cols<BN>();
+  constexpr int GPR = CC / 4, RSTEP = 128 / GPR, NR = 64 / RSTEP;
+  const int cg = 4 * (wtid % GPR), lr0 = wtid / GPR;
+  int64_t orow[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+    orow[i] = dest_row(p, w, row_m(p, w, wg * 64 + lr0 + RSTEP * i));
+#pragma unroll 1
+  for (int c = 0; c < BN / CC; ++c)
+    fused_pass<BN>(p, w, c, acc, st, info, orow, wg, lr0, cg, lrow, wcol);
+}
+
+// FUSED: C's epilogue (fused_epilogue) in place of B's
+template <int BN, bool FUSED>
 __global__ void __launch_bounds__(NT, blocks_per_sm<BN>())
     int8_conv_kernel(const __grid_constant__ CUtensorMap wmap,
                      const __grid_constant__ CUtensorMap xmap,
@@ -722,6 +1116,8 @@ __global__ void __launch_bounds__(NT, blocks_per_sm<BN>())
   volatile int* last_flag = reinterpret_cast<volatile int*>(bars_ptr + 16 * S);
   // the epilogue's staging: 64 rows x CC words per consumer warpgroup
   int* const staged = reinterpret_cast<int*>(bars_ptr + 16 * S + 16);
+  // C: its destinations, after the staging
+  DestInfo* const info = reinterpret_cast<DestInfo*>(staged + 2 * 64 * CC);
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -729,6 +1125,16 @@ __global__ void __launch_bounds__(NT, blocks_per_sm<BN>())
       mbar_init(bars + 8 * (S + s), EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (FUSED) {
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const Dest& D = p.dst[d];
+        if (d < p.ndst)
+          info[d] = DestInfo{D.out,   *D.sx,   div_rn(1.f, *D.sx),
+                             D.cp,    D.c_off, D.leaky,
+                             D.reflect};
+      }
+    }
   }
   __syncthreads();
   const int units = p.mt * p.nt * p.phases * p.splits;
@@ -898,6 +1304,11 @@ __global__ void __launch_bounds__(NT, blocks_per_sm<BN>())
                         (i & 1));
     }
 
+    if constexpr (FUSED) {
+      fused_epilogue<BN>(p, w, acc, st, info, wg, wtid, lrow, wcol);
+      continue;
+    }
+
     // epilogue, CC columns a pass: the warpgroup stages its 64 rows in
     // shared memory, then each thread stores columns cg .. cg + 3 of its
     // rows lr0 + RSTEP i at once; row offsets, scales and biases are
@@ -1061,27 +1472,70 @@ bool conv_args_ok(int n, int hp, int wp, int cp, int ho, int wo, int co,
                     : hp == 2 * ho + 2 && wp == 2 * wo + 2;
 }
 
-template <int BN>
+template <int BN, bool FUSED>
 cudaError_t launch_tile(const CUtensorMap& map, const CUtensorMap& xmap,
                         const ConvParams& p, const Plan& q,
                         cudaStream_t s) {
-  const size_t smem = smem_bytes(q);
+  // C keeps its destinations after the staging
+  const size_t smem = smem_bytes(q) + (FUSED ? 2 * sizeof(DestInfo) : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      int8_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      int8_conv_kernel<BN, FUSED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  int8_conv_kernel<BN><<<q.grid, NT, smem, s>>>(map, xmap, p);
+  int8_conv_kernel<BN, FUSED><<<q.grid, NT, smem, s>>>(map, xmap, p);
   return cudaGetLastError();
+}
+
+template <bool FUSED>
+cudaError_t launch_bn(const CUtensorMap& map, const CUtensorMap& xmap,
+                      const ConvParams& p, const Plan& q, cudaStream_t s) {
+  switch (q.bn) {
+    case 128: return launch_tile<128, FUSED>(map, xmap, p, q, s);
+    case 64: return launch_tile<64, FUSED>(map, xmap, p, q, s);
+    case 32: return launch_tile<32, FUSED>(map, xmap, p, q, s);
+    case 16: return launch_tile<16, FUSED>(map, xmap, p, q, s);
+    default: return launch_tile<8, FUSED>(map, xmap, p, q, s);
+  }
+}
+
+// the fused quantize's destinations (C), or none (B)
+struct Fused {
+  int ndst, cd;
+  Dest dst[2];
+};
+
+// the argument rules of srit_int8_conv_quantized's destinations for an
+// output grid dh x dw of co channels
+bool fused_args_ok(const Fused& f, int n, int dh, int dw, int co) {
+  if (f.ndst < 1 || f.ndst > 2 || (f.cd != 0 && f.cd != 1) || dh >= 32768 ||
+      dw >= 32768 ||
+      static_cast<int64_t>(n) * (dh + 2) * (dw + 2) > INT32_MAX)
+    return false;
+  for (int d = 0; d < f.ndst; ++d) {
+    const Dest& D = f.dst[d];
+    if (D.out == nullptr || D.sx == nullptr || D.cp % 16 || D.c_off < 0 ||
+        D.c_off + co > D.cp || D.leaky < 0 || D.leaky > 2 ||
+        !aligned16(D.out) || (D.reflect && (dh < 2 || dw < 2)))
+      return false;
+  }
+  return true;
 }
 
 int conv_launch(const void* x, const void* wk, const void* scale,
                 const void* bias, void* out, int out_dtype, int n, int hp,
                 int wp, int cp, int ho, int wo, int co, int phase_form,
-                void* ws, int64_t ws_words, void* stream) {
+                void* ws, int64_t ws_words, void* stream,
+                const Fused* fused = nullptr) {
   const bool raw = out_dtype == 2;
   if (!conv_args_ok(n, hp, wp, cp, ho, wo, co, phase_form) ||
-      !aligned16(x) || !aligned16(wk) || out_dtype < 0 || out_dtype > 2 ||
-      raw != (scale == nullptr) || (raw && bias != nullptr))
+      !aligned16(x) || !aligned16(wk))
+    return status(cudaErrorInvalidValue);
+  if (fused != nullptr
+          ? phase_form == 2 || scale == nullptr ||
+                !fused_args_ok(*fused, n, phase_form ? 2 * ho : ho,
+                               phase_form ? 2 * wo : wo, co)
+          : out_dtype < 0 || out_dtype > 2 || raw != (scale == nullptr) ||
+                (raw && bias != nullptr))
     return status(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1178,13 +1632,14 @@ int conv_launch(const void* x, const void* wk, const void* scale,
   p.tiles_w = q.tiles_w;
   p.tiles_h = q.tiles_h;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q.bn) {
-    case 128: return status(launch_tile<128>(map, xmap, p, q, s));
-    case 64: return status(launch_tile<64>(map, xmap, p, q, s));
-    case 32: return status(launch_tile<32>(map, xmap, p, q, s));
-    case 16: return status(launch_tile<16>(map, xmap, p, q, s));
-    default: return status(launch_tile<8>(map, xmap, p, q, s));
-  }
+  if (fused == nullptr) return status(launch_bn<false>(map, xmap, p, q, s));
+  p.dst[0] = fused->dst[0];
+  p.dst[1] = fused->dst[1];
+  p.ndst = fused->ndst;
+  p.cd = fused->cd;
+  p.dh = phase_form ? 2 * ho : ho;
+  p.dw = phase_form ? 2 * wo : wo;
+  return status(launch_bn<true>(map, xmap, p, q, s));
 }
 
 }  // namespace
@@ -1260,6 +1715,45 @@ extern "C" int srit_int8_conv_split(const void* x, const void* wk,
   if (ws == nullptr) return status(cudaErrorInvalidValue);
   return conv_launch(x, wk, scale, bias, out, out_dtype, n, hp, wp, cp, ho,
                      wo, co, phase_form, ws, ws_words, stream);
+}
+
+// int8_conv_quantized (C): srit_int8_conv_split's conv, phase_form 0 or 1
+// and a scale (bias optional), whose epilogue writes in place of an
+// output ndst (1 or 2) padded int8 tensors. Destination d is outs[d], an
+// int8 (N, dh + 2, dw + 2, meta[4 d]) tensor, 16-byte aligned, with
+// (dh, dw) the output grid ((ho, wo), or (2 ho, 2 wo) for the phase form;
+// each < 2^15, N (dh + 2) (dw + 2) < 2^31) and meta[4 d] a multiple of 16;
+// its channels meta[4 d + 1] .. meta[4 d + 1] + co - 1 (within meta[4 d])
+// are written at every pixel and the pad ring (reflect where
+// meta[4 d + 3], else edge; reflect needs dh, dw >= 2) with
+// clip(rint(leaky^k(v) / *sxs[d]), -127, 127): v the dequantized value
+// rounded to the compute dtype cd (0 f32, 1 bf16), k = meta[4 d + 2] in
+// 0..2 LeakyReLUs in that dtype, sxs[d] a device float. Its other
+// channels are not written. ws as srit_int8_conv_split's, or null where
+// the plan does not split K. One launch; returns the launch's
+// cudaError_t (cudaErrorInvalidValue for arguments outside these rules,
+// launching nothing). Launches on `stream`, does not synchronise.
+extern "C" int srit_int8_conv_quantized(
+    const void* x, const void* wk, const void* scale, const void* bias, int cd,
+    int n, int hp, int wp, int cp, int ho, int wo, int co, int phase_form,
+    int ndst, void* const* outs, const void* const* sxs, const int* meta,
+    void* ws, long long ws_words, void* stream) {
+  if (outs == nullptr || sxs == nullptr || meta == nullptr || ndst < 1 ||
+      ndst > 2)
+    return status(cudaErrorInvalidValue);
+  Fused f{};
+  f.ndst = ndst;
+  f.cd = cd;
+  for (int d = 0; d < ndst; ++d)
+    f.dst[d] = Dest{static_cast<int8_t*>(outs[d]),
+                    static_cast<const float*>(sxs[d]), meta[4 * d],
+                    meta[4 * d + 1], meta[4 * d + 2], meta[4 * d + 3]};
+  // the epilogue takes them by LeakyReLU count (the second's from the
+  // first's values)
+  if (ndst == 2 && f.dst[1].leaky < f.dst[0].leaky)
+    std::swap(f.dst[0], f.dst[1]);
+  return conv_launch(x, wk, scale, bias, nullptr, -1, n, hp, wp, cp, ho, wo,
+                     co, phase_form, ws, ws_words, stream, &f);
 }
 
 // the launch srit_int8_conv_split makes for these shapes on the current

@@ -13,11 +13,17 @@ Port of ``shadow_removal_istd_tpu/models/quant.py``, under its names:
    channel (per phase channel over the 4*Co axis of the decoder's phase
    kernels, after ``subpixel_phase_kernel``), one activation scale per
    tensor.
-4. :func:`mnet_apply_folded` with ``qparams``: every conv input is
-   quantized and padded by ``ops/int8_conv.quantize_pad`` and convolved
-   by ``ops/int8_conv.int8_conv`` (s8 x s8 -> s32 on the tensor cores,
-   dequantized in its epilogue); the elementwise chain between them runs
-   in ``compute_dtype``. The decoder's ``(u, link)`` pairs stay apart.
+4. :func:`mnet_apply_folded` with ``qparams``: every conv runs on
+   ``ops/int8_conv`` (s8 x s8 -> s32 on the tensor cores). The serving
+   route (no ``quant_sites``) quantizes each conv's output in its
+   epilogue (``int8_conv_quantized``) straight into the padded int8
+   inputs of the sites that read it, with their LeakyReLUs in
+   ``compute_dtype``; only the stems' inputs go through ``quantize_pad``
+   and only the finals return a (f32) tensor. The selective form quantizes
+   each int8 site's input by ``quantize_pad`` and returns its output in
+   ``compute_dtype``, the elementwise chain between them in that dtype.
+   The decoder's ``(u, link)`` pairs stay apart: two channel ranges of
+   one int8 tensor, or two parts.
 
 The pack's layouts are the port's: ``{site}_w`` int8 ``(rows, kh, kw,
 Ci)`` (K contiguous, as the kernel reads it; the stem's Ci is padded to
@@ -45,7 +51,9 @@ from shadow_removal_istd_tpu_torch.ops.decoder import subpixel_depth_to_space
 from shadow_removal_istd_tpu_torch.ops.int8_conv import (
     all_phase_weight,
     int8_conv,
+    int8_conv_quantized,
     pad_weight,
+    padded_input,
     quantize_pad,
 )
 from shadow_removal_istd_tpu_torch.ops.int8_conv import leaky_relu as _leaky
@@ -144,6 +152,78 @@ ENCODER_SITES = frozenset(
     ["stem"] + [f"down{i}" for i in range(8)])
 
 
+def int8_wiring(co: dict, depth: int = 4) -> dict:
+    """The int8 MNet's graph as the fused route wires it: for each site
+    whose output feeds other sites (the stem, ``down{i}``, ``up{j}``;
+    not the final), its output's destinations in order, each
+    ``(site, channels, c_off, leaky, reflect)``: the padded input of
+    ``site``, which holds ``channels`` real channels, written from
+    channel ``c_off`` after ``leaky`` LeakyReLUs, reflect-padded (the
+    encoder) or edge-padded (the decoder). ``co`` maps each site to its
+    output's channels. The stem's ``y`` feeds down0 (``leaky(y)``) and
+    the final's second part (the link ``leaky(y)``; the final applies
+    none); down_i's feeds down_{i+1} and its link's decoder site
+    (``leaky(leaky(y))``: the link, then the site's own LeakyReLU), the
+    last one's up0 (``leaky(y)``); up_j's ``u`` the next site's first
+    part (``leaky(u)``), the last one's the final's (``u``): the graph
+    of :func:`mnet_apply_folded`'s int8 sites."""
+    enc = ["stem"] + [f"down{i}" for i in range(depth)]
+    dec = [f"up{j}" for j in range(depth)] + ["final"]
+    # decoder site j reads (u of dec[j - 1], the link of enc[depth - j])
+    first = {dec[j]: co[dec[j - 1]] for j in range(1, depth + 1)}
+    first["up0"] = co[enc[depth]]
+    width = {enc[i + 1]: co[enc[i]] for i in range(depth)}
+    width["up0"] = first["up0"]
+    for j in range(1, depth + 1):
+        width[dec[j]] = first[dec[j]] + co[enc[depth - j]]
+    wiring = {}
+    for i, site in enumerate(enc):
+        if i < depth:       # y_i: the next encoder site, y_i's link
+            link = dec[depth - i]
+            wiring[site] = [(enc[i + 1], width[enc[i + 1]], 0, 1, True),
+                            (link, width[link], first[link],
+                             1 if link == "final" else 2, False)]
+        else:
+            wiring[site] = [("up0", width["up0"], 0, 1, False)]
+    for j in range(depth):
+        nxt = dec[j + 1]
+        wiring[dec[j]] = [(nxt, width[nxt], 0, int(nxt != "final"), False)]
+    return wiring
+
+
+def _int8_fused(q: dict, x: torch.Tensor, depth: int,
+                cd: torch.dtype) -> torch.Tensor:
+    """The int8 forward with each conv's output quantized in its epilogue
+    into the padded int8 inputs that read it (``int8_conv_quantized``),
+    as :func:`int8_wiring` wires them, bit for bit the graph of
+    :func:`mnet_apply_folded`'s int8 sites. Each site's input is
+    allocated once, a decoder site's when its link is produced. Only
+    the stem's input goes through ``quantize_pad``; the final returns
+    f32 ``(N, Co, H, W)``."""
+    n = x.shape[0]
+    sites = ["stem"] + [f"down{i}" for i in range(depth)] + \
+        [f"up{j}" for j in range(depth)]
+    co = {s: q[s + "_w"].shape[0] // (4 if s.startswith("up") else 1)
+          for s in sites}
+    xq = quantize_pad((x,), q["stem_sx"], leaky=False, reflect=True)
+    bufs = {"stem": xq}
+    for site, dests in int8_wiring(co, depth).items():
+        xq = bufs[site]
+        phase = site.startswith("up")
+        h, w = xq.shape[1] - 2, xq.shape[2] - 2
+        h, w = (2 * h, 2 * w) if phase else (h // 2, w // 2)
+        for to, channels, *_ in dests:
+            if to not in bufs:
+                bufs[to] = padded_input(n, h, w, channels, x.device)
+        int8_conv_quantized(
+            xq, pad_weight(q[site + "_w"]), q[site + "_s"],
+            q.get(site + "_b"), phase=phase, compute_dtype=cd,
+            dests=[(bufs[to], q[to + "_sx"], leaky, reflect, c_off)
+                   for to, _, c_off, leaky, reflect in dests])
+    return int8_conv(bufs["final"], pad_weight(q["final_w"]), q["final_s"],
+                     phase=True, out_dtype=torch.float32)
+
+
 def mnet_apply_folded(folded: dict | None, x: torch.Tensor, depth: int = 4,
                       activation: str = "tanh", observe: bool = False,
                       qparams: dict | None = None,
@@ -154,7 +234,10 @@ def mnet_apply_folded(folded: dict | None, x: torch.Tensor, depth: int = 4,
 
     - folded params, ``observe=False``  -> y          (f32 reference)
     - folded params, ``observe=True``   -> (y, amax)  (calibration)
-    - ``qparams`` set                   -> y          (int8 convs)
+    - ``qparams`` set                   -> y          (int8 convs, each
+      quantizing its output in its epilogue into the next sites' padded
+      inputs: ``_int8_fused``; with ``observe`` the unfused route, as the
+      selective form runs it)
     - ``qparams`` + ``quant_sites``     -> SELECTIVE int8: only the
       named sites run int8 convs; the rest run the folded weights in
       ``compute_dtype`` (pass ``folded`` too); :data:`ENCODER_SITES`
@@ -220,6 +303,9 @@ def mnet_apply_folded(folded: dict | None, x: torch.Tensor, depth: int = 4,
 
     with _full_f32():
         x = x.to(cd).contiguous(memory_format=torch.channels_last)
+        if qparams is not None and quant_sites is None and not observe:
+            y = _int8_fused(qparams, x, depth, cd)
+            return _activate(y, activation)
         obs("stem", x)
         y = conv_s2(x, "stem", None)
         links = []
@@ -238,13 +324,19 @@ def mnet_apply_folded(folded: dict | None, x: torch.Tensor, depth: int = 4,
             parts = (u, links[depth - 1 - j])
         obs("final", *parts)
         y = phase_conv(parts, "final", False, None, torch.float32)
-    if activation == "tanh":
-        y = torch.tanh(y)
-    elif activation == "sigmoid":
-        y = torch.sigmoid(y)
-    elif activation == "htanh":
-        y = torch.clamp(y, -1.0, 1.0)
+    y = _activate(y, activation)
     return (y, amax) if observe else y
+
+
+def _activate(y: torch.Tensor, activation: str) -> torch.Tensor:
+    """The output activation, in f32."""
+    if activation == "tanh":
+        return torch.tanh(y)
+    if activation == "sigmoid":
+        return torch.sigmoid(y)
+    if activation == "htanh":
+        return torch.clamp(y, -1.0, 1.0)
+    return y
 
 
 @torch.no_grad()
@@ -295,20 +387,26 @@ def quantize_stacked(state, calib_batches, depth: int = 4,
         quantize_mnet(f2, s2, depth=depth)
 
 
-def make_stacked_int8(q1: dict, q2: dict, depth: int = 4,
-                      activation: str = "tanh",
-                      compute_dtype: torch.dtype = torch.bfloat16):
-    """(q1, q2) -> ``fn(x) -> (matte, shadow_free)``, both f32 NCHW; the
-    weights are padded for the kernels once, here, and the finals' (Co 1
-    and 3) expanded to the 3x3 window, where ``int8_conv`` takes their
-    four phases in one tile (``all_phase_weight``)."""
+def kernel_pack(q: dict) -> dict:
+    """An int8 pack with its weights as the kernels take them, made once:
+    padded (``pad_weight``), and the final's (Co 1 or 3) expanded to the
+    3x3 window, where ``int8_conv`` takes its four phases in one tile
+    (``all_phase_weight``)."""
     def prepare(k, v):
         if not k.endswith("_w"):
             return v
         return all_phase_weight(pad_weight(v)) if k == "final_w" \
             else pad_weight(v)
 
-    q1, q2 = ({k: prepare(k, v) for k, v in q.items()} for q in (q1, q2))
+    return {k: prepare(k, v) for k, v in q.items()}
+
+
+def make_stacked_int8(q1: dict, q2: dict, depth: int = 4,
+                      activation: str = "tanh",
+                      compute_dtype: torch.dtype = torch.bfloat16):
+    """(q1, q2) -> ``fn(x) -> (matte, shadow_free)``, both f32 NCHW, on
+    the packs' :func:`kernel_pack`."""
+    q1, q2 = kernel_pack(q1), kernel_pack(q2)
 
     def fn(x):
         m = mnet_apply_folded(None, x, depth=depth, activation=activation,

@@ -1,4 +1,4 @@
-"""Int8 convolutions of the quantized MNet forward: two CUDA kernels and
+"""Int8 convolutions of the quantized MNet forward: CUDA kernels and
 their plain versions.
 
 The JAX package's int8 post-training quantization
@@ -22,12 +22,18 @@ site into two hand-written kernels (``csrc/int8_conv.cu``):
   to the 3x3 window (:func:`all_phase_weight`, the finals' form: Co <= 4)
   takes the four phases in one tile. Without a scale it returns the s32
   sums; where the kernel splits K (:func:`conv_plan`) the launch
-  (:func:`launch`) allocates its zeroed workspace.
+  (:func:`launch`) allocates its zeroed workspace;
+- :func:`int8_conv_quantized`: ``int8_conv`` whose epilogue writes, in
+  place of its output, the padded int8 inputs of the sites that read it
+  (1 or 2 destinations, each with its scale, LeakyReLU count, pad and
+  channel offset): ``quantize_pad`` fused into the producing conv, so
+  the int8 forward keeps no bf16 or f32 activation between its convs.
 
 Activations are NCHW in ``channels_last`` memory, as in the rest of the
 port. A CPU tensor takes the plain version, which is the kernels' spec; a
 CUDA tensor launches the kernel (counted in ``quantize_pad.launches`` and
-``int8_conv.launches``) or raises.
+``int8_conv.launches``, which counts the fused call too, as
+``int8_conv_quantized.launches`` does apart) or raises.
 """
 
 from __future__ import annotations
@@ -124,17 +130,56 @@ def int8_conv_plain(xq: torch.Tensor, wk: torch.Tensor,
     return y.to(out_dtype).contiguous(memory_format=torch.channels_last)
 
 
+def int8_conv_quantized_plain(xq: torch.Tensor, wk: torch.Tensor,
+                              scale: torch.Tensor,
+                              bias: torch.Tensor | None = None, *,
+                              phase: bool, compute_dtype: torch.dtype,
+                              dests: Sequence[tuple]) -> None:
+    """The fused kernel's spec, the composition it replaces:
+    :func:`int8_conv_plain` cast to ``compute_dtype``, then for each
+    destination ``(buf, sx, leaky, reflect, c_off)`` LeakyReLU ``leaky``
+    (0, 1 or 2) times in that dtype and :func:`quantize_pad_plain`'s
+    quantize and pad, written into ``buf[..., c_off:c_off + Co]`` in
+    place; ``buf``'s other channels are left as they are."""
+    y = int8_conv_plain(xq, wk, scale, bias, phase=phase,
+                        out_dtype=compute_dtype)
+    co = y.shape[1]
+    for buf, sx, leaky, reflect, c_off in dests:
+        a = y
+        for _ in range(leaky):
+            a = leaky_relu(a)
+        q = quantize_pad_plain((a,), sx, leaky=False, reflect=reflect)
+        buf[..., c_off:c_off + co] = q[..., :co]
+
+
+def padded_input(n: int, h: int, w: int, channels: int,
+                 device) -> torch.Tensor:
+    """An (n, h + 2, w + 2, Cp) int8 destination for :func:`int8_conv_
+    quantized` whose parts fill ``channels`` channels: zeros where Cp
+    has channels past them (:func:`channels_padded`; no part writes
+    them), else uninitialised (the parts write every byte)."""
+    cp = channels_padded(channels)
+    alloc = torch.zeros if cp != channels else torch.empty
+    return alloc((n, h + 2, w + 2, cp), dtype=torch.int8, device=device)
+
+
 @functools.cache
 def _fns():
     """The C entry points (built on first use), typed once: quantize_pad,
     then :func:`conv_entries`."""
     lib = _build.load("int8_conv")
+    return (quantize_pad_entry(lib), *conv_entries(lib))
+
+
+def quantize_pad_entry(lib: ctypes.CDLL):
+    """A loaded build of ``csrc/int8_conv.cu``'s ``srit_quantize_pad``,
+    typed (what :func:`launch_quantize_pad` takes)."""
     qp = lib.srit_quantize_pad
     qp.restype = ctypes.c_int
     qp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    return (qp, *conv_entries(lib))
+    return qp
 
 
 def conv_entries(lib: ctypes.CDLL) -> tuple:
@@ -153,6 +198,18 @@ def conv_entries(lib: ctypes.CDLL) -> tuple:
     plan.restype = ctypes.c_int
     plan.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     return cv, split, plan
+
+
+@functools.cache
+def _quantized_fn():
+    """The fused C entry ``srit_int8_conv_quantized`` (built on first
+    use), typed."""
+    fn = _build.load("int8_conv").srit_int8_conv_quantized
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    return fn
 
 
 def all_phase_weight(wk: torch.Tensor) -> torch.Tensor:
@@ -257,6 +314,38 @@ def launch(entries, xq, wk, scale, bias, phase: bool,
     return out
 
 
+def launch_quantized(fn, xq, wk, scale, bias, phase: bool,
+                     compute_dtype: torch.dtype, bufs, sxs, leaky, reflect,
+                     c_off) -> None:
+    """One launch of the fused kernel through ``fn`` (:func:`_quantized_
+    fn`'s entry) on checked, contiguous operands on ``xq``'s card, the
+    destinations given as the op takes them; a zeroed int32 workspace is
+    allocated where the plan splits K. Counts nothing."""
+    dev = xq.device
+    geo = _geometry(xq, wk, phase)
+    *_, plan = _fns()
+    words = _plan(plan, geo, _form(phase, wk.shape[1]), dev.index)[
+        "ws_words"]
+    nd = len(bufs)
+    outs = (ctypes.c_void_p * nd)(*[b.data_ptr() for b in bufs])
+    scales = (ctypes.c_void_p * nd)(*[t.data_ptr() for t in sxs])
+    meta = (ctypes.c_int * (4 * nd))(*[
+        v for b, lk, rf, co in zip(bufs, leaky, reflect, c_off)
+        for v in (b.shape[3], co, lk, int(rf))])
+    with torch.cuda.device(dev):
+        ws = (torch.zeros(words, dtype=torch.int32, device=dev) if words
+              else None)
+        rc = fn(xq.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+                bias.data_ptr() if bias is not None else None,
+                _IN_DTYPES[compute_dtype], *geo, _form(phase, wk.shape[1]),
+                nd, outs, scales, meta,
+                ws.data_ptr() if ws is not None else None, words,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_conv_quantized kernel launch failed "
+                           f"(cudaError {rc})")
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     """``x`` (N, C, H, W) as channels-last memory (a view when it is)."""
     return x if x.permute(0, 2, 3, 1).is_contiguous() else x.contiguous(
@@ -298,23 +387,32 @@ def quantize_pad(parts: Sequence[torch.Tensor], sx: torch.Tensor, *,
         return quantize_pad_plain(parts, sx, leaky=leaky, reflect=reflect)
     if sx.device != x0.device:
         raise ValueError(f"sx must be on {x0.device}")
+    out = launch_quantize_pad(_fns()[0], parts, sx, leaky=leaky,
+                              reflect=reflect)
+    quantize_pad.launches += 1
+    return out
+
+
+def launch_quantize_pad(qp, parts: Sequence[torch.Tensor],
+                        sx: torch.Tensor, *, leaky: bool,
+                        reflect: bool) -> torch.Tensor:
+    """One launch of ``srit_quantize_pad`` through ``qp`` (:func:`_fns`'s,
+    or another build's with the same C ABI) on checked parts on one
+    card; the output is allocated here. Counts nothing."""
     xs = [_nhwc(x) for x in parts]
-    c0 = xs[0].shape[1]
+    n, c0, h, w = xs[0].shape
     c1 = xs[1].shape[1] if len(xs) == 2 else 0
-    cp = channels_padded(c0 + c1)
-    out = torch.empty((n, h + 2, w + 2, cp), dtype=torch.int8,
-                      device=x0.device)
-    qp, *_ = _fns()
-    with torch.cuda.device(x0.device):
-        rc = qp(_IN_DTYPES[x0.dtype], xs[0].data_ptr(),
+    out = torch.empty((n, h + 2, w + 2, channels_padded(c0 + c1)),
+                      dtype=torch.int8, device=xs[0].device)
+    with torch.cuda.device(xs[0].device):
+        rc = qp(_IN_DTYPES[xs[0].dtype], xs[0].data_ptr(),
                 xs[1].data_ptr() if c1 else None, c0, c1,
-                sx.contiguous().data_ptr(), out.data_ptr(), n, h, w, cp,
-                int(leaky), int(reflect),
-                torch.cuda.current_stream(x0.device).cuda_stream)
+                sx.contiguous().data_ptr(), out.data_ptr(), n, h, w,
+                out.shape[3], int(leaky), int(reflect),
+                torch.cuda.current_stream(xs[0].device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quantize_pad kernel launch failed "
                            f"(cudaError {rc})")
-    quantize_pad.launches += 1
     return out
 
 
@@ -332,6 +430,22 @@ def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
     ``bias`` (Co,) into ``out_dtype``, or the int32 sums without
     ``scale``. Returns NCHW in ``channels_last`` memory (see
     :func:`int8_conv_plain`). CUDA tensors launch the kernel."""
+    _check_conv(xq, wk, scale, bias, phase)
+    if scale is None:
+        out_dtype = torch.int32
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be float32, bfloat16 or int32, "
+                        f"got {out_dtype}")
+    _device_kind(xq, "int8_conv")
+    return int8_conv_op(xq, wk, scale, bias, phase, out_dtype)
+
+
+int8_conv.launches = 0
+
+
+def _check_conv(xq, wk, scale, bias, phase: bool) -> int:
+    """The conv operands' checks (shapes, dtypes; a bias needs a scale);
+    returns the output channels."""
     if xq.dtype != torch.int8 or wk.dtype != torch.int8:
         raise TypeError("xq and wk must be int8")
     ks = (2, 3) if phase else (4,)
@@ -345,26 +459,79 @@ def int8_conv(xq: torch.Tensor, wk: torch.Tensor,
     if phase and rows % 4:
         raise ValueError(f"the phase form needs 4*Co weight rows, got {rows}")
     co = rows // 4 if phase else rows
-    n, hp, wp, cp = xq.shape
-    ho, wo = (hp - 2, wp - 2) if phase else ((hp - 2) // 2, (wp - 2) // 2)
+    hp, wp = xq.shape[1:3]
     if not phase and (hp % 2 or wp % 2):
         raise ValueError(f"the 4x4 stride-2 form needs an even padded "
                          f"size, got {hp}x{wp}")
     if scale is None:
         if bias is not None:
             raise ValueError("a bias needs a scale")
-        out_dtype = torch.int32
     elif scale.shape != (rows,) or (bias is not None
                                     and bias.shape != (co,)):
         raise ValueError(f"scale must be ({rows},) and bias ({co},)")
-    if out_dtype not in _OUT_DTYPES:
-        raise TypeError(f"out_dtype must be float32, bfloat16 or int32, "
-                        f"got {out_dtype}")
-    _device_kind(xq, "int8_conv")
-    return int8_conv_op(xq, wk, scale, bias, phase, out_dtype)
+    return co
 
 
-int8_conv.launches = 0
+def int8_conv_quantized(xq: torch.Tensor, wk: torch.Tensor,
+                        scale: torch.Tensor,
+                        bias: torch.Tensor | None = None, *, phase: bool,
+                        compute_dtype: torch.dtype,
+                        dests: Sequence[tuple]) -> None:
+    """:func:`int8_conv` (the encoder or the 2x2 phase form, dequantized
+    by ``scale``, ``bias`` optional) whose epilogue quantizes into 1 or 2
+    padded int8 inputs of the sites that read its output, in place of
+    returning it. Each destination is ``(buf, sx, leaky, reflect,
+    c_off)``: ``buf`` an int8 (N, Ho + 2, Wo + 2, Cp) tensor (Ho x Wo the
+    output grid, Cp a multiple of 16, contiguous), ``sx`` its 0-d f32
+    scale, ``leaky`` the LeakyReLUs (0, 1 or 2, in ``compute_dtype``)
+    before the quantize, ``reflect`` its pad (else edge), and ``c_off``
+    the first of the Co channels written (see
+    :func:`int8_conv_quantized_plain`). CUDA tensors launch the kernel,
+    counted in ``int8_conv.launches`` and
+    ``int8_conv_quantized.launches``."""
+    if scale is None:
+        raise ValueError("the fused quantize needs a scale")
+    co = _check_conv(xq, wk, scale, bias, phase)
+    if phase and wk.shape[1] != 2:
+        raise ValueError("the fused quantize takes the 2x2 phase form, not "
+                         "an all-phase weight")
+    if compute_dtype not in _IN_DTYPES:
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got "
+                        f"{compute_dtype}")
+    dests = tuple(dests)
+    if not 1 <= len(dests) <= 2:
+        raise ValueError(f"expected 1 or 2 destinations, got {len(dests)}")
+    n, hp, wp, _ = xq.shape
+    oh, ow = (2 * (hp - 2), 2 * (wp - 2)) if phase else ((hp - 2) // 2,
+                                                          (wp - 2) // 2)
+    for buf, sx, leaky, reflect, c_off in dests:
+        if (buf.dtype != torch.int8 or buf.dim() != 4
+                or tuple(buf.shape[:3]) != (n, oh + 2, ow + 2)
+                or buf.shape[3] % CHANNEL_ALIGN or not buf.is_contiguous()):
+            raise ValueError(f"a destination must be a contiguous int8 "
+                             f"({n}, {oh + 2}, {ow + 2}, Cp) with Cp a "
+                             f"multiple of 16, got {buf.dtype} "
+                             f"{tuple(buf.shape)}")
+        if not 0 <= c_off <= buf.shape[3] - co:
+            raise ValueError(f"channels {c_off}..{c_off + co} lie outside "
+                             f"the destination's {buf.shape[3]}")
+        if leaky not in (0, 1, 2):
+            raise ValueError(f"leaky counts 0, 1 or 2, got {leaky}")
+        if sx.numel() != 1 or sx.dtype != torch.float32:
+            raise ValueError("sx must be one float32 value")
+        if reflect and (oh < 2 or ow < 2):
+            raise ValueError(f"reflect pad 1 of a {oh}x{ow} output")
+        if buf.device != xq.device or sx.device != xq.device:
+            raise ValueError(f"destinations and scales must be on "
+                             f"{xq.device}")
+    _device_kind(xq, "int8_conv_quantized")
+    bufs, sxs, leaky, reflect, c_off = (list(t) for t in zip(*dests))
+    int8_conv_quantized_op(xq, wk, scale, bias, phase, compute_dtype, bufs,
+                           [t.reshape(()) for t in sxs], leaky, reflect,
+                           c_off)
+
+
+int8_conv_quantized.launches = 0
 
 
 @torch.library.custom_op(
@@ -416,3 +583,52 @@ def _int8_conv_cuda(xq, wk, scale, bias, phase, out_dtype):
                  out_dtype)
     int8_conv.launches += 1
     return out
+
+
+@torch.library.custom_op("srit::int8_conv_quantized", mutates_args=("bufs",))
+def int8_conv_quantized_op(xq: torch.Tensor, wk: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor | None,
+                           phase: bool, compute_dtype: torch.dtype,
+                           bufs: list[torch.Tensor], sxs: list[torch.Tensor],
+                           leaky: list[int], reflect: list[bool],
+                           c_off: list[int]) -> None:
+    """:func:`int8_conv_quantized` after its checks, as the registered op
+    ``srit::int8_conv_quantized`` (``bufs`` written in place)."""
+    raise ValueError(f"int8_conv_quantized runs on cuda or cpu, not "
+                     f"{xq.device.type}")
+
+
+@int8_conv_quantized_op.register_kernel("cpu")
+def _int8_conv_quantized_cpu(xq, wk, scale, bias, phase, compute_dtype,
+                             bufs, sxs, leaky, reflect, c_off):
+    int8_conv_quantized_plain(xq, wk, scale, bias, phase=phase,
+                              compute_dtype=compute_dtype,
+                              dests=zip(bufs, sxs, leaky, reflect, c_off))
+
+
+@int8_conv_quantized_op.register_fake
+def _int8_conv_quantized_fake(xq, wk, scale, bias, phase, compute_dtype,
+                              bufs, sxs, leaky, reflect, c_off):
+    return None
+
+
+@int8_conv_quantized_op.register_kernel("cuda")
+def _int8_conv_quantized_cuda(xq, wk, scale, bias, phase, compute_dtype,
+                              bufs, sxs, leaky, reflect, c_off):
+    """Launch the fused kernel (:func:`launch_quantized`), counted in
+    ``int8_conv.launches`` and ``int8_conv_quantized.launches``."""
+    dev = xq.device
+    for t in (wk, scale, bias):
+        if t is not None and t.device != dev:
+            raise ValueError(f"int8_conv_quantized operands must be on "
+                             f"{dev}")
+    for t in (scale, bias):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError("scale and bias must be float32")
+    launch_quantized(_quantized_fn(), xq.contiguous(), wk.contiguous(),
+                     scale.contiguous(),
+                     bias.contiguous() if bias is not None else None, phase,
+                     compute_dtype, bufs, [t.contiguous() for t in sxs],
+                     leaky, reflect, c_off)
+    int8_conv.launches += 1
+    int8_conv_quantized.launches += 1

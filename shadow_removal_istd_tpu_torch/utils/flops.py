@@ -18,7 +18,9 @@ not what its kernel does:
   counts the same step;
 - ``srit::int8_conv`` (``ops/int8_conv.py``): the conv of its plain
   version over the padded int8 input, 2·out·(KH·KW·Cp), the phase form at
-  (H+1)·(W+1) positions as above.
+  (H+1)·(W+1) positions as above; ``srit::int8_conv_quantized`` (the same
+  conv with the next sites' quantize in its epilogue) the same, so the
+  fused int8 forward counts what the unfused one does.
 
 At 256x256 the stacked MNet pair (G1 3->1, G2 4->3, ngf 64) counts
 23.229 GFLOP per image, the JAX count per image (:func:`stacked_mnet_flops`).
@@ -32,8 +34,8 @@ import math
 import torch
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
-# importing the modules registers the ops srit::decoder_upsample and
-# srit::int8_conv
+# importing the modules registers the ops srit::decoder_upsample,
+# srit::int8_conv and srit::int8_conv_quantized
 from shadow_removal_istd_tpu_torch.ops import decoder, int8_conv  # noqa: F401
 
 
@@ -54,6 +56,13 @@ def _int8_conv_flops(xq, wk, scale, bias, phase, out_dtype,
     positions = (hp - kh + 1) * (wp - kw + 1) if phase else (hp - 2) // 2 * (
         (wp - 2) // 2)
     return 2 * n * positions * rows * kh * kw * cp
+
+
+@register_flop_formula(torch.ops.srit.int8_conv_quantized)
+def _int8_conv_quantized_flops(xq, wk, scale, bias, phase, compute_dtype,
+                               bufs, sxs, leaky, reflect, c_off,
+                               out_shape=None, **kwargs) -> int:
+    return _int8_conv_flops(xq, wk, scale, bias, phase, compute_dtype)
 
 
 @contextlib.contextmanager

@@ -16,6 +16,14 @@ gathered tile), Co 512 on four N tiles, the finals' form (a weight
 expanded by ``all_phase_weight``: all four phases in one tile over the 3x3
 window; the narrow 2x2 cases above take a tile per phase), and the
 activation tiles by TMA boxes (``a_tma``) or by the ``cp.async`` gather.
+The fused call (``int8_conv_quantized``: the conv whose epilogue writes
+the padded int8 inputs of the sites that read it) is held to its plain
+composition on a grid of its own: the split-K levels (16x16 and 8x8 of
+256x256, 30x40 and 15x20 of 480x640), images smaller than a tile, ragged
+Co and channel offsets (byte stores), one and two destinations with
+different scales, LeakyReLU 0, 1 and 2, reflect and edge pads down to a
+1-pixel grid, in both compute dtypes.
+
 Everything is integer or one rounding per step, so every comparison is
 exact: the int8 tensors, the s32 sums and the dequantized outputs bit for
 bit.
@@ -34,6 +42,9 @@ from shadow_removal_istd_tpu_torch.ops.int8_conv import (
     conv_plan,
     int8_conv,
     int8_conv_plain,
+    int8_conv_quantized,
+    int8_conv_quantized_plain,
+    leaky_relu,
     pad_weight,
     quantize_pad,
     quantize_pad_plain,
@@ -182,6 +193,84 @@ def test_int8_conv_paths_match_plain(cuda, phase, n, h, w, ci, co, path,
         assert plan["taps"] == 9 and plan["bn"] == (8 if co <= 2 else 16)
     elif path == "all_phase":
         assert plan["taps"] == 9
+
+
+# (phase, n, h, w, ci, co, destinations as (leaky, reflect, c_off, cp)):
+# h x w the phase form's input grid, the encoder's output grid (as
+# _check_conv takes them)
+FUSED_CASES = [
+    (False, 2, 128, 128, 3, 64, [(1, True, 0, 64),       # G1's stem at
+                                 (1, False, 64, 128)]),  # 256²: down0, link
+    (False, 2, 64, 64, 64, 128, [(1, True, 0, 128),      # down0: down1 and
+                                 (2, False, 128, 256)]),  # up3's link
+    (False, 8, 16, 16, 256, 512, [(1, True, 0, 512),     # 256²'s 16x16
+                                  (2, False, 512, 1024)]),  # level, split
+    (False, 8, 8, 8, 512, 512, [(1, False, 0, 512)]),    # down3 -> up0
+    (True, 2, 8, 8, 512, 512, [(1, False, 0, 1024)]),    # up0 -> up1, split
+    (False, 2, 30, 40, 256, 512, [(1, True, 0, 512),     # 480x640's 30x40
+                                  (2, False, 512, 1024)]),
+    (False, 2, 15, 20, 512, 512, [(1, False, 0, 512)]),  # its 15x20
+    (True, 2, 15, 20, 512, 512, [(1, False, 0, 1024)]),
+    (True, 2, 64, 64, 256, 64, [(0, False, 0, 128)]),    # up3 -> final
+    (True, 4, 4, 4, 256, 128, [(1, False, 0, 256)]),     # 8x8 images
+    (False, 4, 4, 4, 128, 64, [(1, True, 0, 64),         # 4x4 images
+                               (2, False, 32, 96)]),
+    (False, 2, 9, 5, 16, 12, [(1, True, 0, 16),          # ragged Co 12
+                              (2, False, 12, 32)]),
+    (True, 1, 7, 9, 40, 24, [(0, False, 8, 32)]),        # Co 24, Cp 32
+    (True, 2, 5, 6, 48, 40, [(1, True, 3, 48)]),         # odd offset
+    (True, 1, 1, 1, 32, 16, [(1, False, 0, 16)]),        # 1x1 -> 2x2
+    (False, 2, 1, 1, 32, 16, [(2, False, 0, 32)]),       # a 1x1 output
+]
+# activation scales that take the kernel's exact division (outside its
+# fast path's [2^-96, 2^96]): the conv's scale times 2^-110 or 2^110
+EXTREME = [(False, 2, 6, 10, 64, 32, [(1, True, 0, 32), (2, False, 0, 64)]),
+           (True, 1, 5, 3, 32, 24, [(0, False, 8, 32)])]
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("phase,n,h,w,ci,co,spec,exp", [
+    *[(*case, 0) for case in FUSED_CASES],
+    *[(*case, e) for case in EXTREME for e in (-110, 110)]])
+def test_int8_conv_quantized_matches_plain(cuda, phase, n, h, w, ci, co,
+                                           spec, exp, compute_dtype):
+    """The fused kernel against its plain composition, bit for bit: each
+    destination's channels and pad ring, the other channels untouched
+    (a random sentinel), one launch counted."""
+    gen = torch.Generator().manual_seed(ci * 7 + co + h)
+    if not phase:
+        h, w = 2 * h, 2 * w
+    rows = 4 * co if phase else co
+    xq, wk, scale = _conv_inputs(n, h, w, ci, rows, 2 if phase else 4, gen,
+                                 cuda)
+    scale = scale * 2.0 ** exp
+    bias = (torch.randn(co, generator=gen) * 0.1 * 2.0 ** exp).to(cuda)
+    oh, ow = (2 * h, 2 * w) if phase else (h // 2, w // 2)
+    y = int8_conv_plain(xq, wk, scale, bias, phase=phase,
+                        out_dtype=compute_dtype)
+    dests, plain = [], []
+    for i, (leaky, reflect, c_off, cp) in enumerate(spec):
+        buf = torch.randint(-128, 128, (n, oh + 2, ow + 2, cp),
+                            generator=gen, dtype=torch.int8).to(cuda)
+        a = y
+        for _ in range(leaky):
+            a = leaky_relu(a)
+        # some of the top of the range saturates; each scale its own
+        sx = a.float().abs().max() * (0.7 - 0.1 * i) / 127
+        dests.append((buf, sx, leaky, reflect, c_off))
+        plain.append((buf.clone(), sx, leaky, reflect, c_off))
+    before = int8_conv.launches, int8_conv_quantized.launches
+    int8_conv_quantized(xq, wk, scale, bias, phase=phase,
+                        compute_dtype=compute_dtype, dests=dests)
+    int8_conv_quantized_plain(xq, wk, scale, bias, phase=phase,
+                              compute_dtype=compute_dtype, dests=plain)
+    torch.cuda.synchronize()
+    assert (int8_conv.launches, int8_conv_quantized.launches) == (
+        before[0] + 1, before[1] + 1)
+    for (got, *_), (want, *_) in zip(dests, plain):
+        assert torch.equal(got, want)
+    assert int(plain[0][0][..., spec[0][2]:spec[0][2] + co].abs().max()) \
+        == 127
 
 
 def test_wrappers_refuse_bad_operands(cuda):
