@@ -2990,6 +2990,7 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
     from shadow_removal_istd_tpu_torch.ops.decoder import (
         decoder_upsample,
         decoder_upsample_plain,
+        narrow_plan,
     )
 
     trainer = runs["float32"]["trainer"]
@@ -3051,6 +3052,11 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
                 or variant != expected_variant(torch.float32, final)):
             raise SystemExit(f"zero-pad kernel disagrees at {label} "
                              f"({variant})")
+        route = ""
+        if variant == "narrow":   # the f32 narrow kernel's launch plan
+            plan = narrow_plan(xs, co)
+            route = (f" ({plan['route']}, loads {'+'.join(plan['loads'])}, "
+                     f"{plan['stages']} stages, {plan['blocks']} blocks)")
         ms = time_ms(lambda: decoder_upsample(xs, w4, s4, b4, **kw), 10)
         ms_cc = (ms if variant == "cuda_core" else time_ms(
             lambda: cuda_core_only(xs, w4, s4, b4, **kw), 10))
@@ -3062,8 +3068,8 @@ def phase_train_timings(runs: dict, shear_err: float) -> tuple[dict, dict]:
         lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
         flops, nbytes = step_cost(b, sh, sw, parts, co, final, 4)
         bound = fma_ceiling_ms(flops, nbytes)
-        print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} {variant} "
-              f"{ms:.4f} ms | cuda_core {ms_cc:.4f} | plain {plain:.4f} | "
+        print(f"[time] zero-pad 480x640 b{b} f32 step {label:<24} {variant}"
+              f"{route} {ms:.4f} ms | cuda_core {ms_cc:.4f} | plain {plain:.4f} | "
               f"cudnn conv {lib:.4f} | bound {bound:.4f} | max_abs_err "
               f"{err:.2e} | {flops / ms / 1e9:.1f} TFLOP/s, "
               f"{100 * flops / ms * 1e3 / PEAK_F32:.0f} % of the f32 FMA "

@@ -77,30 +77,77 @@
 //      and the depth-to-space store, a bf16 pair a store (phases 0..1 and
 //      2..3 are 2 Co contiguous outputs of rows 2i and 2i+1).
 //
-// B. f32 (narrow_f32_kernel, the CUDA-core design): the TF32 tensor cores
-//    would not hold 2e-5 against the plain version, so f32 stays on the
-//    CUDA cores. A block of 128 threads (8 along W x 16 along H) owns a 16
-//    x 32 tile of input positions, every phase and output channel; a
-//    thread owns 4 adjacent positions of a row and keeps 4*Co f32
-//    accumulators for each. The channels of one part go in chunks of two
-//    16-byte pieces per pixel (8 f32 channels):
-//    - loads: the chunk's 18 x 34 halo goes global -> shared channels-last
-//      with 16-byte cp.async.cg into a 2-stage ring (edge padding clamps
-//      the source pixel; zero padding and channels past the part use the
-//      zero-fill form); where the part's pointer or channel count rules
-//      out 16-byte copies, each thread loads its piece channel by channel.
-//      A pixel's record is swizzled (piece j at slot j ^ (pixel / 4) % 2)
-//      so that 8 consecutive pixels' same piece hit 32 distinct banks;
-//    - transpose: per piece, the block turns the ring's records into f32
-//      planes [channel][row][col] (rows of 36 floats), LeakyReLU once here;
-//    - weights: each chunk's w4 slice is loaded into registers one chunk
-//      ahead and stored to shared memory as [channel][tap][phase][Co];
-//    - FMAs: per channel, a thread reads each of its 3 halo rows as two
-//      float4 and runs the 16*Co FMAs of each of its 4 positions over the
-//      3x3 neighbourhood (round to nearest, so it holds 2e-5).
-//    Shared-memory wavefronts per warp FMA are 0.44 at Co 1, 0.19 at Co 3,
-//    against one wavefront a clock for 4 warp FMAs: the FMA pipe sets the
-//    pace from Co 2 up, shared memory at Co 1.
+// B. f32 (narrow_f32_kernel): FMAs on the CUDA cores, fed like A.
+//    - Bound: at 480x640 b16 zero pad (input 240 x 320, Ci 128, the
+//      validation path) the step reads 629 MB; Co 1 writes 20 MB and is
+//      bound by its bytes (0.194 ms at 3.35 TB/s; its 2.5 GFMA would take
+//      0.075 ms at 67 TFLOP/s), Co 3 writes 59 MB and its 7.5 GFMA (16 Co
+//      an input value, the all-phase count) bind it at 0.225 ms against
+//      0.206 for its bytes. At 256^2 b32 (Ci 64 + 64): 0.083 and 0.096
+//      ms. So the kernel has to stream at the memory's rate and keep the
+//      FMA pipe busy at the same time, with little else in the way.
+//    - Arithmetic: f32 FMAs rounded to nearest in registers. The TF32
+//      tensor cores would not hold 2e-5 against the plain version, and a
+//      split (3x) TF32 form in this all-phase layout (N 12 of 16, 4 of 9
+//      taps a phase) would run at about the FMA pipe's useful rate.
+//    - Persistent: one block an SM walks 16 x 32 position tiles in
+//      (image, tile row, tile column) order, and the ring runs across its
+//      tiles, so the next chunk is in flight while this one's FMAs and
+//      the tile's stores run (a block a tile refilled its ring from empty
+//      and overlapped no loads with its epilogue). The next load's tile
+//      and the compute's are cursors advanced by one a step: the
+//      divisions of a tile index run once a tile, not every step.
+//    - Loads: a ring of 2 stages, each one 32-channel chunk (128 bytes a
+//      pixel, the 128-byte swizzle) of the tile's 18 x 34 halo, by TMA
+//      where the part is 16-byte aligned with channels a multiple of 4
+//      (one 4-D map a part, zero fill for the zero-pad form and for
+//      channels past the part), else element by element into the same
+//      layout; the route is fixed before the launch and reported by the
+//      plan entry. Why 2 stages of 32 channels and not 4 of 16: a step
+//      (its block barrier, its wait, its bookkeeping) costs about as much
+//      as a few hundred FMAs a thread, and on the H100 a ring of 16-
+//      channel stages took ~16 % longer for the same work; 3 stages of
+//      80 KB do not fit beside the staging tile and the weights. One stage in flight
+//      still streams: a step's FMAs at Co 3 take longer than its 80 KB
+//      take to arrive, and at Co 1 the ring runs at ~80 % of the bytes
+//      bound. The box is 35 pixels wide, one more than the halo: an odd
+//      row stride lets a quarter-warp (one column group x 8 rows) read 8
+//      pixels whose index mod 8 differ, i.e. 8 distinct 16-byte bank
+//      groups under the swizzle, so every float4 read of the FMA loop is
+//      conflict-free. The edge form clamps the pixel each thread reads,
+//      as A does.
+//    - No transpose pass, one barrier a stage: LeakyReLU, where set, is
+//      applied once in place after a stage lands (zero fill stays zero);
+//      the FMA loop reads the swizzled channels-last records directly as
+//      float4 of 4 channels; the stage goes back to the producer through
+//      the one __syncthreads a step (which also orders the weight slots).
+//      Element loads publish a stage only after a barrier of their own,
+//      since with 2 stages the next step reads it. (A form with per-stage
+//      "empty" mbarriers in place of that barrier measured slower.)
+//    - Products: 256 threads in 4 groups of 64 over the same tile: a
+//      group computes one output row pr of the 2 x 2 phases from one half
+//      (16 channels) of each chunk. A thread owns 8 adjacent positions of
+//      a tile row and keeps their 2 phases x Co sums (half of 4 Co: 16
+//      Co registers, up to 251 in all at Co 4, no spill). For each of its
+//      2 halo rows (pr + di) and 4 channels it reads the 10 pixels'
+//      float4 once and the 4 x Co weights of that tap row as broadcast
+//      float4: per 4 channels 20 + 8 Co shared loads feed 32 Co FMAs a
+//      position, 8 positions. The loop at Co 3 follows its shared loads
+//      a FMA more than its warp count: 4 positions a thread with 16 warps
+//      an SM ran 12-15 % slower than 8 positions with 8 warps, each
+//      broadcast weight load there serving half the FMAs.
+//    - Weights: every chunk's slice (32 channels x 16 Co, zero past the
+//      part; a channel's taps of output row pr lie together) is built
+//      into shared memory once a launch where all fit (Ci <= 224 at Co
+//      3), else per chunk into two slots.
+//    - Epilogue: the groups of channel half 1 hand their sums to those of
+//      half 0 through a staging tile in output order (2 x 16 rows of 2 x
+//      32 x Co floats, each row padded by 16 bytes so a quarter-warp's 8
+//      rows land in 8 bank groups); those add, apply the affine with two
+//      roundings (__fmul_rn, then __fadd_rn) and write it back; then all
+//      256 threads store each output row segment with coalesced 16-byte
+//      stores (scalar where the output's rows are not 16-byte aligned,
+//      and at a ragged tile's end).
 
 #include <cuda.h>  // CUtensorMap's types; the encoder is found at run time
 #include <cuda_bf16.h>
@@ -130,295 +177,6 @@ __device__ __host__ __forceinline__ bool aligned16(const void* ptr) {
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// 16 bytes global -> shared; with ok false it reads nothing and writes
-// zeros (src-size 0)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// B. f32 on the CUDA cores
-
-namespace f32 {
-
-constexpr int TX = 8, TY = 16, NT = TX * TY;  // threads along W, along H
-constexpr int PX = 4;                         // positions a thread along W
-constexpr int TW = TX * PX, TH = TY;          // tile: 16 x 32 positions
-constexpr int HC = TW + 2, HR = TH + 2;       // halo columns, rows
-constexpr int HALO = HR * HC;                 // halo pixels
-constexpr int RS = 36;                        // plane row stride (floats)
-constexpr int PLANE = HR * RS;                // floats per channel plane
-static_assert(RS >= HC + 2 && RS % 4 == 0, "two float4 per row, aligned");
-constexpr int VEC = 4;                        // channels a 16-byte piece
-constexpr int PIECES = 2;                     // 16-byte pieces a pixel
-constexpr int STAGES = 2;                     // chunks in the ring
-constexpr int RAW = HALO * 4 * PIECES;        // words per ring stage
-constexpr int PF = (HALO * PIECES + NT - 1) / NT;  // pieces a thread copies
-constexpr int TPF = (HALO + NT - 1) / NT;          // pixels it transposes
-static_assert(NT % PIECES == 0, "a thread copies one piece of pixels");
-
-// word offset of pixel P's piece j in a ring stage (see the header)
-__device__ __forceinline__ int raw_at(int P, int j) {
-  return P * 4 * PIECES + 4 * (j ^ ((P / (8 / PIECES)) % PIECES));
-}
-
-// channels ch .. ch+3 of the pixel whose channels start at x + base, zero
-// past cp, one load a channel
-__device__ __forceinline__ uint4 load_piece(const float* x, int64_t base,
-                                            int ch, int cp) {
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int k = 0; k < VEC; ++k)
-    if (ch + k < cp) w[k] = __float_as_uint(x[base + ch + k]);
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-template <int CO>
-__global__ void __launch_bounds__(NT) narrow_f32_kernel(Params p) {
-  constexpr int CKC = VEC * PIECES;     // channels a chunk
-  constexpr int NW = 16 * CO;           // weights a channel
-  constexpr int WPT = (CKC * NW + NT - 1) / NT;  // weights a thread stages
-  // channels unrolled in the FMA loop: all of a piece's from Co 3 up, 2
-  // below (each the faster on the H100)
-  constexpr int UNROLL = CO >= 3 ? VEC : 2;
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* ring = smem;                                // [STAGES][RAW]
-  float* xs = reinterpret_cast<float*>(smem + STAGES * RAW);  // [VEC][PLANE]
-  float* ws = xs + VEC * PLANE;                           // [CKC][NW]
-
-  const float* w4 = static_cast<const float*>(p.w4);
-  float* out = static_cast<float*>(p.out);
-  const int h = p.h, w = p.w, ci = p.ci0 + p.ci1;
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const int64_t img = static_cast<int64_t>(blockIdx.z) * h * w;
-
-  // this thread copies piece jp of halo pixels tid/PIECES + k*NT/PIECES:
-  // their pixel index in the image, -1 for a zero, -2 past the halo
-  const int jp = tid % PIECES;
-  int pix[PF];
-#pragma unroll
-  for (int k = 0; k < PF; ++k) {
-    const int P = tid / PIECES + k * (NT / PIECES);
-    const int s = P / HC, t = P - s * HC;
-    int rr = i0 - 1 + s, qq = j0 - 1 + t;
-    const bool inside = rr >= 0 && rr < h && qq >= 0 && qq < w;
-    pix[k] = P < HALO ? -1 : -2;
-    if (P < HALO && (inside || !p.zero_pad)) {
-      rr = min(max(rr, 0), h - 1);
-      qq = min(max(qq, 0), w - 1);
-      pix[k] = rr * w + qq;
-    }
-  }
-
-  // chunk q: CKC channels from c0 of part 0 (q < n0) or part 1
-  struct Chunk {
-    const float* x;
-    int cp, c0, off;
-    bool vec;
-  };
-  const int n0 = (p.ci0 + CKC - 1) / CKC;
-  const int nq = n0 + (p.ci1 + CKC - 1) / CKC;
-  const bool vec0 = aligned16(p.x0) && p.ci0 % VEC == 0;
-  const bool vec1 = aligned16(p.x1) && p.ci1 % VEC == 0;
-  auto chunk = [&](int q) {
-    return q < n0 ? Chunk{static_cast<const float*>(p.x0), p.ci0, q * CKC,
-                          0, vec0}
-                  : Chunk{static_cast<const float*>(p.x1), p.ci1,
-                          (q - n0) * CKC, p.ci0, vec1};
-  };
-
-  auto issue = [&](int q) {  // chunk q's halo -> ring stage q % STAGES
-    const Chunk c = chunk(q);
-    uint32_t* stage = ring + (q % STAGES) * RAW;
-    const int ch = c.c0 + jp * VEC;
-#pragma unroll
-    for (int k = 0; k < PF; ++k) {
-      if (pix[k] == -2) continue;
-      const int P = tid / PIECES + k * (NT / PIECES);
-      uint32_t* dst = stage + raw_at(P, jp);
-      const bool ok = pix[k] >= 0 && ch < c.cp;
-      const int64_t base = (img + max(pix[k], 0)) * c.cp;
-      if (c.vec)
-        cp_async16(smem_addr(dst), ok ? c.x + base + ch : c.x, ok);
-      else
-        *reinterpret_cast<uint4*>(dst) =
-            ok ? load_piece(c.x, base, ch, c.cp) : make_uint4(0, 0, 0, 0);
-    }
-  };
-
-  float wr[WPT];
-  auto load_w = [&](int q) {  // chunk q's weights -> registers
-    const Chunk c = chunk(q);
-#pragma unroll
-    for (int u = 0; u < WPT; ++u) {
-      const int e = tid + u * NT;
-      const int k = e / NW, r = e - k * NW;  // r = tap*4Co + phase*Co + co
-      const int tap = r / (4 * CO);
-      wr[u] = e < CKC * NW && c.c0 + k < c.cp
-                  ? w4[(static_cast<int64_t>(tap) * ci + c.off + c.c0 + k) *
-                           (4 * CO) +
-                       (r - tap * 4 * CO)]
-                  : 0.f;
-    }
-  };
-
-  float acc[PX][4][CO];
-#pragma unroll
-  for (int px = 0; px < PX; ++px)
-#pragma unroll
-    for (int ph = 0; ph < 4; ++ph)
-#pragma unroll
-      for (int c = 0; c < CO; ++c) acc[px][ph][c] = 0.f;
-
-#pragma unroll
-  for (int q = 0; q < STAGES - 1; ++q) {
-    if (q < nq) issue(q);
-    cp_async_commit();
-  }
-  load_w(0);
-  for (int q = 0; q < nq; ++q) {
-    if (q + STAGES - 1 < nq) issue(q + STAGES - 1);
-    cp_async_commit();
-#pragma unroll
-    for (int u = 0; u < WPT; ++u)
-      if (tid + u * NT < CKC * NW) ws[tid + u * NT] = wr[u];
-    if (q + 1 < nq) load_w(q + 1);
-    cp_async_wait<STAGES - 1>();  // chunk q has landed
-    __syncthreads();
-
-    const Chunk c = chunk(q);
-    const uint32_t* stage = ring + (q % STAGES) * RAW;
-    const int pieces = min(PIECES, (c.cp - c.c0 + VEC - 1) / VEC);
-    for (int j = 0; j < pieces; ++j) {
-      // piece j of every halo pixel -> f32 planes, LeakyReLU applied once
-#pragma unroll
-      for (int k = 0; k < TPF; ++k) {
-        const int P = tid + k * NT;
-        if (P >= HALO) continue;
-        const int s = P / HC, t = P - s * HC;
-        const uint4 v =
-            *reinterpret_cast<const uint4*>(stage + raw_at(P, j));
-        const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          float f = __uint_as_float(vw[e]);
-          if (p.leaky && f < 0.f) f = 0.2f * f;
-          xs[e * PLANE + s * RS + t] = f;
-        }
-      }
-      __syncthreads();
-
-      const float* wj = ws + j * VEC * NW;
-#pragma unroll UNROLL
-      for (int e = 0; e < VEC; ++e) {
-        const float* xc = xs + e * PLANE + ty * RS + tx * PX;
-        float wv[NW];
-#pragma unroll
-        for (int k = 0; k < NW; k += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(wj + e * NW + k);
-          wv[k] = v.x; wv[k + 1] = v.y; wv[k + 2] = v.z; wv[k + 3] = v.w;
-        }
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {  // halo row a: neighbour row a - 1
-          const float4 lo = *reinterpret_cast<const float4*>(xc + a * RS);
-          const float4 hi =
-              *reinterpret_cast<const float4*>(xc + a * RS + 4);
-          const float v[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
-          const int dr = a - 1;
-#pragma unroll
-          for (int pr = 0; pr < 2; ++pr) {
-            const int di = dr + 1 - pr;  // pr + di - 1 == dr
-            if (di < 0 || di > 1) continue;
-#pragma unroll
-            for (int px = 0; px < PX; ++px)
-#pragma unroll
-              for (int dc = -1; dc <= 1; ++dc)
-#pragma unroll
-                for (int pc = 0; pc < 2; ++pc) {
-                  const int dj = dc + 1 - pc;  // pc + dj - 1 == dc
-                  if (dj < 0 || dj > 1) continue;
-                  const int ph = 2 * pr + pc;
-                  const float* wt = wv + (2 * di + dj) * 4 * CO + ph * CO;
-#pragma unroll
-                  for (int o = 0; o < CO; ++o)
-                    acc[px][ph][o] =
-                        fmaf(v[px + dc + 1], wt[o], acc[px][ph][o]);
-                }
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // epilogue: affine on the f32 accumulator, depth-to-space store
-  const int i = i0 + ty;
-  if (i >= h) return;
-  const bool affine = p.scale4 != nullptr;
-  float s4[4 * CO], b4[4 * CO];
-#pragma unroll
-  for (int k = 0; k < 4 * CO; ++k) {
-    s4[k] = affine ? p.scale4[k] : 1.f;
-    b4[k] = affine ? p.bias4[k] : 0.f;
-  }
-  const int64_t h2 = 2 * static_cast<int64_t>(h), w2 = 2 * w;
-#pragma unroll
-  for (int pr = 0; pr < 2; ++pr) {
-    float* orow = out + (blockIdx.z * h2 + 2 * i + pr) * w2 * CO;
-#pragma unroll
-    for (int px = 0; px < PX; ++px) {
-      const int j = j0 + tx * PX + px;
-      if (j >= w) continue;
-#pragma unroll
-      for (int pc = 0; pc < 2; ++pc) {
-        const int ph = 2 * pr + pc;
-#pragma unroll
-        for (int o = 0; o < CO; ++o) {
-          float v = acc[px][ph][o];
-          if (affine)  // two roundings, as the plain version
-            v = __fadd_rn(__fmul_rn(v, s4[ph * CO + o]), b4[ph * CO + o]);
-          orow[(2 * j + pc) * CO + o] = v;
-        }
-      }
-    }
-  }
-}
-
-template <int CO>
-constexpr int smem_bytes() {
-  return 4 * (STAGES * RAW + VEC * PLANE + VEC * PIECES * 16 * CO);
-}
-
-int grid_blocks(const Params& p) {
-  return ((p.w + TW - 1) / TW) * ((p.h + TH - 1) / TH) * p.n;
-}
-
-template <int CO>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<CO>();
-  const cudaError_t set = cudaFuncSetAttribute(
-      narrow_f32_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((p.w + TW - 1) / TW, (p.h + TH - 1) / TH, p.n);
-  narrow_f32_kernel<CO><<<grid, NT, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // A. bf16 on the tensor cores
@@ -950,6 +708,469 @@ int launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// B. f32 on the CUDA cores
+
+namespace f32 {
+
+constexpr int TH = 16, TW = 32;                // tile of input positions
+constexpr int HR = TH + 2, HC = TW + 2;        // halo rows, columns read
+constexpr int BW = HC + 1;                     // box columns: odd row stride
+constexpr int CK = 32;                         // channels a chunk
+constexpr int PIX = 4 * CK;                    // bytes a pixel in a stage
+constexpr int BOX_BYTES = HR * BW * PIX;       // one TMA box: 80,640
+constexpr int STAGE = (BOX_BYTES + 1023) / 1024 * 1024;  // swizzle atom
+constexpr int STAGES = 2;
+constexpr int PX = 8;                          // positions a thread, along W
+constexpr int GT = (TW / PX) * TH;             // threads of a group
+constexpr int NT = 4 * GT;                     // 2 output rows x 2 halves
+constexpr int SMEM_CAP = 232448;               // a block's dynamic maximum
+static_assert(PIX == 128, "stages use the 128-byte swizzle");
+static_assert(BW % 2 == 1, "an odd row stride keeps float4 reads apart");
+static_assert(GT == 64, "a group is 2 warps of 4 column groups x 8 rows");
+
+// bytes of one chunk's weights: 32 channels x 16 Co floats
+__host__ __device__ constexpr int slot_bytes(int co) { return CK * 16 * co * 4; }
+// bytes of the staging tile: 2 TH output rows of 2 TW x Co floats, each
+// row padded by 16 bytes so a quarter-warp's 8 rows hit 8 bank groups
+__host__ __device__ constexpr int out_bytes(int co) {
+  return 2 * TH * (2 * TW * co + 4) * 4;
+}
+__host__ __device__ constexpr int smem_fixed(int co) {
+  return 1024 + STAGES * STAGE + out_bytes(co) + 8 * STAGES;
+}
+
+struct KParams {
+  const float* x0;
+  const float* x1;
+  int ci0, ci1, nq0, nq;
+  int load0, load1;
+  const float* w4;
+  const float* scale4;
+  const float* bias4;
+  float* out;
+  int h, w, tiles_x, tiles_y, tiles;
+  int leaky, zero_pad, resident, vec_out;
+};
+
+struct Tile {
+  int img, i0, j0;
+};
+
+__device__ __forceinline__ Tile tile_at(const KParams& p, int t) {
+  const int tx = t % p.tiles_x, r = t / p.tiles_x;
+  const int ty = r % p.tiles_y;
+  return Tile{r / p.tiles_y, ty * TH, tx * TW};
+}
+
+// byte offset of 16-byte piece j (0..7) of halo pixel P in a stage: the
+// 128-byte swizzle TMA writes (piece bits 4-6 XOR address bits 7-9)
+__device__ __forceinline__ int piece_at(int P, int j) {
+  return P * PIX + ((j ^ (P & 7)) << 4);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float leaky1(float x) {
+  return x < 0.f ? 0.2f * x : x;
+}
+
+template <int CO>
+__global__ void __launch_bounds__(NT, 1)
+    narrow_f32_kernel(const __grid_constant__ CUtensorMap map0,
+                      const __grid_constant__ CUtensorMap map1,
+                      const KParams p) {
+  constexpr int NW = 16 * CO;           // weights a channel
+  constexpr int CHUNK_W = CK * NW;      // floats of one chunk's weights
+  constexpr int OROW = 2 * TW * CO;     // floats an output row of the tile
+  constexpr int OSTR = OROW + 4;        // its stride in the staging tile
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's swizzle pattern follows address bits: stages start 1024-aligned
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  float* const stg = reinterpret_cast<float*>(gbase + STAGES * STAGE);
+  float* const ws = stg + 2 * TH * OSTR;
+  const int nslots = p.resident ? p.nq : 2;
+  const uint32_t bars =
+      base + STAGES * STAGE + out_bytes(CO) + nslots * slot_bytes(CO);
+  const int tid = threadIdx.x;
+  const int ci = p.ci0 + p.ci1;
+
+  // chunk q's weights into slot `slot`: channel c's 16 Co floats are
+  // [b = 2 pr + di][u = 2 pc + dj][o] = w4[di, dj, c, (2 pr + pc) Co + o],
+  // so the taps of output row pr (blocks 2 pr, 2 pr + 1) lie together
+  auto build_w = [&](int q, int slot) {
+    const bool first = q < p.nq0;
+    const int cip = first ? p.ci0 : p.ci1, off = first ? 0 : p.ci0;
+    const int cq = (first ? q : q - p.nq0) * CK;
+    float* dst = ws + slot * CHUNK_W;
+    for (int e = tid; e < CHUNK_W; e += NT) {
+      const int c = e / NW, r = e - c * NW;
+      const int b = r / (4 * CO), u = (r / CO) & 3, o = r % CO;
+      const int pr = b >> 1, di = b & 1, pc = u >> 1, dj = u & 1;
+      const int k = cq + c;
+      dst[e] = k < cip ? p.w4[(static_cast<int64_t>(2 * di + dj) * ci + off +
+                               k) * (4 * CO) + (2 * pr + pc) * CO + o]
+                       : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) tc::mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (p.resident)
+    for (int q = 0; q < p.nq; ++q) build_w(q, q);
+
+  const int my_tiles =
+      (p.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int nsteps = my_tiles * p.nq;
+
+  // the next load: step ik, chunk iq of tile itile (coordinates itl), into
+  // stage ik % STAGES; advanced by each issue, divisions once a tile
+  int ik = 0, iq = 0, itile = blockIdx.x;
+  Tile itl = tile_at(p, itile);
+  auto issue_next = [&]() {
+    const int s = ik % STAGES;
+    const bool first = iq < p.nq0;
+    const int cq = (first ? iq : iq - p.nq0) * CK;
+    const uint32_t bar = bars + 8 * s;
+    if ((first ? p.load0 : p.load1) == tc::TMA) {
+      if (tid == 0) {
+        tc::mbar_arrive_expect_tx(bar, BOX_BYTES);
+        tc::tma_load_4d(base + s * STAGE, first ? &map0 : &map1, bar, cq,
+                        itl.j0 - 1, itl.i0 - 1, itl.img);
+      }
+    } else {  // element by element, zero outside the image and the part
+      const float* x = first ? p.x0 : p.x1;
+      const int cip = first ? p.ci0 : p.ci1;
+      uint8_t* stage = gbase + s * STAGE;
+      for (int e = tid; e < HR * BW * 8; e += NT) {
+        const int P = e >> 3, j = e & 7;
+        const int rr = itl.i0 - 1 + P / BW, qq = itl.j0 - 1 + P % BW;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (rr >= 0 && rr < p.h && qq >= 0 && qq < p.w) {
+          const int64_t px =
+              ((static_cast<int64_t>(itl.img) * p.h + rr) * p.w + qq) * cip;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (cq + 4 * j + c < cip) v[c] = x[px + cq + 4 * j + c];
+        }
+        *reinterpret_cast<float4*>(stage + piece_at(P, j)) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+      tc::fence_proxy_async();  // before a later TMA write to this stage
+      // every thread's part is in before the stage is published: with 2
+      // stages it is read (LeakyReLU'd) at the next step, before its barrier
+      __syncthreads();
+      if (tid == 0) tc::mbar_arrive(bar);
+    }
+    ++ik;
+    if (++iq == p.nq) {
+      iq = 0;
+      itile += gridDim.x;
+      if (ik < nsteps) itl = tile_at(p, itile);
+    }
+  };
+
+  const Tile first_tile = itl;
+  for (int k = 0; k < STAGES - 1 && k < nsteps; ++k) issue_next();
+  __syncthreads();  // barriers initialised, weights built, element loads done
+
+  // group g computes output row pr = g & 1 (phases 2 pr, 2 pr + 1) from
+  // channels 16 h .. 16 h + 15 (pieces 4 h .. 4 h + 3) of every chunk, h =
+  // g >> 1; a quarter-warp is one column group x 8 rows (see the header)
+  const int g = tid / GT, t = tid % GT, lane = t & 31;
+  const int pr = g & 1, half = g >> 1;
+  const int tx = lane >> 3;                          // positions PX tx ..
+  const int ty = 8 * (t >> 5) + (lane & 7);          // tile row
+  // byte offset in a stage of piece 4 half of the halo pixel this thread
+  // reads at halo row pr + di (tile row ty + pr + di - 1) and column k
+  // (tile column PX tx + k - 1); piece 4 half + jj is the offset ^ 16 jj
+  int poff[2][PX + 2];
+
+  float acc[PX][2][CO];
+#pragma unroll
+  for (int px = 0; px < PX; ++px)
+#pragma unroll
+    for (int pc = 0; pc < 2; ++pc)
+#pragma unroll
+      for (int o = 0; o < CO; ++o) acc[px][pc][o] = 0.f;
+
+  int q = 0, ctile = blockIdx.x;
+  Tile tl = first_tile;
+  for (int k = 0; k < nsteps; ++k) {
+    const int s = k % STAGES;
+    if (!p.resident) build_w(q, k & 1);  // slot k & 1 last read at k - 2
+    tc::mbar_wait(bars + 8 * s, (k / STAGES) & 1);
+    if (p.leaky) {
+      float4* v = reinterpret_cast<float4*>(gbase + s * STAGE);
+      for (int e = tid; e < BOX_BYTES / 16; e += NT) {
+        float4 u = v[e];
+        u.x = leaky1(u.x);
+        u.y = leaky1(u.y);
+        u.z = leaky1(u.z);
+        u.w = leaky1(u.w);
+        v[e] = u;
+      }
+      tc::fence_proxy_async();
+    }
+    __syncthreads();  // stage s ready; every thread is done with step k - 1
+    if (ik < nsteps) issue_next();  // step k + 1, into the stage of k - 1
+
+    if (q == 0) {  // a new tile: its halo pixels, clamped in the edge form
+#pragma unroll
+      for (int di = 0; di < 2; ++di) {
+        int r = ty + pr + di;
+        if (!p.zero_pad) r = min(max(tl.i0 + r - 1, 0), p.h - 1) - tl.i0 + 1;
+#pragma unroll
+        for (int kk = 0; kk < PX + 2; ++kk) {
+          int c = PX * tx + kk;
+          if (!p.zero_pad)
+            c = min(max(tl.j0 + c - 1, 0), p.w - 1) - tl.j0 + 1;
+          const int P = r * BW + c;
+          poff[di][kk] = piece_at(P, 4 * half);
+        }
+      }
+    }
+
+    const uint8_t* st = gbase + s * STAGE;
+    const float* wq = ws + (p.resident ? q : (k & 1)) * CHUNK_W +
+                      16 * half * NW + 2 * pr * 4 * CO;
+#pragma unroll 1
+    for (int jj = 0; jj < 4; ++jj) {
+      const int jx = jj << 4;
+      const float* wj = wq + 4 * jj * NW;
+#pragma unroll
+      for (int di = 0; di < 2; ++di) {
+        float4 xv[PX + 2];
+#pragma unroll
+        for (int kk = 0; kk < PX + 2; ++kk)
+          xv[kk] = *reinterpret_cast<const float4*>(st + (poff[di][kk] ^ jx));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // block 2 pr + di of channel 4 jj + e: 4 taps x Co
+          float wv[4 * CO];
+          const float4* w4v =
+              reinterpret_cast<const float4*>(wj + e * NW + di * 4 * CO);
+#pragma unroll
+          for (int v = 0; v < CO; ++v) {
+            const float4 f = w4v[v];
+            wv[4 * v] = f.x;
+            wv[4 * v + 1] = f.y;
+            wv[4 * v + 2] = f.z;
+            wv[4 * v + 3] = f.w;
+          }
+#pragma unroll
+          for (int px = 0; px < PX; ++px)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int pc = u >> 1, dj = u & 1;  // column px + pc + dj - 1
+              const float xval = lane_of(xv[px + pc + dj], e);
+#pragma unroll
+              for (int o = 0; o < CO; ++o)
+                acc[px][pc][o] =
+                    fmaf(xval, wv[u * CO + o], acc[px][pc][o]);
+            }
+        }
+      }
+    }
+
+    if (q != p.nq - 1) {
+      ++q;
+      continue;
+    }
+    // epilogue. This thread's 2 x 4 outputs of output row 2 ty + pr are 8
+    // Co contiguous floats of the staging tile: the groups of channel half
+    // 1 write their sums there, those of half 0 add their own, apply the
+    // affine and write them back
+    float* const mine = stg + (2 * ty + pr) * OSTR + 2 * PX * tx * CO;
+    if (half == 1) {
+      float v[2 * PX * CO];
+#pragma unroll
+      for (int px = 0; px < PX; ++px)
+#pragma unroll
+        for (int pc = 0; pc < 2; ++pc)
+#pragma unroll
+          for (int o = 0; o < CO; ++o)
+            v[(2 * px + pc) * CO + o] = acc[px][pc][o];
+      float4* d = reinterpret_cast<float4*>(mine);
+#pragma unroll
+      for (int m = 0; m < PX * CO / 2; ++m)
+        d[m] = make_float4(v[4 * m], v[4 * m + 1], v[4 * m + 2],
+                           v[4 * m + 3]);
+    }
+    __syncthreads();
+    if (half == 0) {
+      const bool affine = p.scale4 != nullptr;
+      float4* d = reinterpret_cast<float4*>(mine);
+      float v[2 * PX * CO];
+#pragma unroll
+      for (int m = 0; m < PX * CO / 2; ++m) {
+        const float4 f = d[m];
+        v[4 * m] = f.x;
+        v[4 * m + 1] = f.y;
+        v[4 * m + 2] = f.z;
+        v[4 * m + 3] = f.w;
+      }
+#pragma unroll
+      for (int px = 0; px < PX; ++px)
+#pragma unroll
+        for (int pc = 0; pc < 2; ++pc)
+#pragma unroll
+          for (int o = 0; o < CO; ++o) {
+            const int ph = 2 * pr + pc;
+            float r = __fadd_rn(acc[px][pc][o], v[(2 * px + pc) * CO + o]);
+            if (affine)  // two roundings, as the plain version
+              r = __fadd_rn(__fmul_rn(r, p.scale4[ph * CO + o]),
+                            p.bias4[ph * CO + o]);
+            v[(2 * px + pc) * CO + o] = r;
+          }
+#pragma unroll
+      for (int m = 0; m < PX * CO / 2; ++m)
+        d[m] = make_float4(v[4 * m], v[4 * m + 1], v[4 * m + 2],
+                           v[4 * m + 3]);
+    }
+#pragma unroll
+    for (int px = 0; px < PX; ++px)
+#pragma unroll
+      for (int pc = 0; pc < 2; ++pc)
+#pragma unroll
+        for (int o = 0; o < CO; ++o) acc[px][pc][o] = 0.f;
+    __syncthreads();
+    // the depth-to-space store: each output row segment of the tile, in
+    // 16-byte pieces across the block
+    const int rows = min(2 * TH, 2 * (p.h - tl.i0));
+    const int cols = 2 * min(TW, p.w - tl.j0) * CO;  // floats a row
+    const int64_t ostride = 2 * static_cast<int64_t>(p.w) * CO;
+    float* const obase =
+        p.out + (static_cast<int64_t>(tl.img) * 2 * p.h + 2 * tl.i0) *
+                    ostride + 2 * tl.j0 * CO;
+    if (p.vec_out) {
+      for (int e = tid; e < 2 * TH * (OROW / 4); e += NT) {
+        const int r = e / (OROW / 4), c = 4 * (e - r * (OROW / 4));
+        if (r >= rows || c >= cols) continue;
+        const float4 f =
+            *reinterpret_cast<const float4*>(stg + r * OSTR + c);
+        float* d = obase + r * ostride + c;
+        if (c + 4 <= cols) {
+          *reinterpret_cast<float4*>(d) = f;
+        } else {  // a ragged tile's last 1..3 floats of the row
+          d[0] = f.x;
+          if (c + 1 < cols) d[1] = f.y;
+          if (c + 2 < cols) d[2] = f.z;
+        }
+      }
+    } else {
+      for (int e = tid; e < 2 * TH * OROW; e += NT) {
+        const int r = e / OROW, c = e - r * OROW;
+        if (r < rows && c < cols) obase[r * ostride + c] = stg[r * OSTR + c];
+      }
+    }
+    q = 0;
+    ctile += gridDim.x;
+    if (k + 1 < nsteps) tl = tile_at(p, ctile);
+  }
+}
+
+// a part's load route: TMA where its rows are whole 16-byte pieces on a
+// 16-byte aligned base (the tensor map's rules), else element by element
+int part_load(const void* x, int cip) {
+  return aligned16(x) && cip > 0 && cip % 4 == 0 ? tc::TMA : tc::SCALAR;
+}
+
+// the launch: blocks, whether every chunk's weights stay resident, bytes
+// of dynamic shared memory
+struct Plan {
+  int load0, load1, nq0, nq, tiles_x, tiles_y, tiles, grid, resident;
+  int smem;
+};
+
+Plan make_plan(const Params& p, int sms) {
+  Plan q{};
+  q.load0 = part_load(p.x0, p.ci0);
+  q.load1 = p.ci1 > 0 ? part_load(p.x1, p.ci1) : -1;
+  q.nq0 = (p.ci0 + CK - 1) / CK;
+  q.nq = q.nq0 + (p.ci1 + CK - 1) / CK;
+  q.tiles_x = (p.w + TW - 1) / TW;
+  q.tiles_y = (p.h + TH - 1) / TH;
+  const int64_t tiles = static_cast<int64_t>(q.tiles_x) * q.tiles_y * p.n;
+  q.tiles = static_cast<int>(std::min<int64_t>(tiles, INT32_MAX));
+  q.grid = static_cast<int>(std::min<int64_t>(tiles, sms));
+  const int slot = slot_bytes(p.co);
+  q.resident = smem_fixed(p.co) + q.nq * slot <= SMEM_CAP;
+  q.smem = smem_fixed(p.co) + (q.resident ? q.nq : 2) * slot;
+  return q;
+}
+
+// a part's 4-D map (C, W, H, N), boxes of 32 channels x 35 x 18 x 1
+bool encode_part(CUtensorMap* map, tc::EncodeTiled encode, const void* x,
+                 int cip, const Params& p) {
+  const cuuint64_t c = cip, e = 4;
+  const cuuint64_t dims[4] = {c, static_cast<cuuint64_t>(p.w),
+                              static_cast<cuuint64_t>(p.h),
+                              static_cast<cuuint64_t>(p.n)};
+  const cuuint64_t strides[3] = {c * e, c * e * p.w, c * e * p.w * p.h};
+  const cuuint32_t box[4] = {CK, BW, HR, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<void*>(x), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int CO>
+int launch(const Params& p, cudaStream_t stream) {
+  int sms = 0;
+  if (const int e = tc::sm_count(&sms)) return e;
+  const Plan q = make_plan(p, sms);
+  if (q.tiles == 0) return 0;
+  CUtensorMap map0{}, map1{};
+  if (q.load0 == tc::TMA || q.load1 == tc::TMA) {
+    const tc::EncodeTiled encode = tc::encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    if ((q.load0 == tc::TMA && !encode_part(&map0, encode, p.x0, p.ci0, p)) ||
+        (q.load1 == tc::TMA && !encode_part(&map1, encode, p.x1, p.ci1, p)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  KParams k{};
+  k.x0 = static_cast<const float*>(p.x0);
+  k.x1 = static_cast<const float*>(p.x1);
+  k.ci0 = p.ci0;
+  k.ci1 = p.ci1;
+  k.nq0 = q.nq0;
+  k.nq = q.nq;
+  k.load0 = q.load0;
+  k.load1 = q.load1;
+  k.w4 = static_cast<const float*>(p.w4);
+  k.scale4 = p.scale4;
+  k.bias4 = p.bias4;
+  k.out = static_cast<float*>(p.out);
+  k.h = p.h;
+  k.w = p.w;
+  k.tiles_x = q.tiles_x;
+  k.tiles_y = q.tiles_y;
+  k.tiles = q.tiles;
+  k.leaky = p.leaky;
+  k.zero_pad = p.zero_pad;
+  k.resident = q.resident;
+  // every output row segment starts 16-byte aligned: the tile's columns
+  // start at a multiple of 64 Co floats, a row holds 2 W Co floats
+  k.vec_out = aligned16(p.out) && (2 * static_cast<int64_t>(p.w) * CO) % 4 == 0;
+  const cudaError_t set = cudaFuncSetAttribute(
+      narrow_f32_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      q.smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  narrow_f32_kernel<CO><<<q.grid, NT, q.smem, stream>>>(map0, map1, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 template <int CO>
 int launch(int dtype, const Params& p, cudaStream_t stream) {
   return dtype == 0 ? f32::launch<CO>(p, stream) : tc::launch<CO>(p, stream);
@@ -992,10 +1213,10 @@ extern "C" int srit_decoder_upsample_narrow(int dtype, const void* x0,
 
 // The launch srit_decoder_upsample_narrow makes for these arguments on the
 // current device: plan[0..9] = route (0 CUDA cores, f32; 1 tensor cores,
-// bf16), part 0's load and part 1's (0 TMA, 1 16-byte cp.async, 2
-// element by element, -1 no part), ring stages, tile rows, tile columns,
-// blocks, 1 where every chunk's B stays resident (-1 in f32), GEMM
-// columns N (4 Co in f32), tiles.
+// bf16), part 0's load and part 1's (0 TMA, 2 element by element, -1 no
+// part), ring stages, tile rows, tile columns, blocks, 1 where every
+// chunk's weights stay resident in shared memory, GEMM columns N (4 Co in
+// f32, 8 or 16 in bf16), tiles.
 // cudaErrorInvalidValue for arguments the entry refuses.
 extern "C" int srit_decoder_upsample_narrow_plan(int dtype, const void* x0,
                                                  const void* x1, int ci0,
@@ -1005,19 +1226,16 @@ extern "C" int srit_decoder_upsample_narrow_plan(int dtype, const void* x0,
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{x0, x1, ci0, ci1, nullptr, nullptr, nullptr, nullptr,
                  n, h, w, co, 0, 0};
+  int sms = 0;
+  if (const int e = tc::sm_count(&sms)) return e;
   if (dtype == 0) {
-    auto load = [](const void* x, int cip) {
-      return aligned16(x) && cip % f32::VEC == 0 ? tc::CP_ASYNC : tc::SCALAR;
-    };
-    const int blocks = f32::grid_blocks(p);
-    const long long f[10] = {
-        0,       load(x0, ci0), ci1 > 0 ? load(x1, ci1) : -1, f32::STAGES,
-        f32::TH, f32::TW,       blocks,  -1, 4 * co, blocks};
+    const f32::Plan q = f32::make_plan(p, sms);
+    const long long f[10] = {0,       q.load0, q.load1,    f32::STAGES,
+                             f32::TH, f32::TW, q.grid,     q.resident,
+                             4 * co,  q.tiles};
     std::copy(f, f + 10, plan);
     return 0;
   }
-  int sms = 0;
-  if (const int e = tc::sm_count(&sms)) return e;
   const tc::Plan q = tc::make_plan(p, sms);
   const long long b[10] = {1,      q.load0, q.load1,   tc::STAGES, tc::TH,
                            tc::TW, q.grid,  q.resident, 8 * q.nj,   q.tiles};

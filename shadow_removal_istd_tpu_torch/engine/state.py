@@ -150,3 +150,10 @@ def init_state(cfg: TrainConfig, generator: torch.Generator,
                       adv=make_adversarial_loss(cfg.d_loss_fn, cfg.d_type,
                                                 cfg.loss_mode),
                       vgg=vgg.to(device) if vgg is not None else None)
+
+
+def param_count(module: nn.Module) -> int:
+    """The number of parameter elements of ``module`` (the JAX package's
+    ``param_count`` over a ``params`` tree; BatchNorm statistics are
+    buffers here, as they are ``batch_stats`` there, and not counted)."""
+    return sum(p.numel() for p in module.parameters())

@@ -1,5 +1,5 @@
-"""Data (pixel) loss; port of ``shadow_removal_istd_tpu/losses/data.py``
-(mean L1), accumulated in at least f32."""
+"""Data (pixel) losses; port of ``shadow_removal_istd_tpu/losses/data.py``
+(mean L1, mean squared error), accumulated in at least f32."""
 
 from __future__ import annotations
 
@@ -14,3 +14,8 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean absolute error (accumulated in >= f32)."""
     return (_acc(pred) - _acc(target)).abs().mean()
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error (accumulated in >= f32)."""
+    return (_acc(pred) - _acc(target)).square().mean()

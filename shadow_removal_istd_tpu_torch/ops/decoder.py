@@ -31,7 +31,9 @@ hand-written kernels, chosen by shape (:func:`decoder_variant`):
   A by ``ldmatrix`` from the halo, N the 4 phases x Co), its halo chunks
   in a 4-stage ring fed by TMA (element loads for a misaligned or ragged
   part; :func:`narrow_plan` reports the route); in f32 FMAs on the CUDA
-  cores;
+  cores, fed the same way (a persistent block an SM, 32-channel halo
+  chunks by TMA into a 2-stage ring, the swizzled records read in place,
+  coalesced depth-to-space stores);
 - ``tensor_core`` (``csrc/decoder_upsample_tc.cu``): bf16 with Co >= 32,
   every channel count a multiple of 8 and 16-byte aligned tensors, i.e.
   every MNet step at ngf 64 but the final one; ``mma.sync`` on the tensor
@@ -221,7 +223,7 @@ def _kernel_fn(variant: str):
     return fn
 
 
-_LOADS = {0: "tma", 1: "cp.async", 2: "scalar"}
+_LOADS = {0: "tma", 2: "scalar"}
 
 
 @functools.cache
@@ -239,10 +241,11 @@ def narrow_plan(parts: Sequence[torch.Tensor], co: int) -> dict:
     """The launch the narrow kernel makes for these inputs on the current
     card (its C entry ``srit_decoder_upsample_narrow_plan``): ``route``
     (``"tensor_core"`` in bf16, ``"cuda_core"`` in f32), each part's
-    ``loads`` (``"tma"``, ``"cp.async"`` or ``"scalar"``), ``stages``,
-    ``tile`` (rows, columns), ``blocks``, ``resident`` (every chunk's
-    expanded weight kept in shared memory; None in f32), ``n_cols`` (the
-    GEMM's N) and ``tiles``."""
+    ``loads`` (``"tma"`` or ``"scalar"``, i.e. element by element),
+    ``stages``, ``tile`` (rows, columns), ``blocks`` (persistent, at most
+    one an SM), ``resident`` (every chunk's weights kept in shared memory
+    for the launch), ``n_cols`` (the GEMM's N: 8 or 16 in bf16, 4 Co in
+    f32) and ``tiles``."""
     x0 = parts[0]
     if x0.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {x0.dtype}")
@@ -260,7 +263,7 @@ def narrow_plan(parts: Sequence[torch.Tensor], co: int) -> dict:
     return {"route": "tensor_core" if v[0] else "cuda_core",
             "loads": tuple(_LOADS[k] for k in v[1:3] if k != -1),
             "stages": v[3], "tile": (v[4], v[5]), "blocks": v[6],
-            "resident": None if v[7] < 0 else bool(v[7]), "n_cols": v[8],
+            "resident": bool(v[7]), "n_cols": v[8],
             "tiles": v[9]}
 
 

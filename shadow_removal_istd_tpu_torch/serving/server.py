@@ -501,7 +501,7 @@ def main(argv=None) -> int:
                          "devices: a replica of the stacked pair on "
                          "each, every coalesced batch split equally "
                          "(with --device cpu: N CPU replicas)")
-    ap.add_argument("--device", default="cuda",
+    ap.add_argument("--device", default=None,
                     help="torch device: cuda (default) or cpu")
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--batch-window-ms", type=float, default=5.0)
@@ -517,10 +517,25 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", default="480x640",
                     help="comma-separated HxW list to run once before "
                          "serving ('' to skip)")
+    ap.add_argument("--platform", default=None,
+                    help="the JAX daemon's platform flag: cpu or cuda "
+                         "sets --device (the two must agree when both "
+                         "are given); any other value (e.g. tpu) is "
+                         "ignored with a warning")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    if args.platform in ("cpu", "cuda"):
+        if args.device is not None \
+                and args.device.split(":")[0] != args.platform:
+            ap.error(f"--platform {args.platform} and --device "
+                     f"{args.device} disagree")
+        args.device = args.device or args.platform
+    elif args.platform is not None:
+        logger.warning("--platform %s names no torch device; ignored",
+                       args.platform)
+    args.device = args.device or "cuda"
     if args.artifact:
         engine = ArtifactEngine(args.artifact, max_batch=args.max_batch,
                                 device=args.device)

@@ -258,3 +258,16 @@ def imencode_png(img: np.ndarray,
     if img.ndim == 3 and img.shape[2] == 3:
         img = np.ascontiguousarray(img[..., ::-1])  # BGR -> RGB
     return png_encode(img, filters)
+
+
+def normalize_percentile(array: np.ndarray, lower: float = 3.0,
+                         upper: float = 97.0) -> np.ndarray:
+    """Percentile contrast stretch to uint8 (reference
+    ``normalize_ndarray``, src/utils.py:70-74): map the [p_lower,
+    p_upper] range of ``array`` onto [0, 255] and clip. A constant input
+    is divided by 1e-12, not by zero. Useful for visualising unbounded
+    float maps (e.g. sp arrays)."""
+    lo = np.percentile(array, lower)
+    hi = np.percentile(array, upper)
+    img = (array.astype(np.float64) - lo) / max(hi - lo, 1e-12)
+    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)

@@ -11,10 +11,10 @@ narrow kernel's channel chunk, spatial sizes that are no multiple of the
 narrow kernel's tile, unequal split-skip parts, both padding forms and
 both epilogues; the CUDA-core kernel's three tiles (128x128, 128x64,
 128x16) on its 16-byte and its scalar loads, and at K = 4096; the
-narrow kernel's bf16 routes (TMA against element loads, one part of each,
-the expanded weight resident or rebuilt per chunk) and its edge-form
-tiles on every image border, each read off its plan
-(``narrow_plan``). Each case asserts which variant ran. Tolerances as in
+narrow kernel's routes in both dtypes (TMA against element loads, one
+part of each, the weights resident or rebuilt per chunk) and its
+edge-form tiles on every image border, with persistent blocks that walk
+several tiles, each read off its plan (``narrow_plan``). Each case asserts which variant ran. Tolerances as in
 chip_smoke.py: 2e-5 in f32 (TF32 off), 3e-2 in bf16.
 
 Marked ``cuda``; skips without a card. On a machine with one (the tests'
@@ -252,32 +252,46 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         decoder_upsample([xs[0].half()], w4.half(), s4, b4, leaky=True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("parts,misaligned,loads", [
     ((64, 64), False, ("tma", "tma")),      # the final layer's parts
     ((16, 13), False, ("tma", "scalar")),   # Ci 13: rows off 16 bytes
     ((9, 5), False, ("scalar", "scalar")),
     ((16, 8), True, ("scalar", "tma")),     # part 0 one element past
     ((40,), False, ("tma",)),               # one part, a ragged chunk
+    # channels a multiple of 4 but not of 8 or 16: TMA in f32 only
+    ((12, 20), False, {F32: ("tma", "tma"), BF16: ("scalar", "scalar")}),
 ])
 @pytest.mark.parametrize("co", [1, 3])
 @pytest.mark.parametrize("zero_pad", [False, True])
 @pytest.mark.parametrize("final", [False, True])
-def test_narrow_bf16_load_routes(cuda, parts, misaligned, loads, co,
-                                 zero_pad, final):
-    """bf16 narrow: each part arrives by TMA where it is 16-byte aligned
-    with channels a multiple of 8, else element by element into the same
-    ring, as the kernel's plan says; the output matches the plain
+def test_narrow_load_routes(cuda, dtype, parts, misaligned, loads, co,
+                            zero_pad, final):
+    """Each part arrives by TMA where it is 16-byte aligned with channels
+    a multiple of 8 (bf16) or 4 (f32), else element by element into the
+    same ring, as the kernel's plan says; the output matches the plain
     version either way."""
-    xs, w4, s4, b4 = _inputs(2, 19, 37, parts, co, not final,
-                             torch.bfloat16)
+    if isinstance(loads, dict):
+        loads = loads[dtype]
+    xs, w4, s4, b4 = _inputs(2, 19, 37, parts, co, not final, dtype)
     if misaligned:
         xs = [_misaligned(xs[0])] + xs[1:]
     plan = narrow_plan(xs, co)
-    assert plan["route"] == "tensor_core" and plan["loads"] == loads
-    assert plan["n_cols"] == (8 if co <= 2 else 16) and plan["stages"] >= 3
+    assert plan["loads"] == loads
+    if dtype == BF16:
+        assert plan["route"] == "tensor_core" and plan["stages"] >= 3
+        assert plan["n_cols"] == (8 if co <= 2 else 16)
+    else:  # 2 stages of 32 channels (the kernel's header says why)
+        assert plan["route"] == "cuda_core" and plan["stages"] == 2
+        assert plan["n_cols"] == 4 * co
     _check(xs, w4, s4, b4, zero_pad, not final, "narrow")
 
 
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w", [
     (3, 16, 32),     # tiles end exactly on each image's edge
     (2, 32, 64),     # 2 x 2 whole tiles an image
@@ -286,19 +300,22 @@ def test_narrow_bf16_load_routes(cuda, parts, misaligned, loads, co,
     (2, 40, 5),      # W under one tile
     (5, 1, 1),       # one pixel an image: every tap clamps
     (1, 15, 31),     # one ragged tile
+    (3, 96, 256),    # 144 tiles: a block walks several
 ])
 @pytest.mark.parametrize("co", [1, 2, 3, 4])
 @pytest.mark.parametrize("zero_pad", [False, True])
-def test_narrow_bf16_tiles_at_every_border(cuda, n, h, w, co, zero_pad):
+def test_narrow_tiles_at_every_border(cuda, dtype, n, h, w, co, zero_pad):
     """The edge form clamps the halo pixel of every tile on an image
     border (top, bottom, left, right, corners), the zero form reads TMA's
-    zero fill; images smaller than one tile and batches whose tiles end
-    on an image boundary included."""
-    xs, w4, s4, b4 = _inputs(n, h, w, (64, 64), co, False, torch.bfloat16)
+    zero fill; images smaller than one tile, batches whose tiles end on
+    an image boundary and persistent blocks that walk several tiles
+    included."""
+    xs, w4, s4, b4 = _inputs(n, h, w, (64, 64), co, False, dtype)
     plan = narrow_plan(xs, co)
     assert plan["loads"] == ("tma", "tma")
-    assert plan["tiles"] == n * -(-h // plan["tile"][0]) * \
-        -(-w // plan["tile"][1])
+    tiles = n * -(-h // plan["tile"][0]) * -(-w // plan["tile"][1])
+    assert plan["tiles"] == tiles
+    assert plan["blocks"] == min(tiles, _sm_count())
     _check(xs, w4, s4, b4, zero_pad, True, "narrow")
 
 
@@ -316,13 +333,34 @@ def test_narrow_bf16_expanded_weight_slots(cuda, parts, co, resident):
     _check(xs, w4, s4, b4, False, True, "narrow")
 
 
+@pytest.mark.parametrize("parts,co,resident", [
+    ((64, 64), 3, True),
+    ((200, 120), 3, False),   # 11 chunks of weights past shared memory
+    ((200, 120), 1, True),    # the same fit at Co 1
+    ((300, 260), 4, False),
+])
+def test_narrow_f32_weight_slots(cuda, parts, co, resident):
+    """f32: every chunk's weights stay resident where they fit, else each
+    chunk's are rebuilt into two slots; both match."""
+    xs, w4, s4, b4 = _inputs(2, 20, 40, parts, co, True, torch.float32)
+    assert narrow_plan(xs, co)["resident"] is resident
+    _check(xs, w4, s4, b4, False, True, "narrow")
+
+
 @pytest.mark.parametrize("misaligned,loads", [
-    (False, ("cp.async", "cp.async")), (True, ("scalar", "cp.async"))])
+    (False, ("tma", "tma")), (True, ("scalar", "tma"))])
 def test_narrow_f32_stays_on_cuda_cores(cuda, misaligned, loads):
+    """f32 keeps FMAs on the CUDA cores, fed like bf16: a persistent grid
+    of at most one block an SM over 16 x 32 tiles, a ring of 2 stages of
+    32 channels by TMA (element loads for the misaligned part), every
+    chunk's weights resident at the final layer's width."""
     xs, w4, s4, b4 = _inputs(2, 9, 35, (64, 64), 3, True, torch.float32)
     if misaligned:
         xs = [_misaligned(xs[0])] + xs[1:]
     plan = narrow_plan(xs, 3)
     assert plan["route"] == "cuda_core" and plan["loads"] == loads
-    assert plan["resident"] is None
+    assert plan["stages"] == 2 and plan["tile"] == (16, 32)
+    assert plan["resident"] is True and plan["n_cols"] == 12
+    assert plan["tiles"] == 2 * 1 * 2
+    assert plan["blocks"] == min(plan["tiles"], _sm_count())
     _check(xs, w4, s4, b4, True, True, "narrow")

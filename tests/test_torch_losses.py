@@ -1,10 +1,11 @@
-"""The port's losses against the JAX package's on shared inputs: L1,
+"""The port's losses against the JAX package's on shared inputs: L1, L2,
 every adversarial variant ({standard, leastsquare, and the
 reference's "leastsqure" spelling, which turns its BCE branch on} x
 {normal, rel, rel_avg} x {reference, corrected}, D and G directions,
 within 1e-6 of max(1, |loss|): the f32 means sum in another order, and
 one ulp at the largest loss here, ~7, is 4.8e-7), and the visual loss
-with shared random VGG weights (relative 1e-5)."""
+and its legacy sp-space form with shared random VGG weights (relative
+1e-5)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,12 +13,16 @@ import pytest
 import torch
 
 from shadow_removal_istd_tpu.losses import l1_loss as j_l1
+from shadow_removal_istd_tpu.losses import l2_loss as j_l2
 from shadow_removal_istd_tpu.losses import make_adversarial_loss as j_adv
+from shadow_removal_istd_tpu.losses import sp_visual_loss as j_sp_visual
 from shadow_removal_istd_tpu.losses import visual_loss as j_visual
 from shadow_removal_istd_tpu.models.vgg import VGG19Features as JVGG
 from shadow_removal_istd_tpu_torch.losses import (
     l1_loss,
+    l2_loss,
     make_adversarial_loss,
+    sp_visual_loss,
     visual_loss,
 )
 from shadow_removal_istd_tpu_torch.models.vgg import VGG19Features
@@ -42,6 +47,18 @@ def test_l1_loss():
     assert got.dtype == torch.float32
     want = float(j_l1(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b)))
     assert abs(float(got) - want) <= 1e-6
+
+
+def test_l2_loss():
+    a, ta = _pair((2, 8, 8, 3), 0)
+    b, tb = _pair((2, 8, 8, 3), 1)
+    want = float(j_l2(jnp.asarray(a), jnp.asarray(b)))
+    assert abs(float(l2_loss(ta, tb)) - want) <= 1e-6 * max(1.0, want)
+    # bf16 predictions accumulate in f32
+    got = l2_loss(ta.to(torch.bfloat16), tb)
+    assert got.dtype == torch.float32
+    want = float(j_l2(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b)))
+    assert abs(float(got) - want) <= 1e-6 * max(1.0, want)
 
 
 @pytest.mark.parametrize("mode", ["reference", "corrected"])
@@ -77,3 +94,30 @@ def test_visual_loss_matches_jax(channels):
     assert abs(float(got.detach()) - want) <= 1e-5 * abs(want)
     got.backward()
     assert t_pred.grad is not None and float(t_pred.grad.abs().sum()) > 0
+
+
+def test_sp_visual_loss_matches_jax():
+    """The legacy sp-space loss on the cases of the JAX package's
+    ``test_vgg_parity.py::test_sp_visual_loss_parity`` (normalised
+    input, sp in [0, 3), a [0, 1] target), with the same VGG weights on
+    both sides; the gradient reaches ``sp_pred`` and not the target."""
+    v = random_variables(JVGG(), 3, seed=22)
+    vgg = flax_tree_to_torch(v, VGG19Features())
+    rng = np.random.default_rng(6)
+    x_norm = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    sp = rng.random((2, 32, 32, 3), dtype=np.float32) * 3.0
+    target01 = rng.random((2, 32, 32, 3), dtype=np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = float(j_sp_visual(v, jnp.asarray(x_norm), jnp.asarray(sp),
+                                 jnp.asarray(target01)))
+
+    def nchw(a):
+        return torch.from_numpy(a).permute(0, 3, 1, 2)
+
+    t_sp = nchw(sp).requires_grad_(True)
+    t_tgt = nchw(target01).requires_grad_(True)
+    got = sp_visual_loss(vgg, nchw(x_norm), t_sp, t_tgt)
+    assert want > 0
+    assert abs(float(got.detach()) - want) <= 1e-5 * max(1.0, abs(want))
+    got.backward()
+    assert float(t_sp.grad.abs().sum()) > 0 and t_tgt.grad is None

@@ -364,18 +364,21 @@ def test_full_queue_answers_503_with_retry_after():
         srv.shutdown()
 
 
-def _serve_once(flags, img):
+def _serve_once(flags, img, device=("--device", "cpu"), stderr=None):
     """``python -m shadow_removal_istd_tpu_torch.serving --device cpu
-    --warmup '' *flags`` on a free port: once /healthz answers, POST
-    ``img`` as a PNG (HTTP 200 asserted) and read /stats, then SIGTERM
-    (exit 0 asserted). Returns the reply image and the /stats JSON."""
+    --warmup '' *flags`` (``device`` in place of ``--device cpu``) on a
+    free port, its stderr to the file ``stderr`` if given: once /healthz
+    answers, POST ``img`` as a PNG (HTTP 200 asserted) and read /stats,
+    then SIGTERM (exit 0 asserted). Returns the reply image and the
+    /stats JSON, with the /healthz JSON under ``"healthz"``."""
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
+    err = open(stderr, "w") if stderr else None
     proc = subprocess.Popen(
         [sys.executable, "-m", "shadow_removal_istd_tpu_torch.serving",
-         "--device", "cpu", "--port", str(port), "--warmup", "", *flags],
-        cwd=REPO)
+         *device, "--port", str(port), "--warmup", "", *flags],
+        cwd=REPO, stderr=err)
     try:
         deadline, up = time.time() + 60, False
         while time.time() < deadline and not up:
@@ -384,7 +387,9 @@ def _serve_once(flags, img):
                 conn = http.client.HTTPConnection("127.0.0.1", port,
                                                   timeout=5)
                 conn.request("GET", "/healthz")
-                up = conn.getresponse().status == 200
+                resp = conn.getresponse()
+                up = resp.status == 200
+                health = json.loads(resp.read()) if up else None
                 conn.close()
             except OSError:
                 time.sleep(0.2)
@@ -396,12 +401,15 @@ def _serve_once(flags, img):
         got = imdecode_color(resp.read())
         conn.request("GET", "/stats")
         stats = json.loads(conn.getresponse().read())
+        stats["healthz"] = health
         conn.close()
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:
         if proc.poll() is None:
             proc.kill()
+        if err is not None:
+            err.close()
     return got, stats
 
 
@@ -415,6 +423,45 @@ def test_serving_module_entry_point(tmp_path, jax_engine):
          "--load-weights-g1", str(tmp_path / "g1.npz"),
          "--load-weights-g2", str(tmp_path / "g2.npz")], _img(32, 32))
     assert got.shape == (32, 32, 3)
+
+
+def test_daemon_takes_the_jax_platform_flag(tmp_path, jax_engine):
+    """The JAX daemon's command line, ``--platform cpu`` and no
+    ``--device``, serves on the CPU and answers as the CPU engine does;
+    ``--platform`` and ``--device`` that disagree are a usage error."""
+    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+    weights = ["--load-weights-g1", str(tmp_path / "g1.npz"),
+               "--load-weights-g2", str(tmp_path / "g2.npz")]
+    with pytest.raises(SystemExit) as exc:
+        serve_main(["--platform", "cpu", "--device", "cuda", "--ngf", "4",
+                    *weights])
+    assert exc.value.code == 2
+    img = _img(32, 32, seed=6)
+    got, stats = _serve_once(["--ngf", "4", "--dtype", "float32",
+                              *weights], img, device=("--platform", "cpu"))
+    engine = InferenceEngine(**ENGINE_KW)
+    engine.load_weights(str(tmp_path / "g1.npz"), str(tmp_path / "g2.npz"))
+    np.testing.assert_array_equal(got, engine.infer_group([img])[0][1])
+    assert stats["healthz"]["platform"] == "cpu"
+
+
+def test_daemon_ignores_a_platform_with_no_torch_device(tmp_path,
+                                                        jax_engine):
+    """``--platform tpu`` (a JAX platform the port has no device for) is
+    warned about and ignored: with ``--device cpu`` the daemon serves on
+    the CPU."""
+    _save_npz(tmp_path / "g1.npz", jax_engine.v1)
+    _save_npz(tmp_path / "g2.npz", jax_engine.v2)
+    log = tmp_path / "stderr.txt"
+    got, stats = _serve_once(
+        ["--platform", "tpu", "--ngf", "4", "--dtype", "float32",
+         "--load-weights-g1", str(tmp_path / "g1.npz"),
+         "--load-weights-g2", str(tmp_path / "g2.npz")], _img(32, 32),
+        stderr=log)
+    assert got.shape == (32, 32, 3)
+    assert stats["healthz"]["platform"] == "cpu"
+    assert "--platform tpu names no torch device; ignored" in log.read_text()
 
 
 def test_daemon_serves_on_two_devices(tmp_path, jax_engine):
