@@ -316,6 +316,15 @@ earlier commit's ``csrc/decoder_upsample.cu``, unpacked by ``git
 archive`` into a git-ignored directory) with its C entry renamed, and
 times it beside the checkout's at the f32 wide steps of validation and
 serving, with cuDNN f32 and the bound (``[compare]`` lines).
+``python3 chip_smoke.py --compare-tc NAME=PATH [NAME=PATH ...]`` does
+the same for sources of ``csrc/decoder_upsample_tc.cu`` (the tensor-core
+kernel), at MNet's 4 wide bf16 steps at 256x256 b32 and at the 480x640 b4
+burst and at UNet's 4 up-convs at 256x256 b32: each output held to the
+plain version (3e-2) and counted off the rounded float64 value, each
+time beside cuDNN's convolution (and ``conv_transpose2d`` at UNet's
+shapes), the bound and TFLOP/s, 8-launch sums, each source's host
+time of one call, and the stacked bf16 serving forward's img/s with
+each source in turns (``[compare-tc]`` lines).
 ``python3 chip_smoke.py --compare-narrow NAME=PATH [NAME=PATH ...]``
 does the same for sources of ``csrc/decoder_upsample_narrow.cu``, at the
 narrow shapes of bf16 serving (256x256 b32), the 480x640 b4 burst, f32
@@ -651,13 +660,15 @@ def phase_build():
         _build.load(name)
         print(f"[build] {path.name}")
         for line in log.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem", "C7515")):
+            if any(k in line for k in ("registers", "spill", "smem", "C7515",
+                                       "C7508")):
                 print(f"[ptxas] {name}: {line.strip()}")
         # wgmma writes its accumulators asynchronously: in local memory
         # (a stack frame) they would be read before they are written
-        if name == "int8_conv" and ("C7515" in log or re.search(
-                r"[1-9]\d* bytes stack frame", log)):
-            raise SystemExit("int8_conv: ptxas moved wgmma accumulators out "
+        if name in ("int8_conv", "decoder_upsample_tc") and (
+                "C7515" in log or "C7508" in log
+                or re.search(r"[1-9]\d* bytes stack frame", log)):
+            raise SystemExit(f"{name}: ptxas moved wgmma accumulators out "
                              "of registers (see the [ptxas] lines)")
     if not native_loader.is_available():
         raise SystemExit("the native PNG loader did not load")
@@ -5873,81 +5884,201 @@ def build_renamed(name: str, path: str,
     fn.transposes = "int transpose_out" in Path(path).read_text()
     fn.argtypes = (decoder._kernel_fn("cuda_core").argtypes
                    if entry in ("srit_decoder_upsample",
-                                "srit_decoder_upsample_narrow") else
+                                "srit_decoder_upsample_narrow",
+                                "srit_decoder_upsample_tc") else
                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
                        6 + fn.transposes) + [ctypes.c_void_p])
     return fn
 
 
-def compare_cuda_core(sources: dict[str, str]) -> None:
-    """The checkout's CUDA-core kernel beside other sources of it, at the
-    wide steps of f32 validation (480x640, batch 16, zero pad, one part)
-    and f32 serving (256x256, batch 32, edge pad, two parts): each output
-    held to the plain version and compared bit for bit with the
-    checkout's, then timed in turns (checkout, others, others reversed,
-    checkout) beside one cuDNN f32 convolution and the f32 FMA ceiling."""
+_ENTRIES = {"cuda_core": "srit_decoder_upsample",
+            "tensor_core": "srit_decoder_upsample_tc"}
+
+
+def compare_decoder(variant: str, sources: dict[str, str], groups) -> dict:
+    """The checkout's ``variant`` kernel beside other sources of its file
+    (e.g. the parent commit's, unpacked by ``git archive`` into a
+    git-ignored directory), each built with its C entry renamed and
+    launched through the wrapper's ``_launch(..., variant)``. ``groups``
+    are (tag, key, batch, dtype, zero pad, steps, UNet, total label) with
+    steps (label, H, W, parts, Co, final), a final step without
+    LeakyReLU and affine. Each output is held to the plain version and
+    compared with the checkout's (``differ``) and, in bf16, with the
+    rounded float64 value (``off f64``); then each source is timed in
+    turns (checkout, others, others reversed, checkout) beside one cuDNN
+    convolution of the padded concat (and ``conv_transpose2d`` at UNet's
+    shapes) and the bound, with TFLOP/s; each group ends in its sum over
+    G1 and G2, 2 launches a step. Returns the other sources' entries."""
     from shadow_removal_istd_tpu_torch.ops import decoder
 
-    decoder._kernel_fn("cuda_core")     # the checkout's, built first
+    F = torch.nn.functional
+    decoder._kernel_fn(variant)     # the checkout's, built first
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        fns = dict(zip(sources, pool.map(build_renamed, sources,
-                                         sources.values())))
+        fns = dict(zip(sources, pool.map(
+            lambda name, path: build_renamed(name, path, _ENTRIES[variant]),
+            sources, sources.values())))
     real = decoder._kernel_fn
-    names = ["cuda_core", *fns]
+    names = [variant, *fns]
     order = names + names[:0:-1] + names[:1]
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    for (h, w), n, zero_pad in (((480, 640), 16, True),
-                                ((256, 256), 32, False)):
+    for tag, key, n, dtype, zero_pad, steps, unet, total in groups:
         tot: dict[str, float] = {}
-        for label, sh, sw, parts, co, final in decoder_steps(h, w):
-            if final:
-                continue
-            if zero_pad:
-                parts = (sum(parts),)   # the validation MNet's one part
-            xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final,
-                                         torch.float32, gen)
-            kw = dict(leaky=True, zero_pad=zero_pad)
+        bf16 = dtype == torch.bfloat16
+        peak = PEAK_BF16 if bf16 else PEAK_F32
+        for label, sh, sw, parts, co, final in steps:
+            xs, w4, s4, b4 = step_inputs(n, sh, sw, parts, co, final, dtype,
+                                         gen)
+            kw = dict(leaky=not final, zero_pad=zero_pad)
 
             def run(name):
-                return decoder._launch(tuple(xs), w4, s4, b4, co, True,
+                return decoder._launch(tuple(xs), w4, s4, b4, co, not final,
                                        zero_pad, name)[0]
 
             want = decoder.decoder_upsample_plain(xs, w4, s4, b4, **kw)
-            line = f"[compare] {h}x{w} b{n} f32 step {label:<24}"
+            exact = decoder_f64(xs, w4, s4, b4, **kw).to(dtype) \
+                if bf16 else None
+            line = f"{tag} {key} step {label:<24}"
             with mock.patch.object(decoder, "_kernel_fn",
                                    lambda v: fns.get(v) or real(v)):
-                ref = run("cuda_core")
+                ref = run(variant)
                 for name in names:
                     got = run(name)
-                    err = (got - want).abs().max().item()
-                    if err > TOL[torch.float32]:
+                    err = (got.float() - want.float()).abs().max().item()
+                    if err > TOL[dtype]:
                         raise SystemExit(f"{name} disagrees at {label}: "
                                          f"{err:.3e}")
                     line += (f" | {name} err {err:.2e}, "
                              f"{int((got != ref).sum())} differ")
+                    if exact is not None:
+                        line += f", {int((got != exact).sum())} off f64"
+                del exact
                 times: dict[str, list] = {}
                 for name in order:
                     times.setdefault(name, []).append(
                         time_ms(lambda: run(name), 10))
-            a = torch.nn.functional.pad(torch.cat(xs, 1), (1, 1, 1, 1),
-                                        mode="constant" if zero_pad
-                                        else "replicate")
+            a = F.pad(torch.cat(xs, 1), (1, 1, 1, 1),
+                      mode="constant" if zero_pad else "replicate")
             k = w4.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-            lib = time_ms(lambda: torch.nn.functional.conv2d(a, k), 10)
-            flops, nbytes = step_cost(n, sh, sw, parts, co, final, 4)
-            bound = fma_ceiling_ms(flops, nbytes)
+            libs = {"cudnn": time_ms(lambda: F.conv2d(a, k), 10)}
+            if unet:
+                wt = (torch.randn(sum(parts), co, 4, 4, device=DEVICE,
+                                  generator=gen)
+                      / (16 * sum(parts)) ** 0.5).to(dtype)
+                libs["conv_transpose2d"] = time_ms(
+                    lambda: F.conv_transpose2d(xs[0], wt, stride=2,
+                                               padding=1), 10)
+            flops, nbytes = step_cost(n, sh, sw, parts, co, final,
+                                      xs[0].element_size())
+            bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
             for name, v in times.items():
                 ms = sum(v) / len(v)
                 tot[name] = tot.get(name, 0.0) + 2 * ms
                 line += (f" | {name} " + "/".join(f"{t:.4f}" for t in v)
                          + f" ms ({flops / ms / 1e9:.1f} TFLOP/s)")
-            for key, v in (("cudnn", lib), ("bound", bound)):
-                tot[key] = tot.get(key, 0.0) + 2 * v
-            print(f"{line} | cudnn conv {lib:.4f} ({flops / lib / 1e9:.1f} "
-                  f"TFLOP/s) | bound {bound:.4f}", flush=True)
-        print(f"[compare] {h}x{w} b{n} f32 8 wide launches: " + ", ".join(
+            for lib, v in libs.items():
+                tot[lib] = tot.get(lib, 0.0) + 2 * v
+                line += (f" | {lib if lib != 'cudnn' else 'cudnn conv'} "
+                         f"{v:.4f} ({flops / v / 1e9:.1f} TFLOP/s)")
+            tot["bound"] = tot.get("bound", 0.0) + 2 * bound
+            print(f"{line} | bound {bound:.4f}", flush=True)
+        print(f"{tag} {key} {total}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in tot.items()), flush=True)
+    return fns
+
+
+def compare_cuda_core(sources: dict[str, str]) -> None:
+    """The checkout's CUDA-core kernel beside other sources of it, at the
+    wide steps of f32 validation (480x640, batch 16, zero pad, one part)
+    and f32 serving (256x256, batch 32, edge pad, two parts), against
+    one cuDNN f32 convolution and the f32 FMA ceiling
+    (:func:`compare_decoder`, ``[compare]`` lines)."""
+    groups = []
+    for (h, w), n, zero_pad in (((480, 640), 16, True),
+                                ((256, 256), 32, False)):
+        steps = [(label, sh, sw, (sum(parts),) if zero_pad else parts, co,
+                  final) for label, sh, sw, parts, co, final
+                 in decoder_steps(h, w) if not final]
+        groups.append(("[compare]", f"{h}x{w} b{n} f32", n, torch.float32,
+                       zero_pad, steps, False, "8 wide launches"))
+    compare_decoder("cuda_core", sources, groups)
+
+
+def compare_tc(sources: dict[str, str]) -> None:
+    """The checkout's tensor-core kernel beside other sources of
+    ``csrc/decoder_upsample_tc.cu``, at the bf16 paths' wide steps: MNet's
+    4 at 256x256 b32 and at the 480x640 b4 burst (edge pad, two parts,
+    LeakyReLU and the affine), UNet's 4 up-convs at 256x256 b32 (edge
+    pad, one part, neither), with cuDNN's convolution (and
+    ``conv_transpose2d`` at UNet's), the bound and TFLOP/s
+    (:func:`compare_decoder`, ``[compare-tc]`` lines); then each source's
+    host time of one call (enqueue only), and the stacked G1+G2 forward at
+    256x256 b32 bf16 with each source in K1's tensor-core place, in
+    turns."""
+    from shadow_removal_istd_tpu_torch.ops import decoder
+
+    def mnet(h, w):
+        return [s for s in decoder_steps(h, w) if not s[5]]
+
+    unet = [(label, sh, sw, (ci,), co, True)
+            for label, sh, sw, ci, co in unet_upconv_steps(*ZOO_HW)]
+    bf16 = torch.bfloat16
+    fns = compare_decoder("tensor_core", sources, [
+        ("[compare-tc]", "MNet 256x256 b32 bf16 edge split", 32, bf16,
+         False, mnet(256, 256), False, "8 launches"),
+        ("[compare-tc]", "MNet 480x640 b4 bf16 edge split", 4, bf16, False,
+         mnet(480, 640), False, "8 launches"),
+        ("[compare-tc]", f"UNet {ZOO_HW[0]}x{ZOO_HW[1]} b{ZOO_SERVE_BATCH} "
+         "bf16 edge", ZOO_SERVE_BATCH, bf16, False, unet, True,
+         "8 launches")])
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    xs, w4, s4, b4 = step_inputs(1, 4, 4, (64,), 64, False, bf16, gen)
+    out = torch.empty(1, 64, 8, 8, dtype=bf16, device=DEVICE)
+    args = (1, xs[0].data_ptr(), None, 64, 0, w4.data_ptr(), s4.data_ptr(),
+            b4.data_ptr(), out.data_ptr(), 1, 4, 4, 64, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+    host = {}
+    for name, entry in {"tensor_core": decoder._kernel_fn("tensor_core"),
+                        **fns}.items():
+        for _ in range(20):
+            entry(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            entry(*args)
+        host[name] = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    print("[compare-tc] host time of one C-entry call (b1 4x4 64->64, 500 "
+          "calls, enqueue only): " + ", ".join(
+              f"{k} {v:.1f} us" for k, v in host.items()), flush=True)
+    # the stacked G1+G2 forward, each source in K1's tensor-core place, in
+    # turns (checkout, others, others reversed, checkout)
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+
+    engine = InferenceEngine("mnet", ngf=NGF, dtype="bfloat16",
+                             split_skip=True, max_batch=32, seed=0,
+                             device=DEVICE)
+    x = torch.randint(0, 256, (32, 256, 256, 3), dtype=torch.uint8,
+                      device=DEVICE, generator=gen)
+    real = decoder._kernel_fn
+    entries = {"tensor_core": real("tensor_core"), **fns}
+    names = list(entries)
+    runs: dict[str, list] = {}
+    for name in names + names[:0:-1] + names[:1]:
+        with mock.patch.object(decoder, "_kernel_fn",
+                               lambda v, e=entries[name]:
+                               e if v == "tensor_core" else real(v)):
+            reset_decoder_counts()
+            runs.setdefault(name, []).append(
+                time_ms(lambda: engine._stacked(x), iters=10))
+            if decoder.decoder_upsample.launches_by_variant[
+                    "tensor_core"] == 0:
+                raise SystemExit("the stacked forward ran no tensor-core "
+                                 "launch")
+    print("[compare-tc] stacked G1+G2 256x256 b32 bf16, in turns: "
+          + "; ".join(f"{k} {32e3 * len(v) / sum(v):.1f} img/s ("
+                      + ", ".join(f"{t:.3f}" for t in v) + " ms/batch)"
+                      for k, v in runs.items()), flush=True)
 
 
 # the narrow kernel's shapes on the paths: (label, output HxW, batch,
@@ -6108,6 +6239,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(f"[card] {nvidia_smi()}")
         compare_cuda_core(dict(a.split("=", 1) for a in sys.argv[2:]))
+        return 0
+    if sys.argv[1:2] == ["--compare-tc"]:
+        # python3 chip_smoke.py --compare-tc NAME=PATH [NAME=PATH ...]
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"[card] {nvidia_smi()}")
+        compare_tc(dict(a.split("=", 1) for a in sys.argv[2:]))
         return 0
     if sys.argv[1:2] == ["--compare-narrow"]:
         # python3 chip_smoke.py --compare-narrow NAME=PATH [NAME=PATH ...]

@@ -23,85 +23,195 @@
 // Bound on the H100: at the wide MNet steps (Ci 256..1024, Co 64..512)
 // the step does ~500..1650 FLOP per byte it must move, above the ~295 at
 // which 989 TFLOP/s of bf16 outruns 3.35 TB/s, so it is bound by
-// operations, and only the tensor cores get near that bound.
+// operations: 0.452 ms for the 8 wide launches of a 256x256 b32 stacked
+// forward, 1.112 ms for UNet's 8 up-convs there. Only wgmma gets near it.
 //
-// Design: each phase is an implicit GEMM, M = N*H*W pixels, N = Co,
-// K = 4 taps * (Ci0 + Ci1), as in decoder_upsample.cu: a grid of (M
-// tiles, Co tiles, 4 phases). A block (4 warps) owns a 128 x 64 output
-// tile; each warp a 64 x 32 part of it, as 4 x 4 mma.sync m16n8k16
-// tiles with f32 accumulators. The K loop walks taps, then parts, then
-// 32-channel slices, so a K tile never straddles the two parts. Tiles go
-// global -> shared with 16-byte cp.async in a 3-stage ring; an A row is
-// one source pixel under the tap (8-channel chunks contiguous in NHWC;
-// the edge clamps the address, zero padding, a ragged M and channels
-// past the part use the zero-fill form), a B row is 64 contiguous output
-// channels of w4 (K x N row-major, fed to the MMA by ldmatrix.trans).
-// Each thread applies the LeakyReLU to the A chunks it copied, once they
-// land, before the barrier that hands the stage to the MMAs. Shared rows
-// are padded by 16 bytes so that ldmatrix reads no bank twice. The
-// epilogue applies the affine to the f32 accumulators and stores bf16
-// pairs at their depth-to-space addresses.
-//
-// Accuracy: the tensor cores do not round their f32 accumulation to
-// nearest. One accumulator carried through all K/16 MMAs (128 at K =
-// 2048) drifted from the exact sum further than cuDNN's f32 convolution,
-// far enough to flip the bf16 rounding of outputs in [4, 8), whose ulp
-// (0.031) exceeds the 3e-2 tolerance. So each 32-deep K tile is summed
-// in fresh registers (2 MMAs) and added to the accumulator in f32
-// round-to-nearest, for 16 x 4 more registers a thread. chip_smoke.py
-// counts the outputs off the rounded f64 value, beside the CUDA-core
-// kernel's and the plain version's count.
+// Design (Hopper; chip_smoke.py --compare-tc times it beside another
+// source of this file):
+// - Form: per phase an implicit GEMM, M = positions, N = Co, K = 4 taps
+//   x (Ci0 + Ci1). A unit of work is one phase's Co tile at a tile of 128
+//   positions: th x tw positions of nb images (tw 16, or 8 where W <= 8;
+//   th up to 128 / tw; nb images where an image has fewer positions), so
+//   8x8 and 1x1 inputs fill it. The Co tile is BN = 128 where Co > 64,
+//   else BN = 64 with stages twice as deep (CK = 64 input channels, not
+//   32), so a stage holds as many products either way. The TPU kernel's
+//   phase-grid form (N = 4 Co over (H+1) x (W+1) positions) needs 4x the
+//   accumulators a row for one Co tile and wastes up to 27 % of its rows
+//   at 8x8; a unit of two phases for Co <= 64 (two N-64 wgmmas a tap over
+//   one halo three columns wide) measured slower than BN 64.
+// - A leaves device memory about once a launch: units run tile-major
+//   (Co tile, then phase, fastest), so the 4 x Co/BN units that read one
+//   tile's halo run at about the same time on neighbouring SMs and read
+//   it from L2.
+// - Persistent, warp-specialised: one block an SM (min(units, SMs)
+//   blocks) walks units b, b + grid, ...; warps 0-7 are two consumer
+//   warpgroups, one a 64-row half of the tile; warp 8 is the producer
+//   (one thread; warps 9-11 idle). The ring runs on across units, so the
+//   next unit's loads are in flight during this one's epilogue. 384
+//   threads: the producer's warpgroup gives its registers to the
+//   consumers (setmaxnreg 24 and 240). With 288 threads and no
+//   setmaxnreg ptxas held every thread to 168 and spilled; with 288
+//   threads and a lone producer warp at 24 the consumers' raise to 248
+//   never returned.
+// - Ring: 4 to 8 stages (as many as fit 227 KB), one stage a CK-channel
+//   chunk of one part: the tile's halo for this phase, a 4-D box (CK
+//   channels x tw+1 x th+1 x nb) of the part's (C, W, H, N) tensor map
+//   (2 CK bytes a pixel under the swizzle of that width), and the
+//   weights of the 4 taps for those channels: (BN / 64) x (CK / 32) 3-D
+//   boxes (64 columns x 32 rows x 4 taps) of w4 read as it lies, (4 Co,
+//   Ci, 4), with the 128-byte swizzle. TMA's zero fill is the zero pad
+//   and covers channels past a part, images past the batch and columns
+//   past 4 Co. One mbarrier a stage for its bytes, one for its release
+//   by the 8 consumer warps.
+// - Products: wgmma.mma_async m64nBNk16 f32.bf16.bf16 with A from
+//   registers and B by descriptor: B is MN-major (output columns
+//   contiguous, the transpose flag), so the weights need no re-layout.
+//   A is the tap-shifted 16 x 16 fragment a warp loads by ldmatrix from
+//   the halo: a tap is another row address into the same halo, the edge
+//   form clamps the pixel each row address names (the halo is never
+//   patched), and the LeakyReLU is applied in registers (leaky2), so no
+//   pass over shared memory and no block barrier is needed. A k16 step
+//   is 4 wgmmas (one a tap) in one commit group; two fragment sets and
+//   accumulators take turns, so a step's loads and the sum of the step
+//   before it overlap the products in flight. One commit group a tap
+//   (half the fragment registers) measured 6 % slower.
+// - Accuracy: the tensor cores do not round their f32 accumulation to
+//   nearest. One accumulator carried through all K/16 steps (128 at K =
+//   2048) drifted from the exact sum far enough to flip the bf16
+//   rounding of outputs in [4, 8), whose ulp (0.031) exceeds the 3e-2
+//   tolerance (seen with this kernel's earlier mma.sync form). So each
+//   k16 step (K = 64: 4 taps x 16 channels) is summed in a fresh
+//   accumulator (wgmma's scale-d off on its first tap) and added to the
+//   running sum in f32 round-to-nearest, step by step. A fresh
+//   accumulator a 32-channel stage (K = 128) ran up to 4 % faster but
+//   left more outputs off the rounded f64 value than the mma.sync form
+//   at a K = 2048 step; chip_smoke.py counts them ([accuracy],
+//   --compare-tc).
+// - Epilogue: the f32 affine with two roundings (__fmul_rn, __fadd_rn),
+//   the cast, and bf16 pairs stored at their depth-to-space addresses
+//   straight from the accumulators.
+// - Host: the tensor maps (one a part, one for w4) are encoded each call
+//   by libcuda's cuTensorMapEncodeTiled, looked up at run time (no
+//   -lcuda).
+// - ptxas (sm_90a, CUDA 12.8): 168 registers a thread at entry, the
+//   consumers raised to 240; no stack frame, no spill in either
+//   instance. Dynamic shared memory at 16 x 8 tiles: 216,192 bytes at
+//   BN 128 (5 stages of 43,008), 214,144 at BN 64 (4 of 53,248).
 
+#include <cuda.h>  // CUtensorMap's types; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int BM = 128, BN = 64, BK = 32, STAGES = 3;
-constexpr int WARPS_M = 2, WARPS_N = 2, NT = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // 64 x 32 per warp
-constexpr int MI = WM / 16, NI = WN / 8;              // mma tiles per warp
-constexpr int A_LD = BK + 8, B_LD = BN + 8;           // padded rows (bf16)
-// 16-byte chunks: per A row, rows between one thread's A chunks, A
-// chunks per thread, per B row, B chunks per thread
-constexpr int A_CPR = BK / 8, A_RSTEP = NT / A_CPR, A_CHUNKS = BM / A_RSTEP;
-constexpr int B_CPR = BN / 8, B_CHUNKS = BK * B_CPR / NT;
-static_assert(NI % 2 == 0, "B fragments load two n-tiles at a time");
-static_assert(BM % A_RSTEP == 0 && (BK * B_CPR) % NT == 0, "tile split");
+constexpr int B_ROWS = 32;         // K rows (channels) a weight box
+constexpr int BM = 128;            // positions a tile: 2 warpgroups x 64
+constexpr int NT = 384;            // 2 consumer warpgroups, 1 producer
+constexpr int B_COLS = 64;         // columns a weight box: 128 bytes
+constexpr int B_BOX = B_COLS * B_ROWS * 4 * 2;  // 64 cols x 32 x 4 taps
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_CAP = 232448;   // a block's dynamic maximum
+constexpr int EMPTY_ARRIVALS = 8;  // consumer warps
 
 struct Params {
-  const __nv_bfloat16* x0;
-  const __nv_bfloat16* x1;
+  const void* x0;
+  const void* x1;
   int ci0, ci1;
-  const __nv_bfloat16* w4;
+  const void* w4;
   const float* scale4;
   const float* bias4;
-  __nv_bfloat16* out;
+  void* out;
   int n, h, w, co;
   int leaky, zero_pad;
 };
+
+struct KParams {
+  const float* scale4;
+  const float* bias4;
+  __nv_bfloat16* out;
+  int n, h, w, co, ci0, nq0, nq;
+  int tw, th, nb, tiles_x, tiles_y, n_ct, units;
+  int stages, a_slot, stage_bytes, a_bytes;
+  int leaky, zero_pad;
+};
+
+__device__ __host__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; with ok false it reads nothing and writes
-// zeros (src-size 0)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase with this parity has completed; a wait of
+// more than ~2^34 cycles (seconds) traps, so a fault ends the launch with
+// an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a (CK channels x tw+1 x th+1 x nb) box of a part's map (C, W, H, N)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c, int x, int y,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(x), "r"(y),
+      "r"(b)
+      : "memory");
+}
+
+// a (64 columns x 32 rows x 4 taps) box of w4's map (4 Co, Ci, 4)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row,
+                                            int tap) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(tap)
+      : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -109,26 +219,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a * b: one 16x8x16 tile, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // LeakyReLU(0.2) on a bf16 pair, each as bf16(0.2f * float(x)) where x < 0
@@ -144,176 +234,296 @@ __device__ __forceinline__ uint32_t leaky2(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-__global__ void __launch_bounds__(NT) decoder_upsample_tc_kernel(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 As[STAGES][BM][A_LD];
-  __shared__ __align__(16) __nv_bfloat16 Bs[STAGES][BK][B_LD];
+// the wgmma descriptor of an MN-major B tile with the 128-byte swizzle:
+// 128-byte rows of 64 output columns, one a K row; 8-row groups 1024
+// bytes apart (SBO); the next 64 columns one weight box further (LBO)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(B_BOX >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
 
-  const int phase = blockIdx.z, pr = phase >> 1, pc = phase & 1;
-  const int h = p.h, w = p.w, co = p.co, ci = p.ci0 + p.ci1;
-  const int64_t M = static_cast<int64_t>(p.n) * h * w;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int c0 = blockIdx.y * BN;
-  const int64_t co4 = 4 * static_cast<int64_t>(co);
+// registers move from the producer warpgroup to the consumers: at one
+// block an SM, 128 x 24 + 256 x 240 of the SM's 65,536
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins registers at this point of the program: the compiler moves no
+// read or write of an accumulator across it, and keeps an A fragment's
+// registers (read by an asynchronous wgmma) from reuse before it
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void pin(const uint32_t (&a)[4]) {
+  asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]) : "memory");
+}
+
+// d (+)= A (64 x 16, this warpgroup's registers) * B (16 x N, an MN-major
+// descriptor); acc 0 ignores d. Thread t of the warpgroup holds d[4j + e]
+// at row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column 8j + 2 (t % 4) +
+// e % 2; a[] is mma.sync's m16n8k16 A fragment of its warp's 16 rows.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+// one unit of work: phase (pr, pc) of the output channels c0 .. c0+BN-1
+// at a tile of th x tw positions of nb images from (b0, i0, j0)
+struct Unit {
+  int b0, i0, j0, pr, pc, c0;
+};
+
+template <int BN>
+__device__ __forceinline__ Unit unit_at(const KParams& p, int u) {
+  const int ct = u % p.n_ct, r = u / p.n_ct;
+  const int ph = r & 3, tile = r >> 2;
+  const int tx = tile % p.tiles_x, r2 = tile / p.tiles_x;
+  const int ty = r2 % p.tiles_y, g = r2 / p.tiles_y;
+  return Unit{g * p.nb, ty * p.th, tx * p.tw, ph >> 1, ph & 1, ct * BN};
+}
+
+// BN output channels a unit, CK input channels a stage
+template <int BN, int CK>
+__global__ void __launch_bounds__(NT, 1)
+    decoder_upsample_tc_kernel(const __grid_constant__ CUtensorMap map0,
+                               const __grid_constant__ CUtensorMap map1,
+                               const __grid_constant__ CUtensorMap wmap,
+                               const KParams p) {
+  constexpr int R = BN / 2;          // accumulators a thread
+  constexpr int PIX = 2 * CK;        // bytes of a halo pixel in a stage
+  constexpr int NKS = CK / 16;       // k16 steps a stage
+  constexpr int BC = BN / B_COLS;    // weight boxes along the columns
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's swizzle follows address bits: stages start 1024-aligned
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + p.stages * p.stage_bytes;  // 8 bytes each
+  const uint32_t empty = full + 8 * MAX_STAGES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-
-  // this thread's A chunks: column a_c of rows a_r + r * A_RSTEP; each
-  // row's image-row base b*h (-1 past M) and position (i, j)
-  const int a_c = tid % A_CPR, a_r = tid / A_CPR;
-  int rbase[A_CHUNKS], ri[A_CHUNKS], rj[A_CHUNKS];
-#pragma unroll
-  for (int r = 0; r < A_CHUNKS; ++r) {
-    const int64_t m = m0 + a_r + r * A_RSTEP;
-    rbase[r] = -1;
-    ri[r] = rj[r] = 0;
-    if (m < M) {
-      const int64_t t = m / w;
-      rj[r] = static_cast<int>(m - t * w);
-      ri[r] = static_cast<int>(t % h);
-      rbase[r] = static_cast<int>(t - ri[r]);  // b * h
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, EMPTY_ARRIVALS);
     }
+    fence_barrier_init();
   }
+  __syncthreads();
+  const int my_units =
+      (p.units - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
 
-  const int nk0 = (p.ci0 + BK - 1) / BK, nk1 = (p.ci1 + BK - 1) / BK;
-  const int per_tap = nk0 + nk1, n_tiles = 4 * per_tap;
-
-  // K tile t (tap, part, channel slice) into ring stage s
-  auto load_tile = [&](int t, int s) {
-    const int tap = t / per_tap, k = t - tap * per_tap;
-    const bool part = k >= nk0;
-    const int k0 = (part ? k - nk0 : k) * BK;
-    const __nv_bfloat16* x = part ? p.x1 : p.x0;
-    const int cp = part ? p.ci1 : p.ci0;
-    const int off = part ? p.ci0 : 0;
-    const int di = tap >> 1, dj = tap & 1;
-    const int c = k0 + a_c * 8;
+  if (warp >= 8) {
+    // producer: one thread keeps the ring full, across this block's units
+    producer_registers();
+    if (warp != 8 || lane != 0) return;
+    const uint32_t bytes = p.a_bytes + BC * (CK / B_ROWS) * B_BOX;
+    int k = 0;
+    for (int t = 0; t < my_units; ++t) {
+      const Unit u = unit_at<BN>(p, blockIdx.x + t * gridDim.x);
+      const int col = (2 * u.pr + u.pc) * p.co + u.c0;
+      for (int q = 0; q < p.nq; ++q, ++k) {
+        const int s = k % p.stages;
+        if (k >= p.stages) mbar_wait(empty + 8 * s, (k / p.stages - 1) & 1);
+        const bool first = q < p.nq0;
+        const int cq = (first ? q : q - p.nq0) * CK;
+        const int row = (first ? 0 : p.ci0) + cq;  // w4 row of channel cq
+        const uint32_t dst = base + s * p.stage_bytes, bar = full + 8 * s;
+        mbar_arrive_expect_tx(bar, bytes);
+        tma_load_4d(dst, first ? &map0 : &map1, bar, cq, u.j0 + u.pc - 1,
+                    u.i0 + u.pr - 1, u.b0);
 #pragma unroll
-    for (int r = 0; r < A_CHUNKS; ++r) {
-      int rr = ri[r] + pr + di - 1, qq = rj[r] + pc + dj - 1;
-      const bool inside = rr >= 0 && rr < h && qq >= 0 && qq < w;
-      const bool ok = rbase[r] >= 0 && c < cp && (inside || !p.zero_pad);
-      rr = min(max(rr, 0), h - 1);
-      qq = min(max(qq, 0), w - 1);
-      const __nv_bfloat16* src =
-          ok ? x + (static_cast<int64_t>(rbase[r] + rr) * w + qq) * cp + c
-             : p.x0;
-      cp_async16(smem_addr(&As[s][a_r + r * A_RSTEP][a_c * 8]), src, ok);
-    }
-#pragma unroll
-    for (int e = 0; e < B_CHUNKS; ++e) {
-      const int idx = tid + e * NT;
-      const int kk = idx / B_CPR, nc = idx % B_CPR;
-      const int cc = k0 + kk, oc = c0 + nc * 8;
-      const bool ok = cc < cp && oc < co;
-      const __nv_bfloat16* src =
-          ok ? p.w4 + (static_cast<int64_t>(tap) * ci + off + cc) * co4 +
-                   phase * co + oc
-             : p.w4;
-      cp_async16(smem_addr(&Bs[s][kk][nc * 8]), src, ok);
-    }
-  };
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) load_tile(s, s);
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % STAGES;
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
-    if (p.leaky) {
-#pragma unroll
-      for (int r = 0; r < A_CHUNKS; ++r) {
-        uint4* q =
-            reinterpret_cast<uint4*>(&As[s][a_r + r * A_RSTEP][a_c * 8]);
-        uint4 v = *q;
-        v.x = leaky2(v.x);
-        v.y = leaky2(v.y);
-        v.z = leaky2(v.z);
-        v.w = leaky2(v.w);
-        *q = v;
+        for (int hb = 0; hb < BC * (CK / B_ROWS); ++hb)
+          tma_load_3d(dst + p.a_slot + hb * B_BOX, &wmap, bar,
+                      col + (hb % BC) * B_COLS, row + (hb / BC) * B_ROWS,
+                      0);
       }
     }
-    // tile t is whole for every warp, and every warp is done with tile
-    // t - 1, whose stage the next load refills
-    __syncthreads();
-    if (t + STAGES - 1 < n_tiles)
-      load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    cp_async_commit();
-
-    // the tile's sum in fresh registers, added to acc once (see the note)
-    float part[MI][NI][4];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        ldmatrix_x4(a[i], smem_addr(&As[s][wm * WM + i * 16 + (lane & 15)]
-                                        [kk + (lane >> 4) * 8]));
-#pragma unroll
-      for (int j = 0; j < NI; j += 2) {
-        uint32_t r[4];
-        const int col = wn * WN + j * 8 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(r, smem_addr(&Bs[s][kk + (lane & 15)][col]));
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j)
-          mma_bf16(part[i][j], a[i], b[j][0], b[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    return;
   }
-  cp_async_wait<0>();
 
-  // epilogue: affine on the f32 accumulator, cast, depth-to-space store.
-  // Accumulator e of tile (i, j) sits at row lane/4 (+8 for e >= 2) and
-  // column 2*(lane%4) + e%2 of that tile.
-  const int64_t h2 = 2 * static_cast<int64_t>(h), w2 = 2 * w;
+  consumer_registers();
+  // consumers: warpgroup wg owns tile positions 64 wg .. 64 wg + 63; this
+  // lane's ldmatrix row is position `pos`, its 16-byte piece of a k16
+  // step lane / 16
+  const int wg = warp >> 2;
+
+  float acc[R], part[2][R];
+  int k = 0;
+  for (int t = 0; t < my_units; ++t) {
+    const int unit = blockIdx.x + t * gridDim.x;
+    // the halo pixel each tap's ldmatrix row reads, as its byte offset
+    // with this lane's piece (lane / 16, bit 4) set: the swizzle XORs a
+    // piece index with the pixel's address bits 7 and up; the edge form
+    // clamps the input pixel to the image. The unit and this lane's
+    // position are decoded again each unit, so that they hold no
+    // registers during the K loop.
+    uint32_t off[4];
+    {
+      const Unit u = unit_at<BN>(p, unit);
+      const int pos = 64 * wg + 16 * (warp & 3) + (lane & 15);
+      const int pc_ = pos % p.tw, pr_ = (pos / p.tw) % p.th;
+      const int pb = pos / (p.tw * p.th);
+      const int hw = p.tw + 1, hh = p.th + 1;  // halo box columns, rows
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
+      for (int tap = 0; tap < 4; ++tap) {
+        int hr = pr_ + (tap >> 1), hc = pc_ + (tap & 1);
+        if (!p.zero_pad) {
+          hr = min(max(hr, 1 - u.i0 - u.pr), p.h - u.i0 - u.pr);
+          hc = min(max(hc, 1 - u.j0 - u.pc), p.w - u.j0 - u.pc);
+        }
+        off[tap] = static_cast<uint32_t>(((pb * hh + hr) * hw + hc) * PIX) |
+                   ((lane >> 4) << 4);
+      }
+    }
+
+    for (int q = 0; q < p.nq; ++q, ++k) {
+      const int s = k % p.stages;
+      const uint32_t sa = base + s * p.stage_bytes, sb = sa + p.a_slot;
+      mbar_wait(full + 8 * s, (k / p.stages) & 1);
+      // k16 step ks: the tap-shifted 16 x 16 fragment of each tap, by
+      // ldmatrix from the halo (the swizzle TMA wrote), LeakyReLU'd; the
+      // step's sum in a fresh accumulator (scale-d off on tap 0), one
+      // commit group a step. Two fragment sets and accumulators take
+      // turns: before step ks reuses step ks - 2's, that step's products
+      // are waited for and its sum added to acc in f32 round-to-nearest
+      // (see the note), while step ks - 1's products run.
+      uint32_t a[2][4][4];
+#pragma unroll
+      for (int ks = 0; ks < NKS + 2; ++ks) {
+        const int x = ks & 1;
+        if (ks >= 2) {
+          if (ks < NKS + 1) {
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+            __syncwarp();  // the stage is read: back to the producer
+            if (lane == 0) mbar_arrive(empty + 8 * s);
+          }
+          pin(part[x]);
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) pin(a[x][tap]);
+          const bool first = q == 0 && ks == 2;
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            acc[i] = first ? part[x][i] : __fadd_rn(acc[i], part[x][i]);
+        }
+        if (ks >= NKS) continue;
+#pragma unroll
+        for (int tap = 0; tap < 4; ++tap) {
+          const uint32_t o = off[tap];
+          ldmatrix_x4(a[x][tap],
+                      sa + (o ^ (((2 * ks) ^ ((o >> 7) & (PIX / 16 - 1)))
+                                 << 4)));
+          if (p.leaky) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[x][tap][e] = leaky2(a[x][tap][e]);
+          }
+        }
+        wgmma_fence();
+        // the weights of step ks: row box ks / 2, its rows 16 (ks % 2) ..
+        const uint32_t sbk = sb + (ks / 2) * BC * B_BOX + (ks % 2) * 2048;
+#pragma unroll
+        for (int tap = 0; tap < 4; ++tap)
+          Wgmma<BN>::mma(part[x], a[x][tap],
+                         b_desc(sbk + tap * (B_ROWS * 128)), tap);
+        wgmma_commit();
+      }
+    }
+
+    // epilogue: affine on the f32 sums, cast, depth-to-space store.
+    // Accumulator 4j + e sits at warpgroup row 16 (warp % 4) + lane / 4 +
+    // 8 (e / 2) and column 8j + 2 (lane % 4) + e % 2.
+    const Unit u = unit_at<BN>(p, unit);
+    const int phase = 2 * u.pr + u.pc;
+    const int64_t h2 = 2 * static_cast<int64_t>(p.h), w2 = 2 * p.w;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int64_t m = m0 + wm * WM + i * 16 + (lane >> 2) + 8 * half;
-      if (m >= M) continue;
-      const int64_t t = m / w;
-      const int jj = static_cast<int>(m - t * w);
-      const int ii = static_cast<int>(t % h);
-      const int64_t b = t / h;
+      const int m = 64 * wg + 16 * (warp & 3) + (lane >> 2) + 8 * half;
+      const int i = u.i0 + (m / p.tw) % p.th, j = u.j0 + m % p.tw;
+      const int b = u.b0 + m / (p.tw * p.th);
+      if (i >= p.h || j >= p.w || b >= p.n) continue;
       __nv_bfloat16* o =
-          p.out + ((b * h2 + 2 * ii + pr) * w2 + 2 * jj + pc) * co;
+          p.out + ((b * h2 + 2 * i + u.pr) * w2 + 2 * j + u.pc) * p.co;
 #pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const int oc = c0 + wn * WN + j * 8 + 2 * (lane & 3);
-        if (oc >= co) continue;  // co % 8 == 0: oc + 1 < co as well
-        float v0 = acc[i][j][2 * half], v1 = acc[i][j][2 * half + 1];
+      for (int jb = 0; jb < BN / 8; ++jb) {
+        const int oc = u.c0 + 8 * jb + 2 * (lane & 3);
+        if (oc >= p.co) continue;  // co % 8 == 0: oc + 1 < co as well
+        float v0 = acc[4 * jb + 2 * half], v1 = acc[4 * jb + 2 * half + 1];
         if (p.scale4 != nullptr) {  // two roundings, as the plain version
-          const float* s4 = p.scale4 + phase * co + oc;
-          const float* b4 = p.bias4 + phase * co + oc;
+          const float* s4 = p.scale4 + phase * p.co + oc;
+          const float* b4 = p.bias4 + phase * p.co + oc;
           v0 = __fadd_rn(__fmul_rn(v0, s4[0]), b4[0]);
           v1 = __fadd_rn(__fmul_rn(v1, s4[1]), b4[1]);
         }
@@ -324,8 +534,157 @@ __global__ void __launch_bounds__(NT) decoder_upsample_tc_kernel(Params p) {
   }
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
+int pow2_at_least(int v) {
+  int r = 1;
+  while (r < v) r *= 2;
+  return r;
+}
+
+// the launch: tile, units, blocks, ring and dynamic shared memory
+struct Plan {
+  int tw, th, nb, tiles_x, tiles_y, n_ct, units, grid;
+  int stages, a_slot, a_bytes, stage_bytes, smem;
+};
+
+bool make_plan(const Params& p, int bn, int ck, int sms, Plan* q) {
+  q->tw = p.w > 8 ? 16 : 8;
+  q->th = std::min(pow2_at_least(p.h), BM / q->tw);
+  q->nb = BM / (q->tw * q->th);
+  q->tiles_x = (p.w + q->tw - 1) / q->tw;
+  q->tiles_y = (p.h + q->th - 1) / q->th;
+  q->n_ct = (p.co + bn - 1) / bn;
+  const int64_t units = static_cast<int64_t>(q->tiles_x) * q->tiles_y *
+                        ((p.n + q->nb - 1) / q->nb) * 4 * q->n_ct;
+  if (units > INT_MAX) return false;
+  q->units = static_cast<int>(units);
+  q->grid = std::min(q->units, sms);
+  q->a_bytes = (q->tw + 1) * (q->th + 1) * q->nb * 2 * ck;
+  q->a_slot = (q->a_bytes + 1023) / 1024 * 1024;
+  q->stage_bytes = q->a_slot + (bn / B_COLS) * (ck / B_ROWS) * B_BOX;
+  q->stages = std::min(MAX_STAGES,
+                       (SMEM_CAP - 1024 - 16 * MAX_STAGES) / q->stage_bytes);
+  q->smem = 1024 + q->stages * q->stage_bytes + 16 * MAX_STAGES;
+  return q->stages >= 2;
+}
+
+// a part's 4-D map (C, W, H, N), boxes of ck channels x tw+1 x th+1 x nb,
+// a pixel's 2 ck bytes under the swizzle of that width
+bool encode_part(CUtensorMap* map, EncodeTiled encode, const void* x,
+                 int cip, int ck, const Params& p, const Plan& q) {
+  const cuuint64_t c = cip, e = 2;
+  const cuuint64_t dims[4] = {c, static_cast<cuuint64_t>(p.w),
+                              static_cast<cuuint64_t>(p.h),
+                              static_cast<cuuint64_t>(p.n)};
+  const cuuint64_t strides[3] = {c * e, c * e * p.w, c * e * p.w * p.h};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(ck),
+                             static_cast<cuuint32_t>(q.tw + 1),
+                             static_cast<cuuint32_t>(q.th + 1),
+                             static_cast<cuuint32_t>(q.nb)};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(x), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                ck == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// w4 as a 3-D map (4 Co, Ci, 4 taps), boxes of 64 columns x 32 x 4
+bool encode_weights(CUtensorMap* map, EncodeTiled encode, const Params& p) {
+  const cuuint64_t n4 = 4 * static_cast<cuuint64_t>(p.co),
+                   ci = p.ci0 + p.ci1;
+  const cuuint64_t dims[3] = {n4, ci, 4};
+  const cuuint64_t strides[2] = {n4 * 2, n4 * 2 * ci};
+  const cuuint32_t box[3] = {B_COLS, B_ROWS, 4};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(p.w4), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int CK>
+int launch(const Params& p, cudaStream_t stream) {
+  int sms = 0;
+  if (const int e = sm_count(&sms)) return e;
+  Plan q{};
+  if (!make_plan(p, BN, CK, sms, &q))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (q.units == 0) return 0;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map0{}, map1{}, wmap{};
+  if ((p.ci0 > 0 && !encode_part(&map0, encode, p.x0, p.ci0, CK, p, q)) ||
+      (p.ci1 > 0 && !encode_part(&map1, encode, p.x1, p.ci1, CK, p, q)) ||
+      !encode_weights(&wmap, encode, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  KParams k{};
+  k.scale4 = p.scale4;
+  k.bias4 = p.bias4;
+  k.out = static_cast<__nv_bfloat16*>(p.out);
+  k.n = p.n;
+  k.h = p.h;
+  k.w = p.w;
+  k.co = p.co;
+  k.ci0 = p.ci0;
+  k.nq0 = (p.ci0 + CK - 1) / CK;
+  k.nq = k.nq0 + (p.ci1 + CK - 1) / CK;
+  k.tw = q.tw;
+  k.th = q.th;
+  k.nb = q.nb;
+  k.tiles_x = q.tiles_x;
+  k.tiles_y = q.tiles_y;
+  k.n_ct = q.n_ct;
+  k.units = q.units;
+  k.stages = q.stages;
+  k.a_slot = q.a_slot;
+  k.stage_bytes = q.stage_bytes;
+  k.a_bytes = q.a_bytes;
+  k.leaky = p.leaky;
+  k.zero_pad = p.zero_pad;
+  const cudaError_t set = cudaFuncSetAttribute(
+      decoder_upsample_tc_kernel<BN, CK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, q.smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  decoder_upsample_tc_kernel<BN, CK><<<q.grid, NT, q.smem, stream>>>(
+      map0, map1, wmap, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -342,26 +701,23 @@ extern "C" int srit_decoder_upsample_tc(int dtype, const void* x0,
                                         int h, int w, int co, int leaky,
                                         int zero_pad, void* stream) {
   if (dtype != 1 || co < 32 || ci0 % 8 || ci1 % 8 || co % 8 ||
-      !aligned16(x0) || !aligned16(x1) || !aligned16(w4) || !aligned16(out))
+      ci0 + ci1 <= 0 || !aligned16(x0) || !aligned16(x1) ||
+      !aligned16(w4) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{static_cast<const __nv_bfloat16*>(x0),
-           static_cast<const __nv_bfloat16*>(x1),
-           ci0,
-           ci1,
-           static_cast<const __nv_bfloat16*>(w4),
-           static_cast<const float*>(scale4),
-           static_cast<const float*>(bias4),
-           static_cast<__nv_bfloat16*>(out),
-           n,
-           h,
-           w,
-           co,
-           leaky,
-           zero_pad};
-  const int64_t M = static_cast<int64_t>(n) * h * w;
-  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  (co + BN - 1) / BN, 4);
-  decoder_upsample_tc_kernel<<<grid, NT, 0,
-                               static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const Params p{x0,
+                 x1,
+                 ci0,
+                 ci1,
+                 w4,
+                 static_cast<const float*>(scale4),
+                 static_cast<const float*>(bias4),
+                 out,
+                 n,
+                 h,
+                 w,
+                 co,
+                 leaky,
+                 zero_pad};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return co > 64 ? launch<128, 32>(p, s) : launch<64, 64>(p, s);
 }

@@ -36,8 +36,10 @@ hand-written kernels, chosen by shape (:func:`decoder_variant`):
   coalesced depth-to-space stores);
 - ``tensor_core`` (``csrc/decoder_upsample_tc.cu``): bf16 with Co >= 32,
   every channel count a multiple of 8 and 16-byte aligned tensors, i.e.
-  every MNet step at ngf 64 but the final one; ``mma.sync`` on the tensor
-  cores fed by a ``cp.async`` pipeline;
+  every MNet step at ngf 64 but the final one; ``wgmma`` with A from
+  registers (each tap's fragment by ``ldmatrix`` from the tile's halo)
+  and the weights by TMA, a persistent block an SM fed by a producer
+  thread through a ring of 32- or 64-channel stages;
 - ``cuda_core`` (``csrc/decoder_upsample.cu``): everything else (f32 and
   ragged channel counts with Co >= 5), an implicit GEMM per phase with
   FMAs on the CUDA cores, register-blocked (8x8 outputs a thread in

@@ -117,6 +117,71 @@ def test_tensor_core_variant_matches_plain(cuda, n, h, w, parts, co,
     _check(xs, w4, s4, b4, zero_pad, not final, "tensor_core")
 
 
+def _check_tc_into_nan(xs, w4, s4, b4, zero_pad, leaky):
+    """The tensor-core C entry called on an output prefilled with NaN, so
+    a tile the kernel leaves unwritten fails; held to the plain
+    version."""
+    from shadow_removal_istd_tpu_torch.ops import decoder
+
+    n, ci0, h, w = xs[0].shape
+    ci1 = xs[1].shape[1] if len(xs) == 2 else 0
+    co = w4.shape[-1] // 4
+    assert decoder_variant(torch.bfloat16, ci0, ci1, co, True) \
+        == "tensor_core"
+    out = torch.full((n, co, 2 * h, 2 * w), float("nan"),
+                     dtype=torch.bfloat16, device=xs[0].device).contiguous(
+                         memory_format=torch.channels_last)
+    rc = decoder._kernel_fn("tensor_core")(
+        1, xs[0].data_ptr(), xs[1].data_ptr() if ci1 else None, ci0, ci1,
+        w4.data_ptr(), s4.data_ptr() if s4 is not None else None,
+        b4.data_ptr() if b4 is not None else None, out.data_ptr(), n, h, w,
+        co, int(leaky), int(zero_pad),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    want = decoder_upsample_plain(xs, w4, s4, b4, leaky=leaky,
+                                  zero_pad=zero_pad)
+    torch.cuda.synchronize()
+    assert not out.isnan().any()
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("n,h,w,parts,co", [
+    (1, 5, 7, (24,), 40),           # Co 40 on a 64-wide tile; Ci 24
+    (2, 3, 9, (8, 16), 72),         # Co 72 on a 128-wide tile; Ci 8
+    (1, 9, 17, (72,), 136),         # Co 136: two tiles; Ci 72
+    (3, 3, 5, (16, 8), 264),        # 4 images a tile, batch 3; Co 264
+    (1, 8, 8, (32, 32), 520),       # Co 520: five tiles
+    (3, 1, 1, (24, 40), 64),        # 1x1: 16 images a tile, batch 3
+    (1, 15, 20, (64, 64), 128),     # 15x20: ragged tiles, batch 1
+    (3, 8, 8, (128,), 64),          # 8x8: 2 images a tile, batch 3
+    (2, 16, 16, (64, 64), 256),     # whole 8x16 tiles
+])
+@pytest.mark.parametrize("zero_pad", [False, True])
+@pytest.mark.parametrize("leaky", [False, True])
+@pytest.mark.parametrize("affine", [False, True])
+def test_tensor_core_hopper_edges(cuda, n, h, w, parts, co, zero_pad, leaky,
+                                  affine):
+    """The wgmma kernel's edges: Co off its 64- and 128-wide tiles, Ci
+    off its 32-channel stage, unequal parts, position tiles that cross
+    image and batch boundaries, both pads, LeakyReLU and the affine each
+    on and off; every output written (NaN-prefilled)."""
+    xs, w4, s4, b4 = _inputs(n, h, w, parts, co, affine, torch.bfloat16)
+    _check_tc_into_nan(xs, w4, s4, b4, zero_pad, leaky)
+
+
+@pytest.mark.parametrize("n,h,w,parts,co", [
+    (2, 16, 16, (512, 512), 256),   # MNet's K = 4096 step
+    (2, 8, 8, (512,), 512),         # MNet's K = 2048 step, one part
+])
+@pytest.mark.parametrize("zero_pad", [False, True])
+def test_tensor_core_long_k(cuda, n, h, w, parts, co, zero_pad):
+    """K = 4096 and 2048 (a fresh accumulator a stage, added in f32
+    round-to-nearest) in both pads, held to the plain version."""
+    xs, w4, s4, b4 = _inputs(n, h, w, parts, co, True, torch.bfloat16)
+    _check_tc_into_nan(xs, w4, s4, b4, zero_pad, True)
+
+
 def _misaligned(x):
     """A channels_last copy of ``x`` whose data starts one element past a
     16-byte boundary."""
