@@ -76,7 +76,18 @@ Phases; any failure exits non-zero before the result line is printed:
    from a state bit-identical to the saved run's (weights, BN
    statistics, both Adam states with their steps' dtype and device,
    step) and trains its epoch (``[time] checkpoint``, ``[time] cli
-   infer`` img/s with the PNG writes, the phase's wall time);
+   infer`` img/s with the PNG writes, the phase's wall time); then the
+   ``reference`` phase on that checkpoint: ``tools/export_torch.main``
+   writes it as reference-format ``.pt`` files against the stand-in
+   reference classes of ``tests/reference_standin.py`` (seconds, MB a
+   file), each file loads back through ``load_torch_checkpoint`` into
+   fresh nets on the card bit for bit (every leaf against the
+   checkpoint's), and the loaded G1 -> G2, frozen, runs at 256x256 batch
+   32 beside the original pair under deterministic cuDNN: f32 outputs
+   bit-identical with 8 CUDA-core + 2 narrow launches a forward, and the
+   serving form (the serving phase's seeded bf16 split-skip nearest pair,
+   out to ``.pt`` files and back) bit-identical with 8 tensor-core + 2
+   narrow;
 7. orbax (after ``cli``, on its ISTD directory): ``cli.main --tasks
    train --checkpoint-backend orbax`` at the CLI's defaults for 2
    epochs, saving after each: ``step_1``, ``step_2`` and their
@@ -491,6 +502,13 @@ EXPORT_HW = (256, 256)
 EXPORT_BATCH = 32
 EXPORT_SERVE_HW = (480, 640)
 POLYFIT_CASES = ((5, 1), (5, 2))
+# the reference phase: the cli phase's checkpoint exported as reference
+# .pt files against the stand-in reference classes (STANDIN), loaded back
+# and served: the stacked forward at REF_HW, batch REF_BATCH, f32 and the
+# bf16 split-skip serving form
+STANDIN = Path("tests/reference_standin.py")
+REF_HW = (256, 256)
+REF_BATCH = 32
 # files the phases write (weights, checkpoints, the ISTD directory, PNGs):
 # a git-ignored directory of the checkout, removed at the end
 SMOKE_DIR = Path("_smoke")
@@ -1622,7 +1640,188 @@ def phase_cli(vgg_path: Path) -> dict:
                          "one")
     print(f"[time] cli phase: {time.perf_counter() - t_phase:.1f} s")
     seen.clear()
-    return {"decoder": n_dec, "hshear": n_shear}
+    return {"decoder": n_dec, "hshear": n_shear,
+            "checkpoint": wdir / "checkpoint.msgpack"}
+
+
+def _is_reference_module(name: str) -> bool:
+    return any(name == root or name.startswith(root + ".")
+               for root in ("src", "torchvision"))
+
+
+@contextlib.contextmanager
+def _reference_imports():
+    """Undo what importing the reference does (``sys.path``, ``src`` and
+    the ``torchvision`` stand-in in ``sys.modules``), so that no later
+    phase meets an empty ``torchvision``."""
+    path = list(sys.path)
+    before = {n: m for n, m in sys.modules.items()
+              if _is_reference_module(n)}
+    try:
+        yield
+    finally:
+        sys.path[:] = path
+        for name in [n for n in sys.modules if _is_reference_module(n)]:
+            del sys.modules[name]
+        sys.modules.update(before)
+
+
+def _ref_stacked(pair_a, pair_b, x, label: str) -> dict:
+    """The two frozen pairs' stacked forwards on ``x``: bit-identical
+    outputs, and the decoder launches of one forward of ``pair_b``."""
+    from shadow_removal_istd_tpu_torch.engine.steps import infer_step
+    from shadow_removal_istd_tpu_torch.ops.decoder import decoder_upsample
+
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False):
+        m_a, y_a = infer_step(*pair_a, x)
+        torch.cuda.synchronize()
+        reset_decoder_counts()
+        m_b, y_b = infer_step(*pair_b, x)
+        torch.cuda.synchronize()
+        by_variant = dict(decoder_upsample.launches_by_variant)
+    same = torch.equal(m_a, m_b) and torch.equal(y_a, y_b)
+    diff = max(float((m_a.float() - m_b.float()).abs().max()),
+               float((y_a.float() - y_b.float()).abs().max()))
+    print(f"[reference] {label} stacked G1 -> G2 at {x.shape[2]}x"
+          f"{x.shape[3]} b{x.shape[0]}: loaded pair vs original "
+          f"bit-identical {same} (max abs diff {diff:g}); decoder launches "
+          f"of one forward {by_variant}")
+    if not same or not all(torch.isfinite(t.float()).all()
+                           for t in (m_b, y_b)):
+        raise SystemExit(f"reference: {label}: the loaded pair's outputs "
+                         "differ from the original pair's")
+    return by_variant
+
+
+def phase_reference(ckpt: Path) -> dict:
+    """Checkpoint interop with the reference's ``.pt`` files: the ``cli``
+    phase's checkpoint through ``tools/export_torch.main`` against the
+    stand-in reference classes, each file loaded back into fresh port nets
+    on the card, and the loaded G1 -> G2 served on K1 beside the original
+    pair, in f32 and in the bf16 split-skip serving form. Returns the
+    decoder launches of one forward of each."""
+    from shadow_removal_istd_tpu_torch.engine.checkpoint import _read
+    from shadow_removal_istd_tpu_torch.engine.config import TrainConfig
+    from shadow_removal_istd_tpu_torch.engine.state import build_models
+    from shadow_removal_istd_tpu_torch.models import get_generator
+    from shadow_removal_istd_tpu_torch.serving import InferenceEngine
+    from shadow_removal_istd_tpu_torch.tools import export_torch
+    from shadow_removal_istd_tpu_torch.tools.convert import (
+        flatten_tree,
+        flax_tree_to_torch,
+        torch_to_flax_tree,
+    )
+    from shadow_removal_istd_tpu_torch.tools.torch_bridge import (
+        load_torch_checkpoint,
+        port_to_reference,
+    )
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi()
+    spec = importlib.util.spec_from_file_location("reference_standin",
+                                                  STANDIN)
+    standin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(standin)
+    root = SMOKE_DIR / "reference"
+    ref_root = str(standin.write_reference(root / "standin"))
+    out = root / "pt"
+    widths = ["--ngf", str(NGF), "--ndf", str(NGF)]
+    cfg = TrainConfig(ngf=NGF, ndf=NGF, use_visual_loss=False, droprate=0.0)
+    with _reference_imports():
+        # 1. export the checkpoint
+        t0 = time.perf_counter()
+        written = export_torch.main(
+            ["--load-checkpoint", str(ckpt), "--out-dir", str(out),
+             "--reference-path", ref_root, "--suffix", "best", *widths,
+             "--device", DEVICE])
+        export_s = time.perf_counter() - t0
+        print(f"[reference] export_torch.main of the cli checkpoint "
+              f"(MNet + PatchGAN ngf/ndf {NGF}, ConvTranspose): "
+              f"{export_s:.2f} s; " + ", ".join(
+                  f"{Path(p).name} {Path(p).stat().st_size / 1e6:.2f} MB"
+                  for p in written) + f" ({card})")
+        # 2. each file back into fresh port nets on the card
+        rn = export_torch._import_reference(ref_root)
+        tree = _read(str(ckpt))["state"]
+        loaded, orig = build_models(cfg), build_models(cfg)
+        t0 = time.perf_counter()
+        for name, (ref, in_ch) in export_torch.reference_nets(
+                rn, cfg).items():
+            net = getattr(loaded, name.lower()).to(DEVICE)
+            load_torch_checkpoint(
+                str(out / f"{name}_{type(ref).__name__}_best.pt"), ref, net,
+                torch.empty(1, 64, 64, in_ch))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        leaves = bad = 0
+        for k in ("g1", "g2", "d1", "d2"):
+            want = {"params": tree["g_params" if k[0] == "g"
+                                   else "d_params"][k],
+                    "batch_stats": tree["batch_stats"][k]}
+            got = flatten_tree(torch_to_flax_tree(getattr(loaded, k)))
+            flat = flatten_tree(want)
+            if sorted(got) != sorted(flat):
+                raise SystemExit(f"reference: {k}: the loaded tree's leaves "
+                                 "differ from the checkpoint's")
+            leaves += len(flat)
+            bad += sum(not np.array_equal(got[p], np.asarray(flat[p]))
+                       for p in flat)
+            flax_tree_to_torch(want, getattr(orig, k).to(DEVICE))
+        print(f"[reference] 4 .pt files loaded back into fresh port nets "
+              f"on {DEVICE} in {load_s:.2f} s: {leaves} leaves, {bad} not "
+              f"bit-identical to the checkpoint's ({card})")
+        if bad:
+            raise SystemExit("reference: the round trip changed weights")
+
+        # 3. the serving form's pair (nearest decoder, split-skip, bf16,
+        # seeded as the serving phase's engine) out to .pt files and back
+        engine = InferenceEngine("mnet", ngf=NGF, dtype="bfloat16",
+                                 split_skip=True, seed=0, device=DEVICE)
+        served = []
+        for name, g in (("G1", engine.g1), ("G2", engine.g2)):
+            in_ch, out_ch = (3, 1) if name == "G1" else (4, 3)
+            mk = dict(in_channels=in_ch, out_channels=out_ch, ngf=NGF,
+                      drop_rate=0.0, no_conv_t=True, use_selu=False,
+                      activation="tanh")
+            x_trace = torch.empty(1, 64, 64, in_ch)
+            path = out / f"{name}_MNet_serving.pt"
+            torch.save(port_to_reference(
+                g, rn.get_generator("mnet", **mk), x_trace).state_dict(),
+                path)
+            net = get_generator("mnet", in_channels=in_ch,
+                                out_channels=out_ch, ngf=NGF,
+                                no_conv_t=True, split_skip=True).to(DEVICE)
+            load_torch_checkpoint(str(path), rn.get_generator("mnet", **mk),
+                                  net, x_trace)
+            served.append(net)
+    # 4. the stacked forwards of the frozen loaded pairs beside the
+    # original ones: the checkpoint's in f32, the serving pair in bf16
+    x = (torch.rand((REF_BATCH, 3, *REF_HW),
+                    generator=torch.Generator().manual_seed(23)) * 2 - 1
+         ).to(DEVICE)
+    pairs = []
+    for models in (orig, loaded):
+        for g in (models.g1, models.g2):
+            g.eval().requires_grad_(False)
+            g.freeze()
+        pairs.append((models.g1, models.g2))
+    f32 = _ref_stacked(*pairs, x, "f32")
+    for g in served:
+        g.to(dtype=torch.bfloat16).eval().requires_grad_(False)
+        g.freeze()
+    bf16 = _ref_stacked((engine.g1, engine.g2), tuple(served), x,
+                        "bf16 split-skip serving")
+    want = {"f32": {"tensor_core": 0, "cuda_core": 8, "narrow": 2},
+            "bf16": {"tensor_core": 8, "cuda_core": 0, "narrow": 2}}
+    if {"f32": f32, "bf16": bf16} != want:
+        raise SystemExit(f"reference: expected decoder launches {want} a "
+                         f"forward, got f32 {f32}, bf16 {bf16}")
+    print(f"[time] reference phase: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return {"decoder": {"f32": f32, "bf16": bf16}, "export_s": export_s,
+            "load_s": load_s}
 
 
 def _dir_mb(path: Path) -> float:
@@ -6282,6 +6481,7 @@ def main() -> int:
         write_vgg_npz(vgg_path)
         runs = phase_training(vgg_path)
         cli = phase_cli(vgg_path)
+        ref = phase_reference(cli["checkpoint"])
         orbax = phase_orbax(vgg_path)
         host = phase_host(vgg_path)
         ev = phase_eval(vgg_path, runs["float32"]["trainer"])
@@ -6309,6 +6509,7 @@ def main() -> int:
                                      "serving": par["serving"]},
                   launches_shard=shard["decoder"],
                   launches_export=exp["decoder"],
+                  launches_reference=ref["decoder"],
                   export_artifact_img_s=exp["artifact_img_s"],
                   export_engine_img_s=exp["engine_img_s"],
                   op_dispatch=exp["dispatch"],

@@ -1,8 +1,9 @@
 """Import hygiene of the port: no JAX, no JAX package, no silent CPU.
 
-Walks the AST of every module of ``shadow_removal_istd_tpu_torch`` and
-of ``chip_smoke.py``: none may import ``jax``, ``flax``, ``optax``,
-``orbax``, ``tensorstore``, ``zstandard``, ``msgpack`` or ``h5py``
+Walks the AST of every module of ``shadow_removal_istd_tpu_torch``, of
+``chip_smoke.py`` and of ``tests/reference_standin.py`` (the stand-in
+reference classes ``chip_smoke.py`` loads): none may import ``jax``,
+``flax``, ``optax``, ``orbax``, ``tensorstore``, ``zstandard``, ``msgpack`` or ``h5py``
 (absent on a CUDA host; the port has its own codecs) or anything of ``shadow_removal_istd_tpu`` (modules without JAX
 included).
 """
@@ -22,7 +23,7 @@ FORBIDDEN = {"jax", "flax", "optax", "orbax", "tensorstore", "zstandard",
              "msgpack", "h5py", "shadow_removal_istd_tpu"}
 FILES = sorted(p.relative_to(REPO).as_posix() for p in
                [*(REPO / "shadow_removal_istd_tpu_torch").rglob("*.py"),
-                REPO / "chip_smoke.py"])
+                REPO / "chip_smoke.py", REPO / "tests/reference_standin.py"])
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -37,6 +38,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_files_found():
     assert "chip_smoke.py" in FILES
+    assert "tests/reference_standin.py" in FILES
     for rel in ("ops/decoder.py", "ops/shear.py", "ops/augment.py",
                 "losses/adversarial.py", "losses/visual.py",
                 "data/device_cache.py", "data/synthetic.py",
@@ -50,7 +52,8 @@ def test_port_files_found():
                 "tools/convert_vgg.py", "tools/experiments.py",
                 "serving/engine.py", "utils/zstd.py", "utils/ocdbt.py",
                 "utils/zarr2.py", "engine/orbax_format.py",
-                "utils/flops.py"):
+                "utils/flops.py", "tools/torch_bridge.py",
+                "tools/export_torch.py"):
         assert f"shadow_removal_istd_tpu_torch/{rel}" in FILES, rel
 
 
