@@ -34,6 +34,7 @@ from shadow_removal_istd_tpu_torch.ops.augment import (
     AugmentConfig,
     augment_batch,
 )
+from shadow_removal_istd_tpu_torch.utils.profiling import span
 
 STREAMS = {"init": 0, "shuffle": 1, "augment": 2, "dropout_g1": 3,
            "dropout_g2": 4}
@@ -69,7 +70,9 @@ def train_steps(state: TrainState, raws: Iterable, aug_cfg: AugmentConfig,
     ``param_source(s)``'s parameters) and runs ``train_step`` with the
     step's dropout generators. Over ``state.mesh`` a raw batch is this
     rank's slice of the global batch, and the draws (or the given
-    parameters) are the global batch's. Returns ``(sums, n, first)``:
+    parameters) are the global batch's. While tracing is on
+    (``utils/profiling.py``) each augmentation is a device span,
+    ``epoch.augment``. Returns ``(sums, n, first)``:
     the 14 metrics summed over the ``n`` steps (device tensors, not read
     back) and step 0's augmented batch."""
     sums: dict[str, torch.Tensor] = {}
@@ -77,12 +80,13 @@ def train_steps(state: TrainState, raws: Iterable, aug_cfg: AugmentConfig,
     n = 0
     for step, raw in enumerate(raws):
         shard = {} if state.mesh is None else {"mesh": state.mesh}
-        if param_source is not None:
-            batch = augment_batch(None, raw, aug_cfg,
-                                  params=param_source(step), **shard)
-        else:
-            batch = augment_batch(gen.generator("augment", step), raw,
-                                  aug_cfg, **shard)
+        with span("epoch.augment", device=True):
+            if param_source is not None:
+                batch = augment_batch(None, raw, aug_cfg,
+                                      params=param_source(step), **shard)
+            else:
+                batch = augment_batch(gen.generator("augment", step), raw,
+                                      aug_cfg, **shard)
         if first is None:
             first = batch
         metrics = train_step(state, batch,
@@ -102,16 +106,21 @@ def make_epoch(aug_cfg: AugmentConfig,
     stream order; ``idx``: the (steps, batch) index matrix (over a mesh,
     this rank's columns of the global one); ``gen``: the
     epoch's :class:`RngStreams`. Step ``s`` gathers ``idx[s]`` on the
-    card and runs :func:`train_steps`' step. ``param_source(step)``,
+    card (a device span, ``epoch.gather``, while tracing is on) and runs
+    :func:`train_steps`' step. ``param_source(step)``,
     when given, supplies each step's augmentation parameters in place of
     the draw (the tests inject JAX's). ``sums`` are the 14 metrics
     summed over the epoch, as device tensors."""
 
     def epoch_fn(state: TrainState, arrays, idx: torch.Tensor,
                  gen: RngStreams):
-        raws = (tuple(a.index_select(0, idx[step]) for a in arrays)
-                for step in range(idx.shape[0]))
-        sums, _, _ = train_steps(state, raws, aug_cfg, gen, param_source)
+        def raws():
+            for step in range(idx.shape[0]):
+                with span("epoch.gather", device=True):
+                    raw = tuple(a.index_select(0, idx[step]) for a in arrays)
+                yield raw
+
+        sums, _, _ = train_steps(state, raws(), aug_cfg, gen, param_source)
         return state, sums
 
     return epoch_fn

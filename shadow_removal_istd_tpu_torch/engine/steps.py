@@ -111,6 +111,7 @@ from shadow_removal_istd_tpu_torch.parallel.tensor import (
     sync_replicated_grads,
     tensor_parallel,
 )
+from shadow_removal_istd_tpu_torch.utils.profiling import span
 
 METRIC_KEYS = ("G", "G1", "G2", "D", "D1", "D2", "data1", "data2",
                "vis1", "vis2", "D1_real", "D1_fake", "D2_real", "D2_fake")
@@ -278,8 +279,15 @@ def train_step(state: TrainState, batch, gens=(None, None),
     D-phase and G-backward marks also hold those replays, and "g_adv"
     the targets' VGG forwards. Over ``state.mesh``, ``batch`` is this
     rank's slice of the global batch and the metrics are the global
-    batch's; on a model axis the layers compute column-parallel."""
-    with data_parallel(state.mesh), tensor_parallel(state.mesh):
+    batch's; on a model axis the layers compute column-parallel.
+
+    While tracing is on (``utils/profiling.py``) the step records device
+    spans: ``train.step`` over ``step.g_forward``, ``step.d_phase``,
+    ``step.g_phase`` (``step.visual`` around the visual losses, not in
+    remat's replays), ``step.g_backward`` (``step.visual_backward`` over
+    each VGG backward, ``losses/visual.py``) and ``step.adam_g``."""
+    with data_parallel(state.mesh), tensor_parallel(state.mesh), \
+            span("train.step", device=True):
         return _train_step(state, batch, gens, mark)
 
 
@@ -299,8 +307,9 @@ def _train_step(state: TrainState, batch, gens, mark):
         y_pred = g2(_cat(x, m_pred), generator=gens[1])
         return m_pred, y_pred
 
-    m_pred, y_pred = region(g_forward, x, gens=gens)
-    m_sg, y_sg = m_pred.detach(), y_pred.detach()
+    with span("step.g_forward", device=True):
+        m_pred, y_pred = region(g_forward, x, gens=gens)
+        m_sg, y_sg = m_pred.detach(), y_pred.detach()
     mark("g_forward")
 
     # ---- D phase on the detached predictions
@@ -324,16 +333,15 @@ def _train_step(state: TrainState, batch, gens, mark):
         return d_total, d1_l, d2_l, (c1_real, c1_fake, c2_real,
                                      c2_fake), began
 
-    d_total, d1_l, d2_l, critics, began = region(d_phase, x, m, y, m_sg,
-                                                 y_sg)
-    state.opt_d.zero_grad(set_to_none=True)
-    _backward(d_total, (d1, d2), mesh)
-    state.opt_d.step()
+    with span("step.d_phase", device=True):
+        d_total, d1_l, d2_l, critics, began = region(d_phase, x, m, y, m_sg,
+                                                     y_sg)
+        state.opt_d.zero_grad(set_to_none=True)
+        _backward(d_total, (d1, d2), mesh)
+        state.opt_d.step()
     mark("d_phase")
 
     # ---- G phase against the updated D
-    vis1_fn, vis2_fn = _vis_fns(state, (m, y) if cfg.remat else None)
-
     def g_phase(m_pred, y_pred):
         g_c1_real = d1(_cat(x, m))
         g_c1_fake = d1(_cat(x, m_pred))
@@ -347,11 +355,14 @@ def _train_step(state: TrainState, batch, gens, mark):
             g2_l = adv.g_loss(g_c2_real, g_c2_fake)
         data1 = l1_loss(m_pred, m)
         data2 = l1_loss(y_pred, y)
-        if not replaying():
+        replay = replaying()
+        if not replay:
             mark("g_adv")
-        vis1 = vis1_fn(m_pred, m)
-        vis2 = vis2_fn(y_pred, y)
-        if not replaying():
+        with (contextlib.nullcontext() if replay
+              else span("step.visual", device=True)):
+            vis1 = vis1_fn(m_pred, m)
+            vis2 = vis2_fn(y_pred, y)
+        if not replay:
             mark("g_visual")
         groups = None
         if cfg.softadapt:
@@ -370,11 +381,15 @@ def _train_step(state: TrainState, batch, gens, mark):
     # the replays of g_phase and g_forward run inside g_total.backward(),
     # so under the same frozen D as the first calls
     with _no_param_grads(d1, d2):
-        g_total, terms, groups = region(g_phase, m_pred, y_pred)
-        state.opt_g.zero_grad(set_to_none=True)
-        _backward(g_total, (g1, g2), mesh)
+        with span("step.g_phase", device=True):
+            vis1_fn, vis2_fn = _vis_fns(state, (m, y) if cfg.remat else None)
+            g_total, terms, groups = region(g_phase, m_pred, y_pred)
+        with span("step.g_backward", device=True):
+            state.opt_g.zero_grad(set_to_none=True)
+            _backward(g_total, (g1, g2), mesh)
         mark("g_backward")
-    state.opt_g.step()
+    with span("step.adam_g", device=True):
+        state.opt_g.step()
     mark("adam_g")
     state.step += 1
     g1_l, g2_l, data1, data2, vis1, vis2 = terms

@@ -4,7 +4,9 @@
 Predictions and targets map from [-1, 1] to [0, 1], a 1-channel matte is
 broadcast to 3 channels, ImageNet normalisation runs in the input's
 dtype, then the frozen VGG (in f32) runs through pool4; the loss is the
-MSE of the features, with the target branch under ``no_grad``. The
+MSE of the features, with the target branch under ``no_grad``. While
+tracing is on, each VGG backward of a prediction is a device span,
+``step.visual_backward`` (``utils/profiling.py::backward_span``). The
 training tensors' channel order goes in as it is (the reference feeds
 BGR into the RGB-normalised VGG; the quirk is kept).
 :func:`sp_visual_loss` is the legacy sp-space form.
@@ -15,17 +17,24 @@ from __future__ import annotations
 import torch
 
 from shadow_removal_istd_tpu_torch.data.h5 import ISTD_MEAN, ISTD_STD
+from shadow_removal_istd_tpu_torch.models.layers import replaying
 from shadow_removal_istd_tpu_torch.models.vgg import (
     VGG19Features,
     imagenet_normalize,
 )
+from shadow_removal_istd_tpu_torch.utils.profiling import backward_span
 
 
 def _features(vgg: VGG19Features, img_pm1: torch.Tensor) -> torch.Tensor:
     img = img_pm1 * 0.5 + 0.5
     if img.shape[1] == 1:
         img = img.expand(-1, 3, -1, -1)
-    return vgg(imagenet_normalize(img))
+    x = imagenet_normalize(img)
+    f = vgg(x)
+    if not replaying():
+        # the VGG's backward: from the features' gradient to its input's
+        backward_span("step.visual_backward", f, x)
+    return f
 
 
 def target_features(vgg: VGG19Features,

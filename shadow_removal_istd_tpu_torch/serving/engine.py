@@ -73,6 +73,7 @@ from shadow_removal_istd_tpu_torch.tools.export import (
     load_program,
 )
 from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
+from shadow_removal_istd_tpu_torch.utils.profiling import annotate, span
 
 # Spatial divisibility each generator needs at its default depth (MNet,
 # UNet and DenseUNet raise on indivisible sizes; the pix2pix 'stcgan' G
@@ -127,7 +128,11 @@ class _EngineCore:
 
         ``imgs``: HxWx3 uint8 BGR arrays whose sizes map to ONE bucket.
         Returns per image ``(matte HxW uint8, shadow_free HxWx3 uint8
-        BGR)`` cropped back to the original size."""
+        BGR)`` cropped back to the original size. While tracing is on
+        (``utils/profiling.py``) it records the spans ``engine.assemble``,
+        ``engine.upload``, ``engine.forward`` (the launch),
+        ``engine.download`` and ``engine.unpack``, and the padded batch
+        on the caller's span."""
         if not imgs:
             return []
         buckets = {self.bucket_of(im.shape[0], im.shape[1]) for im in imgs}
@@ -144,18 +149,27 @@ class _EngineCore:
         else:
             bp = min(_next_pow2(n), max(self.max_batch, n))
             bp = math.ceil(bp / nd) * nd      # equal per-replica slices
-        batch = np.full((bp, bh, bw, 3), 128, np.uint8)
-        for i, im in enumerate(imgs):
-            batch[i, :im.shape[0], :im.shape[1]] = im
+        annotate(padded=bp)
+        with span("engine.assemble"):
+            batch = np.full((bp, bh, bw, 3), 128, np.uint8)
+            for i, im in enumerate(imgs):
+                batch[i, :im.shape[0], :im.shape[1]] = im
         b = bp // nd
         # every replica's work is enqueued before any answer is read
-        outs = [self._stacked(torch.from_numpy(batch[j * b:(j + 1) * b])
-                              .to(d), j) for j, d in enumerate(self.devices)]
-        m_np = np.concatenate([m.cpu().numpy() for m, _ in outs])
-        y_np = np.concatenate([y.cpu().numpy() for _, y in outs])
-        return [(m_np[i, :im.shape[0], :im.shape[1], 0],
-                 y_np[i, :im.shape[0], :im.shape[1]])
-                for i, im in enumerate(imgs)]
+        outs = []
+        for j, d in enumerate(self.devices):
+            with span("engine.upload"):
+                x = torch.from_numpy(batch[j * b:(j + 1) * b]).to(d)
+            with span("engine.forward"):
+                outs.append(self._stacked(x, j))
+        with span("engine.download"):
+            ms = [m.cpu().numpy() for m, _ in outs]
+            ys = [y.cpu().numpy() for _, y in outs]
+        with span("engine.unpack"):
+            m_np, y_np = np.concatenate(ms), np.concatenate(ys)
+            return [(m_np[i, :im.shape[0], :im.shape[1], 0],
+                     y_np[i, :im.shape[0], :im.shape[1]])
+                    for i, im in enumerate(imgs)]
 
     def warmup(self, sizes: list[tuple[int, int]],
                batch_sizes: list[int] | None = None) -> None:

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import itertools
 import json
 import logging
 import os
@@ -58,6 +59,7 @@ from shadow_removal_istd_tpu_torch.utils.image_io import (
     imencode_png,
     imread_color,
 )
+from shadow_removal_istd_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -127,6 +129,11 @@ class MicroBatcher:
     drains further requests for ``window_ms`` (bounded by
     ``max_batch``), groups them by bucket, and resolves each request's
     Future. A window of 0 degenerates to one-dispatch-per-request.
+    While tracing is on (``utils/profiling.py``) the thread records
+    ``batcher.take`` (the blocking get through the window),
+    ``batcher.dispatch`` per bucket group (its ``dispatch`` id,
+    ``images`` and the engine's ``padded`` batch; the engine's spans
+    inside it) and ``batcher.resolve`` (the futures).
     """
 
     _CLOSE = object()
@@ -157,6 +164,7 @@ class MicroBatcher:
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         self._depth = 0
         self._depth_lock = threading.Lock()
+        self._dispatches = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="srit-batcher")
         self._thread.start()
@@ -234,24 +242,38 @@ class MicroBatcher:
             logger.exception("control call failed")
             ctl.fut.set_exception(exc)
 
+    def _take(self):
+        """The next batch (a list of (img, fut)) coalesced within the
+        window, a control item, :attr:`_CLOSE`, or None (the item had
+        expired)."""
+        item = self._q.get()
+        if item is self._CLOSE or isinstance(item, self._Control):
+            return item
+        entry = self._take_data(item)
+        return None if entry is None else self._drain(entry)
+
     def _loop(self) -> None:
         while True:
-            item = self._q.get()
+            with span("batcher.take"):
+                item = self._take()
             if item is self._CLOSE:
                 return
             if isinstance(item, self._Control):
                 self._run_control(item)
-                continue
-            entry = self._take_data(item)
-            if entry is None:
-                continue
-            batch = self._drain(entry)
-            groups: dict[tuple[int, int], list] = {}
-            for img, fut in batch:
-                key = self.engine.bucket_of(img.shape[0], img.shape[1])
-                groups.setdefault(key, []).append((img, fut))
-            for group in groups.values():
-                imgs = [img for img, _ in group]
+            elif item is not None:
+                self._dispatch(item)
+
+    def _dispatch(self, batch: list) -> None:
+        """One ``infer_group`` call per bucket of ``batch``; resolve the
+        futures."""
+        groups: dict[tuple[int, int], list] = {}
+        for img, fut in batch:
+            key = self.engine.bucket_of(img.shape[0], img.shape[1])
+            groups.setdefault(key, []).append((img, fut))
+        for group in groups.values():
+            imgs = [img for img, _ in group]
+            with span("batcher.dispatch", dispatch=next(self._dispatches),
+                      images=len(imgs)):
                 try:
                     results = self.engine.infer_group(imgs)
                 except Exception as exc:  # resolve, don't kill the loop
@@ -260,8 +282,9 @@ class MicroBatcher:
                         fut.set_exception(exc)
                     continue
                 self.stats.record_batch(len(imgs))
-                for (_, fut), res in zip(group, results):
-                    fut.set_result(res)
+                with span("batcher.resolve"):
+                    for (_, fut), res in zip(group, results):
+                        fut.set_result(res)
 
 
 def _make_handler(batcher: MicroBatcher, stats: ServerStats,
