@@ -10,7 +10,18 @@ Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
   power of two, with pad value 128, i.e. ~0 after the reference's
   ``(x/255 - .5)*2`` normalization.
 - **uint8 in, uint8 out.** Normalize -> G1 -> concat -> G2 ->
-  denormalize -> uint8 all run on the device; the host moves uint8 only.
+  denormalize -> uint8 all run on the device, which lays the answers out
+  NHWC; the host moves uint8 only.
+- **Page-locked staging** (replicas on a card): a dispatch's padded batch
+  is assembled in a page-locked block from PyTorch's caching host
+  allocator (the images copied in, 128 written only where they leave
+  room) and uploaded by DMA with ``non_blocking``; the answers come back
+  by DMA into page-locked blocks from the same allocator, and each
+  request's answer is a crop view of them. The bytes cross the bus once
+  each way, and no host pass touches them but the images' copy into the
+  input block. A block is never written again while an answer views it:
+  the allocator takes it back once the dispatch's last answer is
+  dropped. On the CPU the answers are views of the outputs themselves.
 - **bf16 by default.** Every float parameter and buffer is cast to
   bfloat16 (BatchNorm statistics included), as the JAX engine casts
   every leaf; ``dtype="float32"`` keeps exact-eval numerics.
@@ -27,8 +38,9 @@ Port of ``shadow_removal_istd_tpu/serving/engine.py::InferenceEngine``:
   each device (a count: the first N cards, or N CPU replicas with
   ``device="cpu"``; a list may name one card twice). A coalesced batch
   is padded to a multiple of the replicas, each replica takes an equal
-  slice on its device, and the answers are joined in order. The JAX
-  engine shards the batch over a data mesh the same way.
+  slice on its device, and its answers land in its slice of the
+  dispatch's output blocks. The JAX engine shards the batch over a data
+  mesh the same way.
 
 Weights load from the JAX package's per-network flax msgpack files or
 from ``.npz`` files of the same tree.
@@ -73,7 +85,11 @@ from shadow_removal_istd_tpu_torch.tools.export import (
     load_program,
 )
 from shadow_removal_istd_tpu_torch.utils.msgpack_codec import from_bytes
-from shadow_removal_istd_tpu_torch.utils.profiling import annotate, span
+from shadow_removal_istd_tpu_torch.utils.profiling import (
+    annotate,
+    recording,
+    span,
+)
 
 # Spatial divisibility each generator needs at its default depth (MNet,
 # UNet and DenseUNet raise on indivisible sizes; the pix2pix 'stcgan' G
@@ -88,8 +104,37 @@ def _next_pow2(n: int) -> int:
 
 
 def _to_u8(t: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] NCHW -> uint8 NHWC, through f32."""
-    return float_to_uint8(denormalize(t.float())).permute(0, 2, 3, 1)
+    """[-1, 1] NCHW -> contiguous uint8 NHWC, through f32."""
+    u8 = float_to_uint8(denormalize(t.float()))
+    return u8.permute(0, 2, 3, 1).contiguous()
+
+
+def _host_block(shape: tuple, pinned: bool) -> torch.Tensor:
+    """A fresh uint8 host tensor, page-locked from PyTorch's caching host
+    allocator where ``pinned`` (its contents are stale bytes)."""
+    return torch.empty(shape, dtype=torch.uint8, pin_memory=pinned)
+
+
+def _assemble(batch: np.ndarray, imgs: list[np.ndarray]) -> None:
+    """Pad ``imgs`` into ``batch`` (bp, bh, bw, 3) with 128, writing
+    every byte once: each image into its corner, 128 into its margins
+    right and below and into the rows past the images."""
+    bh, bw = batch.shape[1:3]
+    for i, im in enumerate(imgs):
+        h, w = im.shape[:2]
+        batch[i, :h, :w] = im
+        if w < bw:
+            batch[i, :h, w:] = 128
+        if h < bh:
+            batch[i, h:] = 128
+    batch[len(imgs):] = 128
+
+
+def _pinned_allocs() -> int | None:
+    """Page-locked blocks PyTorch's caching host allocator has made so
+    far, where this torch counts them."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return None if stats is None else stats().get("num_host_alloc")
 
 
 def serving_devices(devices, device: torch.device) -> list[torch.device]:
@@ -116,9 +161,9 @@ class _EngineCore:
     forward, crop each image's answer back.
 
     Subclasses provide ``bucket_of(h, w)``, ``max_batch``, ``devices``
-    and ``_stacked(x_u8, replica) -> (matte_u8, shadow_free_u8)`` on
-    NHWC uint8; ``fixed_batch`` (a pinned-batch artifact) fixes the
-    device batch."""
+    and ``_stacked(x_u8, replica) -> (matte_u8, shadow_free_u8)``, NHWC
+    uint8 in and contiguous NHWC uint8 out; ``fixed_batch`` (a
+    pinned-batch artifact) fixes the device batch."""
 
     fixed_batch: int | None = None
 
@@ -128,11 +173,22 @@ class _EngineCore:
 
         ``imgs``: HxWx3 uint8 BGR arrays whose sizes map to ONE bucket.
         Returns per image ``(matte HxW uint8, shadow_free HxWx3 uint8
-        BGR)`` cropped back to the original size. While tracing is on
+        BGR)`` cropped back to the original size: views of the dispatch's
+        output blocks, which no later dispatch writes.
+
+        Where the replicas are on cards, the host's work is the images'
+        copy into a page-locked input block (128 only in the margins and
+        spare rows), enqueueing the DMA copies each way, and waiting on
+        an event recorded after the copies into the page-locked output
+        blocks (one replica's slice each). On the CPU the answers view the
+        forward's NHWC outputs. While tracing is on
         (``utils/profiling.py``) it records the spans ``engine.assemble``,
         ``engine.upload``, ``engine.forward`` (the launch),
-        ``engine.download`` and ``engine.unpack``, and the padded batch
-        on the caller's span."""
+        ``engine.download`` (the copies to the host, which wait for the
+        forward) and ``engine.unpack`` (the crops), and on the caller's
+        span the padded batch, ``staging`` (``"pinned"`` or ``"none"``)
+        and, where this torch counts them, ``pinned_allocs``: the new
+        page-locked blocks the dispatch made."""
         if not imgs:
             return []
         buckets = {self.bucket_of(im.shape[0], im.shape[1]) for im in imgs}
@@ -149,27 +205,44 @@ class _EngineCore:
         else:
             bp = min(_next_pow2(n), max(self.max_batch, n))
             bp = math.ceil(bp / nd) * nd      # equal per-replica slices
-        annotate(padded=bp)
+        pinned = any(d.type == "cuda" for d in self.devices)
+        annotate(padded=bp, staging="pinned" if pinned else "none")
+        allocs = _pinned_allocs() if pinned and recording() else None
         with span("engine.assemble"):
-            batch = np.full((bp, bh, bw, 3), 128, np.uint8)
-            for i, im in enumerate(imgs):
-                batch[i, :im.shape[0], :im.shape[1]] = im
+            block = _host_block((bp, bh, bw, 3), pinned)
+            _assemble(block.numpy(), imgs)
         b = bp // nd
         # every replica's work is enqueued before any answer is read
         outs = []
         for j, d in enumerate(self.devices):
             with span("engine.upload"):
-                x = torch.from_numpy(batch[j * b:(j + 1) * b]).to(d)
+                x = block[j * b:(j + 1) * b].to(d, non_blocking=pinned)
             with span("engine.forward"):
                 outs.append(self._stacked(x, j))
+        del block, x    # the allocator reuses it once the uploads finish
         with span("engine.download"):
-            ms = [m.cpu().numpy() for m, _ in outs]
-            ys = [y.cpu().numpy() for _, y in outs]
+            if nd == 1 and not pinned:
+                m_host, y_host = outs[0]
+            else:
+                m_host = _host_block((bp, bh, bw, 1), pinned)
+                y_host = _host_block((bp, bh, bw, 3), pinned)
+                done = []
+                for j, (d, (m, y)) in enumerate(zip(self.devices, outs)):
+                    m_host[j * b:(j + 1) * b].copy_(m, non_blocking=pinned)
+                    y_host[j * b:(j + 1) * b].copy_(y, non_blocking=pinned)
+                    if d.type == "cuda":
+                        done.append(torch.cuda.Event())
+                        done[-1].record(torch.cuda.current_stream(d))
+                for event in done:
+                    event.synchronize()
         with span("engine.unpack"):
-            m_np, y_np = np.concatenate(ms), np.concatenate(ys)
-            return [(m_np[i, :im.shape[0], :im.shape[1], 0],
-                     y_np[i, :im.shape[0], :im.shape[1]])
-                    for i, im in enumerate(imgs)]
+            m_np, y_np = m_host.numpy(), y_host.numpy()
+            answers = [(m_np[i, :im.shape[0], :im.shape[1], 0],
+                        y_np[i, :im.shape[0], :im.shape[1]])
+                       for i, im in enumerate(imgs)]
+        if allocs is not None:
+            annotate(pinned_allocs=_pinned_allocs() - allocs)
+        return answers
 
     def warmup(self, sizes: list[tuple[int, int]],
                batch_sizes: list[int] | None = None) -> None:
@@ -377,8 +450,8 @@ class ArtifactEngine(_EngineCore):
         x = x_u8.float() * (2.0 / 255.0) - 1.0
         m, y = self._fn(x.to(self._in_dtype))
         # NHWC already: the artifact's outputs are the JAX interface
-        return (float_to_uint8(denormalize(m.float())),
-                float_to_uint8(denormalize(y.float())))
+        return (float_to_uint8(denormalize(m.float())).contiguous(),
+                float_to_uint8(denormalize(y.float())).contiguous())
 
     def bucket_of(self, h: int, w: int) -> tuple[int, int]:
         if h > self.height or w > self.width:

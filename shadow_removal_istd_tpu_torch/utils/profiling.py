@@ -77,6 +77,12 @@ def disable() -> None:
     _on = False
 
 
+def recording() -> bool:
+    """Whether spans record now (after :func:`enable`, or inside a
+    profiler session)."""
+    return _on or _session._is_profiler_enabled
+
+
 def dropped() -> int:
     """Spans finished while ``MAX_SPANS`` were kept, since import."""
     return _dropped

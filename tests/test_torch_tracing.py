@@ -6,11 +6,11 @@ span, open no ``record_function`` range and register no tensor hook,
 and a span site costs a call, two flag reads and a null context (its
 time a site is reported); with tracing on, one dispatch through a
 ``MicroBatcher`` yields its take, its dispatch (id, images, padded
-batch) and, under that dispatch, the engine's five steps and the
-futures' resolution, in order; inside a CPU profiler session the spans
-record by themselves and their ``time.time_ns`` stamps lie within 1 ms
-of the profiler's ranges of the same name, and the CLI's Chrome trace
-(``trace``) carries them; an epoch step yields the
+batch, how it was staged) and, under that dispatch, the engine's five
+steps and the futures' resolution, in order; inside a CPU profiler
+session the spans record by themselves and their ``time.time_ns``
+stamps lie within 1 ms of the profiler's ranges of the same name, and
+the CLI's Chrome trace (``trace``) carries them; an epoch step yields the
 gather, the augmentation and the step's phases in order, and each
 ``step.visual_backward`` bracket holds exactly the VGG's 12 convolution
 backward nodes; served answers, and the 14 metrics and every parameter
@@ -220,7 +220,8 @@ def test_one_dispatch_nests_the_engine_under_the_batcher(engine):
     spans = profiling.drain()
     assert len(out) == 2
     (disp,) = _by(spans, "batcher.dispatch")
-    assert disp["attrs"] == {"dispatch": 0, "images": 2, "padded": 2}
+    assert disp["attrs"] == {"dispatch": 0, "images": 2, "padded": 2,
+                             "staging": "none"}
     assert disp["parent"] is None
     steps = [_by(spans, name) for name in (*ENGINE_STEPS, "batcher.resolve")]
     assert [len(s) for s in steps] == [1] * 6
@@ -304,6 +305,26 @@ def test_epoch_step_phases_and_the_vgg_backward_bracket():
     touching = [c for c in convs for b in brackets
                 if c[0] < b["end_ns"] and c[1] > b["start_ns"]]
     assert len(touching) == 2 * n_vgg
+
+
+def test_each_dispatch_says_how_it_was_staged(engine):
+    """Every dispatch of a served stream carries ``staging`` (``"none"``
+    on the CPU, with no page-locked count) and the engine's five steps
+    under it, in order."""
+    profiling.enable()
+    out = _serve(engine, [_img(40, 56, s) for s in range(6)], window_ms=0.0)
+    profiling.disable()
+    spans = profiling.drain()
+    assert len(out) == 6
+    dispatches = _by(spans, "batcher.dispatch")
+    assert sum(d["attrs"]["images"] for d in dispatches) == 6
+    for d in dispatches:
+        assert d["attrs"]["staging"] == "none"
+        assert "pinned_allocs" not in d["attrs"]
+        inner = sorted((s for s in spans if s["parent"] == d["id"]
+                        and s["name"].startswith("engine.")),
+                       key=lambda s: s["start_ns"])
+        assert [s["name"] for s in inner] == list(ENGINE_STEPS)
 
 
 def test_tracing_changes_no_answer(engine):
